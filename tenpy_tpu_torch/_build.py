@@ -1,0 +1,80 @@
+"""Build and load the port's CUDA kernels (``nvcc`` -> shared library -> ctypes).
+
+The sources in ``csrc/`` have a plain C interface.  At first use they are
+compiled for Hopper (``sm_90a``) into ``build/tenpy_tpu_torch/`` at the root
+of the checkout, under a file name keyed on a hash of the source, so a
+changed source rebuilds and an unchanged one loads at once.  Nothing here
+runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+__all__ = ['BUILD_DIR', 'SOURCE', 'build', 'library']
+
+_PKG = Path(__file__).resolve().parent
+SOURCE = _PKG / 'csrc' / 'grouped_gemm_segsum.cu'
+BUILD_DIR = _PKG.parent / 'build' / 'tenpy_tpu_torch'
+NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+              '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
+
+
+def _nvcc():
+    for cand in (os.environ.get('CUDA_HOME'), '/usr/local/cuda'):
+        if cand and (Path(cand) / 'bin' / 'nvcc').exists():
+            return str(Path(cand) / 'bin' / 'nvcc')
+    found = shutil.which('nvcc')
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                           "machine with the CUDA toolkit")
+    return found
+
+
+def build():
+    """Compile the kernel library if needed.
+
+    Returns ``(path, seconds, log)``: the shared library, the compile time
+    (0 when it was already built) and the compiler's output (register and
+    shared-memory use per kernel, from ``-Xptxas -v``)."""
+    src = SOURCE.read_bytes()
+    tag = hashlib.sha256(src + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    so = BUILD_DIR / f'grouped_gemm_segsum_{tag}.so'
+    log_path = so.with_suffix('.log')
+    if so.exists():
+        return so, 0., log_path.read_text() if log_path.exists() else ''
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f'.{os.getpid()}.tmp')
+    t0 = time.time()
+    res = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(SOURCE)],
+                         capture_output=True, text=True)
+    seconds = time.time() - t0
+    log = res.stdout + res.stderr
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
+    log_path.write_text(log)
+    os.replace(tmp, so)
+    return so, seconds, log
+
+
+@functools.lru_cache(maxsize=None)
+def library():
+    """The loaded kernel library (built at first call), with typed entry
+    points ``grouped_gemm_segsum_f64`` / ``_f32``."""
+    so, _, _ = build()
+    lib = ctypes.CDLL(str(so))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for name in ('grouped_gemm_segsum_f64', 'grouped_gemm_segsum_f32'):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+        fn.restype = i32
+    lib.grouped_gemm_segsum_error_string.argtypes = [i32]
+    lib.grouped_gemm_segsum_error_string.restype = ctypes.c_char_p
+    return lib

@@ -1,0 +1,1 @@
+"""networks of the PyTorch port (see the package docstring)."""
