@@ -2,9 +2,11 @@
 
 The package mirrors ``tenpy_tpu``'s module layout (``linalg``,
 ``algorithms``, ``networks``) but imports ``torch`` and never ``jax``.  Every
-bucket GEMM of the packed tensordot runs through the hand-written CUDA kernel
-in ``csrc/grouped_gemm_segsum.cu`` when its tensors live on a CUDA device; on
-the CPU the same wrapper takes its plain PyTorch version.
+packed tensordot is one launch of a hand-written CUDA kernel of
+``csrc/packed_contract.cu`` when its tensors live on a CUDA device; on the
+CPU the same wrapper takes its plain PyTorch version.  The entry points
+(``pack``, ``DeviceSweepEngine``) put their tensors on the card unless the
+caller passes ``device='cpu'``.
 
 The host-side setup that needs the MPS/MPO machinery (charge gauge, MPO
 rescale, transfer-matrix environments) is not ported yet: it arrives through

@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels (``nvcc`` -> shared library -> ctypes).
 
-The sources in ``csrc/`` have a plain C interface.  At first use they are
-compiled for Hopper (``sm_90a``) into ``build/tenpy_tpu_torch/`` at the root
-of the checkout, under a file name keyed on a hash of the source, so a
-changed source rebuilds and an unchanged one loads at once.  Nothing here
-runs at import time.
+The sources in ``csrc/`` have a plain C interface.  At first use the
+``.cu`` files there are compiled for Hopper (``sm_90a``) by one ``nvcc``
+call into one shared library in ``build/tenpy_tpu_torch/`` at the root of
+the checkout.  Its file name is keyed on a hash of every file under
+``csrc/`` (headers included) and of the flags, so any changed source
+rebuilds and an unchanged tree loads at once.  Nothing here runs at import
+time.
 """
 
 from __future__ import annotations
@@ -18,10 +20,10 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ['BUILD_DIR', 'SOURCE', 'build', 'library']
+__all__ = ['BUILD_DIR', 'CSRC', 'build', 'library']
 
 _PKG = Path(__file__).resolve().parent
-SOURCE = _PKG / 'csrc' / 'grouped_gemm_segsum.cu'
+CSRC = _PKG / 'csrc'
 BUILD_DIR = _PKG.parent / 'build' / 'tenpy_tpu_torch'
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
@@ -38,22 +40,29 @@ def _nvcc():
     return found
 
 
+def _source_hash():
+    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for path in sorted(p for p in CSRC.rglob('*') if p.is_file()):
+        h.update(str(path.relative_to(CSRC)).encode() + b'\0')
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
 def build():
     """Compile the kernel library if needed.
 
     Returns ``(path, seconds, log)``: the shared library, the compile time
     (0 when it was already built) and the compiler's output (register and
     shared-memory use per kernel, from ``-Xptxas -v``)."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f'grouped_gemm_segsum_{tag}.so'
+    so = BUILD_DIR / f'tenpy_tpu_torch_{_source_hash()}.so'
     log_path = so.with_suffix('.log')
     if so.exists():
         return so, 0., log_path.read_text() if log_path.exists() else ''
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f'.{os.getpid()}.tmp')
     t0 = time.time()
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(SOURCE)],
+    res = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', str(tmp),
+                          *(str(src) for src in sorted(CSRC.glob('*.cu')))],
                          capture_output=True, text=True)
     seconds = time.time() - t0
     log = res.stdout + res.stderr
@@ -67,14 +76,17 @@ def build():
 @functools.lru_cache(maxsize=None)
 def library():
     """The loaded kernel library (built at first call), with typed entry
-    points ``grouped_gemm_segsum_f64`` / ``_f32``."""
+    points ``packed_contract``, ``packed_contract_max_buckets``,
+    ``packed_contract_thin_tile`` and ``packed_contract_error_string``."""
     so, _, _ = build()
     lib = ctypes.CDLL(str(so))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for name in ('grouped_gemm_segsum_f64', 'grouped_gemm_segsum_f32'):
-        fn = getattr(lib, name)
-        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
-        fn.restype = i32
-    lib.grouped_gemm_segsum_error_string.argtypes = [i32]
-    lib.grouped_gemm_segsum_error_string.restype = ctypes.c_char_p
+    lib.packed_contract.argtypes = [i32, i32, ptr, ptr, i32, i32, i32, ptr,
+                                    ptr, i32, ptr]
+    lib.packed_contract.restype = i32
+    for name in ('packed_contract_max_buckets', 'packed_contract_thin_tile'):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = i32
+    lib.packed_contract_error_string.argtypes = [i32]
+    lib.packed_contract_error_string.restype = ctypes.c_char_p
     return lib

@@ -9,8 +9,8 @@ update is
     A, S, B   = split_truncate    (batched SVD per charge sector, top-chi cut)
     LP'/RP'   = env update        (packed tensordot chain)
 
-Every GEMM of the update is a packed tensordot, so on a CUDA device every
-bucket GEMM runs through the hand-written kernel of
+Every GEMM of the update is a packed tensordot, so on a CUDA device each
+is one launch of the hand-written kernel of
 :mod:`~tenpy_tpu_torch.linalg.grouped_gemm`.  Shapes are static: every bond
 has a fixed, size-bucketed capacity layout, and dropped Schmidt states are
 exact zeros.  PyTorch runs eagerly, so the JAX version's jit cache and
@@ -170,9 +170,11 @@ def capacity_bond_layouts(state, chi_max, multiple, cap_factor=1.3,
     return bond, cur_legs
 
 
-def pack_S_from_leg(S_host, leg, bond, device='cpu'):
+def pack_S_from_leg(S_host, leg, bond, device='cuda'):
     """A bond-S vector (in ``leg`` order) padded into ``bond``-layout order,
-    as a float64 tensor on ``device``."""
+    as a float64 tensor on ``device`` (the card by default; raises where
+    there is none)."""
+    device = pk.checked_device(device)
     out = np.zeros(int(bond.slices[-1]))
     pos = {tuple(np.asarray(bond.charges[b], QTYPE)): b
            for b in range(bond.block_number)}
@@ -187,8 +189,9 @@ def pack_S_from_leg(S_host, leg, bond, device='cpu'):
     return torch.from_numpy(out).to(device)
 
 
-def pack_bond_S(state, i, bond, device='cpu'):
-    """Bond ``i``'s S as a flat padded tensor in bond-layout order."""
+def pack_bond_S(state, i, bond, device='cuda'):
+    """Bond ``i``'s S as a flat padded tensor in bond-layout order, on
+    ``device``."""
     return pack_S_from_leg(np.asarray(state.S[i]), _vL_leg(state, i), bond,
                            device)
 
@@ -215,13 +218,14 @@ class DeviceSweepEngine:
         uniform_bonds, reortho, matvec_mode, exact_E, log_updates: as in
         ``tenpy_tpu``'s engine.
     device : str or torch.device
-        Where the sweep state lives; ``'cuda'`` runs every bucket GEMM
-        through the CUDA kernel.
+        Where the sweep state lives: the card by default, where every
+        packed tensordot is one launch of the CUDA kernel; raises where
+        there is no card.  ``'cpu'`` runs the kernels' plain versions.
     """
 
-    def __init__(self, state, options, device='cpu'):
+    def __init__(self, state, options, device='cuda'):
+        self.device = pk.checked_device(device)
         self.state = state
-        self.device = torch.device(device)
         opts = dict(options)
         cur_chi = max(1, max(state.chi, default=1))
         self.chi_max = int(opts.get('chi_max', cur_chi))
@@ -354,7 +358,7 @@ class DeviceSweepEngine:
             np.asarray(thL.qtotal, QTYPE) + np.asarray(thR.qtotal, QTYPE)))
         shapes, qdatas = pk.complete_structure(out_legs, qtotal)
         return pk.PackedArray(out_legs, qtotal, ('vL', 'p0', 'p1', 'vR'),
-                              shapes, qdatas, [], C.dtype)
+                              shapes, qdatas, [], C.dtype, C.device)
 
     def _update(self, i0, move_right, K=None):
         t0 = time.time()

@@ -3,11 +3,11 @@ r"""Bucket-packed block storage: the device-resident tensor format.
 Port of ``tenpy_tpu/linalg/packed.py``.  A :class:`PackedArray` groups all
 charge blocks of one (size-bucketed, see :mod:`.padding`) shape into ONE
 stacked tensor ``(N_blocks_of_shape, *shape)``, so a :func:`tensordot` is one
-fused gather -> grouped GEMM -> segment-sum call per (shape_a, shape_b)
-bucket pair (:func:`~.grouped_gemm.grouped_gemm_segsum`: the hand-written
-CUDA kernel on the card) plus one gather-sum per output bucket.  The charge
-matching is a host-side plan, cached per structure, with its index tables
-cached per device.
+call of :func:`~.grouped_gemm.packed_contract` (one launch of the
+hand-written CUDA kernel on the card): every block product of every bucket
+pair, summed per output row and written into the output buckets.  The
+charge matching is a host-side plan, cached per structure, with its index
+tables cached per device.
 
 Exactness: padding rows/columns are zero, so products, inner products, norms
 and linear combinations are exact; structures are kept *complete* (every
@@ -29,16 +29,27 @@ import numpy as np
 import torch
 
 from .charges import QTYPE
-from .grouped_gemm import grouped_gemm_segsum
+from .grouped_gemm import build_tables, packed_contract, shape_class
 from .host_array import HostArray, conj_label
 from .padding import pad_leg
 
 __all__ = ['PackedArray', 'pack', 'unpack', 'tensordot', 'inner', 'inner_re',
            'norm', 'complete_structure', 'matmul_mode', 'FlopRecorder',
-           'flop_record']
+           'flop_record', 'checked_device']
 
 _TORCH_DTYPE = {np.dtype(np.float64): torch.float64,
                 np.dtype(np.float32): torch.float32}
+
+
+def checked_device(device):
+    """``torch.device(device)``; raises for a CUDA device when PyTorch sees
+    none (there is no fallback to the CPU: pass ``device='cpu'`` for it)."""
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested, but no CUDA device "
+                           f"is available; pass device='cpu' to run on the "
+                           f"CPU")
+    return device
 
 
 def _torch_dtype(np_dtype):
@@ -68,12 +79,16 @@ class PackedArray:
     data : list of torch.Tensor
         ``data[s].shape == (N_s,) + shapes[s]``.
     dtype : torch.dtype
+    device : torch.device
+        Where ``data`` lives; an array without blocks keeps the device it
+        was built for (``device`` is then required).
     """
 
     __slots__ = ('legs', 'qtotal', '_labels', 'shapes', 'qdatas', 'data',
-                 'dtype', '_sig')
+                 'dtype', 'device', '_sig')
 
-    def __init__(self, legs, qtotal, labels, shapes, qdatas, data, dtype):
+    def __init__(self, legs, qtotal, labels, shapes, qdatas, data, dtype,
+                 device=None):
         self.legs = tuple(legs)
         self.qtotal = tuple(int(q) for q in np.asarray(qtotal).ravel())
         self._labels = tuple(labels)
@@ -81,6 +96,12 @@ class PackedArray:
         self.qdatas = tuple(qdatas)
         self.data = list(data)
         self.dtype = dtype
+        if self.data:
+            self.device = self.data[0].device
+        elif device is None:
+            raise ValueError("a PackedArray without blocks needs its device")
+        else:
+            self.device = torch.device(device)
         self._sig = None
 
     @property
@@ -90,10 +111,6 @@ class PackedArray:
     @property
     def n_blocks(self):
         return sum(q.shape[0] for q in self.qdatas)
-
-    @property
-    def device(self):
-        return self.data[0].device if self.data else torch.device('cpu')
 
     def get_leg_labels(self):
         return list(self._labels)
@@ -115,7 +132,7 @@ class PackedArray:
         res = PackedArray(self.legs, self.qtotal,
                           self._labels if labels is None else labels,
                           self.shapes, self.qdatas, data,
-                          data[0].dtype if data else self.dtype)
+                          data[0].dtype if data else self.dtype, self.device)
         res._sig = self._sig
         return res
 
@@ -142,7 +159,7 @@ class PackedArray:
         legs = [self.legs[i] for i in perm]
         labels = tuple(self._labels[i] for i in perm)
         return PackedArray(legs, self.qtotal, labels, tp.shapes, tp.qdatas,
-                           data, self.dtype)
+                           data, self.dtype, self.device)
 
     def conj(self):
         """Complex conjugate (real data: flips leg qconj, star-flips labels)."""
@@ -150,7 +167,7 @@ class PackedArray:
         qtotal = chinfo.make_valid(-np.asarray(self.qtotal, QTYPE))
         return PackedArray([l.conj() for l in self.legs], qtotal,
                            [conj_label(l) for l in self._labels], self.shapes,
-                           self.qdatas, self.data, self.dtype)
+                           self.qdatas, self.data, self.dtype, self.device)
 
     # ----------------------------------------------------------- arithmetic
     def _same_struct(self, other):
@@ -266,14 +283,16 @@ def complete_structure(legs, qtotal):
     return shapes, tuple(qdatas)
 
 
-def pack(a, multiple=64, pad=True, pad_labels=None, device='cpu'):
+def pack(a, multiple=64, pad=True, pad_labels=None, device='cuda'):
     """:class:`HostArray` -> :class:`PackedArray` on ``device``.
 
     With ``pad``, every leg's sector sizes are rounded up to bucket sizes
     (zero padding); ``pad_labels`` restricts padding to the given leg labels.
     Every charge-allowed block is present (zeros where ``a`` stores none).
     The buffers are built in numpy and moved with one copy per bucket.
+    ``device`` defaults to the card and raises where there is none.
     """
+    device = checked_device(device)
     dtype = _torch_dtype(a.dtype)
     if pad:
         legs = tuple(leg if pad_labels is not None and lbl not in pad_labels
@@ -299,7 +318,7 @@ def pack(a, multiple=64, pad=True, pad_labels=None, device='cpu'):
         bufs[s][(i,) + tuple(slice(0, d) for d in block.shape)] = block
     data = [torch.from_numpy(b).to(device) for b in bufs]
     return PackedArray(legs, qtotal, tuple(a.get_leg_labels()), shapes,
-                       qdatas, data, dtype)
+                       qdatas, data, dtype, device)
 
 
 def unpack(p, orig_legs=None):
@@ -366,9 +385,9 @@ _MATMUL_MODE = None
 def matmul_mode(mode):
     """Run f64 bucket GEMMs in reduced precision inside the context.
 
-    ``'f32'``: the f64 operands are cast to float32, the f32 kernel runs,
-    and the segment sums are cast back (the gather-sum across buckets stays
-    f64).  ``None``: native f64.  ``'bf16'`` is not ported.
+    ``'f32'``: the kernel reads the f64 operands, multiplies and sums in
+    float32 (FFMA, no TF32) and writes f64.  ``None``: native f64.
+    ``'bf16'`` is not ported.
     """
     global _MATMUL_MODE
     if mode not in (None, 'f32'):
@@ -385,85 +404,34 @@ def matmul_mode(mode):
 class _PackedPlan:
     """Host plan of one packed tensordot structure.
 
-    ``groups[g] = (sa, sb, so, (m, k, n), a_pos, b_pos, o_uniq, o_inv)``:
-    GEMM entry ``t`` of bucket pair ``g`` multiplies block ``a_pos[t]`` of
-    bucket ``sa`` with block ``b_pos[t]`` of bucket ``sb`` into row
-    ``o_uniq[o_inv[t]]`` of output bucket ``so``.  ``assembly[so]`` is the
-    gather-sum recipe ``(idx, identity)`` that builds output bucket ``so``
-    from the concatenated segment sums of its groups (or None)."""
+    ``host_tables`` are the kernel's :class:`~.grouped_gemm.Tables`
+    (:func:`~.grouped_gemm.build_tables`, on the host): output bucket ``so``
+    holds ``out_dims[so][0]`` blocks, each read as ``m x n`` (``m`` over the
+    kept legs of ``a``, ``n`` over those of ``b``); ``flops`` is
+    ``2 m k n`` summed over the block products."""
     __slots__ = ('out_legs', 'out_qtotal', 'out_shapes', 'out_qdatas',
-                 'out_sizes', 'groups', 'assembly', '_dev')
+                 'host_tables', 'flops', '_dev')
 
     def __init__(self, out_legs, out_qtotal, out_shapes, out_qdatas,
-                 out_sizes, groups):
+                 host_tables, flops):
         self.out_legs = out_legs
         self.out_qtotal = out_qtotal
         self.out_shapes = out_shapes
         self.out_qdatas = out_qdatas
-        self.out_sizes = out_sizes
-        self.groups = groups
-        # each group contributes one row per distinct destination (the
-        # kernel already summed its entries per segment)
-        self.assembly = _plan_assembly(
-            out_sizes, [(g[2], g[6]) for g in groups])
+        self.host_tables = host_tables
+        self.flops = flops
         self._dev = {}
 
-    def sorted_entries(self, g_i):
-        """CSR ``(seg_ptr, ia, ib)`` int32 arrays of group ``g_i``: its GEMM
-        entries sorted by destination segment."""
-        _, _, _, _, a_pos, b_pos, o_uniq, o_inv = self.groups[g_i]
-        order = np.argsort(o_inv, kind='stable')
-        seg_ptr = np.concatenate(
-            [[0], np.cumsum(np.bincount(o_inv, minlength=len(o_uniq)))])
-        return (seg_ptr.astype(np.int32),
-                np.ascontiguousarray(a_pos[order], np.int32),
-                np.ascontiguousarray(b_pos[order], np.int32))
+    @property
+    def out_dims(self):
+        return self.host_tables.out_dims
 
     def tables(self, device):
-        """Per-device index tensors: ``(entries, assembly)`` (cached)."""
+        """The tables on ``device`` (uploaded once, cached)."""
         t = self._dev.get(device)
         if t is None:
-            entries = [tuple(torch.from_numpy(x).to(device)
-                             for x in self.sorted_entries(g))
-                       for g in range(len(self.groups))]
-            assembly = [None if r is None else
-                        (torch.from_numpy(r[0].astype(np.int64)).to(device),
-                         r[1]) for r in self.assembly]
-            t = self._dev[device] = (entries, assembly)
+            t = self._dev[device] = self.host_tables.to(device)
         return t
-
-
-def _plan_assembly(out_sizes, group_rows):
-    """Gather-sum recipes: out bucket <- rows of concatenated group results.
-
-    For each out bucket ``so`` the contributing groups' (flattened) results
-    are concatenated in group order; ``group_rows[g] = (so, rows)`` says which
-    out row each contributed row lands in.  The recipe is ``(idx,
-    identity)``: ``idx[r]`` lists the concat positions summed into row ``r``,
-    padded with the one-past-end zero-row sentinel.  ``None`` for buckets
-    nothing contributes to."""
-    per_so = {}
-    for so, rows_g in group_rows:
-        per_so.setdefault(so, []).append(rows_g)
-    assembly = []
-    for so, nsz in enumerate(out_sizes):
-        ent = per_so.get(so)
-        if not ent:
-            assembly.append(None)
-            continue
-        rows = np.concatenate(ent).astype(np.int64)
-        n_all = len(rows)
-        max_c = int(np.bincount(rows, minlength=nsz).max())
-        idx = np.full((nsz, max_c), n_all, np.int32)
-        fill = np.zeros(nsz, np.int32)
-        for pos, r in enumerate(rows):
-            idx[r, fill[r]] = pos
-            fill[r] += 1
-        identity = (max_c == 1 and n_all == nsz
-                    and np.array_equal(idx[:, 0], np.arange(nsz)))
-        idx.setflags(write=False)
-        assembly.append((idx, identity))
-    return assembly
 
 
 _PACKED_PLAN_CACHE = {}
@@ -488,31 +456,37 @@ def _packed_plan(a, b, n_axes):
     for sb, q in enumerate(b.qdatas):
         for j, row in enumerate(q):
             b_by_c.setdefault(tuple(row[:n_axes]), []).append((sb, j, row))
-    tasks = {}   # (sa, sb, so) -> [(i, j, oi)]
+    pairs = {}   # (sa, sb, so) -> [(i, j, oi)]
     for sa, qa in enumerate(a.qdatas):
         for i, arow in enumerate(qa):
             for (sb, j, brow) in b_by_c.get(tuple(arow[ka:]), ()):
                 so, oi = out_pos[tuple(arow[:ka]) + tuple(brow[n_axes:])]
-                tasks.setdefault((sa, sb, so), []).append((i, j, oi))
-    groups = []
-    for (sa, sb, so), lst in sorted(tasks.items()):
-        shape_a, shape_b = a.shapes[sa], b.shapes[sb]
-        m = int(np.prod(shape_a[:ka], dtype=np.int64)) if ka else 1
-        kk = int(np.prod(shape_a[ka:], dtype=np.int64)) if n_axes else 1
-        n = int(np.prod(shape_b[n_axes:], dtype=np.int64)) \
-            if b.rank - n_axes else 1
-        a_pos = np.array([x[0] for x in lst], np.int32)
-        b_pos = np.array([x[1] for x in lst], np.int32)
-        o_uniq, o_inv = np.unique(np.array([x[2] for x in lst], np.int32),
-                                  return_inverse=True)
+                pairs.setdefault((sa, sb, so), []).append((i, j, oi))
+    out_dims = [(q.shape[0], int(np.prod(shape[:ka], dtype=np.int64)),
+                 int(np.prod(shape[ka:], dtype=np.int64)))
+                for shape, q in zip(out_shapes, out_qdatas)]
+    k_min = [np.inf] * len(out_dims)
+    cols = []    # per bucket pair: (so, row, sa, a block, sb, b block, k)
+    flops = 0
+    for (sa, sb, so), lst in sorted(pairs.items()):
+        kk = int(np.prod(a.shapes[sa][ka:], dtype=np.int64))
+        ijo = np.array(lst, np.int64)
         # the kernel reads these without bounds checks
-        if a_pos.max() >= a.qdatas[sa].shape[0] or \
-                b_pos.max() >= b.qdatas[sb].shape[0]:
+        if ijo[:, 0].max() >= a.qdatas[sa].shape[0] or \
+                ijo[:, 1].max() >= b.qdatas[sb].shape[0]:
             raise AssertionError("packed plan: gather index out of range")
-        groups.append((sa, sb, so, (m, kk, n), a_pos, b_pos,
-                       o_uniq.astype(np.int32), o_inv.astype(np.int32)))
+        one = np.ones(len(lst), np.int64)
+        cols.append(np.stack([so * one, ijo[:, 2], sa * one, ijo[:, 0],
+                              sb * one, ijo[:, 1], kk * one]))
+        k_min[so] = min(k_min[so], kk)
+        _, m, n = out_dims[so]
+        flops += 2 * len(lst) * m * kk * n
+    cols = (torch.from_numpy(np.concatenate(cols, axis=1)) if cols
+            else torch.zeros((7, 0), dtype=torch.int64))
+    classes = [shape_class(m, n, km) for (_, m, n), km in zip(out_dims,
+                                                              k_min)]
     plan = _PackedPlan(out_legs, out_qtotal, out_shapes, out_qdatas,
-                       tuple(q.shape[0] for q in out_qdatas), groups)
+                       build_tables(out_dims, classes, *cols), flops)
     _cache_put(_PACKED_PLAN_CACHE, key, plan, 2048)
     return plan
 
@@ -520,8 +494,8 @@ def _packed_plan(a, b, n_axes):
 def tensordot(a, b, axes):
     """Packed tensordot; ``axes=(labels_a, labels_b)`` or int.
 
-    One fused gather -> grouped GEMM -> segment-sum call per (shape_a,
-    shape_b) bucket pair, then one gather-sum per output bucket.
+    One call of :func:`~.grouped_gemm.packed_contract` (one kernel launch on
+    the card) computes every output bucket.
     """
     if isinstance(axes, (int, np.integer)):
         n_axes = int(axes)
@@ -546,39 +520,22 @@ def tensordot(a, b, axes):
     plan = _packed_plan(at, bt, n_axes)
     dtype = torch.promote_types(at.dtype, bt.dtype)
     device = at.device
-    reduced = _MATMUL_MODE == 'f32' and dtype == torch.float64
-    gemm_dtype = torch.float32 if reduced else dtype
-    entries, assembly = plan.tables(device)
-    contrib = {}   # so -> list of (U_g, m*n) segment sums
-    for g_i, (sa, sb, so, (m, kk, n), a_pos, _, o_uniq, _) \
-            in enumerate(plan.groups):
-        seg_ptr, ia, ib = entries[g_i]
-        A = at.data[sa].reshape(-1, m, kk).to(gemm_dtype).contiguous()
-        B = bt.data[sb].reshape(-1, kk, n).to(gemm_dtype).contiguous()
-        c = grouped_gemm_segsum(A, B, seg_ptr, ia, ib, len(o_uniq))
-        _count_flops(2 * len(a_pos) * m * kk * n)
-        contrib.setdefault(so, []).append(c.to(dtype).reshape(len(o_uniq),
-                                                              -1))
-    out = []
-    for so, (nsz, shape) in enumerate(zip(plan.out_sizes, plan.out_shapes)):
-        if assembly[so] is None:
-            out.append(torch.zeros((nsz,) + shape, dtype=dtype,
-                                   device=device))
-            continue
-        idx, identity = assembly[so]
-        parts = contrib[so]
-        all_c = parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
-        if identity:
-            res = all_c
-        elif idx.shape[1] == 1 and len(all_c) == nsz:
-            res = all_c[idx[:, 0]]
-        else:
-            padded = torch.cat([all_c, all_c.new_zeros((1, all_c.shape[1]))])
-            res = padded[idx].sum(dim=1)
-        out.append(res.reshape((nsz,) + shape))
+    compute = (torch.float32 if _MATMUL_MODE == 'f32'
+               and dtype == torch.float64 else dtype)
+    if at.data and bt.data:
+        outs = packed_contract(
+            [d.to(dtype).contiguous() for d in at.data],
+            [d.to(dtype).contiguous() for d in bt.data],
+            plan.tables(device), compute)
+    else:
+        outs = [torch.zeros(d, dtype=dtype, device=device)
+                for d in plan.out_dims]
+    _count_flops(plan.flops)
+    out = [o.reshape((o.shape[0],) + shape)
+           for o, shape in zip(outs, plan.out_shapes)]
     labels = tuple(at._labels[:ka]) + tuple(bt._labels[n_axes:])
     return PackedArray(plan.out_legs, plan.out_qtotal, labels,
-                       plan.out_shapes, plan.out_qdatas, out, dtype)
+                       plan.out_shapes, plan.out_qdatas, out, dtype, device)
 
 
 # ------------------------------------------------------------ inner products

@@ -38,17 +38,17 @@ def effH():
             m.H_MPO.get_W(i0 + 1).transpose(['wL', 'wR', 'p', 'p*']),
             psi.get_theta(i0, 2).itranspose(['vL', 'p0', 'p1', 'vR'])]
     out = {}
-    for name, pkg, conv in (('jax', jpk, lambda a: a),
-                            ('port', pk, to_host)):
+    for name, pkg, conv, kw in (('jax', jpk, lambda a: a, {}),
+                                ('port', pk, to_host, {'device': 'cpu'})):
         LP, RP, W0, W1, th = (conv(a) for a in host)
         out[name] = (
-            pkg.pack(LP, multiple=16, pad_labels=VIRT),
-            pkg.pack(RP, multiple=16, pad_labels=VIRT),
-            pkg.pack(W0, pad=False).replace_labels(['p', 'p*'],
-                                                   ['p0', 'p0*']),
-            pkg.pack(W1, pad=False).replace_labels(['p', 'p*'],
-                                                   ['p1', 'p1*']),
-            pkg.pack(th, multiple=16, pad_labels=VIRT))
+            pkg.pack(LP, multiple=16, pad_labels=VIRT, **kw),
+            pkg.pack(RP, multiple=16, pad_labels=VIRT, **kw),
+            pkg.pack(W0, pad=False, **kw).replace_labels(['p', 'p*'],
+                                                         ['p0', 'p0*']),
+            pkg.pack(W1, pad=False, **kw).replace_labels(['p', 'p*'],
+                                                         ['p1', 'p1*']),
+            pkg.pack(th, multiple=16, pad_labels=VIRT, **kw))
     return out
 
 

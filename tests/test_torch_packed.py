@@ -39,7 +39,7 @@ def test_pack_unpack_roundtrip(qn, multiple):
     legs = [gen_random_legcharge(CHINFOS[qn], s) for s in [12, 9, 14]]
     a = _random_on_legs(legs)
     h = to_host(a)
-    p = pk.pack(h, multiple=multiple)
+    p = pk.pack(h, multiple=multiple, device='cpu')
     assert_packed_close(p, jpk.pack(a, multiple=multiple), rtol=0.)
     b = pk.unpack(p, orig_legs=h.legs)
     assert np.array_equal(b._qdata, h._qdata)
@@ -57,7 +57,8 @@ def test_tensordot_vs_jax(qn):
     b = _random_on_legs([l3.conj(), l2.conj(), gen_random_legcharge(chinfo,
                                                                      9)])
     ja, jb = jpk.pack(a, multiple=8), jpk.pack(b, multiple=8)
-    pa, pb = pk.pack(to_host(a), multiple=8), pk.pack(to_host(b), multiple=8)
+    pa = pk.pack(to_host(a), multiple=8, device='cpu')
+    pb = pk.pack(to_host(b), multiple=8, device='cpu')
     jpk.reset_flops()
     ref = jpk.tensordot(ja, jb, axes=([2, 1], [0, 1]))
     rec = pk.FlopRecorder()
@@ -77,7 +78,8 @@ def test_tensordot_labels_transpose_conj():
     b = npc.Array.from_func(lambda size: rng.normal(size=size), a.legs,
                             qtotal=a.qtotal, labels=['vL', 'p', 'vR'])
     ja, jb = jpk.pack(a, multiple=8), jpk.pack(b, multiple=8)
-    pa, pb = pk.pack(to_host(a), multiple=8), pk.pack(to_host(b), multiple=8)
+    pa = pk.pack(to_host(a), multiple=8, device='cpu')
+    pb = pk.pack(to_host(b), multiple=8, device='cpu')
     ref = jpk.tensordot(ja, jb.conj(), axes=(['p', 'vR'], ['p*', 'vR*']))
     got = pk.tensordot(pa, pb.conj(), axes=(['p', 'vR'], ['p*', 'vR*']))
     assert got.get_leg_labels() == ref.get_leg_labels()
@@ -93,7 +95,8 @@ def test_inner_and_norm_vs_jax():
     b = npc.Array.from_func(lambda size: rng.normal(size=size), legs,
                             qtotal=a.qtotal)
     ja, jb = jpk.pack(a, multiple=8), jpk.pack(b, multiple=8)
-    pa, pb = pk.pack(to_host(a), multiple=8), pk.pack(to_host(b), multiple=8)
+    pa = pk.pack(to_host(a), multiple=8, device='cpu')
+    pb = pk.pack(to_host(b), multiple=8, device='cpu')
     ref_n = float(jpk.norm(ja))
     assert abs(float(pk.norm(pa)) - ref_n) <= 1e-12 * ref_n
     ref_i = float(jpk.inner(ja.conj(), jb))
@@ -143,10 +146,12 @@ def test_hubbard_effH_matvec_vs_jax():
              jpk.pack(RP, multiple=8, pad_labels=VIRT),
              jpk.pack(W0, pad=False), jpk.pack(W1, pad=False),
              jpk.pack(theta, multiple=8, pad_labels=VIRT)]
-    pargs = [pk.pack(to_host(LP), multiple=8, pad_labels=VIRT),
-             pk.pack(to_host(RP), multiple=8, pad_labels=VIRT),
-             pk.pack(to_host(W0), pad=False), pk.pack(to_host(W1), pad=False),
-             pk.pack(to_host(theta), multiple=8, pad_labels=VIRT)]
+    pargs = [pk.pack(to_host(LP), multiple=8, pad_labels=VIRT, device='cpu'),
+             pk.pack(to_host(RP), multiple=8, pad_labels=VIRT, device='cpu'),
+             pk.pack(to_host(W0), pad=False, device='cpu'),
+             pk.pack(to_host(W1), pad=False, device='cpu'),
+             pk.pack(to_host(theta), multiple=8, pad_labels=VIRT,
+                     device='cpu')]
     assert pargs[4].n_blocks > 50            # genuinely block-heavy
     jpk.reset_flops()
     ref = jax_matvec(*jargs)

@@ -33,9 +33,10 @@ def split_case():
             int(vb.slices[b + 1] - vb.slices[b])
             for b in range(vb.block_number)}
     out = {}
-    for name, pkg, spl, th in (('jax', jpk, jps, theta),
-                               ('port', pk, ps, to_host(theta))):
-        thp = pkg.pack(th, multiple=16, pad_labels=('vL', 'vR'))
+    for name, pkg, spl, th, kw in (('jax', jpk, jps, theta, {}),
+                                   ('port', pk, ps, to_host(theta),
+                                    {'device': 'cpu'})):
+        thp = pkg.pack(th, multiple=16, pad_labels=('vL', 'vR'), **kw)
         bond = spl.bond_layout(thp.legs, thp.qtotal, qtot_A, cap_hint=hint,
                                multiple=16)
         out[name] = (thp, bond, spl.split_plan(thp, bond, qtot_A,
