@@ -2,10 +2,12 @@
 
 Drives ``tenpy_tpu_torch``'s main path, the device-resident two-site iDMRG
 sweep (``DeviceSweepEngine``) on the Fermi-Hubbard U=8 Ly=4 cylinder,
-U(1)xU(1), at chi=256, from the committed exchange file
-``tests/benchmark_data/hubbard_cyl_chi256_exchange.npz``, and holds it to the
-JAX package's energies stored in that file.  Phases (any failure exits
-nonzero):
+U(1)xU(1), at chi=256, and the chi ramp (``device_ramp``) to chi=256 from a
+Neel product state.  The port builds the model, its MPO and the
+environments itself; the committed exchange file
+``tests/benchmark_data/hubbard_cyl_chi256_exchange.npz`` supplies the
+chi=256 state (B and S) and the JAX package's values to hold the port to.
+Phases (any failure exits nonzero):
 
 1. device: card name and power limit, CUDA present, TF32 off;
 2. build: the CUDA kernel library from ``tenpy_tpu_torch/csrc``;
@@ -18,8 +20,14 @@ nonzero):
    (also with its tasks shuffled), the plain version's and the library's
    (``torch.bmm`` per bucket pair) times beside the bound; the batched SVD
    time of one split;
-5. the main path: ``DeviceSweepEngine(...).run()`` on CUDA, 3 sweeps,
-   with the kernel's launches per sweep held to the tensordots run;
+5. the main path: ``FermiHubbardModel``, the MPS of the exchange file and
+   ``DeviceSweepEngine(psi, model, OPTIONS, 'cuda')``; its host setup (W,
+   charge gauge, environments) held to the file's JAX values, then
+   ``run()``, 3 sweeps, with the kernel's launches per sweep held to the
+   tensordots run and the energies to JAX's;
+6. the ramp: ``device_ramp`` from the Neel product state to chi=256, with
+   per-stage times, launches and energies per site, held to the committed
+   chi=256 state's energy per site;
 then a JSON line on the kernels and, last, ``{"ok": true, "device": ...}``.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.
@@ -36,11 +44,14 @@ import torch
 
 from tenpy_tpu_torch import _build
 from tenpy_tpu_torch.algorithms.mps_common import _matvec_2site_packed
-from tenpy_tpu_torch.algorithms.packed_dmrg import DeviceSweepEngine
+from tenpy_tpu_torch.algorithms.packed_dmrg import DeviceSweepEngine, \
+    device_ramp
 from tenpy_tpu_torch.linalg import grouped_gemm as gg
 from tenpy_tpu_torch.linalg import packed as pk
 from tenpy_tpu_torch.linalg import packed_split as ps
+from tenpy_tpu_torch.models.hubbard import FermiHubbardModel
 from tenpy_tpu_torch.networks import exchange
+from tenpy_tpu_torch.networks.mps import MPS
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 STATE = os.path.join(ROOT, 'tests', 'benchmark_data',
@@ -50,6 +61,24 @@ STATE = os.path.join(ROOT, 'tests', 'benchmark_data',
 OPTIONS = {'chi_max': 256, 'svd_min': 1e-10, 'lanczos_K': 10,
            'lanczos_K_seam': 60, 'n_sweeps': 3, 'cap_factor': 1.3,
            'backend': 'svd'}
+MODEL = {'lattice': 'Square', 'Lx': 2, 'Ly': 4, 'bc_y': 'cylinder',
+         'bc_MPS': 'infinite', 't': 1., 'U': 8., 'mu': 0.}
+# the Neel state in MPS order: x=0 up,down,up,down; x=1 down,up,down,up
+NEEL = ['up', 'down', 'up', 'down', 'down', 'up', 'down', 'up']
+RAMP_OPTIONS = {'chi_max': 256, 'svd_min': 1e-10, 'lanczos_K': 10,
+                'lanczos_K_seam': 60, 'sweeps_per_stage': 2, 'n_sweeps': 4,
+                'backend': 'svd'}
+# energy per site of the committed chi=256 state: (E[n] - E[n-1]) / (2 L)
+# of the JAX sweeps stored with it (checked below).  The ramp's 4 sweeps at
+# chi=256 start from its chi=128 stage and land 2.3e-4 above it, while the
+# chi=128 -> 256 step moves the energy per site by 9.9e-4 (PERF.md): 5e-4
+# tells chi=256 physics from chi=128 physics with room for the ramp's
+# unconverged remainder
+E_SITE_REF = -0.5241574
+E_SITE_TOL = 5e-4
+# the environments: JAX's come from its Arnoldi route, the port's from its
+# GMRES builder (tests/test_torch_ramp.py measures 8.6e-13 on the CPU)
+ENV_TOL = 1e-10
 # (m, k, n), entries, fan-ins: synthetic shapes, then the main
 # path's own (the MPO contractions' k = n = 1 rows of 4096 and 64, and the
 # 32 and 8 x 16 sector blocks of the virtual-leg contractions)
@@ -315,18 +344,26 @@ MATVEC_STEPS = ['LP.theta over vR/vL', '.W0 over (wR,p0)', '.W1 over (wR,p1)',
                 '.RP over (wR,vR)']
 
 
-def phase_matvec(state):
-    eng_c = DeviceSweepEngine(state, OPTIONS, 'cuda')
-    eng_h = DeviceSweepEngine(state, OPTIONS, 'cpu')
-    W0 = [e.Wp[0].replace_labels(['p', 'p*'], ['p0', 'p0*'])
-          for e in (eng_c, eng_h)]
-    W1 = [e.Wp[1].replace_labels(['p', 'p*'], ['p1', 'p1*'])
-          for e in (eng_c, eng_h)]
-    th = []
-    for e in (eng_c, eng_h):
-        C = ps.scale_bond(e.Bp[0], e.Sp[0], ps.scale_bond_plan(e.Bp[0], 'vL'))
+def to_cpu(p):
+    """A CPU copy of a PackedArray."""
+    return pk.PackedArray(p.legs, p.qtotal, p.get_leg_labels(), p.shapes,
+                          p.qdatas, [d.cpu() for d in p.data], p.dtype,
+                          'cpu')
+
+
+def phase_matvec(eng_c):
+    """The chi=256 matvec on the main path's engine (read only) and on a CPU
+    copy of its operands."""
+    ops_c = (eng_c.LPp[0], eng_c.RPp[1], eng_c.Wp[0], eng_c.Wp[1],
+             eng_c.Bp[0], eng_c.Bp[1], eng_c.Sp[0])
+    ops_h = [to_cpu(x) for x in ops_c[:-1]] + [ops_c[-1].cpu()]
+    W0, W1, th = [], [], []
+    for LP, RP, Wa, Wb, B0, B1, S0 in (ops_c, ops_h):
+        W0.append(Wa.replace_labels(['p', 'p*'], ['p0', 'p0*']))
+        W1.append(Wb.replace_labels(['p', 'p*'], ['p1', 'p1*']))
+        C = ps.scale_bond(B0, S0, ps.scale_bond_plan(B0, 'vL'))
         th.append(pk.tensordot(C.replace_labels(['p'], ['p0']),
-                               e.Bp[1].replace_labels(['p'], ['p1']),
+                               B1.replace_labels(['p'], ['p1']),
                                axes=(['vR'], ['vL'])))
     # record the kernel wrapper's calls of one matvec (one per tensordot)
     n0 = gg.LAUNCHES
@@ -339,15 +376,13 @@ def phase_matvec(state):
 
     pk.packed_contract = recording
     try:
-        out_c = _matvec_2site_packed(eng_c.LPp[0], eng_c.RPp[1], W0[0], W1[0],
-                                     th[0])
+        out_c = _matvec_2site_packed(ops_c[0], ops_c[1], W0[0], W1[0], th[0])
     finally:
         pk.packed_contract = orig
     torch.cuda.synchronize()
     grew = gg.LAUNCHES - n0
     t0 = time.time()
-    out_h = _matvec_2site_packed(eng_h.LPp[0], eng_h.RPp[1], W0[1], W1[1],
-                                 th[1])
+    out_h = _matvec_2site_packed(ops_h[0], ops_h[1], W0[1], W1[1], th[1])
     cpu_s = time.time() - t0
     err = packed_rel_err(out_c, out_h)
     log(f"[4] chi=256 matvec CUDA vs CPU: rel_err {err:.2e} ({grew} kernel "
@@ -458,28 +493,90 @@ def phase_matvec(state):
     return tot
 
 
-def phase_main(state, ref):
-    torch.cuda.reset_peak_memory_stats()
-    eng = DeviceSweepEngine(state, OPTIONS, 'cuda')
+def phase_setup(flat):
+    """The main path's engine: the port's model, the MPS of the exchange
+    file, ``DeviceSweepEngine(psi, model, OPTIONS, 'cuda')``; returns it
+    with the host seconds of the model and of the MPS."""
+    t0 = time.time()
+    model = FermiHubbardModel(dict(MODEL))
+    t1 = time.time()
+    psi = exchange.load_mps(flat, model.lat.mps_sites())
+    t2 = time.time()
+    eng = DeviceSweepEngine(psi, model, OPTIONS, 'cuda')
+    t3 = time.time()
+    log(f"[5] host setup: model and MPO {t1 - t0:.3f} s, MPS {t2 - t1:.3f} s, "
+        f"engine {t3 - t2:.3f} s ("
+        + ', '.join(f'{k} {v:.3f} s' for k, v in eng.setup_seconds.items())
+        + f"); bonds chi {psi.chi}, layout {eng.bond[0].block_number} "
+        f"sectors, capacity {int(eng.bond[0].slices[-1])}")
+    return eng
+
+
+def check_setup(eng, state):
+    """The engine's MPO, gauge and environments against the JAX values of
+    the exchange file."""
+    check(eng.gauge is not None
+          and np.array_equal(eng.gauge['k'], state.gauge['k'])
+          and all(np.array_equal(a, b)
+                  for a, b in zip(eng.gauge['o'], state.gauge['o'])),
+          "charge gauge differs from JAX's")
+    w_err = 0.
+    for i in range(eng.L):
+        p, q = eng.Wp[i], pk.pack(state.W[i], pad=False, device='cpu')
+        check(p.shapes == q.shapes and p.qtotal == q.qtotal
+              and all(np.array_equal(x, y)
+                      for x, y in zip(p.qdatas, q.qdatas)),
+              f"W[{i}] structure differs from JAX's")
+        w_err = max(w_err, packed_rel_err(p, q))
+    envs = [(eng.LPp[0], eng._pack_env(state.LP0, 0, 'L'))] + [
+        (eng.RPp[i], eng._pack_env(state.RP[i], (i + 1) % eng.L, 'R'))
+        for i in range(eng.L)]
+    env_err = 0.
+    for p, q in envs:
+        check(p.shapes == q.shapes, "environment layout differs")
+        scale = max(float(d.abs().max()) for d in q.data)
+        env_err = max(env_err, max(float((x.cpu() - y.cpu()).abs().max())
+                                   for x, y in zip(p.data, q.data)) / scale)
+    log(f"[5] setup vs JAX: gauge k={[int(k) for k in eng.gauge['k']]} "
+        f"and o equal, W "
+        f"rel_err {w_err:.2e}, LP0/RP max rel_err {env_err:.2e}")
+    check(w_err <= 1e-14, "W differs from JAX's")
+    check(env_err <= ENV_TOL, "environments differ from JAX's")
+
+
+def counting():
+    """Count the tensordots run on the card (calls of ``packed_contract``
+    with work) and the kernel launches per sweep, for every engine; returns
+    ``(per_sweep, restore)``."""
     per_sweep = []
-    orig_sweep = eng.sweep
+    orig_sweep = DeviceSweepEngine.sweep
     orig_contract = pk.packed_contract
     n_calls = [0]
 
     def counted_contract(*args):
         if args[2].tasks.shape[0] and args[0][0].is_cuda:
-            n_calls[0] += 1            # a tensordot on the card with work
+            n_calls[0] += 1
         return orig_contract(*args)
 
-    def counted_sweep():
+    def counted_sweep(self):
         n0, c0 = gg.LAUNCHES, n_calls[0]
-        out = orig_sweep()
+        out = orig_sweep(self)
         per_sweep.append((gg.LAUNCHES - n0, n_calls[0] - c0,
                           torch.cuda.max_memory_allocated()))
         return out
 
-    eng.sweep = counted_sweep
+    def restore():
+        DeviceSweepEngine.sweep = orig_sweep
+        pk.packed_contract = orig_contract
+
+    DeviceSweepEngine.sweep = counted_sweep
     pk.packed_contract = counted_contract
+    return per_sweep, restore
+
+
+def phase_main(eng, ref):
+    torch.cuda.reset_peak_memory_stats()
+    per_sweep, restore = counting()
     gg.LAUNCHES = 0                    # count the main path's launches only
     try:
         t0 = time.time()
@@ -487,7 +584,7 @@ def phase_main(state, ref):
         torch.cuda.synchronize()
         wall = time.time() - t0
     finally:
-        pk.packed_contract = orig_contract
+        restore()
     launches = gg.LAUNCHES
     st = eng.sweep_stats
     for i in range(len(st['E'])):
@@ -523,17 +620,86 @@ def phase_main(state, ref):
     return launches
 
 
+def phase_ramp():
+    """``device_ramp`` from the Neel product state to chi=256."""
+    model = FermiHubbardModel(dict(MODEL))
+    psi = MPS.from_product_state(model.lat.mps_sites(), NEEL, bc='infinite')
+    n_sites = 2 * model.lat.N_sites          # sites added per iDMRG sweep
+    per_sweep, restore = counting()
+    gg.LAUNCHES = 0                    # count the ramp's launches only
+    try:
+        t0 = time.time()
+        eng = device_ramp(psi, model, dict(RAMP_OPTIONS), device='cuda')
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        restore()
+    launches = gg.LAUNCHES
+    st = eng.sweep_stats
+    check(len(per_sweep) == len(st['E']), "sweeps counted twice or missed")
+    e_site = {}
+    for k, stage in enumerate(eng.stages):
+        sw = range(stage['first_sweep'],
+                   stage['first_sweep'] + stage['n_sweeps'])
+        t = [st['time'][i] for i in sw]
+        its = [sum(st['lanczos_iters'][i]) for i in sw]
+        lau = [per_sweep[i][0] for i in sw]
+        tds = [per_sweep[i][1] for i in sw]
+        E = [st['E'][i] for i in sw]
+        e_site[stage['chi']] = ((E[-1] - E[-2]) / n_sites if len(E) > 1
+                                else float('nan'))
+        log(f"[6] stage {k + 1} chi={stage['chi']}: {len(t)} sweeps, "
+            f"s/sweep " + ' '.join(f'{x:.2f}' for x in t)
+            + f", lanczos_iters {its}, launches {lau} (tensordots {tds}), "
+            f"setup {stage['setup_s']:.3f} s"
+            + (' (from_engine)' if k else ' (engine from the product state)')
+            + f", E " + ' '.join(f'{x:.10f}' for x in E)
+            + f", energy per site {e_site[stage['chi']]:.10f}, max_err "
+            f"{max(st['max_err'][i] for i in sw):.2e}")
+        check(all(n == c for n, c in zip(lau, tds)),
+              f"stage {k + 1}: kernel launches differ from the tensordots")
+    kept = [int((S > 0).sum()) for S in eng.Sp]
+    chis = sorted(e_site)
+    e_fin, e_prev = e_site[chis[-1]], e_site[chis[-2]]
+    gap = abs(e_fin - e_prev)
+    log(f"[6] device_ramp wall {wall:.2f} s, {len(st['E'])} sweeps, kernel "
+        f"launches {launches}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; kept Schmidt "
+        f"values per bond {kept}")
+    log(f"[6] energy per site at chi={chis[-1]}: {e_fin:.10f}, committed "
+        f"chi=256 state {E_SITE_REF}: diff {e_fin - E_SITE_REF:+.3e} "
+        f"(tolerance {E_SITE_TOL:.1e}); chi={chis[-2]} -> {chis[-1]} gap "
+        f"{gap:.3e}")
+    check(launches > 0, "the ramp never launched the kernel")
+    check(np.isfinite(st['E']).all() and
+          all(torch.isfinite(S).all() for S in eng.Sp),
+          "non-finite ramp energy or Schmidt values")
+    check(min(kept) >= int(0.9 * RAMP_OPTIONS['chi_max']),
+          f"a bond kept fewer than 0.9 chi_max Schmidt values: {kept}")
+    check(abs(e_fin - E_SITE_REF) <= E_SITE_TOL,
+          "ramp energy per site far from the committed state's")
+    check(E_SITE_TOL < gap, "the tolerance does not resolve chi=128 -> 256")
+
+
 def main():
+    t_start = time.time()
     smi = phase_device()
     phase_build()
     max_abs_synth = phase_kernel()
-    state = exchange.load(STATE)
+    flat = exchange.load_flat(STATE)
+    state = exchange.ExchangeState(flat)
     ref = state.reference
     if json.loads(str(ref['options'])) != OPTIONS:
         raise RuntimeError("exchange file reference options differ")
-    mv = phase_matvec(state)
-    launches = phase_main(state, ref)
-    log(f"[6] kernel max_abs_err: synthetic f64 {max_abs_synth:.2e}, "
+    e_site_ref = (ref['sweep_E'][-1] - ref['sweep_E'][-2]) / 16
+    check(abs(e_site_ref - E_SITE_REF) < 1e-7,
+          f"committed energy per site {e_site_ref} is not {E_SITE_REF}")
+    eng = phase_setup(flat)
+    check_setup(eng, state)
+    mv = phase_matvec(eng)
+    launches = phase_main(eng, ref)
+    phase_ramp()
+    log(f"[7] kernel max_abs_err: synthetic f64 {max_abs_synth:.2e}, "
         f"main-path shapes {mv['max_abs']:.2e}")
     # times, bound and library time: per chi=256 matvec (4 tensordots)
     print(json.dumps({'kernels': [{
@@ -544,6 +710,7 @@ def main():
         'plain_ms': mv['plain_ms'], 'bound_ms': mv['bound_ms'],
         'bound_by': mv['bound_by'], 'library_ms': mv['library_ms']}]}),
         flush=True)
+    log(f"[7] chip_smoke wall {time.time() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -1,8 +1,8 @@
 """Profile one steady iDMRG sweep of the PyTorch/CUDA port on one GPU.
 
 Runs ``tenpy_tpu_torch``'s ``DeviceSweepEngine`` on the chi=256 Hubbard
-cylinder of ``chip_smoke.py`` (its exchange file and options, imported
-from it): sweep 1 with the subspace expansion and sweep 2 without it build
+cylinder of ``chip_smoke.py`` (its model, options and the state of its
+exchange file, imported from it), set up by the port itself: sweep 1 with the subspace expansion and sweep 2 without it build
 the host plans, sweep 3 (expansion off) is the steady sweep, timed, and
 sweep 4 (the same work) runs under ``torch.profiler``.  Prints the card's
 name and power limit, the sweep times, device time by kernel, the profiled
@@ -22,9 +22,10 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import OPTIONS, STATE
+from chip_smoke import MODEL, OPTIONS, STATE
 from tenpy_tpu_torch.algorithms.packed_dmrg import DeviceSweepEngine
 from tenpy_tpu_torch.linalg import grouped_gemm as gg
+from tenpy_tpu_torch.models.hubbard import FermiHubbardModel
 from tenpy_tpu_torch.networks import exchange
 
 
@@ -55,10 +56,12 @@ def main():
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(f"nvidia-smi: {smi}", flush=True)
-    state = exchange.load(STATE)
-    if json.loads(str(state.reference['options'])) != OPTIONS:
+    flat = exchange.load_flat(STATE)
+    if json.loads(str(flat['ref.options'])) != OPTIONS:
         raise RuntimeError("exchange file reference options differ")
-    eng = DeviceSweepEngine(state, OPTIONS, 'cuda')
+    model = FermiHubbardModel(dict(MODEL))
+    psi = exchange.load_mps(flat, model.lat.mps_sites())
+    eng = DeviceSweepEngine(psi, model, OPTIONS, 'cuda')
     eng._cur_expand = True
     t1, _ = timed_sweep(eng)
     eng._cur_expand = False

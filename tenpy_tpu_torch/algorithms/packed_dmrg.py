@@ -1,8 +1,9 @@
 r"""Device-resident two-site DMRG sweeps on the bucket-packed layout.
 
-Port of ``tenpy_tpu/algorithms/packed_dmrg.py`` (``DeviceSweepEngine`` and
-its layout helpers).  The whole sweep state lives on one device; each site
-update is
+Port of ``tenpy_tpu/algorithms/packed_dmrg.py``: ``DeviceSweepEngine``, the
+capacity layouts and the chi ramp ``device_ramp`` (its charge gauge is in
+:mod:`~tenpy_tpu_torch.networks.charge_gauge`).  The
+whole sweep state lives on one device; each site update is
 
     theta = C . B_next            (guess; center-matrix carry)
     E0, theta = Lanczos (theta)   (packed matvec, early exit)
@@ -16,11 +17,17 @@ has a fixed, size-bucketed capacity layout, and dropped Schmidt states are
 exact zeros.  PyTorch runs eagerly, so the JAX version's jit cache and
 precompile step have no counterpart; the plans are cached on the host.
 
-The engine starts from an :class:`~tenpy_tpu_torch.networks.exchange.
-ExchangeState` (the host tensors after ``tenpy_tpu``'s host-side setup) and
-returns its state with :meth:`DeviceSweepEngine.export_state`.  Finite and
-infinite (iDMRG) bc; the ``mixer`` option is the subspace expansion of
-:func:`~tenpy_tpu_torch.linalg.packed_split.split_truncate`.
+The engine starts from an :class:`~tenpy_tpu_torch.networks.mps.MPS` and a
+model (its ``H_MPO``): the host half of the setup (charge gauge, MPO
+charge rescale, environments from
+:meth:`~tenpy_tpu_torch.networks.mpo.MPOTransferMatrix.find_init_LP_RP`)
+runs on the host :class:`~tenpy_tpu_torch.linalg.np_conserved.Array` s and
+is then packed onto the device.  The engine works on a copy of ``psi`` and
+leaves the caller's MPS as it found it; :meth:`DeviceSweepEngine.
+export_state` returns the state in the exchange format.  ``tenpy_tpu``'s
+``write_back`` (which ends in ``MPS.canonical_form``) is not ported.
+Finite and infinite (iDMRG) bc; the ``mixer`` option is the subspace
+expansion of :func:`~tenpy_tpu_torch.linalg.packed_split.split_truncate`.
 """
 
 from __future__ import annotations
@@ -36,46 +43,41 @@ from ..linalg import packed_split as ps
 from ..linalg.charges import QTYPE, LegCharge
 from ..linalg.padding import bucket_size, embed_array, pad_leg
 from ..networks import exchange
+from ..networks.charge_gauge import scale_mpo_charges, \
+    uniformize_charge_gauge
+from ..networks.mpo import MPOEnvironment, MPOTransferMatrix
 from .mps_common import _lanczos_K_2site_packed_impl, BUCKET_MULTIPLE
 
 logger = logging.getLogger(__name__)
 
-__all__ = ['DeviceSweepEngine', 'uniform_capacity_layout',
+__all__ = ['DeviceSweepEngine', 'device_ramp', 'uniform_capacity_layout',
            'capacity_bond_layouts', 'pack_S_from_leg', 'pack_bond_S']
 
 
-def _vL_leg(state, i):
-    """The (qconj=+1) left bond leg of site ``i`` (``i == L``: the right
-    boundary of a finite chain)."""
-    if state.finite and i == state.L:
-        leg = state.B[state.L - 1].get_leg('vR').conj()
-    else:
-        leg = state.B[i % state.L].get_leg('vL')
-    return leg if leg.qconj == 1 else leg.conj()
-
-
-def uniform_capacity_layout(state, chi_max, multiple, cap_factor=1.3,
+def uniform_capacity_layout(psi, chi_max, multiple, cap_factor=1.3,
                             total_cap_factor=1.5, n_hops=2):
     """One shared capacity bond layout for all bonds of a regauged iMPS.
 
-    Needs the uniform charge gauge (all bond legs in one charge frame, all
-    site qtotals equal) and identical sites.  The layout is the union of
-    every bond's current sectors (per-sector capacity = max over bonds),
-    widened by the update-reachability passes of :func:`ps.bond_layout`.
-    Returns ``(bond, psi_legs)`` with ``bond[i]`` the same LegCharge for every
-    ``i``.
+    Needs the uniform charge gauge (all site qtotals equal) and identical
+    sites.  The layout is the union of every bond's current sectors
+    (per-sector capacity = max over bonds), widened by the update
+    reachability passes of :func:`ps.bond_layout`.  Returns
+    ``(bond, psi_legs)`` with ``bond[i]`` the same LegCharge for every ``i``.
     """
-    L = state.L
-    chinfo = state.chinfo
-    p_legs = [state.B[i].get_leg('p') for i in range(L)]
+    L = psi.L
+    chinfo = psi.sites[0].leg.chinfo
+    p_legs = [psi.get_B(i, None).get_leg('p') for i in range(L)]
     if any(leg != p_legs[0] for leg in p_legs[1:]):
         raise ValueError("uniform layout needs identical physical legs")
-    qtots = [np.asarray(state.B[i].qtotal, QTYPE) for i in range(L)]
+    qtots = [np.asarray(psi.get_B(i, None).qtotal, QTYPE) for i in range(L)]
     if any(np.any(q != qtots[0]) for q in qtots[1:]):
         raise ValueError("uniform layout needs equal site qtotals "
                          "(the uniform charge gauge)")
     qeff = qtots[0]
-    psi_legs = [_vL_leg(state, i) for i in range(L)]
+    psi_legs = []
+    for i in range(L):
+        leg = psi.get_B(i, 'B').get_leg('vL')
+        psi_legs.append(leg if leg.qconj == 1 else leg.conj())
     floor = {}
     for leg in psi_legs:
         for s in range(leg.block_number):
@@ -96,6 +98,87 @@ def uniform_capacity_layout(state, chi_max, multiple, cap_factor=1.3,
                            chi_cap=chi_max, multiple=multiple,
                            total_cap=int(np.ceil(total_cap_factor * chi_max)))
     return [U] * L, psi_legs
+
+
+def device_ramp(psi, model, options, device='cuda'):
+    """The chi ramp, device-resident: staged two-site sweeps.
+
+    Each stage is a :class:`DeviceSweepEngine` at the stage's ``chi``; the
+    first starts from ``psi``, every later one from the previous engine
+    (:meth:`DeviceSweepEngine.from_engine`: the packed state and
+    environments re-embedded into layouts rebuilt from the kept Schmidt
+    directions, widened ``n_hops`` reachability hops, per-sector capacity
+    extrapolated by ``grow_factor * chi_next / chi_cur``).
+
+    Options
+    -------
+    chi_list : list of (chi, n_sweeps)
+        Stages; default doubles from ``2 * max(psi.chi)`` to ``chi_max``
+        with ``sweeps_per_stage`` sweeps each.
+    chi_max : int
+    sweeps_per_stage : int (default 2)
+    grow_factor : float (default 1.3)
+    n_hops : int (default 3)
+    The rest goes to :class:`DeviceSweepEngine`; the final stage runs
+    ``max(sweeps_per_stage, n_sweeps)`` sweeps.
+
+    Returns the last stage's engine, with the sweep statistics of all
+    stages in ``sweep_stats`` and one entry per stage in ``stages``
+    (``chi``, ``n_sweeps``, ``first_sweep``, ``setup_s``: the host seconds
+    of the stage's engine construction).  ``psi`` is left as it was.
+    """
+    opts = dict(options)
+    chi_max = int(opts.pop('chi_max', max(psi.chi)))
+    sweeps_per_stage = int(opts.pop('sweeps_per_stage', 2))
+    grow = float(opts.pop('grow_factor', 1.3))
+    n_hops = int(opts.pop('n_hops', 3))
+    stages = opts.pop('chi_list', None)
+    if stages is None:
+        stages = []
+        c = max(psi.chi)
+        while 2 * c < chi_max:
+            c *= 2
+            stages.append((c, sweeps_per_stage))
+        stages.append((chi_max, sweeps_per_stage))
+    eng = None
+    all_stats = None
+    stage_log = []
+    chi_prev = max(1, max(psi.chi, default=1))
+    for k, (chi_s, n_s) in enumerate(stages):
+        last = k == len(stages) - 1
+        stage_opts = dict(opts)
+        stage_opts.update({
+            'chi_max': chi_s,
+            'n_sweeps': n_s if not last
+            else max(n_s, int(opts.get('n_sweeps', n_s))),
+            'cap_factor': grow * max(1., chi_s / chi_prev),
+            'n_hops': n_hops,
+        })
+        if not last:
+            # interior stages grow chi: the expansion stays on for every
+            # sweep (settle and polish belong to the final stage)
+            stage_opts.setdefault('settle_sweeps', 0)
+        chi_prev = chi_s
+        logger.info("device_ramp stage %d: chi -> %d (%d sweeps)",
+                    k + 1, chi_s, stage_opts['n_sweeps'])
+        t0 = time.time()
+        if eng is None:
+            eng = DeviceSweepEngine(psi, model, stage_opts, device)
+        else:
+            eng = DeviceSweepEngine.from_engine(eng, stage_opts)
+        stage_log.append({'chi': chi_s, 'n_sweeps': stage_opts['n_sweeps'],
+                          'first_sweep': len(all_stats['E'])
+                          if all_stats else 0,
+                          'setup_s': time.time() - t0})
+        eng.run()
+        if all_stats is None:
+            all_stats = {k2: list(v) for k2, v in eng.sweep_stats.items()}
+        else:
+            for k2, v in eng.sweep_stats.items():
+                all_stats[k2].extend(v)
+    eng.sweep_stats = all_stats
+    eng.stages = stage_log
+    return eng
 
 
 def _bond0_transition(A_old, A_new):
@@ -128,7 +211,7 @@ def _env_update_R(RP, B, W):
     return x.transpose(['wL', 'vL', 'vL*'])
 
 
-def capacity_bond_layouts(state, chi_max, multiple, cap_factor=1.3,
+def capacity_bond_layouts(psi, chi_max, multiple, cap_factor=1.3,
                           total_cap_factor=1.5, n_hops=2):
     """Fixed padded capacity layouts, one per bond.
 
@@ -138,11 +221,28 @@ def capacity_bond_layouts(state, chi_max, multiple, cap_factor=1.3,
     total budgeted to ``total_cap_factor * chi_max``.
     Returns ``(bond, psi_leg)``: the layouts and the unpadded legs.
     """
-    L, finite = state.L, state.finite
-    cur_legs = [_vL_leg(state, i) for i in range(L + 1 if finite else L)]
-    p_legs = [state.B[i].get_leg('p') for i in range(L)]
-    qtot = [np.asarray(state.B[i].qtotal, QTYPE) for i in range(L)]
-    chinfo = state.chinfo
+    L = psi.L
+    finite = psi.bc == 'finite'
+    psi_leg = []
+    for i in range(L + 1 if finite else L):
+        if finite and i == L:
+            leg = psi.get_B(L - 1, 'B').get_leg('vR').conj()
+        else:
+            leg = psi.get_B(i % L, 'B').get_leg('vL')
+        psi_leg.append(leg if leg.qconj == 1 else leg.conj())
+    p_legs = [psi.get_B(i, None).get_leg('p') for i in range(L)]
+    qtot = [np.asarray(psi.get_B(i, None).qtotal, QTYPE) for i in range(L)]
+    bond = _capacity_layouts(psi_leg, p_legs, qtot, chi_max, multiple,
+                             cap_factor, total_cap_factor, finite, n_hops)
+    return bond, psi_leg
+
+
+def _capacity_layouts(cur_legs, p_legs, qtot, chi_max, multiple, cap_factor,
+                      total_cap_factor, finite, n_hops=2):
+    """Core of :func:`capacity_bond_layouts`, from explicit current legs:
+    those of a host MPS, or a running engine's kept Schmidt directions."""
+    L = len(p_legs)
+    chinfo = cur_legs[0].chinfo
 
     def _bond(i, bond_list):
         return bond_list[i if finite else i % L]
@@ -167,7 +267,7 @@ def capacity_bond_layouts(state, chi_max, multiple, cap_factor=1.3,
             theta_legs, qtotal_th, qtot[iL], cap_hint=hint, cap_floor=floor,
             chi_cap=chi_max, multiple=multiple,
             total_cap=int(np.ceil(total_cap_factor * chi_max)))
-    return bond, cur_legs
+    return bond
 
 
 def pack_S_from_leg(S_host, leg, bond, device='cuda'):
@@ -189,11 +289,19 @@ def pack_S_from_leg(S_host, leg, bond, device='cuda'):
     return torch.from_numpy(out).to(device)
 
 
-def pack_bond_S(state, i, bond, device='cuda'):
+def pack_bond_S(psi, i, bond, device='cuda'):
     """Bond ``i``'s S as a flat padded tensor in bond-layout order, on
     ``device``."""
-    return pack_S_from_leg(np.asarray(state.S[i]), _vL_leg(state, i), bond,
-                           device)
+    L = psi.L
+    if psi.bc == 'finite' and i == L:
+        S_host = np.asarray(psi.get_SR(L - 1))
+        leg = psi.get_B(L - 1, 'B').get_leg('vR').conj()
+    else:
+        S_host = np.asarray(psi.get_SL(i % L))
+        leg = psi.get_B(i % L, 'B').get_leg('vL')
+    if leg.qconj != 1:
+        leg = leg.conj()
+    return pack_S_from_leg(S_host, leg, bond, device)
 
 
 class DeviceSweepEngine:
@@ -201,8 +309,11 @@ class DeviceSweepEngine:
 
     Parameters
     ----------
-    state : ExchangeState
-        Finite or infinite state with its MPO and environments (B form).
+    psi : :class:`~tenpy_tpu_torch.networks.mps.MPS`
+        Finite or infinite MPS in canonical form; the engine works on a
+        copy.
+    model : :class:`~tenpy_tpu_torch.models.model.MPOModel`
+        Its ``H_MPO`` is the Hamiltonian.
     options : dict
         chi_max : int -- bond cap for truncation.
         svd_min : float -- relative Schmidt-value cutoff (default 1e-10).
@@ -221,13 +332,17 @@ class DeviceSweepEngine:
         Where the sweep state lives: the card by default, where every
         packed tensordot is one launch of the CUDA kernel; raises where
         there is no card.  ``'cpu'`` runs the kernels' plain versions.
+
+    ``setup_seconds`` holds the host time of the setup's parts.
     """
 
-    def __init__(self, state, options, device='cuda'):
+    def __init__(self, psi, model, options=None, device='cuda',
+                 _regrow_from=None):
         self.device = pk.checked_device(device)
-        self.state = state
-        opts = dict(options)
-        cur_chi = max(1, max(state.chi, default=1))
+        self.psi = psi
+        self.model = model
+        opts = dict(options or {})
+        cur_chi = max(1, max(psi.chi, default=1))
         self.chi_max = int(opts.get('chi_max', cur_chi))
         self.svd_min = float(opts.get('svd_min', 1e-10))
         self.K = int(opts.get('lanczos_K', 10))
@@ -255,8 +370,8 @@ class DeviceSweepEngine:
         self.polish_sweeps = int(opts.get('polish_sweeps',
                                           1 if self.matvec_mode else 0))
         self.log_updates = bool(opts.get('log_updates', False))
-        self.finite = state.finite
-        self.L = state.L
+        self.finite = psi.bc == 'finite'
+        self.L = psi.L
         if self.L < 2:
             raise ValueError("DeviceSweepEngine needs L >= 2")
         self.n_bonds = self.L + 1 if self.finite else self.L
@@ -267,45 +382,159 @@ class DeviceSweepEngine:
         self._cur_expand = self.mixer
         self._C = None            # center-matrix carry (site of last update)
         self._M0 = None           # bond-0 basis transition (iDMRG seam)
-        self._setup()
+        self.setup_seconds = {}
+        if _regrow_from is None:
+            self._setup()
+        else:
+            self._setup_from_engine(_regrow_from)
+
+    @classmethod
+    def from_engine(cls, old, options):
+        """Stage transition of the chi ramp: a fresh engine at ``options``'
+        ``chi_max`` whose packed state (B tensors, bond S) and environments
+        are ``old``'s, re-embedded into new capacity layouts on the host
+        (unpack, prune to the kept Schmidt directions, embed, pack), with no
+        canonical-form conversion and no environment re-initialisation.
+        New charge sectors enter with zero weight; the sweeps populate
+        them."""
+        return cls(old.psi, old.model, options, old.device, _regrow_from=old)
 
     def _bond(self, i):
         return self.bond[i if self.finite else i % self.L]
 
     # ------------------------------------------------------------- setup
     def _setup(self):
-        state, L = self.state, self.L
+        """The host half of ``tenpy_tpu``'s setup on a copy of psi:
+        ``real_if_close``, the uniform charge gauge (with the MPO rescale),
+        the capacity layouts, packing, and the environments."""
+        t0 = time.time()
+        psi = self.psi.copy()
+        L = self.L
+        psi.real_if_close()
+        if psi.dtype.is_complex and not self.model.H_MPO.dtype.is_complex:
+            # real H: residual imaginary parts are gauge junk from
+            # canonicalization eigensolvers
+            psi.real_if_close(tol=1e-6)
         self.bond = None
-        if self.uniform_bonds and not self.finite and state.gauge is not None:
+        self.gauge = None
+        self._H = self.model.H_MPO
+        if self.uniform_bonds and not self.finite:
             try:
-                self.bond, _ = uniform_capacity_layout(
-                    state, self.chi_max, self.multiple, self.cap_factor,
-                    self.total_cap_factor, self.n_hops)
-                logger.info("uniform bond layout: %d sectors, capacity %d",
-                            self.bond[0].block_number,
-                            int(self.bond[0].slices[-1]))
+                self.gauge = uniformize_charge_gauge(psi, rescale=True)
+                if self.gauge is not None:
+                    if np.any(self.gauge['k'] != 1):
+                        self._H = scale_mpo_charges(self.model.H_MPO,
+                                                    self.gauge['k'])
+                        logger.info("rescaled U(1) charge units by %s",
+                                    list(self.gauge['k']))
+                    self.bond, _ = uniform_capacity_layout(
+                        psi, self.chi_max, self.multiple, self.cap_factor,
+                        self.total_cap_factor, self.n_hops)
+                    logger.info("uniform bond layout: %d sectors, capacity %d",
+                                self.bond[0].block_number,
+                                int(self.bond[0].slices[-1]))
             except ValueError as e:
                 logger.info("uniform bond layout not applicable (%s); "
                             "using per-bond layouts", e)
         if self.bond is None:
             self.bond, _ = capacity_bond_layouts(
-                state, self.chi_max, self.multiple, self.cap_factor,
+                psi, self.chi_max, self.multiple, self.cap_factor,
                 self.total_cap_factor, self.n_hops)
-        self.qtotal_site = [tuple(int(x) for x in
-                                  np.asarray(state.B[i].qtotal).ravel())
-                            for i in range(L)]
-        self.Bp = [self._pack_site(state.B[i], i) for i in range(L)]
-        self.Wp = [pk.pack(state.W[i], pad=False, device=self.device)
-                   for i in range(L)]
-        self.Sp = [pack_bond_S(state, i, self._bond(i), self.device)
+        t1 = time.time()
+        self.qtotal_site = []
+        self.Bp, self.Wp = [], []
+        for i in range(L):
+            B = psi.get_B(i, 'B').transpose(['vL', 'p', 'vR'])
+            self.qtotal_site.append(
+                tuple(int(x) for x in np.asarray(B.qtotal, QTYPE).ravel()))
+            self.Bp.append(self._pack_site(B, i))
+            W = self._H.get_W(i).transpose(['wL', 'wR', 'p', 'p*'])
+            self.Wp.append(pk.pack(W, pad=False, device=self.device))
+        self.Sp = [pack_bond_S(psi, i, self._bond(i), self.device)
                    for i in range(self.n_bonds)]
         self.Ap = [None] * L
+        t2 = time.time()
+        # infinite bc: seed with the converged environments (age-0 ones make
+        # H_eff the wrong operator for many sweeps)
+        init_env_data = {}
+        if not self.finite:
+            init_env_data = MPOTransferMatrix.find_init_LP_RP(self._H, psi)
+        t3 = time.time()
+        env = MPOEnvironment(psi, self._H, psi, **init_env_data)
         self.LPp = [None] * L
         self.RPp = [None] * L
-        self.LPp[0] = self._pack_env(state.LP0, 0, 'L')
-        for i in range(L):
-            self.RPp[i] = self._pack_env(
-                state.RP[i], i + 1 if self.finite else (i + 1) % L, 'R')
+        self.LPp[0] = self._pack_env(env.get_LP(0), 0, 'L')
+        for i in range(L - 1, -1, -1):
+            self.RPp[i] = self._pack_env(env.get_RP(i),
+                                         i + 1 if self.finite else (i + 1) % L,
+                                         'R')
+        if self.device.type == 'cuda':
+            torch.cuda.synchronize(self.device)
+        t4 = time.time()
+        self.setup_seconds = {'gauge_layouts': t1 - t0, 'pack_state': t2 - t1,
+                              'env_init': t3 - t2, 'envs': t4 - t3}
+
+    def _setup_from_engine(self, old):
+        """Adopt ``old``'s device state and environments in new layouts.
+
+        Every tensor on bond ``i`` is pruned by the same keep mask (the
+        final S > 0 slots) and re-embedded sector-prefix-wise, so state and
+        environments stay aligned slot for slot; the dropped slots carry
+        exact-zero weight by the engine's design.  No S^-1 anywhere."""
+        t0 = time.time()
+        L, finite = self.L, self.finite
+        if (old.L, old.finite) != (L, finite):
+            raise ValueError("from_engine: psi/model mismatch")
+        # the stage transition stays in the old engine's charge frame
+        self.gauge = old.gauge
+        self._H = old._H
+        Ss = [s.cpu().numpy() for s in old.Sp]
+        keeps = []
+        for S in Ss:
+            keep = S > 0.
+            if not keep.any():
+                keep[0] = True
+            keeps.append(keep)
+        kept_legs = [old._bond(i).project(keeps[i])[2]
+                     for i in range(self.n_bonds)]
+        p_legs = [old.Bp[i].legs[1] for i in range(L)]
+        self.qtotal_site = list(old.qtotal_site)
+        qtot = [np.asarray(q, QTYPE) for q in self.qtotal_site]
+        self.bond = _capacity_layouts(
+            kept_legs, p_legs, qtot, self.chi_max, self.multiple,
+            self.cap_factor, self.total_cap_factor, finite, self.n_hops)
+
+        def keepm(i):
+            return keeps[i if finite else i % L]
+
+        def reembed(p_arr, ax_bonds):
+            """unpack -> prune by the keep masks -> embed -> pack;
+            ``ax_bonds``: label -> (bond index, conj?)."""
+            T = pk.unpack(p_arr)
+            grow = {}
+            for lab, (bi, conj) in ax_bonds.items():
+                T = T.iproject(keepm(bi), T.get_leg_index(lab))
+                grow[lab] = self._bond(bi).conj() if conj else self._bond(bi)
+            return pk.pack(embed_array(T, grow), pad=False,
+                           device=self.device)
+
+        self.Wp = list(old.Wp)   # layout-independent (wL/wR/p legs only)
+        self.Bp = [reembed(old.Bp[i], {'vL': (i, False), 'vR': (i + 1, True)})
+                   for i in range(L)]
+        self.Sp = [pack_S_from_leg(Ss[i][keeps[i]], kept_legs[i],
+                                   self._bond(i), self.device)
+                   for i in range(self.n_bonds)]
+        self.LPp = [reembed(old.LPp[i], {'vR*': (i, False), 'vR': (i, True)})
+                    if old.LPp[i] is not None else None for i in range(L)]
+        self.RPp = [reembed(old.RPp[i], {'vL': (i + 1, False),
+                                         'vL*': (i + 1, True)})
+                    if old.RPp[i] is not None else None for i in range(L)]
+        self.Ap = [None] * L
+        # C is dropped: sweep() re-seeds it from S[0] . B[0]
+        self._C = None
+        if self.device.type == 'cuda':
+            torch.cuda.synchronize(self.device)
+        self.setup_seconds = {'from_engine': time.time() - t0}
 
     def _pack_site(self, B, i):
         padded = embed_array(B, {'vL': self._bond(i),
@@ -435,7 +664,8 @@ class DeviceSweepEngine:
 
     def run(self):
         """Expansion sweeps (mixer) -> settle sweeps (expansion off) ->
-        polish sweeps (full f64); returns the last sweep's energy."""
+        polish sweeps (full f64); returns the last sweep's energy.  ``psi``
+        stays as it was: :meth:`export_state` returns the new state."""
         E_prev = None
         n_p = min(self.polish_sweeps, self.n_sweeps)
         n_settle = (min(self.settle_sweeps, self.n_sweeps - n_p)
@@ -512,6 +742,5 @@ class DeviceSweepEngine:
         chi = [Bs[i].get_leg('vR').ind_len
                for i in range(L - 1 if self.finite else L)]
         return exchange.state_to_flat(
-            self.state.bc, chi, Bs, None, [S[k] for S, k in zip(Ss, keeps)],
-            None, None, self.state.chinfo, gauge=self.state.gauge,
-            forms=forms)
+            self.psi.bc, chi, Bs, None, [S[k] for S, k in zip(Ss, keeps)],
+            None, None, self.psi.chinfo, gauge=self.gauge, forms=forms)

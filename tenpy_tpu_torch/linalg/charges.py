@@ -1,8 +1,9 @@
-r"""Abelian charge bookkeeping: :class:`ChargeInfo` and :class:`LegCharge`.
+r"""Abelian charge bookkeeping: :class:`ChargeInfo`, :class:`LegCharge`,
+:class:`LegPipe`.
 
-Port of the part of ``tenpy_tpu/linalg/charges.py`` that the packed layout
-uses.  Both classes are immutable and hashable: the packed tensordot and the
-split cache their host-side plans on leg structures.
+Port of ``tenpy_tpu/linalg/charges.py`` without its HDF5 and dipole parts.
+Every class is immutable and hashable: the packed tensordot and the split
+cache their host-side plans on leg structures.
 
 Conventions (as in ``tenpy_tpu``):
 
@@ -18,7 +19,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ['QTYPE', 'ChargeInfo', 'LegCharge']
+__all__ = ['QTYPE', 'ChargeInfo', 'LegCharge', 'LegPipe']
 
 QTYPE = np.int64
 
@@ -34,6 +35,9 @@ class ChargeInfo:
 
     __slots__ = ('mod', 'names', '_hash')
 
+    # translations act trivially on these charges (no dipole conservation)
+    trivial_shift = True
+
     def __init__(self, mod=(), names=None):
         mod = tuple(int(m) for m in mod)
         if any(m < 1 for m in mod):
@@ -46,6 +50,10 @@ class ChargeInfo:
         self.mod = mod
         self.names = names
         self._hash = hash(('ChargeInfo', mod, names))
+
+    @classmethod
+    def trivial(cls):
+        return cls(())
 
     @property
     def qnumber(self):
@@ -81,7 +89,8 @@ class ChargeInfo:
 class LegCharge:
     """Charge structure of one tensor leg: contiguous sectors with charges."""
 
-    __slots__ = ('chinfo', 'slices', 'charges', 'qconj', '_hash')
+    __slots__ = ('chinfo', 'slices', 'charges', 'qconj', 'sorted', 'bunched',
+                 '_hash')
 
     def __init__(self, chinfo, slices, charges, qconj=1):
         self.chinfo = chinfo
@@ -94,9 +103,35 @@ class LegCharge:
             raise ValueError("qconj must be +-1")
         if self.slices.ndim != 1:
             raise ValueError("slices must be 1-D")
+        self.sorted = bool(self._compute_sorted())
+        self.bunched = bool(self._compute_bunched())
         self._hash = hash((self.chinfo, self.slices.tobytes(),
                            self.charges.tobytes(), self.qconj))
 
+    # ------------------------------------------------------------ constructors
+    @classmethod
+    def from_trivial(cls, ind_len, chinfo=None, qconj=1):
+        """Leg with a single sector of zero charge."""
+        if chinfo is None:
+            chinfo = ChargeInfo.trivial()
+        return cls(chinfo, [0, ind_len], [chinfo.make_valid()], qconj)
+
+    @classmethod
+    def from_qflat(cls, chinfo, qflat, qconj=1):
+        """From one charge vector per flat index (adjacent equal charges
+        merged)."""
+        qflat = np.asarray(qflat, dtype=QTYPE)
+        if chinfo.qnumber == 0:
+            qflat = qflat.reshape(len(qflat), 0)
+        else:
+            qflat = qflat.reshape(-1, chinfo.qnumber)
+        if len(qflat) == 0:
+            return cls(chinfo, [0], np.zeros((0, chinfo.qnumber), QTYPE),
+                       qconj)
+        diffs = _find_row_differences(qflat)
+        return cls(chinfo, diffs, qflat[diffs[:-1]], qconj)
+
+    # -------------------------------------------------------------- properties
     @property
     def ind_len(self):
         return int(self.slices[-1])
@@ -105,9 +140,57 @@ class LegCharge:
     def block_number(self):
         return len(self.charges)
 
+    def sector_sizes(self):
+        return self.slices[1:] - self.slices[:-1]
+
+    def get_slice(self, qindex):
+        return slice(int(self.slices[qindex]), int(self.slices[qindex + 1]))
+
+    def get_qindex(self, flat_index):
+        """``(qindex, index_within_sector)`` of a flat leg index."""
+        if flat_index < 0:
+            flat_index += self.ind_len
+        if not 0 <= flat_index < self.ind_len:
+            raise IndexError(flat_index)
+        qi = int(np.searchsorted(self.slices, flat_index, side='right')) - 1
+        return qi, flat_index - int(self.slices[qi])
+
+    def to_qflat(self):
+        out = np.empty((self.ind_len, self.chinfo.qnumber), QTYPE)
+        for i in range(self.block_number):
+            out[self.slices[i]:self.slices[i + 1]] = self.charges[i]
+        return out
+
+    # --------------------------------------------------------- transformations
     def conj(self):
         """Flip ``qconj`` keeping ``charges``: the contractible partner."""
         return LegCharge(self.chinfo, self.slices, self.charges, -self.qconj)
+
+    def sort(self, bunch=True):
+        """``(perm_flat, sorted_leg)`` with sectors sorted lexicographically."""
+        if self.block_number > 1 and self.chinfo.qnumber > 0:
+            perm_qind = np.lexsort(self.charges.T)
+        else:
+            perm_qind = np.arange(self.block_number)
+        new_sizes = self.sector_sizes()[perm_qind]
+        new_slices = np.concatenate([[0], np.cumsum(new_sizes)])
+        perm_flat = np.concatenate(
+            [np.arange(self.slices[qi], self.slices[qi + 1])
+             for qi in perm_qind]) if self.block_number > 0 \
+            else np.zeros(0, np.intp)
+        leg = LegCharge(self.chinfo, new_slices, self.charges[perm_qind],
+                        self.qconj)
+        if bunch:
+            _, leg = leg.bunch()
+        return perm_flat, leg
+
+    def bunch(self):
+        """Merge adjacent sectors with equal charge: ``(idx_kept, leg)``."""
+        if self.block_number < 2:
+            return np.arange(self.block_number + 1), self
+        keep = _find_row_differences(self.charges)
+        return keep, LegCharge(self.chinfo, self.slices[keep],
+                               self.charges[keep[:-1]], self.qconj)
 
     def project(self, mask):
         """Keep only indices where boolean ``mask`` is True.
@@ -129,6 +212,26 @@ class LegCharge:
         leg = LegCharge(self.chinfo, slices, self.charges[keep], self.qconj)
         return map_qind, block_masks, leg
 
+    # ------------------------------------------------------------------ checks
+    def _compute_sorted(self):
+        if self.block_number < 2:
+            return True
+        c = self.charges
+        return all(tuple(c[i][::-1]) <= tuple(c[i + 1][::-1])
+                   for i in range(len(c) - 1))
+
+    def _compute_bunched(self):
+        if self.block_number < 2:
+            return True
+        return bool(np.all(np.any(self.charges[1:] != self.charges[:-1],
+                                  axis=1)))
+
+    def is_sorted(self):
+        return self.sorted
+
+    def is_bunched(self):
+        return self.bunched
+
     def test_contractible(self, other):
         """Raise unless ``self`` and ``other`` can be contracted."""
         if self.chinfo != other.chinfo:
@@ -142,6 +245,18 @@ class LegCharge:
             raise ValueError("different sector boundaries")
         if not np.array_equal(self.charges, other.charges):
             raise ValueError("different charges")
+
+    def test_equal(self, other):
+        """Raise unless ``self`` and ``other`` describe the same structure
+        (an opposite ``qconj`` with negated charges counts as equal)."""
+        if self.chinfo != other.chinfo:
+            raise ValueError("different ChargeInfo")
+        if not np.array_equal(self.slices, other.slices):
+            raise ValueError("unequal legs")
+        charges = self.charges if self.qconj == other.qconj \
+            else self.chinfo.make_valid(-self.charges)
+        if not np.array_equal(charges, other.charges):
+            raise ValueError("unequal legs")
 
     def __eq__(self, other):
         if self is other:
@@ -159,3 +274,109 @@ class LegCharge:
     def __repr__(self):
         return (f"LegCharge(qconj={self.qconj:+d}, len={self.ind_len}, "
                 f"sectors={self.block_number})")
+
+
+class LegPipe(LegCharge):
+    """A :class:`LegCharge` made by fusing several legs into one.
+
+    The fused leg enumerates combinations of the constituent sectors, sorted
+    and bunched by fused charge; ``q_map`` keeps where each combination went,
+    so :meth:`~tenpy_tpu_torch.linalg.np_conserved.Array.split_legs` undoes
+    the fusion exactly.
+
+    Attributes
+    ----------
+    legs : tuple of LegCharge
+    q_map : np.ndarray (n_comb, 3 + nlegs)
+        Rows ``[start, stop, fused_qindex, s_0, ..., s_{n-1}]``: the
+        combination of constituent sectors ``(s_0, ...)`` occupies
+        ``start:stop`` within fused sector ``fused_qindex``.
+    q_map_slices : np.ndarray
+        Row range of ``q_map`` belonging to each fused sector.
+    """
+
+    __slots__ = ('legs', 'subshape', 'subqshape', 'q_map', 'q_map_slices',
+                 '_map_dict')
+
+    def __init__(self, legs, qconj=1):
+        legs = tuple(legs)
+        if len(legs) == 0:
+            raise ValueError("need at least one leg")
+        chinfo = legs[0].chinfo
+        if any(l.chinfo != chinfo for l in legs[1:]):
+            raise ValueError("different ChargeInfo")
+        self.legs = legs
+        self.subshape = tuple(l.ind_len for l in legs)
+        self.subqshape = tuple(l.block_number for l in legs)
+        qconj = int(qconj)
+        nlegs = len(legs)
+        qnumber = chinfo.qnumber
+        # every sector combination, C order (last leg fastest)
+        grids = np.meshgrid(*[np.arange(n) for n in self.subqshape],
+                            indexing='ij')
+        combs = np.stack([g.ravel() for g in grids], axis=1)
+        n_comb = combs.shape[0]
+        sizes = np.ones(n_comb, dtype=QTYPE)
+        fused_q = np.zeros((n_comb, qnumber), QTYPE)
+        for k, l in enumerate(legs):
+            sizes *= l.sector_sizes()[combs[:, k]]
+            fused_q += l.charges[combs[:, k]] * l.qconj
+        fused_q = chinfo.make_valid(fused_q * qconj)
+        # stable sort by fused charge keeps C order within a charge
+        order = np.lexsort(fused_q.T) if (n_comb > 1 and qnumber > 0) \
+            else np.arange(n_comb)
+        fused_q_s = fused_q[order]
+        sizes_s = sizes[order]
+        combs_s = combs[order]
+        diffs = _find_row_differences(fused_q_s) if n_comb > 0 \
+            else np.array([0])
+        n_sector = len(diffs) - 1
+        charges = fused_q_s[diffs[:-1]]
+        sector_sizes = np.add.reduceat(sizes_s, diffs[:-1]) if n_sector \
+            else np.zeros(0, QTYPE)
+        slices = np.concatenate([[0], np.cumsum(sector_sizes)]).astype(QTYPE)
+        q_map = np.empty((n_comb, 3 + nlegs), QTYPE)
+        within = np.zeros(n_comb, QTYPE)
+        for s in range(n_sector):
+            lo, hi = diffs[s], diffs[s + 1]
+            within[lo:hi] = np.concatenate([[0],
+                                            np.cumsum(sizes_s[lo:hi])])[:-1]
+            q_map[lo:hi, 2] = s
+        q_map[:, 0] = within
+        q_map[:, 1] = within + sizes_s
+        q_map[:, 3:] = combs_s
+        self.q_map = _as_immutable(q_map)
+        self.q_map_slices = diffs
+        self._map_dict = {tuple(int(x) for x in q_map[r, 3:]): r
+                          for r in range(n_comb)}
+        LegCharge.__init__(self, chinfo, slices, charges, qconj)
+
+    @property
+    def nlegs(self):
+        return len(self.legs)
+
+    def conj(self):
+        """Flip qconj of the pipe and of every constituent leg."""
+        return LegPipe([l.conj() for l in self.legs], qconj=-self.qconj)
+
+    def map_comb(self, comb):
+        """``(offset_start, offset_stop, fused_qindex)`` of a sector
+        combination."""
+        row = self.q_map[self._map_dict[tuple(int(c) for c in comb)]]
+        return int(row[0]), int(row[1]), int(row[2])
+
+    def __repr__(self):
+        return (f"LegPipe(nlegs={self.nlegs}, qconj={self.qconj:+d}, "
+                f"len={self.ind_len}, sectors={self.block_number})")
+
+
+def _find_row_differences(arr):
+    """Indices ``i`` where row ``arr[i]`` differs from ``arr[i-1]``, framed
+    by 0 and ``len(arr)``."""
+    if len(arr) == 0:
+        return np.array([0], QTYPE)
+    if arr.ndim == 1:
+        arr = arr[:, None]
+    diff = np.any(arr[1:] != arr[:-1], axis=1)
+    return np.concatenate([[0], np.nonzero(diff)[0] + 1,
+                           [len(arr)]]).astype(QTYPE)

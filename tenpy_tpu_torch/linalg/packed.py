@@ -30,7 +30,7 @@ import torch
 
 from .charges import QTYPE
 from .grouped_gemm import build_tables, packed_contract, shape_class
-from .host_array import HostArray, conj_label
+from .np_conserved import Array, conj_label
 from .padding import pad_leg
 
 __all__ = ['PackedArray', 'pack', 'unpack', 'tensordot', 'inner', 'inner_re',
@@ -52,15 +52,18 @@ def checked_device(device):
     return device
 
 
-def _torch_dtype(np_dtype):
-    np_dtype = np.dtype(np_dtype)
-    if np_dtype.kind == 'c':
+def _torch_dtype(dtype):
+    """The PackedArray dtype of a host array's torch or numpy dtype."""
+    if not isinstance(dtype, torch.dtype):
+        np_dtype = np.dtype(dtype)
+        dtype = (torch.complex128 if np_dtype.kind == 'c'
+                 else _TORCH_DTYPE.get(np_dtype))
+    if dtype is not None and dtype.is_complex:
         raise NotImplementedError("complex PackedArray: native complex128 "
                                   "is not ported yet")
-    try:
-        return _TORCH_DTYPE[np_dtype]
-    except KeyError:
-        raise TypeError(f"unsupported PackedArray dtype {np_dtype}") from None
+    if dtype not in (torch.float64, torch.float32):
+        raise TypeError(f"unsupported PackedArray dtype {dtype}")
+    return dtype
 
 
 class PackedArray:
@@ -284,12 +287,13 @@ def complete_structure(legs, qtotal):
 
 
 def pack(a, multiple=64, pad=True, pad_labels=None, device='cuda'):
-    """:class:`HostArray` -> :class:`PackedArray` on ``device``.
+    """Host :class:`~.np_conserved.Array` -> :class:`PackedArray` on
+    ``device``.
 
     With ``pad``, every leg's sector sizes are rounded up to bucket sizes
     (zero padding); ``pad_labels`` restricts padding to the given leg labels.
     Every charge-allowed block is present (zeros where ``a`` stores none).
-    The buffers are built in numpy and moved with one copy per bucket.
+    The buckets are filled on the host and moved with one copy each.
     ``device`` defaults to the card and raises where there is none.
     """
     device = checked_device(device)
@@ -306,41 +310,39 @@ def pack(a, multiple=64, pad=True, pad_labels=None, device='cuda'):
     for s, q in enumerate(qdatas):
         for i, row in enumerate(q):
             pos[tuple(int(x) for x in row)] = (s, i)
-    np_dtype = np.dtype(a.dtype)
-    bufs = [np.zeros((q.shape[0],) + shape, np_dtype)
+    bufs = [torch.zeros((q.shape[0],) + shape, dtype=dtype)
             for shape, q in zip(shapes, qdatas)]
     for row, block in zip(a._qdata, a._data):
         key = tuple(int(x) for x in row)
         if key not in pos:
             raise ValueError("stored block not charge-allowed?")
         s, i = pos[key]
-        block = np.asarray(block)
+        block = torch.as_tensor(block)
         bufs[s][(i,) + tuple(slice(0, d) for d in block.shape)] = block
-    data = [torch.from_numpy(b).to(device) for b in bufs]
+    data = [b.to(device) for b in bufs]
     return PackedArray(legs, qtotal, tuple(a.get_leg_labels()), shapes,
                        qdatas, data, dtype, device)
 
 
 def unpack(p, orig_legs=None):
-    """PackedArray -> :class:`HostArray`, slicing padding away and dropping
-    all-zero blocks.
+    """PackedArray -> host :class:`~.np_conserved.Array`, slicing padding
+    away and dropping all-zero blocks.
 
     ``orig_legs``: the unpadded legs (in p's current leg order); default:
     keep the padded legs."""
     legs = tuple(orig_legs) if orig_legs is not None else p.legs
-    res = HostArray(legs, torch.empty(0, dtype=p.dtype).numpy().dtype,
-                    p.qtotal, p.get_leg_labels())
-    host_data = [d.detach().cpu().numpy() for d in p.data]
+    res = Array(legs, p.dtype, p.qtotal, p.get_leg_labels())
+    host_data = [d.detach().cpu() for d in p.data]
     rows, blocks = [], []
     for q, d in zip(p.qdatas, host_data):
         for i, row in enumerate(q):
             orig_shape = tuple(int(l.slices[s + 1] - l.slices[s])
                                for l, s in zip(legs, row))
             blk = d[(i,) + tuple(slice(0, n) for n in orig_shape)]
-            if not np.any(blk):
+            if not bool(blk.any()):
                 continue
             rows.append(row)
-            blocks.append(np.ascontiguousarray(blk))
+            blocks.append(blk.contiguous())
     res._set_blocks(np.array(rows, QTYPE).reshape(len(rows), p.rank), blocks)
     return res
 

@@ -9,9 +9,10 @@ GEMM covers many charge blocks; zero padding keeps every contraction exact.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .charges import LegCharge, QTYPE
-from .host_array import HostArray
+from .np_conserved import Array
 
 __all__ = ['bucket_size', 'pad_leg', 'embed_leg_map', 'embed_array']
 
@@ -60,7 +61,8 @@ def embed_leg_map(leg, big_leg):
 
 
 def embed_array(a, big_legs):
-    """Zero-pad a :class:`HostArray`'s blocks onto charge-superset legs.
+    """Zero-pad an :class:`~.np_conserved.Array`'s blocks onto
+    charge-superset legs.
 
     ``big_legs``: dict label/axis -> LegCharge with the same qconj; the
     target legs may hold additional sectors, indices are re-mapped by
@@ -72,7 +74,7 @@ def embed_array(a, big_legs):
             raise ValueError("embed_array: qconj mismatch")
         axes[ax] = (leg, embed_leg_map(a.legs[ax], leg))
     new_legs = [axes[i][0] if i in axes else a.legs[i] for i in range(a.rank)]
-    res = HostArray(new_legs, a.dtype, a.qtotal, a.get_leg_labels())
+    res = Array(new_legs, a.dtype, a.qtotal, a.get_leg_labels())
     qdata = np.array(a._qdata, QTYPE).reshape(-1, a.rank)
     for row in qdata:
         for ax, (_, m) in axes.items():
@@ -82,10 +84,10 @@ def embed_array(a, big_legs):
         shape = tuple(
             int(new_legs[i].slices[row[i] + 1] - new_legs[i].slices[row[i]])
             for i in range(a.rank))
-        if shape == block.shape:
+        if shape == tuple(block.shape):
             new_data.append(block)
             continue
-        padded = np.zeros(shape, dtype=block.dtype)
+        padded = torch.zeros(shape, dtype=block.dtype)
         padded[tuple(slice(0, s) for s in block.shape)] = block
         new_data.append(padded)
     res._set_blocks(qdata, new_data)

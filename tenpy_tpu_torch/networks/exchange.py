@@ -1,8 +1,11 @@
 r"""The exchange file: host tensors of an iDMRG/DMRG state, free of JAX.
 
-:class:`~tenpy_tpu_torch.algorithms.packed_dmrg.DeviceSweepEngine` starts
-from the tensors that ``tenpy_tpu``'s engine packs after its host-side setup
-(charge gauge, MPO charge rescale, environment initialisation):
+An exchange file carries a state (its B tensors, Schmidt values and
+canonical forms), which :func:`load_mps` reads into the port's
+:class:`~tenpy_tpu_torch.networks.mps.MPS`.  Files written by
+``tests/torch_exchange.py`` also hold what ``tenpy_tpu``'s engine packs
+after its host-side setup (charge gauge, MPO charge rescale, environment
+initialisation), as values to hold the port's own setup against:
 
 * ``B[i]``: the site tensors in B form, legs ``(vL, p, vR)``;
 * ``W[i]``: the MPO tensors, legs ``(wL, wR, p, p*)``;
@@ -21,19 +24,23 @@ under keys starting with ``ref.``.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..linalg.charges import ChargeInfo, LegCharge, QTYPE
-from ..linalg.host_array import HostArray
+from ..linalg.np_conserved import Array
+from .charge_gauge import apply_bond_charge_shift
+from .mps import MPS
 
 __all__ = ['ExchangeState', 'flatten_array', 'unflatten_array',
-           'state_to_flat', 'save_flat', 'load', 'load_flat']
+           'state_to_flat', 'save_flat', 'load', 'load_flat', 'load_mps']
 
 
 def flatten_array(prefix, a):
     """Flat dict of numpy arrays describing block-sparse array ``a``.
 
     ``a`` needs ``legs``, ``qtotal``, ``get_leg_labels()``, ``_qdata`` and
-    ``_data``: a :class:`HostArray`, or any array type with that layout."""
+    ``_data``: the port's :class:`~tenpy_tpu_torch.linalg.np_conserved.Array`,
+    or any array type with that layout (``tenpy_tpu``'s Array too)."""
     legs = a.legs
     blocks = [np.asarray(b) for b in a._data]
     dtype = np.result_type(*blocks) if blocks else np.dtype(np.float64)
@@ -53,7 +60,8 @@ def flatten_array(prefix, a):
 
 
 def unflatten_array(prefix, flat, chinfo):
-    """Inverse of :func:`flatten_array`: a :class:`HostArray`."""
+    """Inverse of :func:`flatten_array`: an
+    :class:`~tenpy_tpu_torch.linalg.np_conserved.Array` (CPU blocks)."""
     n_slices = flat[prefix + '.n_slices']
     slices_all = flat[prefix + '.slices']
     charges_all = flat[prefix + '.charges']
@@ -69,7 +77,7 @@ def unflatten_array(prefix, flat, chinfo):
         c0 += nc
     blocks_flat = flat[prefix + '.blocks']
     labels = [str(l) for l in flat[prefix + '.labels']]
-    res = HostArray(legs, blocks_flat.dtype, flat[prefix + '.qtotal'], labels)
+    res = Array(legs, blocks_flat.dtype, flat[prefix + '.qtotal'], labels)
     qdata = flat[prefix + '.qdata'].reshape(-1, len(legs))
     blocks = []
     off = 0
@@ -77,7 +85,8 @@ def unflatten_array(prefix, flat, chinfo):
         shape = tuple(int(l.slices[s + 1] - l.slices[s])
                       for l, s in zip(legs, row))
         size = int(np.prod(shape, dtype=np.int64))
-        blocks.append(blocks_flat[off:off + size].reshape(shape))
+        blocks.append(torch.from_numpy(
+            np.array(blocks_flat[off:off + size]).reshape(shape)))
         off += size
     if off != blocks_flat.size:
         raise ValueError(f"{prefix}: block data size mismatch")
@@ -170,3 +179,30 @@ def load_flat(path):
 def load(path):
     """Read an exchange file into an :class:`ExchangeState`."""
     return ExchangeState(load_flat(path))
+
+
+def load_mps(path_or_flat, sites):
+    """The state of an exchange file as an :class:`~tenpy_tpu_torch.networks.
+    mps.MPS` on ``sites`` (for example ``model.lat.mps_sites()``).
+
+    The file's tensors are in the uniform charge gauge of the engine that
+    wrote them; its stored gauge is inverted here, so the MPS carries the
+    charges of the sites' own frame.  A gauge with rescaled charge units
+    (``k != 1``) is not supported and raises."""
+    flat = path_or_flat if isinstance(path_or_flat, dict) \
+        else load_flat(path_or_flat)
+    st = ExchangeState(flat)
+    if len(sites) != st.L:
+        raise ValueError(f"{len(sites)} sites for a state of length {st.L}")
+    S = list(st.S)
+    if not st.finite:
+        S.append(S[0])
+    psi = MPS(sites, st.B, S, bc=st.bc, form=st.forms)
+    if st.gauge is not None:
+        if np.any(st.gauge['k'] != 1):
+            raise NotImplementedError("load_mps: rescaled charge units "
+                                      "(gauge k != 1) are not supported")
+        if any(np.any(o != 0) for o in st.gauge['o']):
+            apply_bond_charge_shift(psi, [-np.asarray(o) for o in
+                                          st.gauge['o']])
+    return psi

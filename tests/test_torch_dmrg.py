@@ -1,22 +1,29 @@
 """The whole slice: the port's DeviceSweepEngine against tenpy_tpu's.
 
-Both engines start from the same state: ``tests/torch_exchange.py`` runs
-the host half of tenpy_tpu's setup and hands the tensors to the port in
-memory.  Both use ``backend='svd'`` and the same options, and both keep the
-same subspace (the exact regime), so the sweep energies agree to 1e-10
-and the Schmidt values to 1e-8 (f64; LAPACK SVDs in both).
+Both engines start from the same state, a finite Fermi-Hubbard chain (L=6)
+ramped by tenpy_tpu's host DMRG: ``tests/torch_exchange.py`` carries its B
+and S over in the exchange format, and the port builds its own model, MPO
+and environments from them.  Both use ``backend='svd'`` and the same
+options, and both keep the same subspace (the exact regime: chi = 4**3),
+so the sweep energies agree to 1e-10 and the Schmidt values to 1e-8 (f64;
+LAPACK SVDs in both).
 """
 import numpy as np
 import pytest
 import torch
 
+from tenpy_tpu.algorithms import dmrg
+from tenpy_tpu.models.hubbard import FermiHubbardChain as JChain
+from tenpy_tpu.networks.mps import MPS as JMPS
 from tenpy_tpu_torch.algorithms.packed_dmrg import DeviceSweepEngine
+from tenpy_tpu_torch.models.hubbard import FermiHubbardChain
 from tenpy_tpu_torch.networks import exchange
 
 import torch_exchange as tx
-from test_packed_dmrg import _ramped_state
 
 torch.set_num_threads(1)
+
+CHAIN = {'L': 6, 'bc_MPS': 'finite', 't': 1., 'U': 4., 'mu': 0.}
 
 
 def _schmidt(S):
@@ -26,13 +33,19 @@ def _schmidt(S):
 
 @pytest.fixture(scope='module')
 def finite_case():
-    """S=1 Heisenberg chain, L=8, chi=96 >= 3^4 (exact), 3 sweeps."""
-    m, psi, _ = _ramped_state(L=8, chi=96, sweeps=3)
-    opts = {'chi_max': 96, 'svd_min': 1e-12, 'lanczos_K': 10, 'n_sweeps': 3,
+    """Hubbard chain, L=6, chi=64 = 4^3 (exact), 3 sweeps."""
+    m = JChain(dict(CHAIN))
+    psi = JMPS.from_product_state(m.lat.mps_sites(), ['up', 'down'] * 3)
+    dmrg.TwoSiteDMRGEngine(psi, m, {
+        'trunc_params': {'chi_max': 64, 'svd_min': 1e-12}, 'max_sweeps': 3,
+        'mixer': True}).run()
+    opts = {'chi_max': 64, 'svd_min': 1e-12, 'lanczos_K': 10, 'n_sweeps': 3,
             'multiple': 16, 'backend': 'svd', 'mixer': False}
     ref, jeng = tx.jax_reference(psi, m, opts, 3)
     flat = tx.export_flat(psi, m, opts)
-    eng = DeviceSweepEngine(exchange.ExchangeState(flat), opts, 'cpu')
+    pm = FermiHubbardChain(dict(CHAIN))
+    eng = DeviceSweepEngine(exchange.load_mps(flat, pm.lat.mps_sites()), pm,
+                            opts, 'cpu')
     eng.run()
     return ref, jeng, eng, flat
 
@@ -63,7 +76,7 @@ def test_exchange_file_roundtrip(finite_case, tmp_path):
         assert back[k].dtype == flat[k].dtype
         assert np.array_equal(back[k], flat[k])
     st = exchange.ExchangeState(back)
-    assert (st.bc, st.L, st.chi) == ('finite', 8, list(flat['meta.chi']))
+    assert (st.bc, st.L, st.chi) == ('finite', 6, list(flat['meta.chi']))
 
     out = eng.export_state()
     exchange.save_flat(tmp_path / 'out.npz', out)

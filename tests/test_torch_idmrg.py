@@ -2,9 +2,9 @@
 
 Fermi-Hubbard U=8 on the Ly=2, Lx=2 cylinder (the chi=256 chip workload's
 model, narrower), from a Neel product state, through the uniform charge
-gauge and ``uniform_capacity_layout``.  tenpy_tpu's engine and the port's
-run 3 sweeps (mixer on, then settle) with ``backend='svd'`` and the same
-options.
+gauge and ``uniform_capacity_layout``.  Each package builds its own model,
+product state and environments; tenpy_tpu's engine and the port's run 3
+sweeps (mixer on, then settle) with ``backend='svd'`` and the same options.
 
 There is no Schmidt gap at this chi: after the second sweep the cut falls
 inside near-degenerate multiplets, and which member survives is decided by
@@ -17,10 +17,11 @@ import numpy as np
 import pytest
 import torch
 
-from tenpy_tpu.models.hubbard import FermiHubbardModel
-from tenpy_tpu.networks.mps import MPS
+from tenpy_tpu.models.hubbard import FermiHubbardModel as JHubbard
+from tenpy_tpu.networks.mps import MPS as JMPS
 from tenpy_tpu_torch.algorithms.packed_dmrg import DeviceSweepEngine
-from tenpy_tpu_torch.networks import exchange
+from tenpy_tpu_torch.models.hubbard import FermiHubbardModel
+from tenpy_tpu_torch.networks.mps import MPS
 
 import torch_exchange as tx
 
@@ -28,25 +29,27 @@ torch.set_num_threads(1)
 
 OPTS = {'chi_max': 24, 'svd_min': 1e-10, 'lanczos_K': 10, 'n_sweeps': 3,
         'multiple': 16, 'backend': 'svd', 'cap_factor': 4., 'n_hops': 2}
+PARAMS = {'lattice': 'Square', 'Lx': 2, 'Ly': 2, 'bc_y': 'cylinder',
+          'bc_MPS': 'infinite', 't': 1., 'U': 8., 'mu': 0.}
+NEEL = ['up', 'down', 'down', 'up']
 
 
 @pytest.fixture(scope='module')
 def hubbard_case():
-    m = FermiHubbardModel({'lattice': 'Square', 'Lx': 2, 'Ly': 2,
-                           'bc_y': 'cylinder', 'bc_MPS': 'infinite',
-                           't': 1., 'U': 8., 'mu': 0.})
-    psi = MPS.from_product_state(m.lat.mps_sites(),
-                                 ['up', 'down', 'down', 'up'], bc='infinite')
+    m = JHubbard(dict(PARAMS))
+    psi = JMPS.from_product_state(m.lat.mps_sites(), NEEL, bc='infinite')
     ref, jeng = tx.jax_reference(psi, m, OPTS, 3)
-    state = exchange.ExchangeState(tx.export_flat(psi, m, OPTS))
-    eng = DeviceSweepEngine(state, OPTS, 'cpu')
+    pm = FermiHubbardModel(dict(PARAMS))
+    eng = DeviceSweepEngine(
+        MPS.from_product_state(pm.lat.mps_sites(), NEEL, bc='infinite'), pm,
+        OPTS, 'cpu')
     eng.run()
     return ref, jeng, eng
 
 
 def test_idmrg_uses_uniform_layout(hubbard_case):
     _, jeng, eng = hubbard_case
-    assert eng.state.gauge is not None
+    assert eng.gauge is not None
     assert len({id(b) for b in eng.bond}) == 1
     assert np.array_equal(eng.bond[0].slices, jeng.bond[0].slices)
     assert np.array_equal(eng.bond[0].charges, jeng.bond[0].charges)

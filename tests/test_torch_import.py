@@ -9,18 +9,33 @@ torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = ['tenpy_tpu_torch', 'tenpy_tpu_torch._build',
+           'tenpy_tpu_torch.tools.misc', 'tenpy_tpu_torch.tools.params',
            'tenpy_tpu_torch.linalg.charges',
-           'tenpy_tpu_torch.linalg.host_array',
+           'tenpy_tpu_torch.linalg.np_conserved',
+           'tenpy_tpu_torch.linalg.sparse',
+           'tenpy_tpu_torch.linalg.krylov_based',
            'tenpy_tpu_torch.linalg.padding',
            'tenpy_tpu_torch.linalg.grouped_gemm',
            'tenpy_tpu_torch.linalg.packed',
            'tenpy_tpu_torch.linalg.packed_split',
+           'tenpy_tpu_torch.networks.site',
+           'tenpy_tpu_torch.networks.charge_gauge',
+           'tenpy_tpu_torch.networks.terms',
+           'tenpy_tpu_torch.networks.mps',
+           'tenpy_tpu_torch.networks.mpo',
+           'tenpy_tpu_torch.networks.mpo_env_builder',
+           'tenpy_tpu_torch.networks.exchange',
+           'tenpy_tpu_torch.models.lattice',
+           'tenpy_tpu_torch.models.model',
+           'tenpy_tpu_torch.models.hubbard',
            'tenpy_tpu_torch.algorithms.mps_common',
            'tenpy_tpu_torch.algorithms.packed_dmrg',
-           'tenpy_tpu_torch.networks.exchange']
+           'chip_smoke', 'profile_torch_sweep']
 
 
 def test_port_imports_no_jax():
+    """Every module of the port, the chip smoke and the profiler import
+    neither JAX nor tenpy_tpu."""
     code = ("import importlib, sys\n"
             f"for m in {MODULES!r}:\n"
             "    importlib.import_module(m)\n"
