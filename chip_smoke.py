@@ -23,11 +23,18 @@ Phases (any failure exits nonzero):
 5. the main path: ``FermiHubbardModel``, the MPS of the exchange file and
    ``DeviceSweepEngine(psi, model, OPTIONS, 'cuda')``; its host setup (W,
    charge gauge, environments) held to the file's JAX values, then
-   ``run()``, 3 sweeps, with the kernel's launches per sweep held to the
-   tensordots run and the energies to JAX's;
+   ``E, psi = run()``, 3 sweeps, with the kernel's launches per sweep held
+   to the tensordots run and the energies to JAX's; then the write-back
+   into the caller's MPS (seconds of the move to the host and of
+   ``canonical_form``, ``norm_test`` before and after) and what a user
+   measures on it (TM energy, entropies, ``Ntot``, ``Sz``, correlation
+   length, each timed), held to the JAX package's write-back of the same
+   run (``tests/benchmark_data/hubbard_write_back_reference.npz``);
 6. the ramp: ``device_ramp`` from the Neel product state to chi=256, with
    per-stage times, launches and energies per site, held to the committed
-   chi=256 state's energy per site;
+   chi=256 state's energy per site; its last stage, and only it, writes
+   back: ``norm_test`` after the re-gauge, the TM energy against the
+   ramp's own sweep estimate, the cell's total ``Ntot`` and ``Sz``;
 then a JSON line on the kernels and, last, ``{"ok": true, "device": ...}``.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.
@@ -56,6 +63,8 @@ from tenpy_tpu_torch.networks.mps import MPS
 ROOT = os.path.dirname(os.path.abspath(__file__))
 STATE = os.path.join(ROOT, 'tests', 'benchmark_data',
                      'hubbard_cyl_chi256_exchange.npz')
+WRITE_BACK_REF = os.path.join(ROOT, 'tests', 'benchmark_data',
+                              'hubbard_write_back_reference.npz')
 # the options of the JAX reference stored in the exchange file (checked);
 # the seam cap of 60 makes the wrap updates converge (tests/torch_exchange.py)
 OPTIONS = {'chi_max': 256, 'svd_min': 1e-10, 'lanczos_K': 10,
@@ -76,6 +85,15 @@ RAMP_OPTIONS = {'chi_max': 256, 'svd_min': 1e-10, 'lanczos_K': 10,
 # unconverged remainder
 E_SITE_REF = -0.5241574
 E_SITE_TOL = 5e-4
+# the chi=256 write-back against the JAX package's write-back of the same
+# run: sorted Schmidt values per bond and entropies (absolute), the TM
+# energy per site and the correlation length (relative).  Measured on an
+# H100 (PERF.md): 7.5e-8, 1.8e-7, 3.9e-11 (GMRES against JAX's Arnoldi) and
+# 2.5e-4 (Arnoldi with N_max=20 for the subleading eigenvalue, in both)
+WB_TOL = {'S': 3e-7, 'tm_E': 1e-9, 'entropy': 5e-7, 'xi': 1e-3}
+# the unit cell's total charges, exact under charge conservation: N = 8 at
+# half filling, Sz = 0 (Neel)
+CELL_N, CELL_TOL = 8., 1e-10
 # the environments: JAX's come from its Arnoldi route, the port's from its
 # GMRES builder (tests/test_torch_ramp.py measures 8.6e-13 on the CPU)
 ENV_TOL = 1e-10
@@ -580,13 +598,15 @@ def phase_main(eng, ref):
     gg.LAUNCHES = 0                    # count the main path's launches only
     try:
         t0 = time.time()
-        eng.run()
+        E, psi = eng.run()
         torch.cuda.synchronize()
         wall = time.time() - t0
     finally:
         restore()
     launches = gg.LAUNCHES
     st = eng.sweep_stats
+    check(psi is eng.psi and E == st['E'][-1],
+          "run() did not return (E, the caller's MPS)")
     for i in range(len(st['E'])):
         log(f"[5] sweep {i + 1} ({st['mode'][i]}): {st['time'][i]:.2f} s "
             f"E={st['E'][i]:.12f} max_err={st['max_err'][i]:.3e} "
@@ -594,7 +614,8 @@ def phase_main(eng, ref):
             f"flops_exec={st['flops_exec'][i]:.4e} "
             f"launches={per_sweep[i][0]} tensordots={per_sweep[i][1]} "
             f"max_memory_allocated={per_sweep[i][2] / 2**30:.3f} GiB")
-    log(f"[5] run() wall {wall:.2f} s, kernel launches {launches}")
+    log(f"[5] run() wall {wall:.2f} s (sweeps {sum(st['time']):.2f} s, "
+        f"then the write-back), kernel launches {launches}")
     check(launches > 0, "the main path never launched the kernel")
     check(all(n == c for n, c, _ in per_sweep),
           "kernel launches per sweep differ from the tensordots run")
@@ -620,12 +641,112 @@ def phase_main(eng, ref):
     return launches
 
 
+def measure(psi, H):
+    """What a user measures on a written-back iMPS, with the host seconds
+    of each: the TM energy per site, the entanglement entropies, ``Ntot``
+    and ``Sz`` per site, the correlation length and ``norm_test``."""
+    out, sec = {}, {}
+    for key, fn in [('tm_E', lambda: float(H.expectation_value(psi))),
+                    ('entropy', psi.entanglement_entropy),
+                    ('Ntot', lambda: psi.expectation_value('Ntot')),
+                    ('Sz', lambda: psi.expectation_value('Sz')),
+                    ('xi', psi.correlation_length),
+                    ('norm_test', lambda: float(np.max(psi.norm_test())))]:
+        t = time.time()
+        out[key] = fn()
+        sec[key] = time.time() - t
+    return out, sec
+
+
+def check_written_back(eng, sites, tag):
+    """The engine wrote its state into the caller's MPS: the caller's Site
+    objects and charge frame, re-gauged; logs the write-back's seconds and
+    ``norm_test``, measures the state and checks the cell's charges.
+    Returns the measurements."""
+    psi, st = eng.psi, eng.write_back_stats
+    log(f"[{tag}] write-back: move to the host and gauge inversion "
+        f"{st['unpack_s']:.3f} s, canonical_form "
+        f"{st.get('canonical_form_s', 0.):.3f} s; norm_test before "
+        f"{st['norm_test_before']:.3e}, after {st['norm_test_after']:.3e}")
+    check(all(a is b for a, b in zip(psi.sites, sites)),
+          "the caller's Site objects were not restored")
+    for i, site in enumerate(sites):
+        p = psi.get_B(i, None).get_leg('p')
+        check(np.array_equal(p.charges, site.leg.charges)
+              and p.qconj == site.leg.qconj,
+              f"site {i}: the physical leg is not in the caller's frame")
+    got, sec = measure(psi, eng.model.H_MPO)
+    log(f"[{tag}] measurements: TM energy {sec['tm_E']:.3f} s, entropies "
+        f"{sec['entropy']:.4f} s, Ntot {sec['Ntot']:.4f} s, Sz "
+        f"{sec['Sz']:.4f} s, correlation length {sec['xi']:.3f} s, "
+        f"norm_test {sec['norm_test']:.3f} s")
+    n_tot, sz_tot = float(np.sum(got['Ntot'])), float(np.sum(got['Sz']))
+    log(f"[{tag}] TM energy per site {got['tm_E']!r}, correlation length "
+        f"{got['xi']!r}, entropies "
+        + ' '.join(f'{x:.10f}' for x in got['entropy'])
+        + f"; cell Ntot {n_tot!r}, Sz {sz_tot!r}, bonds chi {psi.chi}")
+    check(got['norm_test'] <= 1e-10 and st['norm_test_after'] <= 1e-10,
+          "the written-back state is not canonical")
+    check(abs(n_tot - CELL_N) <= CELL_TOL and abs(sz_tot) <= CELL_TOL,
+          "the cell's total N or Sz moved")
+    check(all(np.isfinite(got[k]).all() for k in got),
+          "non-finite measurement")
+    return got
+
+
+def phase_write_back(eng, sites, wb):
+    """Phase 5's write-back held to the JAX package's of the same run."""
+    got = check_written_back(eng, sites, 5)
+    psi = eng.psi
+    log(f"[5] JAX write-back: norm_test before "
+        f"{float(wb['norm_test_before'][0]):.3e}, after "
+        f"{float(wb['norm_test_after']):.3e}, canonical_form "
+        f"{float(wb['canonical_form_s'][0]):.3f} s (CPU); rescue log: "
+        f"{str(wb['cf_log'][0])!r}")
+    for i, (e, e_ref) in enumerate(zip(eng.sweep_stats['E'],
+                                       wb['sweep_E'])):
+        rel = abs(e - e_ref) / abs(e_ref)
+        log(f"[5] sweep {i + 1} E {e:.12f} vs JAX's write-back run "
+            f"{e_ref:.12f}: rel {rel:.2e}")
+        check(rel <= 1e-6, f"sweep {i + 1} energy disagrees with JAX")
+    errs = {'S': 0., 'entropy': float(np.abs(got['entropy']
+                                              - wb['entropy']).max()),
+            'tm_E': abs(got['tm_E'] - float(wb['tm_E']))
+            / abs(float(wb['tm_E'])),
+            'xi': abs(got['xi'] - float(wb['xi'])) / float(wb['xi'])}
+    for i in range(psi.L):
+        S = np.sort(np.asarray(psi.get_SL(i)))[::-1]
+        ref = wb[f'S.{i}']
+        check(len(S) == len(ref), f"bond {i}: {len(S)} Schmidt values, "
+              f"JAX {len(ref)}")
+        errs['S'] = max(errs['S'], float(np.abs(S - ref).max()))
+    log(f"[5] write-back vs JAX: Schmidt values max abs "
+        f"{errs['S']:.2e}, TM energy rel {errs['tm_E']:.2e} "
+        f"({got['tm_E']!r} vs {float(wb['tm_E'])!r}), entropies max abs "
+        f"{errs['entropy']:.2e}, correlation length rel {errs['xi']:.2e} "
+        f"({got['xi']!r} vs {float(wb['xi'])!r}), Ntot max abs "
+        f"{float(np.abs(got['Ntot'] - wb['Ntot']).max()):.2e}, Sz max abs "
+        f"{float(np.abs(got['Sz'] - wb['Sz']).max()):.2e}")
+    for k, tol in WB_TOL.items():
+        check(errs[k] <= tol, f"write-back {k} differs from JAX's: "
+              f"{errs[k]:.2e} > {tol:.0e}")
+
+
 def phase_ramp():
     """``device_ramp`` from the Neel product state to chi=256."""
     model = FermiHubbardModel(dict(MODEL))
     psi = MPS.from_product_state(model.lat.mps_sites(), NEEL, bc='infinite')
     n_sites = 2 * model.lat.N_sites          # sites added per iDMRG sweep
+    sites = list(psi.sites)
     per_sweep, restore = counting()
+    write_backs = []
+    orig_write_back = DeviceSweepEngine.write_back
+
+    def counted_write_back(self):
+        write_backs.append(self)
+        return orig_write_back(self)
+
+    DeviceSweepEngine.write_back = counted_write_back
     gg.LAUNCHES = 0                    # count the ramp's launches only
     try:
         t0 = time.time()
@@ -634,6 +755,7 @@ def phase_ramp():
         wall = time.time() - t0
     finally:
         restore()
+        DeviceSweepEngine.write_back = orig_write_back
     launches = gg.LAUNCHES
     st = eng.sweep_stats
     check(len(per_sweep) == len(st['E']), "sweeps counted twice or missed")
@@ -679,6 +801,16 @@ def phase_ramp():
     check(abs(e_fin - E_SITE_REF) <= E_SITE_TOL,
           "ramp energy per site far from the committed state's")
     check(E_SITE_TOL < gap, "the tolerance does not resolve chi=128 -> 256")
+    check(len(write_backs) == 1 and write_backs[0] is eng
+          and eng.psi is psi, "the ramp did not write back once, at its "
+          "last stage, into the caller's MPS")
+    got = check_written_back(eng, sites, 6)
+    d = got['tm_E'] - e_fin
+    log(f"[6] TM energy of the written-back state {got['tm_E']:.10f}, the "
+        f"ramp's sweep estimate {e_fin:.10f}: diff {d:+.3e} (tolerance "
+        f"{E_SITE_TOL:.1e})")
+    check(abs(d) <= E_SITE_TOL,
+          "TM energy of the written-back ramp state far from its sweeps'")
 
 
 def main():
@@ -694,10 +826,17 @@ def main():
     e_site_ref = (ref['sweep_E'][-1] - ref['sweep_E'][-2]) / 16
     check(abs(e_site_ref - E_SITE_REF) < 1e-7,
           f"committed energy per site {e_site_ref} is not {E_SITE_REF}")
+    wb = {k[len('chi256.'):]: v
+          for k, v in exchange.load_flat(WRITE_BACK_REF).items()
+          if k.startswith('chi256.')}
+    if json.loads(str(wb['options'])) != OPTIONS:
+        raise RuntimeError("write-back reference options differ")
     eng = phase_setup(flat)
+    sites = list(eng.psi.sites)
     check_setup(eng, state)
     mv = phase_matvec(eng)
     launches = phase_main(eng, ref)
+    phase_write_back(eng, sites, wb)
     phase_ramp()
     log(f"[7] kernel max_abs_err: synthetic f64 {max_abs_synth:.2e}, "
         f"main-path shapes {mv['max_abs']:.2e}")

@@ -22,10 +22,13 @@ model (its ``H_MPO``): the host half of the setup (charge gauge, MPO
 charge rescale, environments from
 :meth:`~tenpy_tpu_torch.networks.mpo.MPOTransferMatrix.find_init_LP_RP`)
 runs on the host :class:`~tenpy_tpu_torch.linalg.np_conserved.Array` s and
-is then packed onto the device.  The engine works on a copy of ``psi`` and
-leaves the caller's MPS as it found it; :meth:`DeviceSweepEngine.
-export_state` returns the state in the exchange format.  ``tenpy_tpu``'s
-``write_back`` (which ends in ``MPS.canonical_form``) is not ported.
+is then packed onto the device.  The engine sweeps a gauged copy of
+``psi``; :meth:`DeviceSweepEngine.run` ends in
+:meth:`DeviceSweepEngine.write_back`, which moves the state to the host
+once and writes it into the caller's MPS, in the caller's charge frame and
+with its ``Site`` objects, and for infinite bc re-gauges it with
+``MPS.canonical_form``.  :meth:`DeviceSweepEngine.export_state` returns the
+state in the exchange format instead.
 Finite and infinite (iDMRG) bc; the ``mixer`` option is the subspace
 expansion of :func:`~tenpy_tpu_torch.linalg.packed_split.split_truncate`.
 """
@@ -43,8 +46,8 @@ from ..linalg import packed_split as ps
 from ..linalg.charges import QTYPE, LegCharge
 from ..linalg.padding import bucket_size, embed_array, pad_leg
 from ..networks import exchange
-from ..networks.charge_gauge import scale_mpo_charges, \
-    uniformize_charge_gauge
+from ..networks.charge_gauge import apply_bond_charge_shift, \
+    scale_mpo_charges, scale_psi_charges, uniformize_charge_gauge
 from ..networks.mpo import MPOEnvironment, MPOTransferMatrix
 from .mps_common import _lanczos_K_2site_packed_impl, BUCKET_MULTIPLE
 
@@ -125,7 +128,9 @@ def device_ramp(psi, model, options, device='cuda'):
     Returns the last stage's engine, with the sweep statistics of all
     stages in ``sweep_stats`` and one entry per stage in ``stages``
     (``chi``, ``n_sweeps``, ``first_sweep``, ``setup_s``: the host seconds
-    of the stage's engine construction).  ``psi`` is left as it was.
+    of the stage's engine construction).  Only the last stage writes its
+    state back into ``psi`` (:meth:`DeviceSweepEngine.write_back`); the
+    stages before it hand theirs on on the device.
     """
     opts = dict(options)
     chi_max = int(opts.pop('chi_max', max(psi.chi)))
@@ -170,6 +175,7 @@ def device_ramp(psi, model, options, device='cuda'):
                           'first_sweep': len(all_stats['E'])
                           if all_stats else 0,
                           'setup_s': time.time() - t0})
+        eng._write_back_on_run = last
         eng.run()
         if all_stats is None:
             all_stats = {k2: list(v) for k2, v in eng.sweep_stats.items()}
@@ -187,7 +193,7 @@ def _bond0_transition(A_old, A_new):
     The leftward wrap update rewrites bond 0; its input and output
     ``A[L-1]`` share their ``vL`` basis, so
     ``M0[a, b] = sum_{vL,p} A_old[vL,p,a] A_new[vL,p,b]`` is the transition
-    between the old and new bond-0 bases (used by :meth:`export_state`)."""
+    between the old and new bond-0 bases (used by :meth:`_host_state`)."""
     return pk.tensordot(A_old.conj(), A_new, axes=(['vL*', 'p*'], ['vL', 'p']))
 
 
@@ -310,8 +316,8 @@ class DeviceSweepEngine:
     Parameters
     ----------
     psi : :class:`~tenpy_tpu_torch.networks.mps.MPS`
-        Finite or infinite MPS in canonical form; the engine works on a
-        copy.
+        Finite or infinite MPS in canonical form; the engine sweeps a copy
+        and :meth:`run` writes the result back into ``psi``.
     model : :class:`~tenpy_tpu_torch.models.model.MPOModel`
         Its ``H_MPO`` is the Hamiltonian.
     options : dict
@@ -333,7 +339,8 @@ class DeviceSweepEngine:
         packed tensordot is one launch of the CUDA kernel; raises where
         there is no card.  ``'cpu'`` runs the kernels' plain versions.
 
-    ``setup_seconds`` holds the host time of the setup's parts.
+    ``setup_seconds`` holds the host time of the setup's parts,
+    ``write_back_stats`` the last write-back's seconds and ``norm_test``.
     """
 
     def __init__(self, psi, model, options=None, device='cuda',
@@ -382,7 +389,9 @@ class DeviceSweepEngine:
         self._cur_expand = self.mixer
         self._C = None            # center-matrix carry (site of last update)
         self._M0 = None           # bond-0 basis transition (iDMRG seam)
+        self._write_back_on_run = True
         self.setup_seconds = {}
+        self.write_back_stats = {}
         if _regrow_from is None:
             self._setup()
         else:
@@ -664,8 +673,9 @@ class DeviceSweepEngine:
 
     def run(self):
         """Expansion sweeps (mixer) -> settle sweeps (expansion off) ->
-        polish sweeps (full f64); returns the last sweep's energy.  ``psi``
-        stays as it was: :meth:`export_state` returns the new state."""
+        polish sweeps (full f64), then :meth:`write_back`; returns
+        ``(E, psi)``, the last sweep's energy and the caller's MPS holding
+        the new state."""
         E_prev = None
         n_p = min(self.polish_sweeps, self.n_sweeps)
         n_settle = (min(self.settle_sweeps, self.n_sweeps - n_p)
@@ -704,17 +714,19 @@ class DeviceSweepEngine:
             logger.info("final sweep max_err %.2e is an outlier (median "
                         "%.2e); healing with an extra sweep", errs[-1], med)
             self._record(*self._timed_sweep())
-        return self.sweep_stats['E'][-1]
+        if self._write_back_on_run:
+            self.write_back()
+        return self.sweep_stats['E'][-1], self.psi
 
-    # -------------------------------------------------------------- export
-    def export_state(self):
-        """The current state in the exchange format (a flat dict).
-
-        B/S host arrays pruned to the nonzero Schmidt values; after a
-        completed sweep site 0 is written in A form (for infinite bc rotated
-        by the bond-0 transition of the last sweep), as ``tenpy_tpu``'s
-        ``write_back`` does.  The charges stay in the engine's (gauged)
-        frame; the stored gauge info inverts it.  No MPO or environments."""
+    # ---------------------------------------------------------- write-back
+    def _host_state(self):
+        """The device state on the host, in the engine's charge frame:
+        ``(Bs, forms, Ss)``, pruned to the nonzero Schmidt values.  After a
+        completed sweep site 0 is in A form: for finite bc the last update's
+        A, for infinite bc that A rotated by the bond-0 transition of the
+        last sweep, into the basis of ``S[0]`` and ``B[L-1]``'s vR (the
+        stored ``B[0]`` is one generation stale on its vR); the other sites
+        are in B form."""
         L = self.L
         Ss = [s.cpu().numpy() for s in self.Sp]
         keeps = []
@@ -739,8 +751,62 @@ class DeviceSweepEngine:
             T.iproject(keeps[i + 1 if self.finite else (i + 1) % L], 'vR')
             Bs.append(T)
             forms.append(form)
+        return Bs, forms, [S[k] for S, k in zip(Ss, keeps)]
+
+    def write_back(self):
+        """Write the device state into the caller's MPS ``self.psi``.
+
+        One move to the host (:meth:`_host_state`); then the charge gauge
+        of the setup is undone (bond charge shift, charge-unit rescale), so
+        ``psi`` has the caller's charge frame and ``Site`` objects.  For
+        infinite bc the unit-cell wrap leaves a seam drift at the truncation
+        scale (``norm_test`` about 5x the per-update truncation error, not
+        decaying with sweeps); where ``max(norm_test) > 1e-12``, ``psi`` is
+        re-gauged with ``MPS.canonical_form``, as the reference's
+        ``post_run_cleanup`` does: a gauge choice that changes the physics
+        only at the truncation scale.  ``write_back_stats`` gets the
+        seconds of the move (``unpack_s``) and of the re-gauge
+        (``canonical_form_s``) and ``norm_test`` before and after it."""
+        psi, L = self.psi, self.L
+        if self.device.type == 'cuda':
+            torch.cuda.synchronize(self.device)
+        t0 = time.time()
+        Bs, forms, Ss = self._host_state()
+        sites = list(psi.sites)
+        for i in range(L):
+            psi.set_B(i, Bs[i], form=forms[i])
+        for i in range(self.n_bonds):
+            if self.finite and i == self.n_bonds - 1:
+                psi.set_SR(L - 1, Ss[i])
+            else:
+                psi.set_SL(i, Ss[i])
+        if self.gauge is not None:
+            # a relabelling of the charges only: no block changes
+            if any(np.any(o != 0) for o in self.gauge['o']):
+                apply_bond_charge_shift(psi, [-o for o in self.gauge['o']])
+            scale_psi_charges(psi, self.gauge['k'], div=True)
+            psi.sites = sites
+        st = {'unpack_s': time.time() - t0}
+        if not self.finite:
+            st['norm_test_before'] = float(np.max(psi.norm_test()))
+            if st['norm_test_before'] > 1e-12:
+                logger.info("write_back: norm_test=%.2e (seam drift at the "
+                            "truncation scale); re-gauging",
+                            st['norm_test_before'])
+                t1 = time.time()
+                psi.canonical_form()
+                st['canonical_form_s'] = time.time() - t1
+            st['norm_test_after'] = float(np.max(psi.norm_test()))
+        self.write_back_stats = st
+
+    def export_state(self):
+        """The current state in the exchange format (a flat dict): the
+        host tensors of :meth:`_host_state`, in the engine's (gauged)
+        charge frame; the stored gauge info inverts it.  No MPO or
+        environments."""
+        Bs, forms, Ss = self._host_state()
         chi = [Bs[i].get_leg('vR').ind_len
-               for i in range(L - 1 if self.finite else L)]
+               for i in range(self.L - 1 if self.finite else self.L)]
         return exchange.state_to_flat(
-            self.psi.bc, chi, Bs, None, [S[k] for S, k in zip(Ss, keeps)],
-            None, None, self.psi.chinfo, gauge=self.gauge, forms=forms)
+            self.psi.bc, chi, Bs, None, Ss, None, None, self.psi.chinfo,
+            gauge=self.gauge, forms=forms)

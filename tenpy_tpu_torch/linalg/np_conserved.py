@@ -1,10 +1,12 @@
 r"""Charge-conserving block-sparse host tensors: :class:`Array` and friends.
 
-Port of the part of ``tenpy_tpu/linalg/np_conserved.py`` that the host setup
+Port of the part of ``tenpy_tpu/linalg/np_conserved.py`` that the host side
 of the sweep engine runs: site operators, MPO construction, MPS tensors,
-environments and their GMRES initialisation.  An :class:`Array` holds its
-charge structure (legs, ``qtotal``, labels, the block rows ``_qdata``) in
-numpy and one CPU ``torch`` tensor per stored charge block in ``_data``.
+environments and their initialisation, and the write-back's canonical form
+and measurements (``svd``, ``qr``/``lq``, ``eigh``).  An :class:`Array`
+holds its charge structure (legs, ``qtotal``, labels, the block rows
+``_qdata``) in numpy and one CPU ``torch`` tensor per stored charge block
+in ``_data``.
 It is also what :func:`~tenpy_tpu_torch.linalg.packed.pack` takes and
 :func:`~tenpy_tpu_torch.linalg.packed.unpack` returns.
 
@@ -23,9 +25,9 @@ import torch
 
 from .charges import QTYPE, LegCharge, LegPipe
 
-__all__ = ['Array', 'zeros', 'diag', 'outer', 'inner', 'tensordot',
-           'grid_outer', 'norm', 'qr', 'lq', 'detect_qtotal', 'conj_label',
-           'as_dtype', 'result_type']
+__all__ = ['Array', 'zeros', 'eye_like', 'diag', 'outer', 'inner',
+           'tensordot', 'grid_outer', 'norm', 'svd', 'qr', 'lq', 'eigh',
+           'detect_qtotal', 'conj_label', 'as_dtype', 'result_type']
 
 _NP_TO_TORCH = {np.dtype(np.float64): torch.float64,
                 np.dtype(np.float32): torch.float32,
@@ -565,6 +567,13 @@ def zeros(legcharges, dtype=torch.float64, qtotal=None, labels=None):
     return Array(legcharges, dtype, qtotal, labels)
 
 
+def eye_like(a, axis=0, labels=None):
+    """Identity with legs ``[leg, leg.conj()]``, ``leg`` the leg ``axis``
+    of ``a`` (or ``a`` itself if it is a leg)."""
+    leg = a.legs[a.get_leg_index(axis)] if isinstance(a, Array) else a
+    return diag(1., leg, labels=labels)
+
+
 def diag(s, leg, dtype=None, labels=None):
     """Square diagonal Array with legs ``[leg, leg.conj()]``; ``s`` is a
     scalar or a vector of length ``leg.ind_len``."""
@@ -919,6 +928,159 @@ def _split_combined_label(lab):
 
 
 # ------------------------------------------------------------ decompositions
+def _split_qtotal(chinfo, qtotal, qtotal_LR):
+    """``(qL, qR)`` adding up to ``qtotal``; by default ``qL`` is zero."""
+    q_full = np.array(qtotal, QTYPE)
+    qL, qR = qtotal_LR
+    if qL is None and qR is None:
+        qL = chinfo.make_valid()
+    elif qL is None:
+        qL = chinfo.make_valid(q_full - chinfo.make_valid(qR))
+    return chinfo.make_valid(qL), chinfo.make_valid(q_full
+                                                    - chinfo.make_valid(qL))
+
+
+def svd(a, compute_uv=True, cutoff=None, qtotal_LR=(None, None),
+        inner_labels=(None, None)):
+    """Blockwise SVD of a 2-leg Array: ``a = U @ diag(S) @ VH``.
+
+    ``S`` is a numpy vector along the new inner leg; with ``cutoff`` the
+    singular values at or below it are dropped.  Blocks that share a row or
+    column sector (legs with repeated charges) are decomposed together, as
+    connected components of the (row, column) sector graph.  ``qtotal_LR``
+    splits ``a``'s charge between U and VH (default all on VH)."""
+    if a.rank != 2:
+        raise ValueError("svd needs a 2-leg array; combine_legs first")
+    if a.stored_blocks == 0:
+        raise ValueError("svd of array with no blocks")
+    chinfo = a.chinfo
+    qL, qR = _split_qtotal(chinfo, a.qtotal, qtotal_LR)
+    blocks_u, blocks_vh, blocks_s, inner_charges = [], [], [], []
+    for rows, cols, idxs in _matrix_block_components(a):
+        row_off = np.concatenate([[0], np.cumsum(
+            [int(a.legs[0].slices[r + 1] - a.legs[0].slices[r])
+             for r in rows])])
+        col_off = np.concatenate([[0], np.cumsum(
+            [int(a.legs[1].slices[c + 1] - a.legs[1].slices[c])
+             for c in cols])])
+        if len(idxs) == 1 and len(rows) == 1 and len(cols) == 1:
+            sub = a._data[idxs[0]]
+        else:
+            sub = torch.zeros((int(row_off[-1]), int(col_off[-1])),
+                              dtype=a.dtype)
+            rpos = {r: k for k, r in enumerate(rows)}
+            cpos = {c: k for k, c in enumerate(cols)}
+            for bi in idxs:
+                r, c = int(a._qdata[bi][0]), int(a._qdata[bi][1])
+                sub[int(row_off[rpos[r]]):int(row_off[rpos[r] + 1]),
+                    int(col_off[cpos[c]]):int(col_off[cpos[c] + 1])] = \
+                    a._data[bi]
+        u, s, vh = _robust_svd(sub)
+        if cutoff is not None:
+            keep = np.nonzero(s.numpy() > cutoff)[0]
+            if len(keep) < len(s):
+                if len(keep) == 0:
+                    continue
+                keep = torch.from_numpy(keep)
+                u, s, vh = u[:, keep], s[keep], vh[keep, :]
+        # the inner charge follows from the first row sector
+        q_row = a.legs[0].charges[rows[0]] * a.legs[0].qconj
+        inner = len(inner_charges)
+        inner_charges.append(chinfo.make_valid(q_row - qL))
+        blocks_s.append(s)
+        for kr, r in enumerate(rows):
+            blocks_u.append((r, inner,
+                             u[int(row_off[kr]):int(row_off[kr + 1]), :]))
+        for kc, c in enumerate(cols):
+            blocks_vh.append((inner, c,
+                              vh[:, int(col_off[kc]):int(col_off[kc + 1])]))
+    S = torch.cat(blocks_s).numpy() if blocks_s else np.zeros(0)
+    if not compute_uv:
+        return S
+    leg_R = LegCharge(chinfo,
+                      np.concatenate([[0], np.cumsum([len(s) for s in
+                                                      blocks_s])]),
+                      np.array(inner_charges, QTYPE).reshape(
+                          len(inner_charges), chinfo.qnumber),
+                      +1)       # the inner leg of VH; U has its conj
+    U = Array([a.legs[0], leg_R.conj()], a.dtype, qL,
+              [a._labels[0], inner_labels[0]])
+    VH = Array([leg_R, a.legs[1]], a.dtype, qR,
+               [inner_labels[1], a._labels[1]])
+    U._set_blocks(np.array([(r, i) for r, i, _ in blocks_u], QTYPE).reshape(
+        len(blocks_u), 2), [b for _, _, b in blocks_u])
+    VH._set_blocks(np.array([(i, c) for i, c, _ in blocks_vh], QTYPE).reshape(
+        len(blocks_vh), 2), [b for _, _, b in blocks_vh])
+    return U, S, VH
+
+
+def _matrix_block_components(a):
+    """``(rows, cols, block_indices)`` of each connected component of the
+    stored blocks of 2-leg ``a`` (rows and cols sorted)."""
+    parent = {}
+
+    def find(x):
+        while parent[x] != x:
+            parent[x] = parent[parent[x]]
+            x = parent[x]
+        return x
+
+    for row in a._qdata:
+        r, c = ('r', int(row[0])), ('c', int(row[1]))
+        parent.setdefault(r, r)
+        parent.setdefault(c, c)
+        rr, rc = find(r), find(c)
+        if rr != rc:
+            parent[rr] = rc
+    comps = {}
+    for bi, row in enumerate(a._qdata):
+        comp = comps.setdefault(find(('r', int(row[0]))), [set(), set(), []])
+        comp[0].add(int(row[0]))
+        comp[1].add(int(row[1]))
+        comp[2].append(bi)
+    return [(sorted(rows), sorted(cols), idxs)
+            for rows, cols, idxs in comps.values()]
+
+
+def _robust_svd(block):
+    """``torch.linalg.svd`` (LAPACK gesdd); where it fails or returns NaN,
+    scipy's gesvd."""
+    try:
+        u, s, vh = torch.linalg.svd(block, full_matrices=False)
+        if not torch.isnan(s).any():
+            return u, s, vh
+    except torch.linalg.LinAlgError:
+        pass
+    import scipy.linalg
+    u, s, vh = scipy.linalg.svd(block.numpy(), full_matrices=False,
+                                lapack_driver='gesvd')
+    return torch.from_numpy(u), torch.from_numpy(s), torch.from_numpy(vh)
+
+
+def eigh(a):
+    """Blockwise hermitian eigendecomposition of a square 2-leg Array of
+    zero charge: ``(W, V)`` with ``W`` a numpy vector along leg 0 (each
+    sector's eigenvalues ascending) and ``V`` an Array with legs
+    ``[a.legs[0], a.legs[0].conj()]``; a sector without a stored block has
+    ``W = 0`` and ``V = 1``."""
+    if a.rank != 2:
+        raise ValueError("need 2-leg array")
+    a.legs[0].test_contractible(a.legs[1])
+    if any(q != 0 for q in a.qtotal):
+        raise ValueError("eigh requires qtotal=0")
+    leg = a.legs[0]
+    W = np.zeros(leg.ind_len)
+    V = diag(1., leg, dtype=a.dtype)
+    v_rows = {tuple(r): i for i, r in enumerate(V._qdata)}
+    for row, block in zip(a._qdata, a._data):
+        if row[0] != row[1]:
+            raise ValueError("off-diagonal block in eigh")
+        w, v = torch.linalg.eigh(block)
+        W[leg.get_slice(int(row[0]))] = w.numpy()
+        V._data[v_rows[(int(row[0]), int(row[0]))]] = v
+    return W, V
+
+
 def qr(a, inner_labels=(None, None), pos_diag_R=False, qtotal_Q=None,
        inner_qconj=+1):
     """Blockwise QR of a 2-leg Array (reduced): ``a = Q @ R``; ``qtotal_Q``

@@ -1,14 +1,15 @@
 r"""Matrix product operators: MPO, the MPOGraph compiler, MPO environments.
 
 Port of the part of ``tenpy_tpu/networks/mpo.py`` that the sweep engine's
-host setup runs: :class:`MPO` with :meth:`MPO.from_grids`, the
-:class:`MPOGraph` compiler of a model's terms, :class:`MPOEnvironment` and
-the converged infinite-bc environments of
-:meth:`MPOTransferMatrix.find_init_LP_RP` by its ``method='auto'`` route
-(the channel-wise GMRES construction of
-:mod:`~tenpy_tpu_torch.networks.mpo_env_builder`).  Its fallback, the
-Arnoldi eigensolver over a ``FlatLinearOperator``, is not ported and
-raises.
+host side runs: :class:`MPO` with :meth:`MPO.from_grids` and
+:meth:`MPO.expectation_value`, the :class:`MPOGraph` compiler of a model's
+terms, :class:`MPOEnvironment` with ``full_contraction``, and
+:class:`MPOTransferMatrix`: the converged infinite-bc environments of
+:meth:`MPOTransferMatrix.find_init_LP_RP`, by the channel-wise GMRES
+construction of :mod:`~tenpy_tpu_torch.networks.mpo_env_builder`
+(``method='auto'``) or by the Arnoldi eigensolver of the transfer matrix
+over a :class:`~tenpy_tpu_torch.linalg.sparse.FlatLinearOperator`
+(``method='arnoldi'``, and where GMRES does not apply).
 
 Conventions (as in ``tenpy_tpu``): W tensors have labels ``wL, wR, p, p*``
 with ``qconj=+1`` (wL) / ``-1`` (wR); ``IdL[b]`` / ``IdR[b]`` index the
@@ -23,6 +24,7 @@ import numpy as np
 
 from ..linalg import np_conserved as npc
 from ..linalg.charges import LegCharge, QTYPE
+from ..linalg.sparse import FlatLinearOperator, _np_dtype
 from .mps import BaseEnvironment
 
 logger = logging.getLogger(__name__)
@@ -151,6 +153,21 @@ class MPO:
             Ws.append(npc.grid_outer(grid_obj, [legs[i], legR.conj()],
                                      grid_labels=['wL', 'wR']))
         return cls(sites, Ws, bc, IdL, IdR, max_range, explicit_plus_hc)
+
+    def expectation_value(self, psi):
+        """``<psi|H|psi>``: for finite bc the full contraction, for infinite
+        bc the energy per site from the transfer matrix
+        (:meth:`expectation_value_TM`)."""
+        if psi.finite:
+            return np.real_if_close(
+                MPOEnvironment(psi, self, psi).full_contraction(0))
+        return self.expectation_value_TM(psi)
+
+    def expectation_value_TM(self, psi):
+        """Energy per site of an iMPS, the mean of the two densities of
+        :meth:`MPOTransferMatrix.find_init_LP_RP` (``calc_E=True``)."""
+        _, Es, _ = MPOTransferMatrix.find_init_LP_RP(self, psi, calc_E=True)
+        return float(np.real(np.mean(Es)))
 
 
 def grid_insert_ops(site, grid):
@@ -392,6 +409,38 @@ class MPOEnvironment(BaseEnvironment):
                            axes=[['p', 'vL*'], ['p*', 'vR*']])
         return RP.itranspose(['vL*', 'wL', 'vL'])
 
+    def full_contraction(self, i0):
+        """``<bra|H|ket>`` (times both norms): ``LP[i0]`` and ``RP[i0-1]``
+        with the Schmidt values of bond ``i0`` between them.  For finite bc,
+        ``i0 = 0`` contracts site 0 into a fresh LP and ``i0 = L`` site
+        ``L-1`` into a fresh RP."""
+        L = self.ket.L
+        if self.ket.finite and i0 == 0:
+            LP = self._contract_LP(0, self.init_LP(0))
+            RP = self.get_RP(0)
+            S_bra, S_ket = self.bra.get_SR(0), self.ket.get_SR(0)
+        elif self.ket.finite and i0 == L:
+            RP = self._contract_RP(L - 1, self.init_RP(L - 1))
+            LP = self.get_LP(L - 1)
+            S_bra, S_ket = self.bra.get_SL(L - 1), self.ket.get_SL(L - 1)
+        else:
+            LP = self.get_LP(i0)
+            RP = self.get_RP(i0 - 1)
+            S_bra, S_ket = self.bra.get_SL(i0), self.ket.get_SL(i0)
+        LP = self._scale_S_axis(LP, S_bra, 'vR*', conj=True)
+        LP = self._scale_S_axis(LP, S_ket, 'vR', conj=False)
+        contr = npc.tensordot(LP, RP, axes=[['vR*', 'wR', 'vR'],
+                                            ['vL*', 'wL', 'vL']])
+        return complex(contr) * self.bra.norm * self.ket.norm
+
+    @staticmethod
+    def _scale_S_axis(T, S, axis, conj):
+        """``T`` with the Schmidt values ``S`` (conjugated with ``conj``)
+        multiplied onto leg ``axis``."""
+        S = np.asarray(S)
+        return T.copy(deep=False).iscale_axis(np.conj(S) if conj else S,
+                                              axis)
+
 
 def _env_init(leg_v, leg_w, w_idx, dtype, left=True):
     """LP/RP start tensor: identity on the virtual legs times the unit
@@ -415,10 +464,174 @@ def _env_init(leg_v, leg_w, w_idx, dtype, left=True):
 
 
 class MPOTransferMatrix:
-    """Converged environments of a Hamiltonian-like MPO on an infinite MPS.
+    """Transfer matrix of a Hamiltonian-like MPO between canonical iMPS.
 
-    Only :meth:`find_init_LP_RP` is ported, by its ``method='auto'`` route.
+    With the MPO's virtual leg split into IdL, inner and IdR channels (Schur
+    form) the transfer matrix has a Jordan block: its generalized dominant
+    eigenvector is the converged environment, and the linear growth rate is
+    the energy per site.  :meth:`matvec` applies one unit cell and projects
+    the growing part out, so Arnoldi converges to the fixed point with
+    eigenvalue 1.
+
+    Parameters
+    ----------
+    H : MPO, psi : MPS (both infinite)
+    transpose : bool
+        False: acts on RP (legs ``vL wL vL*``); True: on LP (``vR* wR vR``).
+    guess : Array or None
+        Start vector (dropped with a warning where its legs do not fit).
+    subtraction_gauge : 'rho' | 'trace'
+        The projector fixing the additive gauge of the generalized
+        eigenvector ('rho', density-matrix weighted, is the one for which
+        :meth:`energy` is the energy per site).
     """
+
+    def __init__(self, H, psi, transpose=False, guess=None,
+                 subtraction_gauge='rho'):
+        if psi.finite or H.bc != 'infinite':
+            raise ValueError("MPOTransferMatrix needs an infinite MPS/MPO")
+        self.L = L = int(np.lcm(H.L, psi.L))
+        norm_err = np.linalg.norm(psi.norm_test())
+        if norm_err > 1e-6:
+            logger.warning("MPOTransferMatrix: psi not in canonical form "
+                           "(norm_err=%.2e); fixed point may be inaccurate",
+                           norm_err)
+        self.H = H
+        self.psi = psi
+        self.transpose = transpose
+        self.dtype = dtype = npc.result_type(H.dtype,
+                                             psi.get_B(0, None).dtype)
+        self.IdL = H.get_IdL(0)
+        self.IdR = H.get_IdR(-1)
+        if self.IdL is None or self.IdR is None:
+            raise ValueError("MPO needs IdL/IdR structure")
+        S = np.asarray(psi.get_SL(0))
+        form = 'A' if transpose else 'B'
+        self._M = [psi.get_B(i, form) for i in range(L)]
+        self._W = [H.get_W(i) for i in range(L)]
+        self._Mc = [M.conj() for M in self._M]
+        if not transpose:      # fixed point of RP, right to left
+            wR = H.get_W(L - 1).get_leg('wR')
+            w_leg = wR.conj()
+            v_leg = psi.get_B(psi.L - 1, 'B').get_leg('vR')
+            rho = npc.diag(S ** 2, v_leg, labels=['vR', 'vR*'])
+            eye = npc.diag(1., v_leg.conj(), dtype=dtype,
+                           labels=['vL', 'vL*'])
+            labels, proj_labels, rho_w = (['vL', 'wL', 'vL*'],
+                                          ['vR', 'wR', 'vR*'], wR)
+            id_shift, id_norm, id_rho = self.IdL, self.IdR, self.IdL
+        else:                  # fixed point of LP, left to right
+            wL = H.get_W(0).get_leg('wL')
+            w_leg = wL.conj()
+            v_leg = psi.get_B(0, 'A').get_leg('vL')
+            rho = npc.diag(S ** 2, v_leg.conj(), labels=['vL*', 'vL'])
+            eye = npc.diag(1., v_leg, dtype=dtype, labels=['vR*', 'vR'])
+            labels, proj_labels, rho_w = (['vR*', 'wR', 'vR'],
+                                          ['vL*', 'wL', 'vL'], wL)
+            id_shift, id_norm, id_rho = self.IdR, self.IdL, self.IdR
+        w_label = labels[1]
+        self._chi0 = chi0 = v_leg.ind_len
+        self._E_shift = eye.add_leg(w_leg, id_shift, axis=1, label=w_label)
+        self._proj_trace = self._E_shift.conj().iset_leg_labels(
+            proj_labels) / chi0
+        self._proj_norm = eye.add_leg(w_leg, id_norm, axis=1,
+                                      label=w_label).conj()
+        self._proj_rho = rho.add_leg(rho_w, id_rho, axis=1,
+                                     label=proj_labels[1])
+        self._guess_default = eye.add_leg(w_leg, id_norm, axis=1,
+                                          label=w_label)
+        self._axes = (labels, proj_labels)
+        self._proj_subtr = self._proj_rho if subtraction_gauge == 'rho' \
+            else self._proj_trace
+        if guess is not None:
+            try:
+                guess = guess.transpose(labels)
+                for lbl, leg in zip(labels, self._guess_default.legs):
+                    guess.get_leg(lbl).test_equal(leg)
+            except (ValueError, KeyError):
+                logger.warning("MPOTransferMatrix: dropping incompatible "
+                               "guess")
+                guess = None
+            else:
+                guess = self._project(guess)
+        self.guess = guess if guess is not None else self._guess_default
+
+    def matvec(self, vec, project=True):
+        """One unit cell of the transfer matrix (projected by default)."""
+        if any(lbl is None for lbl in vec.get_leg_labels()):
+            # from the pipe round trip of FlatLinearOperator: legs in order
+            vec = vec.copy(deep=False).iset_leg_labels(list(self._axes[0]))
+        if not self.transpose:
+            vec = vec.transpose(['vL', 'wL', 'vL*'])
+            for i in range(self.L - 1, -1, -1):
+                vec = npc.tensordot(self._M[i], vec, axes=[['vR'], ['vL']])
+                vec = npc.tensordot(vec, self._W[i],
+                                    axes=[['p', 'wL'], ['p*', 'wR']])
+                vec = npc.tensordot(vec, self._Mc[i],
+                                    axes=[['vL*', 'p'], ['vR*', 'p*']])
+                vec.itranspose(['vL', 'wL', 'vL*'])
+        else:
+            vec = vec.transpose(['vR*', 'wR', 'vR'])
+            for i in range(self.L):
+                vec = npc.tensordot(vec, self._M[i], axes=[['vR'], ['vL']])
+                vec = npc.tensordot(self._W[i], vec,
+                                    axes=[['wL', 'p*'], ['wR', 'p']])
+                vec = npc.tensordot(self._Mc[i], vec,
+                                    axes=[['p*', 'vL*'], ['p', 'vR*']])
+                vec.itranspose(['vR*', 'wR', 'vR'])
+        return self._project(vec) if project else vec
+
+    def _project(self, vec):
+        """``vec`` less its additive (linearly growing) part."""
+        E = npc.inner(vec, self._proj_subtr, axes=self._axes, do_conj=False)
+        return vec - self._E_shift * E
+
+    def dominant_eigenvector(self, options=None):
+        """``(val, vec)``: the dominant eigenpair of the projected transfer
+        matrix (ARPACK; a dense eigensolver for sectors of size 8 or less),
+        ``val`` about 1, ``vec`` scaled so its IdR (IdL) channel traces to
+        ``chi0``."""
+        linop, v0 = FlatLinearOperator.from_guess_with_pipe(
+            self.matvec, self.guess, dtype=self.dtype)
+        n = linop.shape[0]
+        if n <= 8:   # ARPACK needs k < n - 1
+            basis = np.eye(n, dtype=_np_dtype(self.dtype))
+            mat = np.stack([linop._matvec(basis[:, j]) for j in range(n)],
+                           axis=1)
+            evals, evecs = np.linalg.eig(mat)
+            order = np.argsort(-np.abs(evals))
+            # a degenerate top eigenvalue (an operator string through the
+            # whole cell): the physical environment has the largest
+            # identity-channel trace
+            top = [j for j in order
+                   if abs(abs(evals[j]) - abs(evals[order[0]])) < 1e-8]
+            best = None
+            for j in top:
+                v_npc = linop.flat_to_npc(evecs[:, j]).split_legs([0])
+                v_npc.iset_leg_labels(list(self._axes[0]))
+                tr = abs(complex(npc.inner(self._proj_norm, v_npc,
+                                           axes='range', do_conj=False)))
+                if best is None or tr > best[0]:
+                    best = (tr, j)
+            val = evals[best[1]]
+            vec = linop.flat_to_npc(evecs[:, best[1]])
+        else:
+            vals, vecs = linop.eigenvectors(num_ev=1, which='LM', v0_npc=v0,
+                                            **dict(options or {}))
+            val, vec = vals[0], vecs[0]
+        vec = vec.split_legs([0])
+        vec.iset_leg_labels(list(self._axes[0]))
+        norm = npc.inner(self._proj_norm, vec, axes='range',
+                         do_conj=False) / self._chi0
+        return val, vec / norm
+
+    def energy(self, dom_vec):
+        """Energy per MPS site: the growth of ``dom_vec`` over one cell."""
+        E0 = npc.inner(dom_vec, self._proj_rho, axes=self._axes,
+                       do_conj=False)
+        E = npc.inner(self.matvec(dom_vec, project=False), self._proj_rho,
+                      axes=self._axes, do_conj=False)
+        return complex(E - E0) / self.L
 
     @classmethod
     def find_init_LP_RP(cls, H, psi, calc_E=False, guess_init_env_data=None,
@@ -428,12 +641,14 @@ class MPOTransferMatrix:
 
         Returns the ``init_env_data`` dict (keys ``init_LP, init_RP,
         age_LP, age_RP``), plus ``(Es, E0)`` with ``calc_E``: the energy
-        densities from either fixed point and the ``<LP|S^2|RP>``
-        contraction.  The route is the channel-wise GMRES construction of
-        :class:`~tenpy_tpu_torch.networks.mpo_env_builder.
-        MPOEnvironmentBuilder`.  Where it does not apply, ``tenpy_tpu``
-        falls back to an Arnoldi eigensolver of the transfer matrix; that
-        route is not ported and raises ``NotImplementedError``.
+        densities ``[e_R, e_L]`` from either fixed point and the
+        ``<LP|S^2|RP>`` contraction.  ``method='auto'`` takes the
+        channel-wise GMRES construction of :class:`~tenpy_tpu_torch.
+        networks.mpo_env_builder.MPOEnvironmentBuilder` where it applies
+        (equal unit cells, the MPO's Schur structure), else, as
+        ``method='arnoldi'``, the dominant eigenvectors of
+        :class:`MPOTransferMatrix`; a real ``H`` and ``psi`` keep them
+        real.
         """
         if method == 'auto' and psi.L == H.L:
             from .mpo_env_builder import MPOEnvironmentBuilder
@@ -442,12 +657,33 @@ class MPOTransferMatrix:
                 return builder.init_LP_RP_iterative(which='both',
                                                     calc_E=calc_E)
             except (ValueError, NotImplementedError) as e:
-                raise NotImplementedError(
-                    "find_init_LP_RP: the channel-wise GMRES construction "
-                    f"does not apply ({e}); the Arnoldi route of tenpy_tpu "
-                    "(MPOTransferMatrix.dominant_eigenvector over a "
-                    "FlatLinearOperator) is not ported") from e
-        raise NotImplementedError(
-            f"find_init_LP_RP(method={method!r}, psi.L={psi.L}, H.L={H.L}): "
-            "only the channel-wise GMRES route (method='auto', equal unit "
-            "cells) is ported; the Arnoldi route is not")
+                logger.debug("iterative env init not applicable (%s); "
+                             "falling back to Arnoldi", e)
+        guess_init_env_data = guess_init_env_data or {}
+        real_in = not psi.dtype.is_complex and not H.dtype.is_complex
+        envs, Es = [], []
+        for transpose in [False, True]:
+            TM = cls(H, psi, transpose=transpose,
+                     guess=guess_init_env_data.get(
+                         'init_LP' if transpose else 'init_RP'),
+                     subtraction_gauge=subtraction_gauge)
+            val, vec = TM.dominant_eigenvector(options=options)
+            if abs(1. - val) > tol_ev0:
+                logger.warning("MPOTransferMatrix eigenvalue not 1: got %s",
+                               val)
+            if real_in:
+                # the Arnoldi eigenvector may carry junk imaginary parts
+                vec = vec.real_if_close(tol=1e-10)
+            envs.append(vec)
+            if calc_E:
+                Es.append(np.real_if_close(TM.energy(vec)))
+        init_env_data = {'init_LP': envs[1], 'init_RP': envs[0],
+                         'age_LP': 0, 'age_RP': 0}
+        if not calc_E:
+            return init_env_data
+        SL = np.asarray(psi.get_SL(0))
+        LP = envs[1].copy(deep=False).iscale_axis(SL, 'vR')
+        LP = LP.iscale_axis(SL, 'vR*')
+        E0 = npc.tensordot(LP, envs[0],
+                           axes=[['vR', 'wR', 'vR*'], ['vL', 'wL', 'vL*']])
+        return init_env_data, Es, complex(E0)

@@ -11,18 +11,33 @@ Port of the ``MPS`` container and ``BaseEnvironment`` of
 * ``_S[i]`` are the Schmidt values on the bond left of site ``i`` (L+1
   entries; for infinite bc entry L mirrors entry 0), as numpy arrays.
 
-Canonicalisation (``canonical_form``, the transfer matrices) is not
-ported: the engine runs from states that are already canonical.
+Since the write-back it also canonicalizes (``canonical_form``: the QR
+sweeps of a finite MPS; for an infinite one the inverse-free iterated QR
+gauge with its transfer-matrix fixed-point fallback and noise-floor
+compression rescue) and measures (``entanglement_entropy``,
+``expectation_value``, ``correlation_length`` through
+:class:`TransferMatrix`).  The blocks stay on the host; the eigensolvers
+are :class:`~tenpy_tpu_torch.linalg.krylov_based.Arnoldi`.
 """
 
 from __future__ import annotations
 
+import logging
+import warnings
+
 import numpy as np
+import torch
 
 from ..linalg import np_conserved as npc
 from ..linalg.charges import LegCharge
+from ..linalg.krylov_based import Arnoldi, gram_schmidt
+from ..linalg.truncation import TruncationError, svd_theta
+from ..tools.math import entropy
+from ..tools.params import asConfig
 
-__all__ = ['MPS', 'BaseEnvironment']
+logger = logging.getLogger(__name__)
+
+__all__ = ['MPS', 'BaseEnvironment', 'TransferMatrix']
 
 
 class MPS:
@@ -45,6 +60,7 @@ class MPS:
     _valid_forms = {'A': (1., 0.), 'C': (0.5, 0.5), 'B': (0., 1.),
                     'G': (0., 0.), 'Th': (1., 1.), None: None}
     _valid_bc = ('finite', 'segment', 'infinite')
+    _p_label = ['p']
 
     def __init__(self, sites, Bs, SVs, bc='finite', form='B', norm=1.):
         self.sites = list(sites)
@@ -90,6 +106,10 @@ class MPS:
         """Bond dimensions: the L-1 inner bonds (finite) or all L bonds."""
         n = self.L - 1 if self.finite else self.L
         return [self._B[i].get_leg('vR').ind_len for i in range(n)]
+
+    @property
+    def nontrivial_bonds(self):
+        return slice(1, self.L) if self.finite else slice(0, self.L + 1)
 
     def copy(self):
         """A copy sharing the blocks (the tensors may be relabelled or
@@ -295,6 +315,362 @@ class MPS:
         self.dtype = npc.result_type(*[B.dtype for B in self._B])
         return self
 
+    def gauge_consistency_error(self):
+        """Largest isometry error of the tensors converted to the form
+        opposite to their stored one.
+
+        :meth:`norm_test` weighs everything by the Schmidt values and so
+        cannot see garbage in noise-floor Schmidt directions, which a
+        conversion that divides by S amplifies to O(1); this measures it.
+        """
+        p = list(self._p_label)
+        pc = [l + '*' for l in p]
+        err = 0.
+        for i in range(self.L):
+            st = self.form[i]
+            if st is None:
+                return np.inf
+            if st[0] >= 1. - 1e-12 and st[1] <= 1e-12:     # 'A': check B
+                B = self.get_B(i, 'B')
+                c = npc.tensordot(B, B.conj(),
+                                  axes=[p + ['vR'], pc + ['vR*']])
+            else:                                           # check A
+                A = self.get_B(i, 'A')
+                c = npc.tensordot(A.conj(), A,
+                                  axes=[['vL*'] + pc, ['vL'] + p])
+            err = max(err, npc.norm(c - npc.eye_like(c, 0)))
+        return err
+
+    # ----------------------------------------------------------- measurements
+    def get_op(self, op_list, i):
+        """Operator ``op_list[i % len(op_list)]`` at site ``i`` (a name is
+        looked up on the site)."""
+        i = self._to_valid_index(i)
+        op = op_list[i % len(op_list)]
+        if isinstance(op, str):
+            op = self.sites[i].get_op(op)
+        return op
+
+    def entanglement_entropy(self, n=1, bonds=None):
+        """Von Neumann (``n=1``) or Renyi entropy of the Schmidt values on
+        each bond (default: the nontrivial bonds; for infinite bc the
+        ``L + 1`` bonds ``0..L``)."""
+        if bonds is None:
+            nt = self.nontrivial_bonds
+            bonds = range(nt.start, nt.stop)
+        return np.array([entropy(np.asarray(self._S[ib if ib <= self.L
+                                                    else ib % self.L]) ** 2,
+                                 n) for ib in bonds])
+
+    def expectation_value(self, ops, sites=None):
+        """``<psi|op_i|psi>`` per site ``i`` of ``sites`` (default all);
+        ``ops`` is an operator (or name), or a list cycling over the
+        sites.  An ``n``-site operator has legs ``p0, p0*, ...``."""
+        if isinstance(ops, (str, npc.Array)):
+            ops = [ops]
+        if sites is None:
+            sites = range(self.L)
+        res = []
+        for i in sites:
+            op = self.get_op(ops, i)
+            n = op.rank // 2
+            if n == 1:
+                theta = self.get_theta(i, 1)
+                val = npc.tensordot(op, theta, axes=[['p*'], ['p0']])
+                val = npc.tensordot(
+                    theta.conj(), val,
+                    axes=[['vL*', 'p0*', 'vR*'], ['vL', 'p', 'vR']])
+            else:
+                theta = self.get_theta(i, n)
+                p = [f'p{k}' for k in range(n)]
+                ps = [f'{l}*' for l in p]
+                val = npc.tensordot(op, theta, axes=[ps, p])
+                val = npc.tensordot(theta.conj(), val,
+                                    axes=[['vL*', 'vR*'] + ps,
+                                          ['vL', 'vR'] + p])
+            res.append(complex(val))
+        res = np.array(res)
+        if np.allclose(res.imag, 0., atol=1e-14):
+            res = res.real
+        return res
+
+    def correlation_length(self, target=1, tol_ev0=1e-8):
+        """``-L / log|eta_k|`` of the subleading transfer-matrix eigenvalues
+        ``eta_1..eta_target`` (infinite bc; a float for ``target=1``).
+
+        ``tenpy_tpu``'s ``charge_sector`` option is not ported: its transfer
+        matrix ignores it, so any sector but 0 gave a wrong answer."""
+        assert not self.finite
+        etas, _ = TransferMatrix(self, self).eigenvectors(
+            num_ev=max(target + 2, 3), which='LM')
+        etas = np.asarray(etas)
+        if abs(np.abs(etas[0]) - 1.) > tol_ev0:
+            warnings.warn(f"dominant TM eigenvalue not 1: {etas[0]}")
+        if np.abs(etas[1]) > 1. - 1e-10:
+            warnings.warn(
+                "degenerate dominant transfer-matrix eigenvalue: the "
+                "state is non-injective (a symmetry-broken cat state); "
+                "the reported correlation length diverges")
+        abs_etas = np.abs(etas[1:target + 1])
+        with np.errstate(divide='ignore'):
+            xi = np.where(abs_etas >= 1., np.inf, -self.L / np.log(abs_etas))
+        return float(xi[0]) if target == 1 else xi
+
+    # --------------------------------------------------------- canonical form
+    def canonical_form(self, **kwargs):
+        """Bring the MPS into canonical form, in place (finite: QR and SVD
+        sweeps; infinite: :meth:`canonical_form_infinite`).  A real state
+        stays real."""
+        orig_complex = self.dtype.is_complex
+        res = self.canonical_form_finite(**kwargs) if self.finite \
+            else self.canonical_form_infinite(**kwargs)
+        if not orig_complex:
+            self.real_if_close()
+        return res
+
+    def _stripped_tensors(self, pinv_cutoff=None):
+        """Chain tensors whose plain product is the state: B forms if every
+        form is known, else the stored tensors (then the caller guarantees
+        their product is the state).  With ``pinv_cutoff`` (relative),
+        Schmidt directions below ``pinv_cutoff * max(S)`` give zero rows in
+        the conversion instead of noise amplified by 1/S."""
+        if any(f is None for f in self.form):
+            return list(self._B)
+        if pinv_cutoff is None:
+            return [self.get_B(i, 'B') for i in range(self.L)]
+        Ms = []
+        for i in range(self.L):
+            fL, fR = self.form[i]
+            M = self._B[i].copy(deep=False)
+            for exp, S, ax in [(-fL, self.get_SL(i), 'vL'),
+                               (1. - fR, self.get_SR(i), 'vR')]:
+                if exp == 0.:
+                    continue
+                S = np.asarray(S)
+                if exp < 0:
+                    fac = np.where(S > pinv_cutoff * np.max(S),
+                                   np.where(S > 0, S, 1.) ** exp, 0.)
+                else:
+                    fac = S ** exp
+                M = M.iscale_axis(fac, ax)
+            Ms.append(M)
+        return Ms
+
+    def canonical_form_finite(self, renormalize=True, cutoff=0.):
+        """QR sweep left to right, then SVD sweep right to left; every
+        tensor ends in B form.  ``bc='segment'`` is not ported."""
+        if self.bc != 'finite':
+            raise NotImplementedError("canonical_form_finite: segment bc is "
+                                      "not ported")
+        L = self.L
+        Ms = self._stripped_tensors()
+        R = None
+        for i in range(L):
+            M = Ms[i]
+            if R is not None:
+                M = npc.tensordot(R, M, axes=[['vR'], ['vL']])
+            Q, R = npc.qr(M.combine_legs([['vL', 'p']]),
+                          inner_labels=['vR', 'vL'])
+            Ms[i] = Q.split_legs([0])
+        norm_fact = npc.norm(R)
+        self.norm = 1. if renormalize else self.norm * norm_fact
+        M = npc.tensordot(Ms[L - 1], R / norm_fact, axes=[['vR'], ['vL']])
+        self.set_SR(L - 1, np.ones(M.get_leg('vR').ind_len))
+        for i in range(L - 1, 0, -1):
+            U, S, VH = npc.svd(M.combine_legs([['p', 'vR']], qconj=[-1]),
+                               cutoff=cutoff if cutoff else None,
+                               inner_labels=['vR', 'vL'])
+            S = S / np.linalg.norm(S)
+            self._B[i] = VH.split_legs([1])
+            self.form[i] = self._valid_forms['B']
+            self.set_SL(i, S)
+            M = npc.tensordot(Ms[i - 1], U.iscale_axis(S, 'vR'),
+                              axes=[['vR'], ['vL']])
+        # M is site 0 in 'Th' form, with S_0 = 1 for finite bc
+        self._B[0] = M.copy(deep=False).iscale_axis(
+            self._scale_S(self.get_SL(0), -1.), 'vL')
+        self.form[0] = self._valid_forms['B']
+        return self
+
+    def canonical_form_infinite(self, renormalize=True, tol=1e-14,
+                                cutoff=1e-15, arnoldi_params=None):
+        """Canonicalize an infinite MPS by iterated QR orthogonalization
+        (inverse free, so noise-floor Schmidt values do no harm), in place.
+
+        An already canonical state (``norm_test`` and
+        :meth:`gauge_consistency_error` small) is left untouched.  A state
+        with garbage in noise-floor Schmidt directions is first compressed
+        by one SVD sweep (``svd_min=3e-8``).  If the QR gauge iteration
+        stalls on a plateau, :meth:`canonical_form_infinite1` (the
+        transfer-matrix fixed-point gauge) takes over, with a warning."""
+        assert self.bc == 'infinite'
+        L = self.L
+        p_label = list(self._p_label)
+        if all(f is not None for f in self.form):
+            # idempotence: the gauge iteration can cycle between equivalent
+            # gauges on exactly degenerate spectra, so don't enter it
+            # needlessly
+            if float(np.max(self.norm_test())) < 1e-12 and \
+                    self.gauge_consistency_error() < 1e-6:
+                return self
+        Ms = self._stripped_tensors(pinv_cutoff=1e-8)
+        if all(f is not None for f in self.form):
+            # noise-floor Schmidt directions leave junk rows that the gauge
+            # iteration would canonicalize into a wrong state: drop them by
+            # one theta-level compression sweep first
+            iso_err = 0.
+            for M in Ms:
+                c = npc.tensordot(M, M.conj(),
+                                  axes=[p_label + ['vR'],
+                                        [l + '*' for l in p_label] + ['vR*']])
+                iso_err = max(iso_err, npc.norm(c - npc.eye_like(c, 0)))
+            if iso_err > 1e-3:
+                nt = float(np.max(self.norm_test()))
+                log = logger.info if nt < 1e-4 else logger.warning
+                log("canonical_form_infinite: noise-floor Schmidt directions "
+                    "(stripped-isometry err=%.2e, norm_test=%.2e); "
+                    "compressing them away before gauging", iso_err, nt)
+                self.compress_svd({'chi_max': max(self.chi),
+                                   'svd_min': 3e-8, 'trunc_cut': None})
+                Ms = self._stripped_tensors(pinv_cutoff=1e-8)
+        if any(f is None for f in self.form):
+            self._S[0] = np.ones(Ms[0].get_leg('vL').ind_len)
+        try:
+            # right-orthogonalize: M_i R_{i+1} = R_i B_i
+            R = npc.diag(1., Ms[0].get_leg('vL'), labels=['vL', 'vR'])
+            Bs, R, norm_fact = _cf_orthogonalize(Ms, R, tol, p_label,
+                                                 left=False,
+                                                 arnoldi_params=arnoldi_params)
+            # left-orthogonalize the new Bs: C_i B_i = A_i C_{i+1}
+            SL0 = np.asarray(self.get_SL(0))
+            legB0 = Bs[0].get_leg('vL')
+            if SL0.ndim == 1 and SL0.shape[0] == legB0.ind_len:
+                C = npc.diag(SL0 / np.linalg.norm(SL0), legB0,
+                             labels=['vL', 'vR'])
+            else:
+                C = npc.diag(1., legB0, labels=['vL', 'vR'])
+            As, C, _ = _cf_orthogonalize(Bs, C, tol, p_label, left=True,
+                                         arnoldi_params=arnoldi_params)
+        except _GaugePlateauError as e:
+            logger.warning("canonical_form_infinite: %s -- falling back to "
+                           "the transfer-matrix fixed-point gauge", e)
+            return self.canonical_form_infinite1(
+                renormalize=renormalize, cutoff=cutoff,
+                arnoldi_params=arnoldi_params)
+        # diagonalize the gauge C = U S V, then SVDs right to left store B
+        # forms and diagonal S on every bond
+        C.itranspose(['vL', 'vR'])
+        U, S, V = npc.svd(C, cutoff=cutoff, inner_labels=['vR', 'vL'])
+        As[0] = npc.tensordot(U.conj().ireplace_label('vR*', 'vL'), As[0],
+                              axes=[['vL*'], ['vL']])
+        for i in range(L - 1, -1, -1):
+            th = npc.tensordot(As[i], U.scale_axis(S, 'vR'),
+                               axes=[['vR'], ['vL']])
+            th = th.combine_legs([p_label + ['vR']], qconj=[-1])
+            U, S, V = npc.svd(th, cutoff=cutoff, inner_labels=['vR', 'vL'])
+            S = S / np.linalg.norm(S)
+            self._B[i] = V.split_legs([1])
+            self.form[i] = self._valid_forms['B']
+            self.set_SL(i, S)
+        self._B[L - 1] = npc.tensordot(self._B[L - 1], U,
+                                       axes=[['vR'], ['vL']])
+        self.norm = 1. if renormalize else self.norm * norm_fact
+        if any(len(self._S[i]) != As[i].get_leg('vL').ind_len
+               for i in range(L)):
+            # a cut mid-gauge perturbs the canonical form; one more pass,
+            # free of truncation, restores it
+            return self.canonical_form_infinite(
+                renormalize=renormalize, tol=tol, cutoff=None,
+                arnoldi_params=arnoldi_params)
+        return self
+
+    def canonical_form_infinite1(self, renormalize=True, cutoff=1e-16,
+                                 arnoldi_params=None):
+        """Gauge fixing on bond 0 per charge sector from the dominant
+        transfer-matrix fixed points, then QR and SVD sweeps through the
+        unit cell; in place."""
+        assert self.bc == 'infinite'
+        L = self.L
+        Ms = self._stripped_tensors()
+        psi_B = self.copy()
+        for i in range(L):
+            psi_B._B[i] = Ms[i]
+            psi_B.form[i] = self._valid_forms['B']
+        opts = dict(arnoldi_params or {})
+        opts.setdefault('N_max', 40)
+        opts.setdefault('P_tol', 1e-16)
+        eta_R, vecs_R = TransferMatrix(psi_B, psi_B, transpose=False,
+                                       form='B').eigenvectors(which='LM',
+                                                              **opts)
+        _, vecs_L = TransferMatrix(psi_B, psi_B, transpose=True,
+                                   form='B').eigenvectors(which='LM', **opts)
+        eta = float(np.abs(eta_R[0]))
+        S_new, G, Ginv = _gauge_fixed_point_bond(vecs_L[0], vecs_R[0],
+                                                 Ms[0].get_leg('vL'))
+        # the chain becomes Ginv . chain . G on bond 0
+        Ms[0] = npc.tensordot(Ginv, Ms[0], axes=[[1], [0]])
+        Ms[0].iset_leg_labels(['vL', 'p', 'vR'])
+        Ms[L - 1] = npc.tensordot(Ms[L - 1], G, axes=[[2], [0]])
+        Ms[L - 1].iset_leg_labels(['vL', 'p', 'vR'])
+        Ms[L - 1] = Ms[L - 1] / np.sqrt(eta)
+        self.set_SL(0, S_new)
+        R = npc.diag(S_new, Ms[0].get_leg('vL'), labels=['vL', 'vR'])
+        As = []
+        for i in range(L):
+            M = npc.tensordot(R, Ms[i], axes=[['vR'], ['vL']])
+            Q, R = npc.qr(M.combine_legs([['vL', 'p']]),
+                          inner_labels=['vR', 'vL'])
+            As.append(Q.split_legs([0]))
+        Vt = R       # the leftover R on bond L (= bond 0)
+        for i in range(L - 1, -1, -1):
+            M = npc.tensordot(As[i], Vt, axes=[['vR'], ['vL']])
+            U, S, VH = npc.svd(M.combine_legs([['p', 'vR']], qconj=[-1]),
+                               cutoff=cutoff, inner_labels=['vR', 'vL'])
+            S = S / np.linalg.norm(S)
+            self._B[i] = VH.split_legs([1])
+            self.form[i] = self._valid_forms['B']
+            self.set_SL(i, S)
+            Vt = U.iscale_axis(S, 'vR')
+        # the leftover gauge U_0 diag(S_0) on bond 0: its unitary goes into
+        # B_{L-1}, so bond L's basis is bond 0's
+        U0 = Vt.copy(deep=False).iscale_axis(
+            self._scale_S(self.get_SL(0), -1.), 'vR')
+        self._B[L - 1] = npc.tensordot(self._B[L - 1], U0,
+                                       axes=[['vR'], ['vL']])
+        self._B[L - 1].iset_leg_labels(['vL', 'p', 'vR'])
+        if renormalize:
+            self.norm = 1.
+        return self
+
+    def compress_svd(self, trunc_par):
+        """Compress by a sweep of truncated two-site SVDs, in place;
+        returns the :class:`~tenpy_tpu_torch.linalg.truncation.
+        TruncationError`."""
+        trunc_par = asConfig(trunc_par, 'trunc_params')
+        err = TruncationError()
+        if self.finite:
+            self.canonical_form_finite()
+        for i in range(self.L - 1 if self.finite else self.L):
+            theta = self.get_theta(i, 2).combine_legs(
+                [['vL', 'p0'], ['p1', 'vR']], qconj=[+1, -1])
+            U, S, VH, err_i, _ = svd_theta(theta, trunc_par)
+            err += err_i
+            A_L = U.split_legs([0]).ireplace_label('p0', 'p')
+            B_R = VH.split_legs([1]).ireplace_label('p1', 'p')
+            if self.finite:
+                self.set_B(i, A_L, 'A')
+                self.set_SR(i, S)
+                self.set_B(i + 1, B_R, 'B')
+            else:
+                self.set_SR(i, S)
+                self.set_B(i + 1, B_R, 'B')
+                B_L = A_L.iscale_axis(self._scale_S(self.get_SL(i), -1.),
+                                      'vL')
+                self.set_B(i, B_L.iscale_axis(S, 'vR'), 'B')
+        if self.finite:
+            self.canonical_form_finite()
+        return err
+
 
 class BaseEnvironment:
     """Partial contractions ``LP[i]`` / ``RP[i]`` of ``<bra|ket>``, cached
@@ -366,3 +742,272 @@ class BaseEnvironment:
     def set_RP(self, i, RP, age=0):
         self.cache[('RP', i % self.L)] = RP
         self._RP_age[i % self.L] = age
+
+
+class _DeflatedLinearOperator:
+    """``(1 - P) T (1 - P)``, ``P`` the projector onto found eigenvectors:
+    degenerate copies of a dominant eigenvalue show up in its spectrum."""
+
+    def __init__(self, op, basis):
+        self.op = op
+        self.basis = basis
+
+    def project(self, v):
+        for u in self.basis:
+            v = v - complex(npc.inner(u.conj(), v, axes='range')) * u
+        return v
+
+    def matvec(self, v):
+        return self.project(self.op.matvec(self.project(v)))
+
+
+def _random_like(a, seed):
+    """A copy of ``a`` whose blocks are standard normal numbers drawn from
+    ``np.random.default_rng(seed)`` block by block (as ``tenpy_tpu``)."""
+    rng = np.random.default_rng(seed)
+    res = a.copy(deep=False)
+    res._data = [torch.from_numpy(rng.standard_normal(tuple(b.shape))).to(
+        a.dtype) for b in a._data]
+    return res
+
+
+class TransferMatrix:
+    r"""Transfer matrix of ``<bra|ket>`` over one unit cell, a linear
+    operator on 2-leg Arrays.
+
+    ``transpose=False``: acts on ``(vL, vL*)`` vectors from the right
+    (``X -> sum_p B X B^dagger``); ``True``: on ``(vR, vR*)`` from the left.
+    ``form`` is the canonical form of the tensors it applies."""
+
+    def __init__(self, bra, ket, transpose=False, form='B'):
+        self.bra = bra
+        self.ket = ket
+        self.transpose = transpose
+        self.L = ket.L
+        self.form = form
+        self.dtype = npc.result_type(bra.dtype, ket.dtype)
+
+    def initial_guess(self, diag=1.):
+        """The identity in the vectors' leg structure."""
+        if not self.transpose:
+            leg = self.ket.get_B(0, self.form).get_leg('vL')
+            return npc.diag(diag, leg, dtype=self.dtype, labels=['vL', 'vL*'])
+        leg = self.ket.get_B(self.L - 1, self.form).get_leg('vR')
+        return npc.diag(diag, leg, dtype=self.dtype, labels=['vR', 'vR*'])
+
+    def matvec(self, vec):
+        X = vec
+        if not self.transpose:
+            for j in range(self.L - 1, -1, -1):
+                B = self.ket.get_B(j, self.form)
+                Bc = self.bra.get_B(j, self.form).conj()
+                X = npc.tensordot(B, X, axes=[['vR'], ['vL']])
+                X = npc.tensordot(X, Bc, axes=[['p', 'vL*'], ['p*', 'vR*']])
+            return X.iset_leg_labels(['vL', 'vL*'])
+        for j in range(self.L):
+            B = self.ket.get_B(j, self.form)
+            Bc = self.bra.get_B(j, self.form).conj()
+            X = npc.tensordot(X, B, axes=[['vR'], ['vL']])
+            X = npc.tensordot(Bc, X, axes=[['vL*', 'p*'], ['vR*', 'p']])
+        return X.iset_leg_labels(['vR*', 'vR']).itranspose(['vR', 'vR*'])
+
+    def eigenvectors(self, num_ev=1, which='LM', **kwargs):
+        """Dominant eigenpairs ``(etas, vecs)`` by Arnoldi.
+
+        With ``num_ev > 1`` the identity guess (the exact dominant
+        eigenvector of a canonical transfer matrix) gets a seeded random
+        part, and a second Arnoldi pass on the operator deflated against the
+        first pass's eigenvectors finds degenerate copies; the ``num_ev``
+        largest of both passes are returned."""
+        v0 = self.initial_guess()
+        if num_ev > 1:
+            rnd = _random_like(v0, 42)
+            v0 = v0 + rnd * (0.5 / max(npc.norm(rnd), 1e-300))
+        opts = dict(kwargs)
+        opts.setdefault('N_max', max(20, 2 * num_ev + 10))
+        opts['which'] = which
+        opts['num_ev'] = num_ev
+        if num_ev == 1:
+            eta, vec, _ = Arnoldi(self, v0, opts).run()
+            return np.array([eta]), [vec]
+        etas, vecs, _ = Arnoldi(self, v0, opts).run()
+        etas, vecs = list(np.asarray(etas)), list(vecs)
+        deflated = _DeflatedLinearOperator(
+            self, gram_schmidt([v.copy() for v in vecs]))
+        v1 = deflated.project(_random_like(self.initial_guess(), 7))
+        nrm = npc.norm(v1)
+        if nrm > 1e-12:
+            etas2, vecs2, _ = Arnoldi(deflated, v1 / nrm, opts).run()
+            etas += list(np.asarray(etas2))
+            vecs += list(vecs2)
+        order = np.argsort(-np.abs(np.asarray(etas)))[:num_ev]
+        return np.asarray(etas)[order], [vecs[i] for i in order]
+
+
+def _gauge_fixed_point_bond(rho_L, rho_R, leg, cutoff=1e-14):
+    """Per charge sector, the gauge that makes bond 0 canonical.
+
+    ``rho_L`` (legs ``vR, vR*``) and ``rho_R`` (``vL, vL*``) are the
+    dominant left and right fixed points of a B-form chain.  Per sector,
+    ``X = sqrt(l)``, ``Y = sqrt(r)``, ``U S V^dagger = X Y`` and ``G = Y V``;
+    returns ``(S, G, Ginv)`` such that ``Ginv . chain . G`` is right
+    canonical with Schmidt values ``S`` on bond 0 (G and Ginv have legs
+    ``[leg, leg.conj()]``).  A sector the state does not reach gets the
+    identity and zero weight."""
+    R_blocks = {int(r[0]): b for r, b in zip(rho_R._qdata, rho_R._data)}
+    # the transpose TM's fixed point is the transpose of the standard one
+    L_blocks = {int(r[0]): b.T for r, b in zip(rho_L._qdata, rho_L._data)}
+    # fix each fixed point's global phase (Arnoldi's is arbitrary)
+    phases = []
+    for blocks in (R_blocks, L_blocks):
+        tr = sum(torch.trace(b) for b in blocks.values())
+        phases.append(tr / abs(tr) if abs(tr) > 0 else 1.)
+    phR, phL = phases
+
+    def sqrt_psd(m):
+        w, v = torch.linalg.eigh(0.5 * (m + m.conj().T))
+        return (v * torch.sqrt(torch.clamp(w, min=0.))) @ v.conj().T
+
+    S_parts, G_blocks, Ginv_blocks = [], [], []
+    for qi in range(leg.block_number):
+        n = int(leg.slices[qi + 1] - leg.slices[qi])
+        r, l = R_blocks.get(qi), L_blocks.get(qi)
+        if r is None or l is None:
+            G_blocks.append(torch.eye(n, dtype=torch.float64))
+            Ginv_blocks.append(torch.eye(n, dtype=torch.float64))
+            S_parts.append(torch.zeros(n, dtype=torch.float64))
+            continue
+        Y, X = sqrt_psd(r / phR), sqrt_psd(l / phL)
+        _, S, Vh = torch.linalg.svd(X @ Y)
+        V = Vh.conj().T
+        G_blocks.append(Y @ V)
+        # pinv(Y V) = V^dagger pinv(Y)
+        Ginv_blocks.append(V.conj().T @ torch.linalg.pinv(Y, rtol=cutoff))
+        S_parts.append(S.to(torch.float64))
+    S_full = torch.cat(S_parts).numpy() if S_parts else np.zeros(0)
+    nrm = np.linalg.norm(S_full)
+    if nrm > 0:
+        S_full = S_full / nrm
+    dtype = torch.complex128 if any(b.is_complex() for b in G_blocks) \
+        else torch.float64
+    rows = np.array([(qi, qi) for qi in range(leg.block_number)],
+                    np.intp).reshape(-1, 2)
+    G = npc.zeros([leg, leg.conj()], dtype=dtype)
+    Ginv = npc.zeros([leg, leg.conj()], dtype=dtype)
+    G._set_blocks(rows, [b.to(dtype) for b in G_blocks])
+    Ginv._set_blocks(rows, [b.to(dtype) for b in Ginv_blocks])
+    return S_full, G, Ginv
+
+
+class _OrthoTM:
+    """Mixed transfer matrix between fixed isometries ``Qs`` (bra) and
+    tensors ``Ms`` (ket): the operator whose fixed point is the gauge of
+    :func:`_cf_orthogonalize` (Arnoldi accelerates the iteration)."""
+
+    def __init__(self, Qs, Ms, left):
+        self.Qs = Qs
+        self.Ms = Ms
+        self.left = left
+
+    def matvec(self, x):
+        if self.left:   # x legs (vL=new, vR=old), left to right
+            for Q, M in zip(self.Qs, self.Ms):
+                x = npc.tensordot(x, M, axes=[['vR'], ['vL']])
+                inner = list(Q.get_leg_labels()[:-1])
+                x = npc.tensordot(Q.conj(), x,
+                                  axes=[[l + '*' for l in inner], inner])
+                x.ireplace_label('vR*', 'vL')
+                x.itranspose(['vL', 'vR'])
+        else:           # x legs (vL=old, vR=new), right to left
+            for Q, M in zip(reversed(self.Qs), reversed(self.Ms)):
+                x = npc.tensordot(M, x, axes=[['vR'], ['vL']])
+                inner = list(Q.get_leg_labels()[1:])
+                x = npc.tensordot(x, Q.conj(),
+                                  axes=[inner, [l + '*' for l in inner]])
+                x.ireplace_label('vL*', 'vR')
+                x.itranspose(['vL', 'vR'])
+        return x
+
+
+def _cf_orthogonalize(Ms, X, tol, p_label, left, arnoldi_params=None,
+                      max_iters=1000):
+    """Iterated QR orthogonalization of an infinite unit cell
+    (vanderstraeten2019, Alg. 1 and 2): isometries ``Qs`` and gauge ``X``
+    with ``X_i M_i = Q_i X_{i+1}`` (left) or ``M_i X_{i+1} = X_i Q_i``
+    (right).  Returns ``(Qs, X, norm)``, ``norm`` the converged factor per
+    unit cell.  Once roughly converged, Arnoldi on :class:`_OrthoTM`
+    accelerates it; a plateau below 1e-6 is accepted with a warning, a
+    higher one raises :class:`_GaugePlateauError`."""
+    L = len(Ms)
+    err = np.inf
+    best = (np.inf, None, None, 1.)
+    for _ in range(max_iters):
+        X = X / npc.norm(X)
+        X_old = X
+        Qs = [None] * L
+        if left:
+            for i in range(L):
+                XM = npc.tensordot(X, Ms[i], axes=[['vR'], ['vL']])
+                XM = XM.combine_legs([['vL'] + p_label], qconj=[+1])
+                Q, X = npc.qr(XM, inner_labels=['vR', 'vL'], pos_diag_R=True,
+                              qtotal_Q=XM.qtotal)
+                Qs[i] = Q.split_legs([0])
+        else:
+            for i in range(L - 1, -1, -1):
+                MX = npc.tensordot(Ms[i], X, axes=[['vR'], ['vL']])
+                MX = MX.combine_legs([p_label + ['vR']], qconj=[-1])
+                # the carry X stays charge neutral (Q takes the site's
+                # charge), else a charged unit cell grows its qtotal by the
+                # cell's charge every sweep
+                X, Q = npc.lq(MX, inner_labels=['vR', 'vL'], pos_diag_L=True,
+                              qtotal_L=MX.chinfo.make_valid())
+                Qs[i] = Q.split_legs([1])
+        norm = npc.norm(X)
+        X = X / norm
+        try:
+            X_old_t = X_old.transpose(X.get_leg_labels())
+            for la, lb in zip(X.legs, X_old_t.legs):
+                # the same leg, not only a compatible one: the first sweep
+                # changes the inner legs' convention
+                if la.qconj != lb.qconj or \
+                        not np.array_equal(la.charges, lb.charges) or \
+                        not np.array_equal(la.slices, lb.slices):
+                    raise ValueError("leg mismatch")
+            err = npc.norm(X - X_old_t)
+        except (ValueError, KeyError):
+            err = np.inf
+        if err <= tol:
+            return Qs, X, norm
+        if err < best[0]:
+            best = (err, Qs, X, norm)
+        if err < 1e-2:
+            opts = dict(arnoldi_params or {})
+            opts.setdefault('N_max', 20)
+            opts['E_tol'] = max(err / 10., 1e-16)
+            opts.setdefault('which', 'LM')
+            try:
+                _, X_acc, _ = Arnoldi(_OrthoTM(Qs, Ms, left), X, opts).run()
+                X_acc.itranspose(['vL', 'vR'])
+                if left:
+                    _, X_acc = npc.qr(X_acc, inner_labels=['vR', 'vL'],
+                                      pos_diag_R=True)
+                else:
+                    X_acc, _ = npc.lq(X_acc, inner_labels=['vR', 'vL'],
+                                      pos_diag_L=True)
+                X = X_acc.iset_leg_labels(['vL', 'vR'])
+            except (ValueError, KeyError, ArithmeticError, RuntimeError,
+                    np.linalg.LinAlgError):
+                pass   # the plain power iteration goes on
+    if best[0] < 1e-6:
+        # degenerate singular values leave a residual gauge-phase noise
+        # floor; the state is canonical to about best err
+        logger.warning("canonical_form_infinite: gauge iteration plateaued "
+                       "at err=%.2e (tol=%.0e)", best[0], tol)
+        return best[1], best[2], best[3]
+    raise _GaugePlateauError(f"canonical_form_infinite did not converge to "
+                             f"tol={tol}; last err={err}")
+
+
+class _GaugePlateauError(RuntimeError):
+    """The QR gauge iteration plateaued (degenerate or near-critical
+    transfer matrix)."""

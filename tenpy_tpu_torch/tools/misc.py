@@ -1,15 +1,15 @@
-"""Small helpers for models and lattices.
+"""Small helpers for models, lattices and eigensolvers.
 
-Port of ``to_array``, ``inverse_permutation`` and ``find_subclass`` from
-``tenpy_tpu/tools/misc.py``: the helpers that the sites, lattices and
-models import.
+Port of ``to_array``, ``argsort``, ``inverse_permutation`` and
+``find_subclass`` from ``tenpy_tpu/tools/misc.py``: the helpers that the
+sites, lattices, models and the eigensolvers import.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ['to_array', 'inverse_permutation', 'find_subclass']
+__all__ = ['to_array', 'argsort', 'inverse_permutation', 'find_subclass']
 
 
 def to_array(a, shape=(None,), dtype=None):
@@ -29,6 +29,24 @@ def to_array(a, shape=(None,), dtype=None):
             raise ValueError(f"incommensurate tiling {a.shape[i]} -> {want}")
         reps[i] = q
     return np.tile(a, reps)
+
+
+def argsort(a, sort=None):
+    """``np.argsort`` by ``sort``: 'm>'/'LM' (largest magnitude first),
+    'm<'/'SM', '>'/'LR'/'LA' (largest real part first), '<'/'SR'/'SA', or
+    None (the identity); ties keep their order."""
+    if sort is None:
+        return np.arange(len(a))
+    a = np.asarray(a)
+    if sort in ('m>', 'LM'):
+        return np.argsort(-np.abs(a), kind='stable')
+    if sort in ('m<', 'SM'):
+        return np.argsort(np.abs(a), kind='stable')
+    if sort in ('>', 'LR', 'LA'):
+        return np.argsort(-np.real(a), kind='stable')
+    if sort in ('<', 'SR', 'SA'):
+        return np.argsort(np.real(a), kind='stable')
+    raise ValueError(f"unknown sort order {sort!r}")
 
 
 def inverse_permutation(perm):

@@ -9,11 +9,16 @@ torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = ['tenpy_tpu_torch', 'tenpy_tpu_torch._build',
+           'tenpy_tpu_torch.tools', 'tenpy_tpu_torch.linalg',
+           'tenpy_tpu_torch.networks', 'tenpy_tpu_torch.models',
+           'tenpy_tpu_torch.algorithms',
            'tenpy_tpu_torch.tools.misc', 'tenpy_tpu_torch.tools.params',
+           'tenpy_tpu_torch.tools.math',
            'tenpy_tpu_torch.linalg.charges',
            'tenpy_tpu_torch.linalg.np_conserved',
            'tenpy_tpu_torch.linalg.sparse',
            'tenpy_tpu_torch.linalg.krylov_based',
+           'tenpy_tpu_torch.linalg.truncation',
            'tenpy_tpu_torch.linalg.padding',
            'tenpy_tpu_torch.linalg.grouped_gemm',
            'tenpy_tpu_torch.linalg.packed',
@@ -34,8 +39,15 @@ MODULES = ['tenpy_tpu_torch', 'tenpy_tpu_torch._build',
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, the chip smoke and the profiler import
-    neither JAX nor tenpy_tpu."""
+    """Every module of the port (the list covers every file of the
+    package), the chip smoke and the profiler import neither JAX nor
+    tenpy_tpu."""
+    pkg = os.path.join(ROOT, 'tenpy_tpu_torch')
+    on_disk = {os.path.relpath(os.path.join(d, f), ROOT)[:-3]
+               .replace(os.sep, '.').removesuffix('.__init__')
+               for d, _, files in os.walk(pkg) for f in files
+               if f.endswith('.py')}
+    assert on_disk <= set(MODULES), sorted(on_disk - set(MODULES))
     code = ("import importlib, sys\n"
             f"for m in {MODULES!r}:\n"
             "    importlib.import_module(m)\n"

@@ -56,6 +56,27 @@ def to_host(a):
                                     chinfo)
 
 
+def to_jax(a):
+    """The port's Array as a ``tenpy_tpu`` Array (numpy blocks)."""
+    from tenpy_tpu.linalg import np_conserved as jnpc
+    from tenpy_tpu.linalg.charges import ChargeInfo, LegCharge
+    chinfo = ChargeInfo(a.chinfo.mod, a.chinfo.names)
+    legs = [LegCharge(chinfo, l.slices, l.charges, l.qconj) for l in a.legs]
+    res = jnpc.Array(legs, str(a.dtype).replace('torch.', ''), a.qtotal,
+                     list(a.get_leg_labels()))
+    return res._set_blocks(a._qdata, [b.numpy() for b in a._data])
+
+
+def mps_to_jax(psi, sites):
+    """The port's MPS as a ``tenpy_tpu`` MPS on ``sites`` (``tenpy_tpu``
+    sites, for example its model's ``lat.mps_sites()``)."""
+    from tenpy_tpu.networks.mps import MPS as JMPS
+    res = JMPS(sites, [to_jax(B) for B in psi._B],
+               [np.array(S) for S in psi._S], bc=psi.bc, form=list(psi.form))
+    res.norm = psi.norm
+    return res
+
+
 def assert_packed_close(p, q, rtol=1e-12):
     """Port PackedArray ``p`` equals JAX PackedArray ``q`` bucket by bucket
     (same layout; entries within ``rtol`` of the largest entry of ``q``)."""
@@ -262,6 +283,170 @@ def write_ramps(path):
     exchange.save_flat(path, flat)
 
 
+def measure_written_back(psi, H):
+    """What a user measures on a written-back iMPS: Schmidt values per bond
+    (sorted, descending), the TM energy per site, the entanglement entropies,
+    ``Ntot`` and ``Sz`` per site, the correlation length and ``norm_test``,
+    with the seconds of each.  ``psi`` and ``H`` are of either package."""
+    out, sec = {}, {}
+    for i in range(psi.L):
+        out[f'S.{i}'] = np.sort(np.asarray(psi.get_SL(i)))[::-1]
+    t = time.time()
+    out['tm_E'] = float(np.real(H.expectation_value(psi)))
+    sec['tm_E'] = time.time() - t
+    t = time.time()
+    out['entropy'] = np.asarray(psi.entanglement_entropy())
+    out['Ntot'] = np.real(np.asarray(psi.expectation_value('Ntot')))
+    out['Sz'] = np.real(np.asarray(psi.expectation_value('Sz')))
+    sec['local'] = time.time() - t
+    t = time.time()
+    out['xi'] = float(psi.correlation_length())
+    sec['xi'] = time.time() - t
+    out['norm_test_after'] = float(np.max(psi.norm_test()))
+    return out, sec
+
+
+class CanonicalFormProbe:
+    """Wraps ``MPS.canonical_form`` of a module (either package's
+    ``networks.mps``) while in use: records ``max(norm_test)`` before each
+    call and the call's seconds."""
+
+    def __init__(self, mps_module):
+        self.cls = mps_module.MPS
+        self.before, self.seconds = [], []
+
+    def __enter__(self):
+        self.orig = self.cls.canonical_form
+        probe = self
+
+        def wrapped(psi, **kw):
+            probe.before.append(float(np.max(psi.norm_test())))
+            t = time.time()
+            res = probe.orig(psi, **kw)
+            probe.seconds.append(time.time() - t)
+            return res
+
+        self.cls.canonical_form = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.canonical_form = self.orig
+
+
+# the write-back case of tests/test_torch_write_back.py, the port of
+# tests/test_packed_dmrg.py:267 (a spin-1 chain grown 8 -> 64): a
+# single-stage 8x chi growth (1 -> 8) from a product state, on the ionic
+# Hubbard chain (staggered potential +-4, U=2).  It is a band insulator,
+# so chi=8 truncates little and the seam drift stays below the test's
+# 1e-5; the uniform half-filled chain is gapless, and at chi=8 its drift
+# would hide a write-back fault.
+WRITE_BACK_CASES = {
+    'ionic': ({'L': 2, 'bc_MPS': 'infinite', 't': 1., 'U': 2.,
+               'mu': np.array([4., -4.])},
+              ['full', 'empty'],
+              {'chi_max': 8, 'svd_min': 1e-12, 'lanczos_K': 10,
+               'lanczos_K_seam': 60, 'n_sweeps': 6, 'multiple': 4,
+               'backend': 'svd'}),
+}
+
+
+def charge_frame(psi):
+    """The charge frame of an MPS of either package: each tensor's
+    ``qtotal`` and the sorted charges (``qflat * qconj``) of its vL leg."""
+    out = {'qtotal': np.array([psi.get_B(i, None).qtotal
+                               for i in range(psi.L)])}
+    for i in range(psi.L):
+        leg = psi.get_B(i, None).get_leg('vL')
+        q = np.asarray(leg.to_qflat()) * leg.qconj
+        out[f'vL_q.{i}'] = q[np.lexsort(q.T[::-1])]
+    return out
+
+
+def write_back_reference(case):
+    """``tenpy_tpu``'s ``DeviceSweepEngine.run()`` on a write-back case: the
+    energy of every sweep, ``norm_test`` before the re-gauge, and
+    :func:`measure_written_back` of the written-back state."""
+    import tenpy_tpu.networks.mps as mpsmod
+    from tenpy_tpu.algorithms.packed_dmrg import DeviceSweepEngine
+    from tenpy_tpu.models.hubbard import FermiHubbardChain
+    params, init, options = WRITE_BACK_CASES[case]
+    m = FermiHubbardChain(dict(params))
+    psi = mpsmod.MPS.from_product_state(m.lat.mps_sites(), init,
+                                        bc='infinite')
+    eng = DeviceSweepEngine(psi, m, dict(options))
+    with CanonicalFormProbe(mpsmod) as probe:
+        E, psi = eng.run()
+    ref, _ = measure_written_back(psi, m.H_MPO)
+    ref.update(charge_frame(psi))
+    ref.update(sweep_E=np.asarray(eng.sweep_stats['E']),
+               norm_test_before=np.asarray(probe.before),
+               options=np.array(json.dumps(options)))
+    return ref
+
+
+def chi256_write_back_reference():
+    """``tenpy_tpu``'s ``DeviceSweepEngine.run()`` with ``SMOKE_OPTIONS`` on
+    the committed chi=256 state (the run of ``chip_smoke.py`` phase 5): the
+    sweep energies, ``norm_test`` before and after the re-gauge, the
+    seconds of write-back, re-gauge and measurements, the log lines of
+    ``canonical_form_infinite`` and :func:`measure_written_back`.  About 15
+    minutes on a CPU."""
+    import logging
+    import tenpy_tpu.networks.mps as mpsmod
+    from tenpy_tpu.algorithms.packed_dmrg import DeviceSweepEngine
+    m, psi = _hubbard_chi256()
+    records = []
+    handler = logging.Handler()
+    handler.emit = lambda r: records.append(r.getMessage())
+    logging.getLogger(mpsmod.__name__).addHandler(handler)
+    t0 = time.time()
+    eng = DeviceSweepEngine(psi, m, dict(SMOKE_OPTIONS))
+    orig_wb = eng.write_back
+    wb_seconds = []
+
+    def timed_write_back():
+        t = time.time()
+        orig_wb()
+        wb_seconds.append(time.time() - t)
+
+    eng.write_back = timed_write_back
+    try:
+        with CanonicalFormProbe(mpsmod) as probe:
+            E, psi = eng.run()
+    finally:
+        logging.getLogger(mpsmod.__name__).removeHandler(handler)
+    run_s = time.time() - t0
+    ref, sec = measure_written_back(psi, m.H_MPO)
+    ref.update(sweep_E=np.asarray(eng.sweep_stats['E']),
+               norm_test_before=np.asarray(probe.before),
+               canonical_form_s=np.asarray(probe.seconds),
+               write_back_s=np.asarray(wb_seconds),
+               run_s=np.asarray(run_s),
+               cf_log=np.array(records if records else ['']),
+               options=np.array(json.dumps(SMOKE_OPTIONS)))
+    for k, v in sec.items():
+        ref[f'{k}_s'] = np.asarray(v)
+    return ref
+
+
+def write_write_back(path, cases):
+    """Write the write-back references of ``cases`` (``'chi256'`` and the
+    keys of ``WRITE_BACK_CASES``) into ``path``, keeping the other cases an
+    existing file holds."""
+    flat = exchange.load_flat(path) if os.path.exists(path) else {}
+    for case in cases:
+        t0 = time.time()
+        ref = chi256_write_back_reference() if case == 'chi256' \
+            else write_back_reference(case)
+        flat = {k: v for k, v in flat.items()
+                if not k.startswith(case + '.')}
+        flat.update({f'{case}.{k}': np.asarray(v) for k, v in ref.items()})
+        print(f"{case}: tm_E={ref['tm_E']!r} norm_test before "
+              f"{ref['norm_test_before']} after {ref['norm_test_after']:.2e} "
+              f"xi={ref['xi']!r} ({time.time() - t0:.0f} s)", flush=True)
+    exchange.save_flat(path, flat)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--write',
@@ -270,6 +455,11 @@ def main(argv=None):
                     help='output .npz path (device_ramp references)')
     ap.add_argument('--write-small',
                     help='output .npz path (chi=16 Ly=2 cylinder state)')
+    ap.add_argument('--write-write-back',
+                    help='output .npz path (write-back references)')
+    ap.add_argument('--cases', nargs='+',
+                    default=['chi256'] + list(WRITE_BACK_CASES),
+                    help='write-back cases to (re)compute')
     args = ap.parse_args(argv)
     import jax
     jax.config.update('jax_platforms', 'cpu')
@@ -278,6 +468,8 @@ def main(argv=None):
         write_ramps(args.write_ramps)
     if args.write_small:
         write_small(args.write_small)
+    if args.write_write_back:
+        write_write_back(args.write_write_back, args.cases)
     if not args.write:
         return
     t0 = time.time()
