@@ -3,8 +3,10 @@
 Drives ``tenpy_tpu_torch``'s main path, the device-resident two-site iDMRG
 sweep (``DeviceSweepEngine``) on the Fermi-Hubbard U=8 Ly=4 cylinder,
 U(1)xU(1), at chi=256, and the chi ramp (``device_ramp``) to chi=256 from a
-Neel product state.  The port builds the model, its MPO and the
-environments itself; the committed exchange file
+Neel product state; then its complex128 path, the ramp to chi=128 of the
+Hofstadter cylinder (spinless fermions, flux 1/3, Lx=Ly=3, U(1) N).  The
+port builds the models, their MPOs and the environments itself; the
+committed exchange file
 ``tests/benchmark_data/hubbard_cyl_chi256_exchange.npz`` supplies the
 chi=256 state (B and S) and the JAX package's values to hold the port to.
 Phases (any failure exits nonzero):
@@ -12,7 +14,8 @@ Phases (any failure exits nonzero):
 1. device: card name and power limit, CUDA present, TF32 off;
 2. build: the CUDA kernel library from ``tenpy_tpu_torch/csrc``;
 3. the kernel against its plain PyTorch version (the table walker) on the
-   card: f64, f32 and f64 under the f32 matmul mode, at synthetic shapes,
+   card: f64, f32, f64 under the f32 matmul mode and complex128, at
+   synthetic shapes,
    the main path's own and two multi-bucket-pair tensordots (one of them
    all-thin) written into NaN-filled outputs;
 4. packed matvec at chi=256, CUDA against the CPU; for each of its four
@@ -35,7 +38,19 @@ Phases (any failure exits nonzero):
    chi=256 state's energy per site; its last stage, and only it, writes
    back: ``norm_test`` after the re-gauge, the TM energy against the
    ramp's own sweep estimate, the cell's total ``Ntot`` and ``Sz``;
-then a JSON line on the kernels and, last, ``{"ok": true, "device": ...}``.
+7. the complex path: ``HofstadterFermions`` (complex MPO) from the product
+   state at 1/3 filling, whose unit-cell charge (Q=3 on L=9 sites) takes
+   the charge-unit rescale of the uniform gauge; ``device_ramp`` to
+   chi=128 with per-stage times, launches (held to the tensordots run) and
+   Lanczos steps, its first update held to JAX's (1e-10) and its energy
+   per site to JAX's run of the same protocol
+   (``tests/benchmark_data/hofstadter_reference.npz``); the written-back
+   state complex128 with a nonzero imaginary part, canonical, N = 3 per
+   cell, and measured (TM energy, entropies, N, correlation length); then
+   the complex128 kernel against its plain version, timed, on that
+   engine's chi=128 matvec;
+then a JSON line on the kernels (the f64 and the complex128 mode) and,
+last, ``{"ok": true, "device": ...}``.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.
 """
@@ -56,6 +71,7 @@ from tenpy_tpu_torch.algorithms.packed_dmrg import DeviceSweepEngine, \
 from tenpy_tpu_torch.linalg import grouped_gemm as gg
 from tenpy_tpu_torch.linalg import packed as pk
 from tenpy_tpu_torch.linalg import packed_split as ps
+from tenpy_tpu_torch.models.hofstadter import HofstadterFermions
 from tenpy_tpu_torch.models.hubbard import FermiHubbardModel
 from tenpy_tpu_torch.networks import exchange
 from tenpy_tpu_torch.networks.mps import MPS
@@ -65,6 +81,8 @@ STATE = os.path.join(ROOT, 'tests', 'benchmark_data',
                      'hubbard_cyl_chi256_exchange.npz')
 WRITE_BACK_REF = os.path.join(ROOT, 'tests', 'benchmark_data',
                               'hubbard_write_back_reference.npz')
+HOF_REF = os.path.join(ROOT, 'tests', 'benchmark_data',
+                       'hofstadter_reference.npz')
 # the options of the JAX reference stored in the exchange file (checked);
 # the seam cap of 60 makes the wrap updates converge (tests/torch_exchange.py)
 OPTIONS = {'chi_max': 256, 'svd_min': 1e-10, 'lanczos_K': 10,
@@ -106,15 +124,38 @@ KERNEL_SHAPES = [((64, 64, 64), 240, (1, 3, 40)),
                  ((37, 129, 65), 50, (1, 3, 40)), ((1, 3, 5), 7, (1, 3, 40)),
                  ((4096, 1, 1), 2528, (10,)), ((64, 1, 1), 115120, (1, 3, 10)),
                  ((32, 32, 32), 664, (1, 3, 18)), ((8, 16, 8), 240, (1, 3, 18))]
-# (data dtype, compute dtype): f64, f32, and f64 under matmul_mode('f32')
+# (data dtype, compute dtype): f64, f32, f64 under matmul_mode('f32') and
+# complex128
 MODES = [(torch.float64, torch.float64), (torch.float32, torch.float32),
-         (torch.float64, torch.float32)]
-TOL = {torch.float64: 1e-12, torch.float32: 1e-5}   # summation order only
+         (torch.float64, torch.float32), (torch.complex128, torch.complex128)]
+TOL = {torch.float64: 1e-12, torch.float32: 1e-5,    # summation order only
+       torch.complex128: 1e-12}
 SPIN_CYCLES = 10_000_000     # about 5 ms of the card's clock
 # NVIDIA H100 SXM data sheet: HBM rate and peak rates (f64 tensor cores for
-# f64 sums, f32 CUDA cores for f32 sums)
+# f64 and complex128 sums, f32 CUDA cores for f32 sums)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float64: 67e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.float64: 67e12, torch.float32: 67e12,
+              torch.complex128: 67e12}
+# the complex path (BASELINE config #5; tests/torch_exchange.py holds the
+# same model, state and options, and the reference file is checked
+# against them): the Hofstadter cylinder at 1/3 filling, ramped to chi=128
+HOF_MODEL = {'lattice': 'Square', 'Lx': 3, 'Ly': 3, 'bc_y': 'cylinder',
+             'bc_MPS': 'infinite', 'phi': [1, 3], 'conserve': 'N', 'mu': 0.,
+             'v': 0.}
+HOF_INIT = ['full', 'empty', 'empty'] * 3
+HOF_OPTIONS = {'chi_max': 128, 'svd_min': 1e-10, 'lanczos_K': 10,
+               'lanczos_K_seam': 60, 'sweeps_per_stage': 2, 'n_sweeps': 4,
+               'backend': 'svd'}
+# energy per site of the ramp's last stage against JAX's run of the same
+# protocol on a CPU: measured 1.1e-12 apart on an H100 (PERF.md).  Below
+# the exact regime a cut inside a degenerate multiplet is decided by
+# roundoff; the last stage truncates 4.7e-11 per update, so such a cut
+# moves the energy per site by about that: 1e-10 allows it
+HOF_E_TOL = 1e-10
+# the TPU's run of config #5 (conserve=None; BENCH_NORTHSTAR.json), logged
+# beside the result as a sanity check, not a gate
+HOF_E_TPU = -0.8654432647
+HOF_CELL_N = 3.
 
 
 def log(*a):
@@ -152,9 +193,9 @@ def rel_err(x, ref):
 
 
 def packed_rel_err(p, ref):
-    num = sum(float(((a.cpu() - b.cpu()) ** 2).sum())
+    num = sum(float(((a.cpu() - b.cpu()).abs() ** 2).sum())
               for a, b in zip(p.data, ref.data))
-    den = sum(float((b.cpu() ** 2).sum()) for b in ref.data)
+    den = sum(float((b.cpu().abs() ** 2).sum()) for b in ref.data)
     return (num / max(den, 1e-300)) ** 0.5
 
 
@@ -192,13 +233,21 @@ def phase_build():
     _build.library()
 
 
+def random_tensor(shape, dtype, rng):
+    """Seeded normal entries on the card (complex: re and im each)."""
+    x = rng.standard_normal(shape)
+    if dtype.is_complex:
+        x = x + 1j * rng.standard_normal(shape)
+    return torch.from_numpy(x).to('cuda', dtype)
+
+
 def random_case(m, k, n, B, fan_in, dtype, rng):
     U = max(1, B // fan_in)
     seg = np.sort(np.concatenate([np.arange(U), rng.integers(0, U, B - U)]))
     Na, Nb = max(1, B // 2), max(1, B // 2)
     dev = torch.device('cuda')
-    a = torch.from_numpy(rng.standard_normal((Na, m, k))).to(dev, dtype)
-    b = torch.from_numpy(rng.standard_normal((Nb, k, n))).to(dev, dtype)
+    a = random_tensor((Na, m, k), dtype, rng)
+    b = random_tensor((Nb, k, n), dtype, rng)
     seg_ptr = np.concatenate([[0], np.cumsum(np.bincount(seg, minlength=U))])
     idx = [torch.from_numpy(x.astype(np.int32)).to(dev) for x in
            (seg_ptr, rng.integers(0, Na, B), rng.integers(0, Nb, B))]
@@ -222,10 +271,8 @@ def multi_group_case(dtype, rng, thin_only=False):
     pairs = [(0, 0, 400), (0, 1, 300), (1, 2, 300), (2, 3, 90), (3, 4, 45)]
     if thin_only:
         pairs = pairs[2:4]
-    a_bufs = [torch.from_numpy(rng.standard_normal(s)).to(dev, dtype)
-              for s in a_shapes]
-    b_bufs = [torch.from_numpy(rng.standard_normal(s)).to(dev, dtype)
-              for s in b_shapes]
+    a_bufs = [random_tensor(s, dtype, rng) for s in a_shapes]
+    b_bufs = [random_tensor(s, dtype, rng) for s in b_shapes]
     cols, k_min = [], [np.inf] * len(out_dims)
     for so, pi, cnt in pairs:
         k = a_shapes[pi][2]
@@ -243,9 +290,10 @@ def multi_group_case(dtype, rng, thin_only=False):
 
 def phase_kernel():
     """The kernel against the plain version (the table walker) on the card;
-    returns the largest absolute f64 difference."""
+    returns the largest absolute difference of the f64 and of the
+    complex128 mode."""
     rng = np.random.default_rng(0)
-    max_abs_f64 = 0.
+    max_abs = {torch.float64: 0., torch.complex128: 0.}
     for dtype, compute in MODES:
         mode = f"{str(dtype)[6:]}/{str(compute)[6:]}"
         for (m, k, n), B, fans in KERNEL_SHAPES:
@@ -272,8 +320,8 @@ def phase_kernel():
                     f"{ms:.4f} ms plain {plain_ms:.4f} ms "
                     f"{'ok' if ok else 'FAIL'}")
                 check(ok, f"kernel disagrees with plain: {err:.2e}")
-                if compute == torch.float64:
-                    max_abs_f64 = max(max_abs_f64, abs_e)
+                if compute in max_abs:
+                    max_abs[compute] = max(max_abs[compute], abs_e)
         # several bucket pairs per output row and unreached buckets, written
         # into NaN-filled outputs: a row the kernel missed stays NaN
         for thin_only in (False, True):
@@ -295,25 +343,28 @@ def phase_kernel():
                 f"buckets {unreached}): rel_err {err:.2e} "
                 f"{'ok' if ok else 'FAIL'}")
             check(ok, f"multi-group kernel disagrees with plain: {err:.2e}")
-            if compute == torch.float64:
-                max_abs_f64 = max(max_abs_f64, abs_e)
-    return max_abs_f64
+            if compute in max_abs:
+                max_abs[compute] = max(max_abs[compute], abs_e)
+    return max_abs
 
 
 def contract_cost(args, groups):
     """(bytes, flops) a packed_contract call must move and compute: every
     operand bucket read once, every output written once, the least index
     of a block product (its a block, b block and output row: three int32),
-    and 2 m k n per block product.  The kernel's own schedule (its task
-    table and the rest of its entry rows) is not counted."""
+    and 2 m k n real flops per block product (8 m k n for complex data: a
+    complex multiply-add is 4 real multiplies and 4 adds).  The kernel's
+    own schedule (its task table and the rest of its entry rows) is not
+    counted."""
     a_bufs, b_bufs, tables, compute = args
     size = a_bufs[0].element_size()
+    per_mac = 8 if compute.is_complex else 2
     out_dims = tables.out_dims
     nbytes = (sum(x.numel() for x in (*a_bufs, *b_bufs)) * size
               + sum(r * m * n for r, m, n in out_dims) * size
               + tables.entries.shape[0] * 3 * 4)
-    flops = sum(2 * rows.numel() * out_dims[so][1] * k * out_dims[so][2]
-                for so, _, _, k, rows, _, _ in groups)
+    flops = sum(per_mac * rows.numel() * out_dims[so][1] * k
+                * out_dims[so][2] for so, _, _, k, rows, _, _ in groups)
     return nbytes, flops
 
 
@@ -323,7 +374,8 @@ def schedule_stats(args, groups):
     every entry's A and B blocks, from L2 or HBM), the FLOPs its tiles
     execute (zero padding included), and the FLOPs a fixed 64 x 64 x 16
     tile per output block would execute."""
-    a_bufs, _, tables, _ = args
+    a_bufs, _, tables, compute = args
+    per_mac = 8 if compute.is_complex else 2
     out_dims = tables.out_dims
     t, k = tables.tasks.long().cpu(), tables.entries[:, 4].long().cpu()
     k_pre = torch.cat([k.new_zeros(1), torch.cumsum(k, 0)])
@@ -343,9 +395,10 @@ def schedule_stats(args, groups):
     k8_pre = torch.cat([k.new_zeros(1), torch.cumsum((k + 7) // 8 * 8, 0)])
     k_pad = k8_pre[t[:, 6]] - k8_pre[t[:, 5]]
     area = tile[t[:, 0], 0] * tile[t[:, 0], 1]
-    executed = 2 * int(torch.where(thin, elems * k_sum, area * k_pad).sum())
+    executed = per_mac * int(torch.where(thin, elems * k_sum,
+                                         area * k_pad).sum())
     up = lambda x, q: -(-x // q) * q
-    fixed = sum(2 * rows_g.numel() * up(out_dims[so][1], 64)
+    fixed = sum(per_mac * rows_g.numel() * up(out_dims[so][1], 64)
                 * up(out_dims[so][2], 64) * up(k, 16)
                 for so, _, _, k, rows_g, _, _ in groups)
     return reads, executed, fixed
@@ -369,9 +422,11 @@ def to_cpu(p):
                           'cpu')
 
 
-def phase_matvec(eng_c):
-    """The chi=256 matvec on the main path's engine (read only) and on a CPU
-    copy of its operands."""
+def phase_matvec(eng_c, tag=4, options=OPTIONS):
+    """The matvec at ``options['chi_max']`` on an engine of the main path
+    (read only) and on a CPU copy of its operands: the kernel per
+    tensordot against its plain version, its time, the library's and the
+    bound; logged under phase ``tag``."""
     ops_c = (eng_c.LPp[0], eng_c.RPp[1], eng_c.Wp[0], eng_c.Wp[1],
              eng_c.Bp[0], eng_c.Bp[1], eng_c.Sp[0])
     ops_h = [to_cpu(x) for x in ops_c[:-1]] + [ops_c[-1].cpu()]
@@ -403,8 +458,9 @@ def phase_matvec(eng_c):
     out_h = _matvec_2site_packed(ops_h[0], ops_h[1], W0[1], W1[1], th[1])
     cpu_s = time.time() - t0
     err = packed_rel_err(out_c, out_h)
-    log(f"[4] chi=256 matvec CUDA vs CPU: rel_err {err:.2e} ({grew} kernel "
-        f"launches for {len(calls)} tensordots; CPU matvec {cpu_s:.2f} s)")
+    log(f"[{tag}] chi={options['chi_max']} matvec CUDA vs CPU: rel_err "
+        f"{err:.2e} ({grew} kernel launches for {len(calls)} tensordots; "
+        f"CPU matvec {cpu_s:.2f} s)")
     check(len(calls) == 4 and grew == 4 and err <= 1e-12,
           "packed matvec parity or launch count failed")
     for x in out_c.data:
@@ -452,7 +508,7 @@ def phase_matvec(eng_c):
         c[0] += ms
         c[1] += nbytes
         c[2] += flops
-        log(f"[4] {step}: {cls} classes {classes}, {len(groups)} bucket "
+        log(f"[{tag}] {step}: {cls} classes {classes}, {len(groups)} bucket "
             f"pairs, {tables.entries.shape[0]} entries, {tasks.shape[0]} "
             f"tasks; "
             f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.4f} GFLOP; the tasks "
@@ -472,17 +528,17 @@ def phase_matvec(eng_c):
         tot['fixed'] += fixed
         tot['max_abs'] = max(tot['max_abs'], abs_e)
     tot['bound_ms'], tot['bound_by'] = bound_ms(tot['bytes'], tot['flops'],
-                                                torch.float64)
+                                                calls[0][3])
     for cls, (ms, nbytes, flops) in sorted(per_class.items()):
-        log(f"[4] {cls} class: {ms:.4f} ms per matvec, "
+        log(f"[{tag}] {cls} class: {ms:.4f} ms per matvec, "
             f"{nbytes / ms / 1e6:.1f} GB/s, {flops / ms / 1e9:.3f} TFLOP/s")
-    log(f"[4] matvec total: kernel {tot['ms']:.4f} ms, plain "
+    log(f"[{tag}] matvec total: kernel {tot['ms']:.4f} ms, plain "
         f"{tot['plain_ms']:.3f} ms, library {tot['library_ms']:.4f} ms, "
         f"bound {tot['bound_ms']:.4f} ms ({tot['bound_by']}; "
         f"{tot['bytes'] / 1e6:.1f} MB, {tot['flops'] / 1e9:.3f} GFLOP), "
         f"{100 * tot['bound_ms'] / tot['ms']:.1f}% of bound; kernel vs plain "
         f"max_abs_err {tot['max_abs']:.2e}")
-    log(f"[4] executed/useful FLOPs per matvec: the class tiles "
+    log(f"[{tag}] executed/useful FLOPs per matvec: the class tiles "
         f"{tot['executed'] / tot['flops']:.2f}x, a fixed 64x64x16 tile "
         f"{tot['fixed'] / tot['flops']:.1f}x")
 
@@ -496,16 +552,16 @@ def phase_matvec(eng_c):
     svd_ms = cuda_ms(lambda: [torch.linalg.svd(M, full_matrices=False)
                               for M in Ms], reps=5)
     split_ms = cuda_ms(lambda: ps.split_truncate(
-        th[0], plan, OPTIONS['chi_max'], OPTIONS['svd_min'], 'svd',
+        th[0], plan, options['chi_max'], options['svd_min'], 'svd',
         expand=True), reps=5)
     S_dev = torch.cat([torch.linalg.svd(M, full_matrices=False)[1].reshape(-1)
                        for M in Ms]).cpu()
     S_cpu = torch.cat([torch.linalg.svdvals(M.cpu()).reshape(-1)
                        for M in Ms])
     svd_err = float((S_dev - S_cpu).abs().max() / S_cpu.max())
-    log(f"[4] split: {len(Ms)} SVD groups (N,R,C) "
+    log(f"[{tag}] split: {len(Ms)} SVD groups (N,R,C) "
         f"{[(g.N, g.R, g.C) for g in plan.groups]}")
-    log(f"[4] batched SVD {svd_ms:.2f} ms per update, whole split "
+    log(f"[{tag}] batched SVD {svd_ms:.2f} ms per update, whole split "
         f"{split_ms:.2f} ms; singular values vs CPU rel_err {svd_err:.2e}")
     check(svd_err < 1e-12, "cuSOLVER singular values disagree with LAPACK")
     return tot
@@ -641,15 +697,16 @@ def phase_main(eng, ref):
     return launches
 
 
-def measure(psi, H):
+def measure(psi, H, ops):
     """What a user measures on a written-back iMPS, with the host seconds
-    of each: the TM energy per site, the entanglement entropies, ``Ntot``
-    and ``Sz`` per site, the correlation length and ``norm_test``."""
+    of each: the TM energy per site, the entanglement entropies, the local
+    operators ``ops`` per site (their real parts), the correlation length
+    and ``norm_test``."""
     out, sec = {}, {}
+    local = [(op, lambda op=op: np.real(psi.expectation_value(op)))
+             for op in ops]
     for key, fn in [('tm_E', lambda: float(H.expectation_value(psi))),
-                    ('entropy', psi.entanglement_entropy),
-                    ('Ntot', lambda: psi.expectation_value('Ntot')),
-                    ('Sz', lambda: psi.expectation_value('Sz')),
+                    ('entropy', psi.entanglement_entropy), *local,
                     ('xi', psi.correlation_length),
                     ('norm_test', lambda: float(np.max(psi.norm_test())))]:
         t = time.time()
@@ -658,10 +715,12 @@ def measure(psi, H):
     return out, sec
 
 
-def check_written_back(eng, sites, tag):
+def check_written_back(eng, sites, tag, cell=(('Ntot', CELL_N),
+                                               ('Sz', 0.))):
     """The engine wrote its state into the caller's MPS: the caller's Site
     objects and charge frame, re-gauged; logs the write-back's seconds and
-    ``norm_test``, measures the state and checks the cell's charges.
+    ``norm_test``, measures the state and checks the cell's charges
+    (``cell``: the local operators and their totals over the unit cell).
     Returns the measurements."""
     psi, st = eng.psi, eng.write_back_stats
     log(f"[{tag}] write-back: move to the host and gauge inversion "
@@ -675,20 +734,22 @@ def check_written_back(eng, sites, tag):
         check(np.array_equal(p.charges, site.leg.charges)
               and p.qconj == site.leg.qconj,
               f"site {i}: the physical leg is not in the caller's frame")
-    got, sec = measure(psi, eng.model.H_MPO)
+    got, sec = measure(psi, eng.model.H_MPO, [op for op, _ in cell])
     log(f"[{tag}] measurements: TM energy {sec['tm_E']:.3f} s, entropies "
-        f"{sec['entropy']:.4f} s, Ntot {sec['Ntot']:.4f} s, Sz "
-        f"{sec['Sz']:.4f} s, correlation length {sec['xi']:.3f} s, "
+        f"{sec['entropy']:.4f} s, "
+        + ', '.join(f'{op} {sec[op]:.4f} s' for op, _ in cell)
+        + f", correlation length {sec['xi']:.3f} s, "
         f"norm_test {sec['norm_test']:.3f} s")
-    n_tot, sz_tot = float(np.sum(got['Ntot'])), float(np.sum(got['Sz']))
+    totals = {op: float(np.sum(got[op])) for op, _ in cell}
     log(f"[{tag}] TM energy per site {got['tm_E']!r}, correlation length "
         f"{got['xi']!r}, entropies "
         + ' '.join(f'{x:.10f}' for x in got['entropy'])
-        + f"; cell Ntot {n_tot!r}, Sz {sz_tot!r}, bonds chi {psi.chi}")
+        + '; cell ' + ', '.join(f'{op} {totals[op]!r}' for op, _ in cell)
+        + f", bonds chi {psi.chi}")
     check(got['norm_test'] <= 1e-10 and st['norm_test_after'] <= 1e-10,
           "the written-back state is not canonical")
-    check(abs(n_tot - CELL_N) <= CELL_TOL and abs(sz_tot) <= CELL_TOL,
-          "the cell's total N or Sz moved")
+    check(all(abs(totals[op] - q) <= CELL_TOL for op, q in cell),
+          "the cell's total charges moved")
     check(all(np.isfinite(got[k]).all() for k in got),
           "non-finite measurement")
     return got
@@ -813,11 +874,121 @@ def phase_ramp():
           "TM energy of the written-back ramp state far from its sweeps'")
 
 
+def phase_hofstadter(hof):
+    """The complex path: ``device_ramp`` of the Hofstadter cylinder to
+    chi=128 from the product state at 1/3 filling, its write-back and
+    measurements, held to JAX's run of the same protocol; then the
+    complex128 kernel on that engine's chi=128 matvec.  Returns the ramp's
+    kernel launches and the matvec's kernel numbers."""
+    t0 = time.time()
+    model = HofstadterFermions(dict(HOF_MODEL))
+    psi = MPS.from_product_state(model.lat.mps_sites(), HOF_INIT,
+                                 bc='infinite')
+    L = model.lat.N_sites
+    log(f"[7] HofstadterFermions {HOF_MODEL}: L={L}, H_MPO "
+        f"{model.H_MPO.dtype}, MPO bond dims {model.H_MPO.chi}; model and "
+        f"state {time.time() - t0:.3f} s")
+    check(model.H_MPO.dtype == torch.complex128, "the MPO is not complex")
+    sites = list(psi.sites)
+    per_sweep, restore = counting()
+    gg.LAUNCHES = 0                    # count the complex path's launches
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.time()
+        eng = device_ramp(psi, model, dict(HOF_OPTIONS), device='cuda')
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        restore()
+    launches = gg.LAUNCHES
+    st = eng.sweep_stats
+    log(f"[7] charge gauge: unit-cell charge 3 on {L} sites, charge units "
+        f"rescaled by k={[int(k) for k in eng.gauge['k']]}; layout "
+        f"{eng.bond[0].block_number} sectors, capacity "
+        f"{int(eng.bond[0].slices[-1])}; state {eng.Bp[0].dtype}, W "
+        f"{eng.Wp[1].dtype}")
+    check(list(eng.gauge['k']) == [3] and eng.Bp[0].dtype == torch.complex128,
+          "the run did not take the rescaled gauge on complex128 buffers")
+    check(len(per_sweep) == len(st['E']), "sweeps counted twice or missed")
+    e_site = {}
+    for k, stage in enumerate(eng.stages):
+        sw = range(stage['first_sweep'],
+                   stage['first_sweep'] + stage['n_sweeps'])
+        lau = [per_sweep[i][0] for i in sw]
+        tds = [per_sweep[i][1] for i in sw]
+        E = [st['E'][i] for i in sw]
+        e_site[stage['chi']] = (E[-1] - E[-2]) / (2 * L)
+        log(f"[7] stage {k + 1} chi={stage['chi']}: s/sweep "
+            + ' '.join(f"{st['time'][i]:.2f}" for i in sw)
+            + f", lanczos_iters {[sum(st['lanczos_iters'][i]) for i in sw]}"
+            f", launches {lau} (tensordots {tds}), setup "
+            f"{stage['setup_s']:.3f} s, E "
+            + ' '.join(f'{x:.10f}' for x in E)
+            + f", energy per site {e_site[stage['chi']]:.10f}, max_err "
+            f"{max(st['max_err'][i] for i in sw):.2e}")
+        check(all(n == c for n, c in zip(lau, tds)),
+              f"stage {k + 1}: kernel launches differ from the tensordots")
+    log(f"[7] device_ramp wall {wall:.2f} s ({sum(st['time']):.2f} s of "
+        f"sweeps), {len(st['E'])} sweeps, kernel launches {launches}, "
+        f"tensordots {sum(c for _, c, _ in per_sweep)}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    check(launches > 0, "the complex path never launched the kernel")
+    check(np.isfinite(st['E']).all() and
+          all(torch.isfinite(S).all() for S in eng.Sp),
+          "non-finite energy or Schmidt values")
+
+    e0, e0_ref = st['update_E0'][0][0], float(hof['update_E0'][0])
+    rel0 = abs(e0 - e0_ref) / abs(e0_ref)
+    log(f"[7] first update E0 {e0:.12f} vs JAX {e0_ref:.12f}: rel {rel0:.2e}")
+    check(rel0 <= 1e-10, "first update disagrees with JAX")
+    ref_E = hof['sweep_E']
+    n = min(len(ref_E), len(st['E']))
+    d_E = np.abs(np.asarray(st['E'][:n]) - ref_E[:n]) / np.abs(ref_E[:n])
+    log(f"[7] sweep energies vs JAX's run (rel; {len(st['E'])} and "
+        f"{len(ref_E)} sweeps): " + ' '.join(f'{x:.1e}' for x in d_E))
+    e_fin = e_site[HOF_OPTIONS['chi_max']]
+    e_ref = float(ref_E[-1] - ref_E[-2]) / (2 * L)
+    log(f"[7] energy per site at chi={HOF_OPTIONS['chi_max']}: {e_fin!r}, "
+        f"JAX's run {e_ref!r}: diff {e_fin - e_ref:+.3e} (tolerance "
+        f"{HOF_E_TOL:.0e}); the TPU's conserve=None run {HOF_E_TPU}: diff "
+        f"{e_fin - HOF_E_TPU:+.3e} (not a gate)")
+    check(abs(e_fin - e_ref) <= HOF_E_TOL,
+          "energy per site differs from JAX's run of the same protocol")
+
+    got = check_written_back(eng, sites, 7, cell=(('N', HOF_CELL_N),))
+    psi = eng.psi
+    imag = max(float(b.imag.abs().max()) for B in psi._B for b in B._data)
+    n_err = abs(float(np.sum(got['N'])) - HOF_CELL_N)
+    log(f"[7] written-back state {psi.dtype}, largest imaginary part "
+        f"{imag:.3e}; N per cell - 3: {n_err:.1e}; JAX's write-back: TM "
+        f"energy {float(hof['tm_E'])!r} (diff "
+        f"{got['tm_E'] - float(hof['tm_E']):+.3e}), "
+        f"correlation length {float(hof['xi'])!r}, entropies max abs diff "
+        f"{float(np.abs(got['entropy'] - hof['entropy']).max()):.2e}, N "
+        f"max abs diff {float(np.abs(got['N'] - hof['N']).max()):.2e}; "
+        f"TM energy - sweep estimate {got['tm_E'] - e_fin:+.3e}")
+    check(psi.dtype == torch.complex128 and imag > 1e-3,
+          "the written-back state is not genuinely complex")
+    check(eng.write_back_stats['norm_test_after'] <= 1e-12,
+          "norm_test after the re-gauge above 1e-12")
+    check(n_err <= 1e-12, "N per cell is not 3")
+    check(abs(got['tm_E'] - e_fin) <= 1e-4,
+          "TM energy of the written-back state far from its sweeps'")
+    mv = phase_matvec(eng, 7, HOF_OPTIONS)
+    return launches, mv
+
+
 def main():
     t_start = time.time()
     smi = phase_device()
     phase_build()
     max_abs_synth = phase_kernel()
+    hof = {k[len('chi128.'):]: v
+           for k, v in exchange.load_flat(HOF_REF).items()
+           if k.startswith('chi128.')}
+    if (json.loads(str(hof['options'])) != HOF_OPTIONS
+            or json.loads(str(hof['model'])) != HOF_MODEL):
+        raise RuntimeError("Hofstadter reference options or model differ")
     flat = exchange.load_flat(STATE)
     state = exchange.ExchangeState(flat)
     ref = state.reference
@@ -838,18 +1009,26 @@ def main():
     launches = phase_main(eng, ref)
     phase_write_back(eng, sites, wb)
     phase_ramp()
-    log(f"[7] kernel max_abs_err: synthetic f64 {max_abs_synth:.2e}, "
-        f"main-path shapes {mv['max_abs']:.2e}")
-    # times, bound and library time: per chi=256 matvec (4 tensordots)
-    print(json.dumps({'kernels': [{
-        'name': 'packed_contract', 'route': 'cuda',
-        'source': 'tenpy_tpu_torch/csrc/packed_contract.cu',
-        'replaces': 'tenpy_tpu/linalg/pallas_gemm.py:124',
-        'launches': launches, 'max_abs_err': mv['max_abs'], 'ms': mv['ms'],
-        'plain_ms': mv['plain_ms'], 'bound_ms': mv['bound_ms'],
-        'bound_by': mv['bound_by'], 'library_ms': mv['library_ms']}]}),
-        flush=True)
-    log(f"[7] chip_smoke wall {time.time() - t_start:.1f} s")
+    z_launches, zmv = phase_hofstadter(hof)
+    log(f"[8] kernel max_abs_err: synthetic f64 "
+        f"{max_abs_synth[torch.float64]:.2e}, complex128 "
+        f"{max_abs_synth[torch.complex128]:.2e}; main-path shapes f64 "
+        f"{mv['max_abs']:.2e}, complex128 {zmv['max_abs']:.2e}")
+
+    def entry(name, n, m):
+        return {'name': name, 'route': 'cuda',
+                'source': 'tenpy_tpu_torch/csrc/packed_contract.cu',
+                'replaces': 'tenpy_tpu/linalg/pallas_gemm.py:124',
+                'launches': n, 'max_abs_err': m['max_abs'], 'ms': m['ms'],
+                'plain_ms': m['plain_ms'], 'bound_ms': m['bound_ms'],
+                'bound_by': m['bound_by'], 'library_ms': m['library_ms']}
+
+    # times, bound and library time: per matvec (4 tensordots), f64 at
+    # chi=256 (Hubbard), complex128 at chi=128 (Hofstadter)
+    print(json.dumps({'kernels': [
+        entry('packed_contract', launches, mv),
+        entry('packed_contract_complex128', z_launches, zmv)]}), flush=True)
+    log(f"[8] chip_smoke wall {time.time() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

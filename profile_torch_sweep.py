@@ -2,17 +2,22 @@
 
 Runs ``tenpy_tpu_torch``'s ``DeviceSweepEngine`` on the chi=256 Hubbard
 cylinder of ``chip_smoke.py`` (its model, options and the state of its
-exchange file, imported from it), set up by the port itself: sweep 1 with the subspace expansion and sweep 2 without it build
-the host plans, sweep 3 (expansion off) is the steady sweep, timed, and
-sweep 4 (the same work) runs under ``torch.profiler``.  Prints the card's
-name and power limit, the sweep times, device time by kernel, the profiled
-sweep's busy and idle share of its own wall time, the host's launch and
-copy calls, and the profiler's table of the 40 costliest operations.
+exchange file, imported from it), set up by the port itself: sweep 1 with
+the subspace expansion and sweep 2 without it build the host plans, sweep
+3 (expansion off) is the steady sweep, timed, and sweep 4 (the same work)
+runs under ``torch.profiler``.  With ``--hofstadter`` the engine is instead
+the complex128 one of ``chip_smoke.py`` phase 7 (the Hofstadter cylinder
+ramped to chi=128 by ``device_ramp``), and its next sweeps (expansion off)
+play the same parts.  Prints the card's name and power limit, the sweep
+times, device time by kernel, the profiled sweep's busy and idle share of
+its own wall time, the host's launch and copy calls, and the profiler's
+table of the 40 costliest operations.
 
 Run from the root of a checkout on a machine with a CUDA card:
-``python3 profile_torch_sweep.py``.
+``python3 profile_torch_sweep.py [--hofstadter]``.
 """
 
+import argparse
 import json
 import subprocess
 import time
@@ -22,11 +27,15 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import MODEL, OPTIONS, STATE
-from tenpy_tpu_torch.algorithms.packed_dmrg import DeviceSweepEngine
+from chip_smoke import HOF_INIT, HOF_MODEL, HOF_OPTIONS, MODEL, OPTIONS, \
+    STATE
+from tenpy_tpu_torch.algorithms.packed_dmrg import DeviceSweepEngine, \
+    device_ramp
 from tenpy_tpu_torch.linalg import grouped_gemm as gg
+from tenpy_tpu_torch.models.hofstadter import HofstadterFermions
 from tenpy_tpu_torch.models.hubbard import FermiHubbardModel
 from tenpy_tpu_torch.networks import exchange
+from tenpy_tpu_torch.networks.mps import MPS
 
 
 def timed_sweep(eng):
@@ -49,13 +58,9 @@ def busy_us(intervals):
     return total
 
 
-def main():
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: this script profiles the card")
-    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                          '--format=csv,noheader'], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    print(f"nvidia-smi: {smi}", flush=True)
+def hubbard_engine():
+    """The chi=256 Hubbard engine after its two plan-building sweeps (one
+    with the expansion, one without), and their seconds."""
     flat = exchange.load_flat(STATE)
     if json.loads(str(flat['ref.options'])) != OPTIONS:
         raise RuntimeError("exchange file reference options differ")
@@ -66,14 +71,44 @@ def main():
     t1, _ = timed_sweep(eng)
     eng._cur_expand = False
     t2, _ = timed_sweep(eng)
+    return eng, [t1, t2]
+
+
+def hofstadter_engine():
+    """The complex128 Hofstadter engine ramped to chi=128 (its plans are
+    built by the ramp's last stage), and the ramp's seconds."""
+    model = HofstadterFermions(dict(HOF_MODEL))
+    psi = MPS.from_product_state(model.lat.mps_sites(), HOF_INIT,
+                                 bc='infinite')
+    t0 = time.time()
+    eng = device_ramp(psi, model, dict(HOF_OPTIONS), 'cuda')
+    torch.cuda.synchronize()
+    eng._cur_expand = False
+    return eng, [time.time() - t0]
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument('--hofstadter', action='store_true',
+                    help='profile the complex128 Hofstadter engine at '
+                         'chi=128 instead of the chi=256 Hubbard one')
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: this script profiles the card")
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(f"nvidia-smi: {smi}", flush=True)
+    eng, warm = hofstadter_engine() if args.hofstadter else hubbard_engine()
     t3, n3 = timed_sweep(eng)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t4, launches = timed_sweep(eng)
-    print(f"sweep times: {t1:.3f} s (expand, builds plans), {t2:.3f} s "
-          f"(settle, builds plans), {t3:.3f} s (steady, unprofiled), "
-          f"{t4:.3f} s (steady, profiled); packed_contract launches: "
-          f"{n3} in sweep 3, {launches} in sweep 4", flush=True)
+    print(f"warm-up {' '.join(f'{t:.3f}' for t in warm)} s "
+          f"({'the ramp' if args.hofstadter else 'expand and settle sweeps'}"
+          f", building the plans); steady sweep {t3:.3f} s (unprofiled), "
+          f"{t4:.3f} s (profiled); packed_contract launches: {n3} in the "
+          f"steady sweep, {launches} in the profiled one", flush=True)
 
     dev_time, dev_count = defaultdict(float), defaultdict(int)
     host_count, host_time = defaultdict(int), defaultdict(float)

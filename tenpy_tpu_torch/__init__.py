@@ -8,7 +8,8 @@ device; on the CPU the same wrapper takes its plain PyTorch version.  The
 entry points (``pack``, ``DeviceSweepEngine``, ``device_ramp``) put their
 tensors on the card unless the caller passes ``device='cpu'``.
 
-A run starts from a model (``models.hubbard``) and an MPS
+A run starts from a model (``models.hubbard``, or the complex
+``models.hofstadter``, which runs on complex128 buffers) and an MPS
 (``networks.mps``); the engine's host-side setup (charge gauge, MPO
 rescale, converged environments) runs on CPU torch blocks
 (``linalg.np_conserved``) and is then packed onto the device.

@@ -5,7 +5,9 @@ Port of the device path of ``tenpy_tpu/algorithms/mps_common.py``
 ``_lanczos_K_2site_packed_impl``).  The ``lax.scan`` / ``lax.while_loop``
 of the JAX version become Python loops over device tensors; the K x K
 tridiagonal eigenproblem runs on a host f64 copy.  The early-exit loop reads
-one scalar pair per iteration from the device.
+one scalar pair per iteration from the device.  A complex Hamiltonian or
+guess runs the same loop on complex128 vectors: alpha = Re<v|Hv> and
+beta = |w| are real, so the tridiagonal problem stays real.
 """
 
 from __future__ import annotations
@@ -49,7 +51,8 @@ def _tridiag_ground(alphas, betas, diag_live, off_live):
 
 
 def _combine(vs, c):
-    """``sum_j c[j] vs[j]`` for a list of packed vectors."""
+    """``sum_j c[j] vs[j]`` for a list of packed vectors and real
+    coefficients ``c``."""
     out = [torch.zeros_like(d) for d in vs[0].data]
     for cj, v in zip(c, vs):
         for o, d in zip(out, v.data):
@@ -75,9 +78,21 @@ def _lanczos_K_2site_packed_impl(LPp, RPp, W0p, W1p, theta0, K,
     Returns ``(E0, theta_gs, N_used, resid)``: floats ``E0`` and ``resid``
     (the residual bound ``|beta_N <e_N, gs>|``), the normalized packed Ritz
     vector and the iteration count as an int.
+
+    The Krylov vectors take the result type of the operands (float64, or
+    complex128 when any of them is complex; a float32 guess is promoted),
+    as in ``tenpy_tpu``.  ``reortho`` with complex vectors raises, as
+    there.
     """
-    if theta0.dtype != torch.float64:
-        theta0 = theta0._like([d.to(torch.float64) for d in theta0.data])
+    dtype = torch.float64
+    for x in (LPp, RPp, W0p, W1p, theta0):
+        dtype = torch.promote_types(dtype, x.dtype)
+    if theta0.dtype != dtype:
+        theta0 = theta0._like([d.to(dtype) for d in theta0.data])
+    if reortho and dtype.is_complex:
+        raise NotImplementedError("reortho with complex Krylov vectors "
+                                  "(complex Gram-Schmidt coefficients) is "
+                                  "not ported; run without reortho")
     v0 = theta0 * (1. / pk.norm(theta0))
 
     def matvec(v):

@@ -415,15 +415,21 @@ class DeviceSweepEngine:
     def _setup(self):
         """The host half of ``tenpy_tpu``'s setup on a copy of psi:
         ``real_if_close``, the uniform charge gauge (with the MPO rescale),
-        the capacity layouts, packing, and the environments."""
+        the capacity layouts, packing, and the environments.  A complex
+        ``H_MPO`` makes the run complex128: the state and every W are
+        promoted here, once, so that no tensordot of the run mixes real and
+        complex buffers."""
         t0 = time.time()
         psi = self.psi.copy()
         L = self.L
         psi.real_if_close()
-        if psi.dtype.is_complex and not self.model.H_MPO.dtype.is_complex:
+        H_complex = self.model.H_MPO.dtype.is_complex
+        if psi.dtype.is_complex and not H_complex:
             # real H: residual imaginary parts are gauge junk from
             # canonicalization eigensolvers
             psi.real_if_close(tol=1e-6)
+        if H_complex:
+            psi.astype(torch.complex128)
         self.bond = None
         self.gauge = None
         self._H = self.model.H_MPO
@@ -458,6 +464,8 @@ class DeviceSweepEngine:
                 tuple(int(x) for x in np.asarray(B.qtotal, QTYPE).ravel()))
             self.Bp.append(self._pack_site(B, i))
             W = self._H.get_W(i).transpose(['wL', 'wR', 'p', 'p*'])
+            if H_complex:
+                W = W.astype(torch.complex128)
             self.Wp.append(pk.pack(W, pad=False, device=self.device))
         self.Sp = [pack_bond_S(psi, i, self._bond(i), self.device)
                    for i in range(self.n_bonds)]
@@ -772,7 +780,6 @@ class DeviceSweepEngine:
             torch.cuda.synchronize(self.device)
         t0 = time.time()
         Bs, forms, Ss = self._host_state()
-        sites = list(psi.sites)
         for i in range(L):
             psi.set_B(i, Bs[i], form=forms[i])
         for i in range(self.n_bonds):
@@ -784,8 +791,9 @@ class DeviceSweepEngine:
             # a relabelling of the charges only: no block changes
             if any(np.any(o != 0) for o in self.gauge['o']):
                 apply_bond_charge_shift(psi, [-o for o in self.gauge['o']])
-            scale_psi_charges(psi, self.gauge['k'], div=True)
-            psi.sites = sites
+            # psi keeps the caller's sites, which were never rescaled (the
+            # engine gauged a copy)
+            scale_psi_charges(psi, self.gauge['k'], div=True, sites=False)
         st = {'unpack_s': time.time() - t0}
         if not self.finite:
             st['norm_test_before'] = float(np.max(psi.norm_test()))

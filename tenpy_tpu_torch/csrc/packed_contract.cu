@@ -59,6 +59,22 @@
 // compute type C and summed over entries in the data type T: f64 for f64
 // data, f32 for f32 data, and under the f32 matmul mode (f64 data, C = f32)
 // f32 products summed in f64, as tenpy_tpu's f32 mode does.
+//
+// Complex128 (mode 3) runs kernels of its own beside the real ones, on
+// native complex storage: an element is 16 bytes, (re, im) interleaved, read
+// as a double2 (tenpy_tpu splits re and im into two f64 channels and
+// multiplies them with three real GEMMs outside its Pallas kernel; the TPU
+// has no complex128).  It is bound by bytes as the real modes are (a
+// complex multiply-add is 8 real flops on 32 bytes of operands).  The thin
+// class multiplies on the CUDA cores (complex FMA, one 16-byte load per
+// element).  The block class stages one complex element per 16-byte
+// cp.async, splits re and im when it loads the fragments, and computes
+//     Cre += Are Bre - Aim Bim,   Cim += Are Bim + Aim Bre
+// with four real f64 mma.sync m8n8k4 per k step into two accumulators: four
+// products and not Karatsuba's three, whose (Are + Aim)(Bre + Bim) term
+// loses the relative accuracy of a small imaginary part.  A complex stage
+// is twice a real one, so the kernel for any tables runs two warps a block
+// (43 KB of static shared memory) where the real one runs four.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -426,6 +442,235 @@ __device__ __forceinline__ void block_task(const Params& p, const int* tk,
     }
 }
 
+// ------------------------------------------------ complex128 (mode 3)
+constexpr int ZWARPS = 2;                // warps (= tasks) per block
+constexpr int ZTHREADS = 32 * ZWARPS;
+
+// c + a * b
+__device__ __forceinline__ double2 cmadd(double2 a, double2 b, double2 c) {
+    c.x = fma(a.x, b.x, c.x);
+    c.x = fma(-a.y, b.y, c.x);
+    c.y = fma(a.x, b.y, c.y);
+    c.y = fma(a.y, b.x, c.y);
+    return c;
+}
+
+// thin_task on complex data: lane j owns elements x0 + 32 u + j of the
+// row; each entry is a complex scaled vector add (k = n = 1) or a complex
+// dot product of length k per element, summed per entry and then added.
+__device__ __forceinline__ void thin_task_z(const Params& p, const int* tk,
+                                            int lane) {
+    constexpr int U = THIN_TILE / 32;
+    const int so = __ldg(tk + 1), row = __ldg(tk + 2), x0 = __ldg(tk + 3);
+    const int e0 = __ldg(tk + 5), e1 = __ldg(tk + 6);
+    const int m = p.om[so], n = p.on[so];
+    const int mn = m * n;
+    double2 acc[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) acc[u] = make_double2(0., 0.);
+
+    for (int base = e0; base < e1; base += 32) {
+        const int cnt = min(32, e1 - base);
+        const double2* Aj = nullptr;
+        const double2* Bj = nullptr;
+        int kj = 1;
+        if (lane < cnt) {
+            const int* en = p.entries
+                + static_cast<size_t>(base + lane) * ENTRY_COLS;
+            kj = __ldg(en + 4);
+            Aj = static_cast<const double2*>(p.a[__ldg(en)])
+                + static_cast<size_t>(__ldg(en + 1)) * m * kj;
+            Bj = static_cast<const double2*>(p.b[__ldg(en + 2)])
+                + static_cast<size_t>(__ldg(en + 3)) * kj * n;
+        }
+        for (int i = 0; i < cnt; ++i) {
+            const double2* A = shfl_ptr(Aj, i);
+            const double2* B = shfl_ptr(Bj, i);
+            const int k = __shfl_sync(0xffffffffu, kj, i);
+            if (k == 1 && n == 1) {
+                const double2 w = __ldg(B);
+#pragma unroll
+                for (int u = 0; u < U; ++u) {
+                    const int x = x0 + u * 32 + lane;
+                    if (x < mn) acc[u] = cmadd(w, __ldg(A + x), acc[u]);
+                }
+            } else {
+#pragma unroll
+                for (int u = 0; u < U; ++u) {
+                    const int x = x0 + u * 32 + lane;
+                    if (x >= mn) continue;
+                    const int r = x / n, c = x % n;
+                    const double2* Ar = A + static_cast<size_t>(r) * k;
+                    double2 s = make_double2(0., 0.);
+                    for (int kk = 0; kk < k; ++kk)
+                        s = cmadd(__ldg(Ar + kk), __ldg(B + kk * n + c), s);
+                    acc[u].x += s.x;
+                    acc[u].y += s.y;
+                }
+            }
+        }
+    }
+
+    double2* O = static_cast<double2*>(p.o[so])
+        + static_cast<size_t>(row) * mn;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+        const int x = x0 + u * 32 + lane;
+        if (x < mn) O[x] = acc[u];
+    }
+}
+
+// One staged complex chunk into the re and im accumulators: per k step of
+// 4, the A and B fragments of multiply_chunk split into re and im, and four
+// real products per fragment pair on the f64 tensor cores.
+template <int WM, int WN>
+__device__ __forceinline__ void multiply_chunk_z(
+        const double2* As, const double2* Bs, double (&cr)[WM / 8][WN / 8][2],
+        double (&ci)[WM / 8][WN / 8][2], int lane) {
+    constexpr int SB = WN + 4;
+    const int r = lane / 4, q = lane % 4;
+#pragma unroll
+    for (int kk = 0; kk < KC; kk += 4) {
+        double ar[WM / 8], ai[WM / 8], nai[WM / 8], br[WN / 8], bi[WN / 8];
+#pragma unroll
+        for (int i = 0; i < WM / 8; ++i) {
+            const double2 a = As[(8 * i + r) * SA + kk + q];
+            ar[i] = a.x;
+            ai[i] = a.y;
+            nai[i] = -a.y;
+        }
+#pragma unroll
+        for (int j = 0; j < WN / 8; ++j) {
+            const double2 b = Bs[(kk + q) * SB + 8 * j + r];
+            br[j] = b.x;
+            bi[j] = b.y;
+        }
+#pragma unroll
+        for (int i = 0; i < WM / 8; ++i)
+#pragma unroll
+            for (int j = 0; j < WN / 8; ++j) {
+                ptx::mma_m8n8k4_f64(cr[i][j][0], cr[i][j][1], ar[i], br[j]);
+                ptx::mma_m8n8k4_f64(cr[i][j][0], cr[i][j][1], nai[i], bi[j]);
+                ptx::mma_m8n8k4_f64(ci[i][j][0], ci[i][j][1], ar[i], bi[j]);
+                ptx::mma_m8n8k4_f64(ci[i][j][0], ci[i][j][1], ai[i], br[j]);
+            }
+    }
+}
+
+// block_task on complex data: the same cursor over the row's entries and
+// the same double-buffered cp.async staging (one element per 16-byte copy),
+// with multiply_chunk_z in place of multiply_chunk.
+template <int WM, int WN>
+__device__ __forceinline__ void block_task_z(const Params& p, const int* tk,
+                                             int lane, double2* sbuf) {
+    constexpr int SB = WN + 4;
+    const int so = tk[1], row = tk[2], r0 = tk[3], c0 = tk[4];
+    const int e1 = tk[6];
+    const int m = p.om[so], n = p.on[so];
+    double cr[WM / 8][WN / 8][2], ci[WM / 8][WN / 8][2];
+    zero<double, WM, WN>(cr);
+    zero<double, WM, WN>(ci);
+
+    int t = tk[5], kc = 0, k = 0;
+    const double2* A = nullptr;
+    const double2* B = nullptr;
+    bool va = false, vb = false;
+    auto open_entry = [&]() {
+        const int* en = p.entries + static_cast<size_t>(t) * ENTRY_COLS;
+        const int ab = __ldg(en), ablk = __ldg(en + 1);
+        const int bb = __ldg(en + 2), bblk = __ldg(en + 3);
+        k = __ldg(en + 4);
+        A = static_cast<const double2*>(p.a[ab])
+            + static_cast<size_t>(ablk) * m * k;
+        B = static_cast<const double2*>(p.b[bb])
+            + static_cast<size_t>(bblk) * k * n;
+        va = aligned16(A);
+        vb = aligned16(B);
+    };
+    auto load_chunk = [&](int stage) {
+        double2* As = sbuf + stage * STAGE;
+        double2* Bs = As + MAX_W * SA;
+        stage_tile<double2, WM, KC>(As, SA, A, k, r0, kc, m - r0, k - kc, va,
+                                    lane);
+        stage_tile<double2, KC, WN>(Bs, SB, B, n, kc, c0, k - kc, n - c0, vb,
+                                    lane);
+        kc += KC;
+        if (kc >= k) {
+            kc = 0;
+            if (++t < e1) open_entry();
+        }
+    };
+
+    bool have = t < e1;
+    if (have) {
+        open_entry();
+        load_chunk(0);
+    }
+    ptx::cp_async_commit();
+    int stage = 0;
+    while (have) {
+        const bool next = t < e1;
+        if (next) load_chunk(stage ^ 1);
+        ptx::cp_async_commit();
+        ptx::cp_async_wait<1>();
+        __syncwarp();
+        const double2* As = sbuf + stage * STAGE;
+        multiply_chunk_z<WM, WN>(As, As + MAX_W * SA, cr, ci, lane);
+        __syncwarp();
+        stage ^= 1;
+        have = next;
+    }
+
+    double2* O = static_cast<double2*>(p.o[so])
+        + static_cast<size_t>(row) * m * n;
+    const int r = lane / 4, q = lane % 4;
+#pragma unroll
+    for (int i = 0; i < WM / 8; ++i) {
+        const int gr = r0 + 8 * i + r;
+        if (gr >= m) continue;
+#pragma unroll
+        for (int j = 0; j < WN / 8; ++j)
+#pragma unroll
+            for (int v = 0; v < 2; ++v) {
+                const int gc = c0 + 8 * j + 2 * q + v;
+                if (gc < n)
+                    O[static_cast<size_t>(gr) * n + gc] =
+                        make_double2(cr[i][j][v], ci[i][j][v]);
+            }
+    }
+}
+
+__global__ void __launch_bounds__(THIN_THREADS, 2)
+thin_kernel_z(const __grid_constant__ Params p) {
+    const int task = blockIdx.x * THIN_WARPS + threadIdx.x / 32;
+    if (task >= p.n_tasks) return;
+    thin_task_z(p, p.tasks + static_cast<size_t>(task) * TASK_COLS,
+                threadIdx.x % 32);
+}
+
+__global__ void __launch_bounds__(ZTHREADS)
+packed_contract_kernel_z(const __grid_constant__ Params p) {
+    __shared__ __align__(16) double2 smem[ZWARPS * 2 * STAGE];
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int task = blockIdx.x * ZWARPS + warp;
+    if (task >= p.n_tasks) return;
+    const int* tk = p.tasks + static_cast<size_t>(task) * TASK_COLS;
+    double2* sbuf = smem + warp * 2 * STAGE;
+    switch (__ldg(tk)) {
+        case 0: thin_task_z(p, tk, lane); break;
+        case 1: block_task_z<8, 8>(p, tk, lane, sbuf); break;
+        case 2: block_task_z<8, 16>(p, tk, lane, sbuf); break;
+        case 3: block_task_z<8, 32>(p, tk, lane, sbuf); break;
+        case 4: block_task_z<16, 8>(p, tk, lane, sbuf); break;
+        case 5: block_task_z<16, 16>(p, tk, lane, sbuf); break;
+        case 6: block_task_z<16, 32>(p, tk, lane, sbuf); break;
+        case 7: block_task_z<32, 8>(p, tk, lane, sbuf); break;
+        case 8: block_task_z<32, 16>(p, tk, lane, sbuf); break;
+        case 9: block_task_z<32, 32>(p, tk, lane, sbuf); break;
+        default: break;
+    }
+}
+
 // Tables whose tasks are all thin: no shared memory, and registers for
 // enough resident warps to keep loads in flight.
 template <typename T, typename C>
@@ -463,10 +708,9 @@ packed_contract_kernel(const __grid_constant__ Params p) {
     }
 }
 
-template <typename T, typename C>
-int launch(bool thin, const long long* ptrs, const int* dims, int na, int nb,
-           int no, const void* tasks, const void* entries, int n_tasks,
-           void* stream) {
+Params make_params(const long long* ptrs, const int* dims, int na, int nb,
+                   int no, const void* tasks, const void* entries,
+                   int n_tasks) {
     Params p = {};
     for (int i = 0; i < na; ++i)
         p.a[i] = reinterpret_cast<const void*>(ptrs[i]);
@@ -480,6 +724,15 @@ int launch(bool thin, const long long* ptrs, const int* dims, int na, int nb,
     p.tasks = static_cast<const int*>(tasks);
     p.entries = static_cast<const int*>(entries);
     p.n_tasks = n_tasks;
+    return p;
+}
+
+template <typename T, typename C>
+int launch(bool thin, const long long* ptrs, const int* dims, int na, int nb,
+           int no, const void* tasks, const void* entries, int n_tasks,
+           void* stream) {
+    const Params p = make_params(ptrs, dims, na, nb, no, tasks, entries,
+                                 n_tasks);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (thin)
         thin_kernel<T, C><<<(n_tasks + THIN_WARPS - 1) / THIN_WARPS,
@@ -487,6 +740,21 @@ int launch(bool thin, const long long* ptrs, const int* dims, int na, int nb,
     else
         packed_contract_kernel<T, C><<<(n_tasks + WARPS - 1) / WARPS,
                                        THREADS, 0, s>>>(p);
+    return static_cast<int>(cudaGetLastError());
+}
+
+int launch_complex(bool thin, const long long* ptrs, const int* dims, int na,
+                   int nb, int no, const void* tasks, const void* entries,
+                   int n_tasks, void* stream) {
+    const Params p = make_params(ptrs, dims, na, nb, no, tasks, entries,
+                                 n_tasks);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (thin)
+        thin_kernel_z<<<(n_tasks + THIN_WARPS - 1) / THIN_WARPS,
+                        THIN_THREADS, 0, s>>>(p);
+    else
+        packed_contract_kernel_z<<<(n_tasks + ZWARPS - 1) / ZWARPS,
+                                   ZTHREADS, 0, s>>>(p);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -499,7 +767,8 @@ int packed_contract_max_buckets() { return MAX_BUCKETS; }
 int packed_contract_thin_tile() { return THIN_TILE; }
 
 // mode 0: f64 data, f64 sums (tensor cores); 1: f32 data, f32 sums;
-// 2: f64 data, f32 sums (the f32 matmul mode), f64 output.  thin: every
+// 2: f64 data, f32 sums (the f32 matmul mode), f64 output; 3: complex128
+// data and sums (interleaved re/im, tensor cores).  thin: every
 // task is of the thin class (the host knows each output bucket's class), so
 // the thin kernel runs; else the kernel for any tables.
 // ptrs: 3 * MAX_BUCKETS device addresses (a, b, out); dims: (m, n) per
@@ -518,6 +787,8 @@ int packed_contract(int mode, int thin, const long long* ptrs,
                                             tasks, entries, n_tasks, stream);
         case 2: return launch<double, float>(thin, ptrs, dims, na, nb, no,
                                              tasks, entries, n_tasks, stream);
+        case 3: return launch_complex(thin, ptrs, dims, na, nb, no, tasks,
+                                      entries, n_tasks, stream);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }

@@ -18,7 +18,10 @@ included.  On a CUDA tensor it launches one hand-written kernel of
 the thin kernel when every task is thin, else the kernel for any tables.
 On a CPU tensor it takes the plain version :func:`packed_contract_plain`,
 which walks the same two tables with torch ops, so the CPU tests exercise
-exactly the tables the kernel reads.
+exactly the tables the kernel reads.  Kernel modes (data, compute): f64,
+f32, f64 data under the f32 matmul mode, and complex128 (native complex
+storage, interleaved re/im; four real f64 products per complex product,
+not the three of a Karatsuba form).
 
 Shape classes, chosen per output bucket (:func:`shape_class`) from its
 ``(m, n)`` and the smallest ``k`` among its entries: *thin* when
@@ -54,11 +57,13 @@ MAX_BUCKETS = 64
 TASK_COLS, ENTRY_COLS = 8, 5
 
 _FLOATS = (torch.float32, torch.float64)
+_DTYPES = _FLOATS + (torch.complex128,)
 _INT_MAX = 2 ** 31 - 1
 # kernel mode per (data dtype, compute dtype)
 _MODES = {(torch.float64, torch.float64): 0,
           (torch.float32, torch.float32): 1,
-          (torch.float64, torch.float32): 2}
+          (torch.float64, torch.float32): 2,
+          (torch.complex128, torch.complex128): 3}
 
 
 def _side(x):
@@ -204,9 +209,13 @@ def _check_contract(a_bufs, b_bufs, tables, compute, out):
         raise ValueError(f"more than {MAX_BUCKETS} buckets in one operand or "
                          f"the output: beyond the kernel's parameter block")
     dtype, device = a_bufs[0].dtype, a_bufs[0].device
-    if dtype not in _FLOATS:
-        raise TypeError(f"bucket dtype must be float32 or float64, got "
-                        f"{dtype}")
+    if dtype not in _DTYPES:
+        raise TypeError(f"bucket dtype must be float32, float64 or "
+                        f"complex128, got {dtype}")
+    if dtype.is_complex and compute != dtype:
+        raise NotImplementedError(f"complex128 data computed in {compute} "
+                                  f"(the complex f32 matmul mode) is not "
+                                  f"ported")
     if (dtype, compute) not in _MODES:
         raise TypeError(f"no kernel mode for {dtype} data summed in "
                         f"{compute}")
@@ -273,17 +282,17 @@ def packed_contract(a_bufs, b_bufs, tables, compute_dtype=None, out=None):
 
     Parameters
     ----------
-    a_bufs, b_bufs : lists of contiguous float64 or float32 tensors (one
-        dtype, one device): the operand buckets; bucket ``i``'s blocks are
-        read as ``(-1, m, k)`` / ``(-1, k, n)``.
+    a_bufs, b_bufs : lists of contiguous float64, float32 or complex128
+        tensors (one dtype, one device): the operand buckets; bucket
+        ``i``'s blocks are read as ``(-1, m, k)`` / ``(-1, k, n)``.
     tables : the :class:`Tables` of :func:`build_tables`, its tensors on
         the buckets' device.  Index ranges are the caller's contract
         (checked when the tables are built; reading them here would
         synchronise).
     compute_dtype : the type each block product is computed in (default:
-        the data's); float32 for float64 data is the f32 matmul mode.  The
-        sum over a row's entries stays in the data's type, as in
-        ``tenpy_tpu``.
+        the data's); float32 for float64 data is the f32 matmul mode
+        (complex128 data has no such mode).  The sum over a row's entries
+        stays in the data's type, as in ``tenpy_tpu``.
     out : optional list of ``(rows, m, n)`` tensors to write into, whatever
         they hold (default: new uninitialised tensors).
 
@@ -337,9 +346,9 @@ def _check_segsum(a_src, b_src, seg_ptr, ia, ib, n_seg):
     if a_src.shape[2] != b_src.shape[1]:
         raise ValueError(f"inner dims differ: {tuple(a_src.shape)} @ "
                          f"{tuple(b_src.shape)}")
-    if a_src.dtype not in _FLOATS or b_src.dtype != a_src.dtype:
-        raise TypeError(f"a_src/b_src must share dtype float32 or float64, "
-                        f"got {a_src.dtype}/{b_src.dtype}")
+    if a_src.dtype not in _DTYPES or b_src.dtype != a_src.dtype:
+        raise TypeError(f"a_src/b_src must share dtype float32, float64 or "
+                        f"complex128, got {a_src.dtype}/{b_src.dtype}")
     for name, idx in (('seg_ptr', seg_ptr), ('ia', ia), ('ib', ib)):
         if idx.dtype != torch.int32 or idx.dim() != 1:
             raise TypeError(f"{name} must be a 1-D int32 tensor, got "
@@ -375,8 +384,8 @@ def grouped_gemm_segsum(a_src, b_src, seg_ptr, ia, ib, n_seg):
 
     Parameters
     ----------
-    a_src : (Na, m, k) float64 or float32 tensor, contiguous: the source
-        blocks (not gathered).
+    a_src : (Na, m, k) float64, float32 or complex128 tensor, contiguous:
+        the source blocks (not gathered).
     b_src : (Nb, k, n) tensor of the same dtype and device.
     seg_ptr : (n_seg + 1,) int32: segment ``s`` owns entries
         ``seg_ptr[s]:seg_ptr[s+1]`` (non-decreasing, ``seg_ptr[0] == 0``).

@@ -14,8 +14,10 @@ and linear combinations are exact; structures are kept *complete* (every
 charge-allowed block present, zeros included), so every Lanczos vector of an
 update shares one layout.
 
-Real tensors only (float64, or float32); a complex array raises
-``NotImplementedError``.
+Data types: float64, float32 and complex128.  Complex data is stored
+natively (no split re/im channels): a tensordot of a real and a complex
+operand promotes the real one to complex128, and the kernel's complex128
+mode computes it.
 """
 
 from __future__ import annotations
@@ -34,11 +36,13 @@ from .np_conserved import Array, conj_label
 from .padding import pad_leg
 
 __all__ = ['PackedArray', 'pack', 'unpack', 'tensordot', 'inner', 'inner_re',
-           'norm', 'complete_structure', 'matmul_mode', 'FlopRecorder',
-           'flop_record', 'checked_device']
+           'norm', 'norm_sq', 'complete_structure', 'matmul_mode',
+           'FlopRecorder', 'flop_record', 'checked_device']
 
 _TORCH_DTYPE = {np.dtype(np.float64): torch.float64,
-                np.dtype(np.float32): torch.float32}
+                np.dtype(np.float32): torch.float32,
+                np.dtype(np.complex128): torch.complex128}
+_DTYPES = tuple(_TORCH_DTYPE.values())
 
 
 def checked_device(device):
@@ -55,13 +59,8 @@ def checked_device(device):
 def _torch_dtype(dtype):
     """The PackedArray dtype of a host array's torch or numpy dtype."""
     if not isinstance(dtype, torch.dtype):
-        np_dtype = np.dtype(dtype)
-        dtype = (torch.complex128 if np_dtype.kind == 'c'
-                 else _TORCH_DTYPE.get(np_dtype))
-    if dtype is not None and dtype.is_complex:
-        raise NotImplementedError("complex PackedArray: native complex128 "
-                                  "is not ported yet")
-    if dtype not in (torch.float64, torch.float32):
+        dtype = _TORCH_DTYPE.get(np.dtype(dtype))
+    if dtype not in _DTYPES:
         raise TypeError(f"unsupported PackedArray dtype {dtype}")
     return dtype
 
@@ -165,12 +164,16 @@ class PackedArray:
                            data, self.dtype, self.device)
 
     def conj(self):
-        """Complex conjugate (real data: flips leg qconj, star-flips labels)."""
+        """Complex conjugate: flips leg qconj, star-flips labels and, for
+        complex data, conjugates the entries (a new buffer each, not a
+        lazy conjugate view: the kernel reads the memory)."""
         chinfo = self.legs[0].chinfo
         qtotal = chinfo.make_valid(-np.asarray(self.qtotal, QTYPE))
+        data = ([d.conj_physical() for d in self.data]
+                if self.dtype.is_complex else self.data)
         return PackedArray([l.conj() for l in self.legs], qtotal,
                            [conj_label(l) for l in self._labels], self.shapes,
-                           self.qdatas, self.data, self.dtype, self.device)
+                           self.qdatas, data, self.dtype, self.device)
 
     # ----------------------------------------------------------- arithmetic
     def _same_struct(self, other):
@@ -522,6 +525,9 @@ def tensordot(a, b, axes):
     plan = _packed_plan(at, bt, n_axes)
     dtype = torch.promote_types(at.dtype, bt.dtype)
     device = at.device
+    if _MATMUL_MODE == 'f32' and dtype.is_complex:
+        raise NotImplementedError("matmul_mode('f32') on complex data (a "
+                                  "complex64 product mode) is not ported")
     compute = (torch.float32 if _MATMUL_MODE == 'f32'
                and dtype == torch.float64 else dtype)
     if at.data and bt.data:
@@ -547,16 +553,20 @@ def _check_layout(a, b):
         raise ValueError("inner: block layout mismatch")
 
 
-def _dot(a, b):
-    total = torch.zeros((), dtype=torch.promote_types(a.dtype, b.dtype),
-                        device=a.device)
+def _dot(a, b, conj_a=False):
+    """``sum(a * b)``, or ``sum(conj(a) * b)`` with ``conj_a``, over the
+    buckets; a real operand meeting a complex one is promoted."""
+    dtype = torch.promote_types(a.dtype, b.dtype)
+    dot = torch.vdot if conj_a and dtype.is_complex else torch.dot
+    total = torch.zeros((), dtype=dtype, device=a.device)
     for x, y in zip(a.data, b.data):
-        total = total + torch.dot(x.reshape(-1), y.reshape(-1))
+        total = total + dot(x.reshape(-1).to(dtype), y.reshape(-1).to(dtype))
     return total
 
 
 def inner(a, b):
-    """Full contraction ``<a, b>`` (0-dim tensor), legs paired in order.
+    """Full contraction ``<a, b> = sum(a * b)`` (0-dim tensor, complex for
+    complex data), legs paired in order, with no implicit conjugation.
 
     Requires matching block layouts, e.g. ``inner(v.conj(), w)`` with
     ``v, w`` from the same contraction plan."""
@@ -567,16 +577,19 @@ def inner(a, b):
 
 
 def inner_re(a, b):
-    """``Re <a|b>`` with conjugation of ``a`` (real data: ``sum(a * b)``)."""
+    """``Re <a|b> = Re sum(conj(a) * b)`` (real 0-dim tensor); ``a`` is
+    conjugated here, so it is passed unconjugated."""
     for la, lb in zip(a.legs, b.legs):
         la.conj().test_contractible(lb)
     _check_layout(a, b)
-    return _dot(a, b)
+    return _dot(a, b, conj_a=True).real
+
+
+def norm_sq(a):
+    """Squared Frobenius norm (real 0-dim tensor)."""
+    return _dot(a, a, conj_a=True).real
 
 
 def norm(a):
-    """Frobenius norm (0-dim tensor)."""
-    total = torch.zeros((), dtype=a.dtype, device=a.device)
-    for x in a.data:
-        total = total + torch.dot(x.reshape(-1), x.reshape(-1))
-    return torch.sqrt(total)
+    """Frobenius norm (real 0-dim tensor)."""
+    return torch.sqrt(norm_sq(a))

@@ -15,7 +15,8 @@ The layout change packed theta -> per-bond-sector matrices is one gather per
 built, and the flat buffers carry a trailing zero slot for the padding
 entries.  The decomposition is ``torch.linalg.svd`` per bucket group (the
 JAX package used ``jnp.linalg.svd`` here too; its TPU-only Jacobi and
-QR/eigh backends are not ported).
+QR/eigh backends are not ported).  A complex128 theta gives complex A and B
+and real Schmidt values; the cut and ``svd_min`` act on S alone.
 """
 
 from __future__ import annotations
@@ -396,6 +397,7 @@ def split_truncate(theta_p, plan, chi_max, svd_min=1e-14, backend=None,
     dtype, device = theta_p.dtype, theta_p.device
     tb = plan.tables(device)
     zslot = torch.zeros(1, dtype=dtype, device=device)
+    zslot_S = zslot.real    # S is real for complex theta too
     flat = torch.cat([d.reshape(-1) for d in theta_p.data] + [zslot])
 
     Us, Ss, Vs = [], [], []
@@ -409,7 +411,7 @@ def split_truncate(theta_p, plan, chi_max, svd_min=1e-14, backend=None,
     allS = torch.cat([S.reshape(-1) for S in Ss])
     # full norm of theta: weight outside the capacity layout is discarded by
     # the split and must show up in err/renorm
-    tot = sum(torch.dot(d.reshape(-1), d.reshape(-1)) for d in theta_p.data)
+    tot = pk.norm_sq(theta_p)
     nrm = torch.sqrt(tot)
     k = min(int(chi_max), allS.shape[0])
     thr_chi = torch.topk(allS, k).values[-1]
@@ -431,7 +433,7 @@ def split_truncate(theta_p, plan, chi_max, svd_min=1e-14, backend=None,
     flatU = masked_flat(Us)
     flatV = masked_flat(Vs)
     flatS = torch.cat([(S * m / renorm).reshape(-1)
-                       for S, m in zip(Ss, masks)] + [zslot])
+                       for S, m in zip(Ss, masks)] + [zslot_S])
 
     def assemble(flat_ch, idx_list, shapes, qdatas):
         return [flat_ch[ii].reshape((qd.shape[0],) + shape)

@@ -54,12 +54,14 @@ def apply_bond_charge_shift(psi, o):
             np.asarray(B.qtotal, QTYPE) + delta))
 
 
-def scale_psi_charges(psi, k, div=False):
+def scale_psi_charges(psi, k, div=False, sites=True):
     """Multiply (or exactly divide, ``div=True``) every U(1) charge of an
     MPS by per-charge integer factors ``k``: leg charges, qtotals and the
     sites' physical legs.  A relabelling of the bookkeeping that makes
     fractional per-site charges (``Q % L != 0``) integer.  In place;
-    ``psi.sites`` become shallow copies carrying the rescaled leg."""
+    ``psi.sites`` become shallow copies carrying the rescaled leg (with
+    ``sites=False`` they are left as they are: the caller restores its
+    own)."""
     k = np.asarray(k, QTYPE)
     if np.all(k == 1):
         return
@@ -88,6 +90,8 @@ def scale_psi_charges(psi, k, div=False):
         else:
             qt = qt * k
         B.qtotal = tuple(int(q) for q in qt)
+    if not sites:
+        return
     new_sites = []
     for s in psi.sites:
         s2 = copy.copy(s)

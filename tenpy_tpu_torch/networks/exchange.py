@@ -28,7 +28,7 @@ import torch
 
 from ..linalg.charges import ChargeInfo, LegCharge, QTYPE
 from ..linalg.np_conserved import Array
-from .charge_gauge import apply_bond_charge_shift
+from .charge_gauge import apply_bond_charge_shift, scale_psi_charges
 from .mps import MPS
 
 __all__ = ['ExchangeState', 'flatten_array', 'unflatten_array',
@@ -186,9 +186,10 @@ def load_mps(path_or_flat, sites):
     mps.MPS` on ``sites`` (for example ``model.lat.mps_sites()``).
 
     The file's tensors are in the uniform charge gauge of the engine that
-    wrote them; its stored gauge is inverted here, so the MPS carries the
-    charges of the sites' own frame.  A gauge with rescaled charge units
-    (``k != 1``) is not supported and raises."""
+    wrote them (bond charge shifts, and for a unit-cell charge not
+    divisible by ``L`` charge units rescaled by ``k``); its stored gauge is
+    inverted here, so the MPS carries the charges of the sites' own
+    frame."""
     flat = path_or_flat if isinstance(path_or_flat, dict) \
         else load_flat(path_or_flat)
     st = ExchangeState(flat)
@@ -199,10 +200,8 @@ def load_mps(path_or_flat, sites):
         S.append(S[0])
     psi = MPS(sites, st.B, S, bc=st.bc, form=st.forms)
     if st.gauge is not None:
-        if np.any(st.gauge['k'] != 1):
-            raise NotImplementedError("load_mps: rescaled charge units "
-                                      "(gauge k != 1) are not supported")
         if any(np.any(o != 0) for o in st.gauge['o']):
             apply_bond_charge_shift(psi, [-np.asarray(o) for o in
                                           st.gauge['o']])
+        scale_psi_charges(psi, st.gauge['k'], div=True, sites=False)
     return psi

@@ -299,6 +299,12 @@ class MPS:
             res[i, 1] = npc.norm(rho_R - rho_R2)
         return res
 
+    def astype(self, dtype):
+        """Convert every tensor to ``dtype`` (in place; S stays real)."""
+        self.dtype = npc.as_dtype(dtype)
+        self._B = [B.astype(self.dtype) for B in self._B]
+        return self
+
     def real_if_close(self, tol=1e-12):
         """Drop a negligible imaginary part (in place)."""
         if not self.dtype.is_complex and \

@@ -1,6 +1,7 @@
-r"""Local Hilbert spaces: :class:`Site` and :class:`SpinHalfFermionSite`.
+r"""Local Hilbert spaces: :class:`Site`, :class:`FermionSite` and
+:class:`SpinHalfFermionSite`.
 
-Port of ``Site`` and ``SpinHalfFermionSite`` from
+Port of ``Site``, ``FermionSite`` and ``SpinHalfFermionSite`` from
 ``tenpy_tpu/networks/site.py``, with the same state order, operator names,
 charges and Jordan-Wigner bookkeeping, so models built on them give the
 same MPO.  Operators are :class:`~tenpy_tpu_torch.linalg.np_conserved.Array`
@@ -15,7 +16,7 @@ from ..linalg import np_conserved as npc
 from ..linalg.charges import ChargeInfo, LegCharge
 from ..tools.misc import inverse_permutation
 
-__all__ = ['Site', 'SpinHalfFermionSite']
+__all__ = ['Site', 'FermionSite', 'SpinHalfFermionSite']
 
 
 class Site:
@@ -201,6 +202,40 @@ class Site:
 
     def multiply_op_names(self, names):
         return ' '.join(names)
+
+
+class FermionSite(Site):
+    """Spinless fermions: states ``['empty', 'full']``.
+
+    Operators: JW, C (annihilate), Cd (create), N, dN, dNdN; ``C`` and
+    ``Cd`` need a Jordan-Wigner string.  ``conserve`` in {'N', 'parity',
+    None}.
+    """
+
+    def __init__(self, conserve='N', filling=0.5):
+        conserve = conserve or 'None'
+        if conserve not in ('N', 'parity', 'None'):
+            raise ValueError(f"invalid conserve {conserve!r}")
+        dN = np.array([[-filling, 0.], [0., 1. - filling]])
+        ops = dict(JW=np.array([[1., 0.], [0., -1.]]),
+                   C=np.array([[0., 1.], [0., 0.]]),
+                   Cd=np.array([[0., 0.], [1., 0.]]),
+                   N=np.array([[0., 0.], [0., 1.]]), dN=dN, dNdN=dN ** 2)
+        if conserve == 'None':
+            leg = LegCharge.from_trivial(2)
+        else:
+            chinfo = (ChargeInfo([1], ['N']) if conserve == 'N'
+                      else ChargeInfo([2], ['parity_N']))
+            leg = LegCharge.from_qflat(chinfo, [0, 1])
+        self.conserve = conserve
+        self.filling = filling
+        Site.__init__(self, leg, ['empty', 'full'], sort_charge=True, **ops)
+        self.need_JW_string |= {'C', 'Cd', 'JW'}
+        if conserve != 'None':
+            self.charge_to_JW_parity = np.array([1])
+
+    def __repr__(self):
+        return f"FermionSite({self.conserve!r}, filling={self.filling})"
 
 
 class SpinHalfFermionSite(Site):

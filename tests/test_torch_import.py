@@ -33,6 +33,7 @@ MODULES = ['tenpy_tpu_torch', 'tenpy_tpu_torch._build',
            'tenpy_tpu_torch.models.lattice',
            'tenpy_tpu_torch.models.model',
            'tenpy_tpu_torch.models.hubbard',
+           'tenpy_tpu_torch.models.hofstadter',
            'tenpy_tpu_torch.algorithms.mps_common',
            'tenpy_tpu_torch.algorithms.packed_dmrg',
            'chip_smoke', 'profile_torch_sweep']

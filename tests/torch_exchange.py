@@ -21,6 +21,8 @@ chi=256 Hubbard-cylinder file and the ramp references::
         tests/benchmark_data/hubbard_ramp_reference.npz
     python tests/torch_exchange.py --write-small \
         tests/benchmark_data/hubbard_cyl_ly2_chi16_exchange.npz
+    python tests/torch_exchange.py --write-hofstadter \
+        tests/benchmark_data/hofstadter_reference.npz
 """
 
 import argparse
@@ -447,6 +449,161 @@ def write_write_back(path, cases):
     exchange.save_flat(path, flat)
 
 
+# the Hofstadter cases (BASELINE config #5: spinless fermions, flux 1/3 in
+# the Landau gauge, so the MPO is complex).  'finite' is the port of
+# tests/test_packed_dmrg.py:204 (Lx=3, Ly=2, chi=16 >= 2**3: exact),
+# 'infinite' a chi=16 iDMRG of the Lx=3, Ly=3 cylinder at 1/3 filling, whose
+# unit-cell charge (Q=3 on L=9 sites) takes the charge-unit rescale of the
+# uniform gauge (tests/test_torch_hofstadter.py); 'chi128' the chip run of
+# chip_smoke.py: device_ramp to chi=128 at full width, then the write-back
+HOFSTADTER_MODEL = {'lattice': 'Square', 'Lx': 3, 'Ly': 3, 'bc_y': 'cylinder',
+                    'bc_MPS': 'infinite', 'phi': (1, 3), 'conserve': 'N',
+                    'mu': 0., 'v': 0.}
+HOFSTADTER_INIT = ['full', 'empty', 'empty'] * 3
+HOFSTADTER_OPTIONS = {'chi_max': 128, 'svd_min': 1e-10, 'lanczos_K': 10,
+                      'lanczos_K_seam': 60, 'sweeps_per_stage': 2,
+                      'n_sweeps': 4, 'backend': 'svd'}
+HOFSTADTER_CASES = {
+    'finite': ({'lattice': 'Square', 'Lx': 3, 'Ly': 2, 'phi': (1, 3),
+                'bc_y': 'cylinder', 'bc_MPS': 'finite', 'conserve': 'N',
+                'mu': 0.5},
+               ['full', 'empty'] * 3,
+               {'chi_max': 16, 'svd_min': 1e-12, 'lanczos_K': 10,
+                'n_sweeps': 6, 'multiple': 8, 'backend': 'svd'}),
+    'infinite': (HOFSTADTER_MODEL, HOFSTADTER_INIT,
+                 {'chi_max': 16, 'svd_min': 1e-10, 'lanczos_K': 10,
+                  'lanczos_K_seam': 60, 'n_sweeps': 3, 'multiple': 8,
+                  'backend': 'svd'}),
+    'chi128': (HOFSTADTER_MODEL, HOFSTADTER_INIT, HOFSTADTER_OPTIONS),
+}
+
+
+def hofstadter_model(case, package):
+    """The model and product state of a Hofstadter case in ``package``
+    (``tenpy_tpu`` or ``tenpy_tpu_torch``)."""
+    import importlib
+    params, init, _ = HOFSTADTER_CASES[case]
+    hof = importlib.import_module(package + '.models.hofstadter')
+    mps = importlib.import_module(package + '.networks.mps')
+    m = hof.HofstadterFermions(dict(params))
+    psi = mps.MPS.from_product_state(m.lat.mps_sites(), init,
+                                     bc=params['bc_MPS'])
+    return m, psi
+
+
+def measure_hofstadter(psi, H):
+    """What a user measures on a written-back Hofstadter MPS of either
+    package: the energy (TM energy per site for infinite bc, the full
+    contraction for finite), the entropies, ``N`` per site, the correlation
+    length (infinite) and ``norm_test``."""
+    from importlib import import_module
+    mpo = import_module(type(H).__module__)
+    out = {'entropy': np.asarray(psi.entanglement_entropy()),
+           'N': np.real(np.asarray(psi.expectation_value('N'))),
+           'norm_test': float(np.max(psi.norm_test()))}
+    if psi.bc == 'finite':
+        out['E'] = float(np.real(mpo.MPOEnvironment(psi, H, psi)
+                                 .full_contraction(psi.L // 2)))
+    else:
+        out['tm_E'] = float(np.real(H.expectation_value(psi)))
+        out['xi'] = float(psi.correlation_length())
+    return out
+
+
+def hofstadter_reference(case):
+    """``tenpy_tpu``'s run of a Hofstadter case: ``DeviceSweepEngine.run()``
+    ('finite', 'infinite') or ``device_ramp`` ('chi128') from the product
+    state; the energy of every sweep, every update of the first sweep and
+    every stage, the charge-unit rescale, and
+    :func:`measure_hofstadter` of the written-back state.  For 'finite'
+    also the host DMRG energy of tests/test_packed_dmrg.py:204."""
+    import jax
+    import tenpy_tpu.algorithms.packed_dmrg as jpd
+    params, _, options = HOFSTADTER_CASES[case]
+    m, psi = hofstadter_model(case, 'tenpy_tpu')
+    upd = []
+    orig_update = jpd.DeviceSweepEngine._update
+
+    def recording_update(self, *args, **kw):
+        E0, err = orig_update(self, *args, **kw)
+        upd.append(E0)
+        return E0, err
+
+    gauges = []
+    orig_setup = jpd.DeviceSweepEngine._setup
+
+    def recording_setup(self):
+        orig_setup(self)
+        gauges.append(self._gauge_info)
+
+    # the engine runs op by op (jit off), and every stage drops the compiled
+    # ops of the ones before: compiled whole, the update programs of a
+    # ramp's stages (thousands of XLA CPU kernels each, every kernel mapped
+    # into memory on its own) exceed the limit of memory mappings per
+    # process before the chi=128 stage
+    orig_run = jpd.DeviceSweepEngine.run
+
+    def stage_run(self):
+        jax.clear_caches()
+        return orig_run(self)
+
+    jpd.DeviceSweepEngine._update = recording_update
+    jpd.DeviceSweepEngine._setup = recording_setup
+    jpd.DeviceSweepEngine.run = stage_run
+    t0 = time.time()
+    try:
+        with jax.disable_jit():
+            if case == 'chi128':
+                eng = jpd.device_ramp(psi, m, dict(options))
+            else:
+                eng = jpd.DeviceSweepEngine(psi, m, dict(options))
+                eng.run()
+    finally:
+        jpd.DeviceSweepEngine._update = orig_update
+        jpd.DeviceSweepEngine._setup = orig_setup
+        jpd.DeviceSweepEngine.run = orig_run
+    seconds = time.time() - t0
+    st = eng.sweep_stats
+    n_upd = 2 * (psi.L - 1 if psi.bc == 'finite' else psi.L)
+    ref = measure_hofstadter(psi, m.H_MPO)
+    ref.update(sweep_E=np.asarray(st['E']),
+               sweep_max_err=np.asarray(st['max_err']),
+               update_E0=np.asarray(jax.device_get(upd[:n_upd]), float),
+               lanczos_iters=np.asarray([sum(x)
+                                         for x in st['lanczos_iters']]),
+               cpu_seconds=np.asarray(seconds),
+               options=np.array(json.dumps(options)),
+               model=np.array(json.dumps(params)))
+    k = gauges[0]['k'] if gauges and gauges[0] is not None else None
+    ref['gauge_k'] = np.asarray(k if k is not None else [1])
+    for i in range(psi.L):
+        ref[f'S.{i}'] = np.sort(np.asarray(psi.get_SL(i)))[::-1]
+    if case == 'finite':
+        from tenpy_tpu.algorithms import dmrg
+        m2, psi2 = hofstadter_model(case, 'tenpy_tpu')
+        E_host, _ = dmrg.TwoSiteDMRGEngine(psi2, m2, {
+            'trunc_params': {'chi_max': 16, 'svd_min': 1e-12},
+            'max_sweeps': 10, 'mixer': True}).run()
+        ref['E_host'] = np.asarray(float(np.real(E_host)))
+    return ref
+
+
+def write_hofstadter(path, cases):
+    """Write :func:`hofstadter_reference` of ``cases`` into ``path``,
+    keeping the other cases an existing file holds."""
+    flat = exchange.load_flat(path) if os.path.exists(path) else {}
+    for case in cases:
+        ref = hofstadter_reference(case)
+        flat = {k: v for k, v in flat.items()
+                if not k.startswith(case + '.')}
+        flat.update({f'{case}.{k}': np.asarray(v) for k, v in ref.items()})
+        print(f"{case}: E={ref['sweep_E']} "
+              f"{ {k: ref[k] for k in ('E', 'tm_E', 'xi') if k in ref} } "
+              f"k={ref['gauge_k']} ({float(ref['cpu_seconds']):.0f} s)",
+              flush=True)
+    exchange.save_flat(path, flat)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--write',
@@ -457,9 +614,10 @@ def main(argv=None):
                     help='output .npz path (chi=16 Ly=2 cylinder state)')
     ap.add_argument('--write-write-back',
                     help='output .npz path (write-back references)')
+    ap.add_argument('--write-hofstadter',
+                    help='output .npz path (Hofstadter references)')
     ap.add_argument('--cases', nargs='+',
-                    default=['chi256'] + list(WRITE_BACK_CASES),
-                    help='write-back cases to (re)compute')
+                    help='write-back or Hofstadter cases to (re)compute')
     args = ap.parse_args(argv)
     import jax
     jax.config.update('jax_platforms', 'cpu')
@@ -469,7 +627,11 @@ def main(argv=None):
     if args.write_small:
         write_small(args.write_small)
     if args.write_write_back:
-        write_write_back(args.write_write_back, args.cases)
+        write_write_back(args.write_write_back, args.cases
+                         or ['chi256'] + list(WRITE_BACK_CASES))
+    if args.write_hofstadter:
+        write_hofstadter(args.write_hofstadter,
+                         args.cases or list(HOFSTADTER_CASES))
     if not args.write:
         return
     t0 = time.time()
