@@ -49,8 +49,21 @@ Phases (any failure exits nonzero):
    cell, and measured (TM energy, entropies, N, correlation length); then
    the complex128 kernel against its plain version, timed, on that
    engine's chi=128 matvec;
-then a JSON line on the kernels (the f64 and the complex128 mode) and,
-last, ``{"ok": true, "device": ...}``.
+8. the TEBD path (``bench_tebd.py``): the XXZ chain's Delta=1.5 ground
+   state by ``device_ramp``, quenched under Delta=1 with
+   ``DeviceTEBDEngine`` (real time, complex128, order 2, dt=0.05) in
+   stages until every bond holds chi=512, each stage built from the last
+   one's written-back state; then the median seconds of 5 Trotter steps
+   beside the reference's 0.516 s/step, kernel launches per step held to
+   the tensordots run, no sector at its capacity, the device share and the
+   SVD's share of one profiled step, peak memory, Sz per cell, the sum of
+   S^2 per bond and the energy drift against the truncation error; the
+   committed real-time case of ``tests/benchmark_data/tebd_reference.npz``
+   held to JAX's engine; and the kernel against its plain version on the
+   three tensordots of one chi=512 bond update, timed;
+then a JSON line on the kernels (the f64 mode, the complex128 mode and
+the complex128 mode on the TEBD shapes) and, last,
+``{"ok": true, "device": ...}``.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.
 """
@@ -63,16 +76,22 @@ import time
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 from tenpy_tpu_torch import _build
 from tenpy_tpu_torch.algorithms.mps_common import _matvec_2site_packed
 from tenpy_tpu_torch.algorithms.packed_dmrg import DeviceSweepEngine, \
     device_ramp
+from tenpy_tpu_torch.algorithms.packed_tebd import DeviceTEBDEngine, \
+    _bond_step
 from tenpy_tpu_torch.linalg import grouped_gemm as gg
 from tenpy_tpu_torch.linalg import packed as pk
 from tenpy_tpu_torch.linalg import packed_split as ps
 from tenpy_tpu_torch.models.hofstadter import HofstadterFermions
 from tenpy_tpu_torch.models.hubbard import FermiHubbardModel
+from tenpy_tpu_torch.models.spins import SpinChain
+from tenpy_tpu_torch.models.xxz_chain import XXZChain
 from tenpy_tpu_torch.networks import exchange
 from tenpy_tpu_torch.networks.mps import MPS
 
@@ -156,6 +175,37 @@ HOF_E_TOL = 1e-10
 # beside the result as a sanity check, not a gate
 HOF_E_TPU = -0.8654432647
 HOF_CELL_N = 3.
+# the correlation length's Arnoldi stops once the dominant eigenpair has
+# converged; forced to 30 steps it converges the subleading one too
+# (tests/test_torch_state_distance.py)
+XI_STEPS = 30
+# the TEBD path (bench_tebd.py, BASELINE's "TEBD step time at chi=512"): the
+# ground state of the gapped XXZ chain (Delta=1.5) from device_ramp,
+# quenched under the critical chain (Delta=1) until every bond holds
+# chi=512 (Schmidt values above svd_min=1e-10), then timed
+XXZ_GS = {'L': 2, 'Jxx': 1., 'Jz': 1.5, 'hz': 0., 'bc_MPS': 'infinite',
+          'sort_charge': True}
+XXZ_QUENCH = dict(XXZ_GS, Jz=1.0)
+XXZ_RAMP_OPTIONS = {'chi_max': 64, 'svd_min': 1e-12, 'lanczos_K': 10,
+                    'lanczos_K_seam': 60, 'sweeps_per_stage': 2,
+                    'n_sweeps': 4, 'backend': 'svd'}
+TEBD_CHI = 512
+TEBD_OPTIONS = {'svd_min': 1e-10, 'dt': 0.05, 'order': 2, 'type_evo': 'real',
+                'N_steps': 1, 'backend': 'svd'}
+# growth: a stage doubles chi (capacity per sector grown by TEBD_GROW times
+# the chi ratio, as device_ramp does) and ends when every bond holds its
+# chi, a sector fills its capacity, or after TEBD_STAGE_T; the quench gives
+# up at bench_tebd.py's evolved time of 60.  The timed engine is built from
+# the grown state with bench_tebd.py's cap_factor of 1.2
+TEBD_GROW, TEBD_STAGE_STEPS, TEBD_STAGE_T, TEBD_T_MAX = 1.2, 10, 5., 60.
+TEBD_TIMED_STEPS = 5
+# reference tenpy on one CPU core at chi=512 (BENCH_NORTHSTAR.json
+# tebd_chi512)
+TEBD_REF_S_PER_STEP = 0.516
+TEBD_REF = os.path.join(ROOT, 'tests', 'benchmark_data',
+                        'tebd_reference.npz')
+TEBD_STEPS = ['B0.B1 over vR/vL', 'U.C over (p0*,p1*)',
+              "C.B'^H over (p1,vR)"]
 
 
 def log(*a):
@@ -422,24 +472,9 @@ def to_cpu(p):
                           'cpu')
 
 
-def phase_matvec(eng_c, tag=4, options=OPTIONS):
-    """The matvec at ``options['chi_max']`` on an engine of the main path
-    (read only) and on a CPU copy of its operands: the kernel per
-    tensordot against its plain version, its time, the library's and the
-    bound; logged under phase ``tag``."""
-    ops_c = (eng_c.LPp[0], eng_c.RPp[1], eng_c.Wp[0], eng_c.Wp[1],
-             eng_c.Bp[0], eng_c.Bp[1], eng_c.Sp[0])
-    ops_h = [to_cpu(x) for x in ops_c[:-1]] + [ops_c[-1].cpu()]
-    W0, W1, th = [], [], []
-    for LP, RP, Wa, Wb, B0, B1, S0 in (ops_c, ops_h):
-        W0.append(Wa.replace_labels(['p', 'p*'], ['p0', 'p0*']))
-        W1.append(Wb.replace_labels(['p', 'p*'], ['p1', 'p1*']))
-        C = ps.scale_bond(B0, S0, ps.scale_bond_plan(B0, 'vL'))
-        th.append(pk.tensordot(C.replace_labels(['p'], ['p0']),
-                               B1.replace_labels(['p'], ['p1']),
-                               axes=(['vR'], ['vL'])))
-    # record the kernel wrapper's calls of one matvec (one per tensordot)
-    n0 = gg.LAUNCHES
+def recorded_calls(fn):
+    """``fn()`` and the arguments of every ``packed_contract`` call it
+    made, in order."""
     calls = []
     orig = pk.packed_contract
 
@@ -449,30 +484,25 @@ def phase_matvec(eng_c, tag=4, options=OPTIONS):
 
     pk.packed_contract = recording
     try:
-        out_c = _matvec_2site_packed(ops_c[0], ops_c[1], W0[0], W1[0], th[0])
+        out = fn()
     finally:
         pk.packed_contract = orig
     torch.cuda.synchronize()
-    grew = gg.LAUNCHES - n0
-    t0 = time.time()
-    out_h = _matvec_2site_packed(ops_h[0], ops_h[1], W0[1], W1[1], th[1])
-    cpu_s = time.time() - t0
-    err = packed_rel_err(out_c, out_h)
-    log(f"[{tag}] chi={options['chi_max']} matvec CUDA vs CPU: rel_err "
-        f"{err:.2e} ({grew} kernel launches for {len(calls)} tensordots; "
-        f"CPU matvec {cpu_s:.2f} s)")
-    check(len(calls) == 4 and grew == 4 and err <= 1e-12,
-          "packed matvec parity or launch count failed")
-    for x in out_c.data:
-        check(torch.isfinite(x).all(), "non-finite matvec output")
+    return out, calls
 
+
+def measure_contractions(calls, steps, tag, what='matvec'):
+    """For each recorded ``packed_contract`` call (its arguments) of one
+    ``what``: the kernel against its plain version, the kernel's time (also
+    with its tasks shuffled), the plain version's, the library's and the
+    bound; returns their sums over the calls and the largest error."""
     # per tensordot: the kernel against the plain version, its time, the
     # library's (one torch.bmm per bucket pair on operands gathered
     # beforehand: the same multiply-adds without gather or sum) and the bound
     tot = {'ms': 0., 'plain_ms': 0., 'library_ms': 0., 'bytes': 0,
            'flops': 0, 'executed': 0, 'fixed': 0, 'max_abs': 0.}
     per_class = {}
-    for step, args in zip(MATVEC_STEPS, calls):
+    for step, args in zip(steps, calls):
         a_bufs, b_bufs, tables, compute = args
         out_dims, tasks = tables.out_dims, tables.tasks
         groups = gg.table_groups(tables)
@@ -530,17 +560,55 @@ def phase_matvec(eng_c, tag=4, options=OPTIONS):
     tot['bound_ms'], tot['bound_by'] = bound_ms(tot['bytes'], tot['flops'],
                                                 calls[0][3])
     for cls, (ms, nbytes, flops) in sorted(per_class.items()):
-        log(f"[{tag}] {cls} class: {ms:.4f} ms per matvec, "
+        log(f"[{tag}] {cls} class: {ms:.4f} ms per {what}, "
             f"{nbytes / ms / 1e6:.1f} GB/s, {flops / ms / 1e9:.3f} TFLOP/s")
-    log(f"[{tag}] matvec total: kernel {tot['ms']:.4f} ms, plain "
+    log(f"[{tag}] {what} total: kernel {tot['ms']:.4f} ms, plain "
         f"{tot['plain_ms']:.3f} ms, library {tot['library_ms']:.4f} ms, "
         f"bound {tot['bound_ms']:.4f} ms ({tot['bound_by']}; "
         f"{tot['bytes'] / 1e6:.1f} MB, {tot['flops'] / 1e9:.3f} GFLOP), "
         f"{100 * tot['bound_ms'] / tot['ms']:.1f}% of bound; kernel vs plain "
         f"max_abs_err {tot['max_abs']:.2e}")
-    log(f"[{tag}] executed/useful FLOPs per matvec: the class tiles "
+    log(f"[{tag}] executed/useful FLOPs per {what}: the class tiles "
         f"{tot['executed'] / tot['flops']:.2f}x, a fixed 64x64x16 tile "
         f"{tot['fixed'] / tot['flops']:.1f}x")
+
+    return tot
+
+
+def phase_matvec(eng_c, tag=4, options=OPTIONS):
+    """The matvec at ``options['chi_max']`` on an engine of the main path
+    (read only) and on a CPU copy of its operands: the kernel per
+    tensordot against its plain version, its time, the library's and the
+    bound; logged under phase ``tag``."""
+    ops_c = (eng_c.LPp[0], eng_c.RPp[1], eng_c.Wp[0], eng_c.Wp[1],
+             eng_c.Bp[0], eng_c.Bp[1], eng_c.Sp[0])
+    ops_h = [to_cpu(x) for x in ops_c[:-1]] + [ops_c[-1].cpu()]
+    W0, W1, th = [], [], []
+    for LP, RP, Wa, Wb, B0, B1, S0 in (ops_c, ops_h):
+        W0.append(Wa.replace_labels(['p', 'p*'], ['p0', 'p0*']))
+        W1.append(Wb.replace_labels(['p', 'p*'], ['p1', 'p1*']))
+        C = ps.scale_bond(B0, S0, ps.scale_bond_plan(B0, 'vL'))
+        th.append(pk.tensordot(C.replace_labels(['p'], ['p0']),
+                               B1.replace_labels(['p'], ['p1']),
+                               axes=(['vR'], ['vL'])))
+    # record the kernel wrapper's calls of one matvec (one per tensordot)
+    n0 = gg.LAUNCHES
+    out_c, calls = recorded_calls(lambda: _matvec_2site_packed(
+        ops_c[0], ops_c[1], W0[0], W1[0], th[0]))
+    grew = gg.LAUNCHES - n0
+    t0 = time.time()
+    out_h = _matvec_2site_packed(ops_h[0], ops_h[1], W0[1], W1[1], th[1])
+    cpu_s = time.time() - t0
+    err = packed_rel_err(out_c, out_h)
+    log(f"[{tag}] chi={options['chi_max']} matvec CUDA vs CPU: rel_err "
+        f"{err:.2e} ({grew} kernel launches for {len(calls)} tensordots; "
+        f"CPU matvec {cpu_s:.2f} s)")
+    check(len(calls) == 4 and grew == 4 and err <= 1e-12,
+          "packed matvec parity or launch count failed")
+    for x in out_c.data:
+        check(torch.isfinite(x).all(), "non-finite matvec output")
+
+    tot = measure_contractions(calls, MATVEC_STEPS, tag)
 
     # batched SVD of the split (cuSOLVER via torch.linalg.svd)
     plan = ps.split_plan(th[0], eng_c._bond(1), eng_c.qtotal_site[0])
@@ -618,19 +686,28 @@ def check_setup(eng, state):
     check(env_err <= ENV_TOL, "environments differ from JAX's")
 
 
+def counted_contract():
+    """Counts the tensordots run on the card (calls of ``packed_contract``
+    with work); returns ``(count, restore)``."""
+    orig = pk.packed_contract
+    n = [0]
+
+    def counted(*args):
+        if args[2].tasks.shape[0] and args[0][0].is_cuda:
+            n[0] += 1
+        return orig(*args)
+
+    pk.packed_contract = counted
+    return n, lambda: setattr(pk, 'packed_contract', orig)
+
+
 def counting():
     """Count the tensordots run on the card (calls of ``packed_contract``
     with work) and the kernel launches per sweep, for every engine; returns
     ``(per_sweep, restore)``."""
     per_sweep = []
     orig_sweep = DeviceSweepEngine.sweep
-    orig_contract = pk.packed_contract
-    n_calls = [0]
-
-    def counted_contract(*args):
-        if args[2].tasks.shape[0] and args[0][0].is_cuda:
-            n_calls[0] += 1
-        return orig_contract(*args)
+    n_calls, restore_contract = counted_contract()
 
     def counted_sweep(self):
         n0, c0 = gg.LAUNCHES, n_calls[0]
@@ -641,10 +718,9 @@ def counting():
 
     def restore():
         DeviceSweepEngine.sweep = orig_sweep
-        pk.packed_contract = orig_contract
+        restore_contract()
 
     DeviceSweepEngine.sweep = counted_sweep
-    pk.packed_contract = counted_contract
     return per_sweep, restore
 
 
@@ -701,6 +777,7 @@ def measure(psi, H, ops):
     """What a user measures on a written-back iMPS, with the host seconds
     of each: the TM energy per site, the entanglement entropies, the local
     operators ``ops`` per site (their real parts), the correlation length
+    (as ``correlation_length()`` gives it, and with its Arnoldi converged)
     and ``norm_test``."""
     out, sec = {}, {}
     local = [(op, lambda op=op: np.real(psi.expectation_value(op)))
@@ -708,6 +785,8 @@ def measure(psi, H, ops):
     for key, fn in [('tm_E', lambda: float(H.expectation_value(psi))),
                     ('entropy', psi.entanglement_entropy), *local,
                     ('xi', psi.correlation_length),
+                    ('xi_converged', lambda: psi.correlation_length(
+                        N_min=XI_STEPS, N_max=XI_STEPS)),
                     ('norm_test', lambda: float(np.max(psi.norm_test())))]:
         t = time.time()
         out[key] = fn()
@@ -738,11 +817,13 @@ def check_written_back(eng, sites, tag, cell=(('Ntot', CELL_N),
     log(f"[{tag}] measurements: TM energy {sec['tm_E']:.3f} s, entropies "
         f"{sec['entropy']:.4f} s, "
         + ', '.join(f'{op} {sec[op]:.4f} s' for op, _ in cell)
-        + f", correlation length {sec['xi']:.3f} s, "
-        f"norm_test {sec['norm_test']:.3f} s")
+        + f", correlation length {sec['xi']:.3f} s (converged "
+        f"{sec['xi_converged']:.3f} s), norm_test {sec['norm_test']:.3f} s")
     totals = {op: float(np.sum(got[op])) for op, _ in cell}
     log(f"[{tag}] TM energy per site {got['tm_E']!r}, correlation length "
-        f"{got['xi']!r}, entropies "
+        f"{got['xi']!r} (converged {got['xi_converged']!r}: rel "
+        f"{abs(got['xi'] - got['xi_converged']) / got['xi_converged']:.2e})"
+        f", entropies "
         + ' '.join(f'{x:.10f}' for x in got['entropy'])
         + '; cell ' + ', '.join(f'{op} {totals[op]!r}' for op, _ in cell)
         + f", bonds chi {psi.chi}")
@@ -978,6 +1059,276 @@ def phase_hofstadter(hof):
     return launches, mv
 
 
+def sector_fill(eng):
+    """The fullest charge sector of a TEBD engine's bonds: ``(kept,
+    capacity)`` of the sector with the largest ratio, and whether any
+    sector holds as many Schmidt values as its capacity."""
+    worst, full = (0, 1), False
+    for i, S in enumerate(eng.Sp):
+        bond, kept = eng._bond(i), (S > 0).cpu().numpy()
+        for s in range(bond.block_number):
+            lo, hi = int(bond.slices[s]), int(bond.slices[s + 1])
+            n = int(kept[lo:hi].sum())
+            full |= n == hi - lo
+            if n * worst[1] > worst[0] * (hi - lo):
+                worst = (n, hi - lo)
+    return worst, full
+
+
+def check_tebd_state(psi, tag, what):
+    """The conserved quantities of a written-back TEBD state: Sz per cell
+    at 0 (U(1) charge) and every bond's sum of S^2 at 1 (unitarity);
+    returns them."""
+    sz = float(np.sum(np.real(psi.expectation_value('Sz'))))
+    norms = [float(np.sum(np.asarray(psi.get_SL(i)) ** 2))
+             for i in range(psi.L)]
+    dn = max(abs(n - 1.) for n in norms)
+    log(f"[{tag}] {what}: Sz per cell {sz:+.2e}, max |sum S^2 - 1| "
+        f"{dn:.2e}, chi {psi.chi}, norm_test {np.max(psi.norm_test()):.2e}")
+    check(abs(sz) <= 1e-10, f"{what}: Sz per cell moved")
+    check(dn <= 1e-12, f"{what}: the Schmidt values are not normalized")
+    return sz, dn
+
+
+def phase_tebd_ground_state():
+    """The XXZ chain's Delta=1.5 ground state by ``device_ramp`` from the
+    Neel state; returns the written-back MPS."""
+    model = XXZChain(dict(XXZ_GS))
+    psi = MPS.from_product_state(model.lat.mps_sites(), ['up', 'down'],
+                                 bc='infinite')
+    t0 = time.time()
+    eng = device_ramp(psi, model, dict(XXZ_RAMP_OPTIONS), device='cuda')
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    st = eng.sweep_stats
+    e_sweep = (st['E'][-1] - st['E'][-2]) / (2 * model.lat.N_sites)
+    e_tm = float(model.H_MPO.expectation_value(psi))
+    log(f"[8] XXZ Delta=1.5 ground state: device_ramp {wall:.2f} s, "
+        f"{len(st['E'])} sweeps, chi {psi.chi}, energy per site "
+        f"{e_sweep:.10f} (sweeps), {e_tm:.10f} (TM), max_err "
+        f"{st['max_err'][-1]:.2e}, norm_test "
+        f"{eng.write_back_stats['norm_test_after']:.2e}")
+    check(np.isfinite(st['E']).all() and abs(e_tm - e_sweep) <= 1e-4,
+          "XXZ ground state: energy non-finite or TM far from the sweeps'")
+    check(np.max(psi.norm_test()) <= 1e-10, "XXZ ground state not canonical")
+    check_tebd_state(psi, 8, 'ground state')
+    return psi
+
+
+def phase_tebd_quench(psi, smi):
+    """The quench: staged growth to chi=512 on every bond, then
+    ``TEBD_TIMED_STEPS`` timed Trotter steps after a warm-up and one
+    profiled step.  Returns the timed engine and the numbers to report."""
+    model = XXZChain(dict(XXZ_QUENCH))
+    n_td, restore = counted_contract()
+    gg.LAUNCHES = 0                    # count the TEBD path's launches only
+    torch.cuda.reset_peak_memory_stats()
+    t_start, t_ev = time.time(), 0.
+    try:
+        while min(psi.chi) < TEBD_CHI:
+            chi_cur = max(psi.chi)
+            chi_s = min(TEBD_CHI, 2 * chi_cur)
+            t0 = time.time()
+            eng = DeviceTEBDEngine(psi, model, dict(
+                TEBD_OPTIONS, chi_max=chi_s,
+                cap_factor=TEBD_GROW * chi_s / chi_cur), 'cuda')
+            t1 = time.time()
+            while True:
+                eng.evolve(TEBD_STAGE_STEPS)
+                kept = [int((S > 0).sum()) for S in eng.Sp]
+                _, full = sector_fill(eng)
+                if (min(kept) >= chi_s or full
+                        or eng.evolved_time >= TEBD_STAGE_T):
+                    break
+            t2 = time.time()
+            eng.write_back()
+            t_ev += eng.evolved_time
+            log(f"[8] stage chi={chi_s}: capacity "
+                f"{[int(b.slices[-1]) for b in eng.bond]}, engine "
+                f"{t1 - t0:.2f} s, {eng.evolved_time / eng.dt:.0f} steps "
+                f"{t2 - t1:.2f} s, write-back "
+                f"{eng.write_back_stats['unpack_s']:.3f} + "
+                f"{eng.write_back_stats.get('canonical_form_s', 0.):.3f} s; "
+                f"t={t_ev:.2f}, kept {kept}, sector full {full}, trunc_err "
+                f"{eng.trunc_err.eps:.2e}")
+            check_tebd_state(psi, 8, f't={t_ev:.2f}')
+            check(t_ev <= TEBD_T_MAX, f"chi={TEBD_CHI} not reached by "
+                  f"t={TEBD_T_MAX}: chi {psi.chi}")
+        grow_s = time.time() - t_start
+        t0 = time.time()
+        eng = DeviceTEBDEngine(psi, model, dict(
+            TEBD_OPTIONS, chi_max=TEBD_CHI, cap_factor=1.2), 'cuda')
+        setup_s = time.time() - t0
+        eng.evolve(1)                  # warm-up: the split plans
+        eng.write_back()
+        E0, err0 = float(model.H_MPO.expectation_value(psi)), eng.trunc_err
+        times, launches, fills = [], [], []
+        for _ in range(TEBD_TIMED_STEPS):
+            n0, c0 = gg.LAUNCHES, n_td[0]
+            torch.cuda.synchronize()
+            t0 = time.time()
+            eng.evolve(1)
+            torch.cuda.synchronize()
+            times.append(time.time() - t0)
+            launches.append((gg.LAUNCHES - n0, n_td[0] - c0))
+            fills.append(sector_fill(eng))
+        eng.write_back()
+        E1 = float(model.H_MPO.expectation_value(psi))
+        err = eng.trunc_err.eps - err0.eps
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            eng.evolve(1)
+            torch.cuda.synchronize()
+            prof_s = time.time() - t0
+    finally:
+        restore()
+    n_launches = gg.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    eng.write_back()
+    med = statistics.median(times)
+    log(f"[8] quench to chi={TEBD_CHI}: t={t_ev:.2f} in {grow_s:.1f} s; "
+        f"timed engine {setup_s:.2f} s, capacity "
+        f"{[int(b.slices[-1]) for b in eng.bond]}")
+    log(f"[8] s per Trotter step at chi={TEBD_CHI}: "
+        + ' '.join(f'{t:.4f}' for t in times) + f", median {med:.4f} s; "
+        f"reference tenpy (one CPU core) {TEBD_REF_S_PER_STEP} s/step: "
+        f"{TEBD_REF_S_PER_STEP / med:.2f}x; card {smi}")
+    log(f"[8] kernel launches per step {[n for n, _ in launches]} "
+        f"(tensordots {[c for _, c in launches]}); fullest sector per step "
+        f"{[f'{k}/{c}' for (k, c), _ in fills]}; peak memory "
+        f"{peak / 2**30:.3f} GiB; kernel launches on the path {n_launches}")
+    check(all(n == c and n > 0 for n, c in launches),
+          "kernel launches per step differ from the tensordots run")
+    check(not any(full for _, full in fills),
+          "a sector sat at its capacity during the timed steps")
+    check(min(psi.chi) >= TEBD_CHI, f"chi {psi.chi} below {TEBD_CHI}")
+    busy, svd_us, kernel_us, rows = device_time(prof)
+    log(f"[8] profiled step {prof_s:.4f} s: device busy {busy / 1e6:.4f} s, "
+        f"device share {100 * busy / 1e6 / prof_s:.1f}%; batched SVD "
+        f"{svd_us / 1e6:.4f} s ({100 * svd_us / max(busy, 1e-9):.1f}% of the "
+        f"device time), the kernel {kernel_us / 1e6:.4f} s")
+    for name, us, n in rows[:8]:
+        log(f"[8]   {us / 1e6:8.4f} s {n:6d} x  {name[:80]}")
+    log(f"[8] Delta=1 energy per site {E0!r} before the timed steps, "
+        f"{E1!r} after them: drift {E1 - E0:+.3e}, their truncation error "
+        f"{err:.3e}")
+    check(abs(E1 - E0) <= err + 1e-6,
+          "the energy drifted beyond the truncation error")
+    check_tebd_state(psi, 8, 'after the timed steps')
+    return eng, n_launches, med
+
+
+def device_time(prof):
+    """Device busy time (us, overlaps merged) of a profile, the time of the
+    SVD's and of the packed kernel's launches, and the kernels by time."""
+    dev, cnt, spans = {}, {}, []
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            dev[e.name] = (dev.get(e.name, 0.) + e.time_range.end
+                           - e.time_range.start)
+            cnt[e.name] = cnt.get(e.name, 0) + 1
+            spans.append((e.time_range.start, e.time_range.end))
+    busy, end = 0., None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    svd = sum(t for k, t in dev.items()
+              if any(w in k.lower() for w in ('svd', 'jacobi', 'gesvd')))
+    kern = sum(t for k, t in dev.items() if 'thin_kernel' in k
+               or 'packed_contract_kernel' in k)
+    rows = sorted(((k, t, cnt[k]) for k, t in dev.items()),
+                  key=lambda r: -r[1])
+    return busy, svd, kern, rows
+
+
+def phase_tebd_jax_case():
+    """The committed real-time case of ``tests/test_packed_tebd.py:32``
+    (infinite S=1 chain) on the card, held to JAX's engine at the CPU
+    tests' tolerances."""
+    ref = exchange.load_flat(TEBD_REF)
+    opts = json.loads(str(ref['options']))
+    params, options = opts['spin1']['real_infinite'], opts['real']
+    model = SpinChain(dict(params))
+    sub = {k[len('real_infinite.psi0.'):]: v for k, v in ref.items()
+           if k.startswith('real_infinite.psi0.')}
+    psi = exchange.load_mps(sub, model.lat.mps_sites())
+    eng = DeviceTEBDEngine(psi, model, dict(options), 'cuda')
+    err = eng.run()
+    S_err = max(float(np.abs(np.sort(S[S > 0])[::-1]
+                             - ref[f'real_infinite.S.{i}']).max())
+                for i, S in enumerate(s.cpu().numpy() for s in eng.Sp))
+    sz_err = float(np.abs(np.real(psi.expectation_value('Sz'))
+                          - ref['real_infinite.Sz']).max())
+    e_err = abs(err.eps - float(ref['real_infinite.trunc_err']))
+    log(f"[8] JAX's real-time case (infinite S=1 chain, chi_max=32, 3 "
+        f"steps): Schmidt values {S_err:.2e}, Sz {sz_err:.2e}, truncation "
+        f"error {err.eps:.3e} vs {float(ref['real_infinite.trunc_err']):.3e}"
+        f" ({e_err:.1e}), evolved time {eng.evolved_time}")
+    check(eng.evolved_time == float(ref['real_infinite.evolved_time'])
+          and max(S_err, sz_err, e_err) <= 1e-10,
+          "the card's TEBD differs from JAX's")
+
+
+def phase_tebd_kernel(eng):
+    """One chi=512 complex128 bond update of the timed engine (bond 1,
+    read only): its three tensordots, the kernel against its plain version,
+    timed beside the plain version, the library and the bound."""
+    B0, B1, S0, U = eng.Bp[0], eng.Bp[1], eng.Sp[0], eng.Up[1][1]
+    plan = ps.split_plan(eng._theta_struct(B0, B1, U), eng._bond(1),
+                         eng.qtotal_site[0])
+    _, calls = recorded_calls(lambda: _bond_step(
+        B0, B1, S0, U, plan, eng.chi_max, eng.svd_min, eng.backend))
+    check(len(calls) == 3 and all(c[3] == torch.complex128 for c in calls),
+          "the bond update is not three complex128 tensordots")
+    tot = measure_contractions(calls, TEBD_STEPS, 8, 'bond update')
+    svd_survey(eng, B0, B1, S0, U, plan)
+    return tot
+
+
+def svd_survey(eng, B0, B1, S0, U, plan):
+    """The split's batched SVD of one bond update, as the engine runs it
+    (``torch.linalg.svd``, cuSOLVER's default choice) and with each of
+    cuSOLVER's algorithms, beside LAPACK on the host: times and the
+    singular values' largest difference from LAPACK's (a measurement for
+    the decomposition that bounds the step, not used by the engine)."""
+    C = pk.tensordot(B0.replace_labels(['p'], ['p0']),
+                     B1.replace_labels(['p'], ['p1']), axes=(['vR'], ['vL']))
+    C = pk.tensordot(U, C, axes=(['p0*', 'p1*'], ['p0', 'p1']))
+    C = C.transpose(['vL', 'p0', 'p1', 'vR'])
+    th = ps.scale_bond(C, S0, ps.scale_bond_plan(C, 'vL'))
+    tb = plan.tables(th.device)
+    flat = torch.cat([d.reshape(-1) for d in th.data]
+                     + [th.data[0].new_zeros(1)])
+    Ms = [flat[gidx].reshape(g.N, g.R, g.C)
+          for g, (gidx, _) in zip(plan.groups, tb['groups'])]
+    Ms_h = [M.cpu() for M in Ms]
+    S_ref = torch.cat([torch.linalg.svdvals(M).reshape(-1) for M in Ms_h])
+    t0 = time.time()
+    for M in Ms_h:
+        torch.linalg.svd(M, full_matrices=False)
+    host_ms = (time.time() - t0) * 1e3
+    log(f"[8] split of one chi={eng.chi_max} bond update: {len(Ms)} SVD "
+        f"groups (N,R,C) "
+        f"{[(g.N, g.R, g.C) for g in plan.groups]}; LAPACK on the host "
+        f"{host_ms:.1f} ms")
+    for algo in (None, 'gesvd', 'gesvdj'):
+        def run():
+            return [torch.linalg.svd(M, full_matrices=False, driver=algo)
+                    for M in Ms]
+        ms = cuda_ms(run, reps=3)
+        S = torch.cat([r[1].reshape(-1) for r in run()]).cpu()
+        err = float((S - S_ref).abs().max() / S_ref.max())
+        log(f"[8]   torch.linalg.svd, cuSOLVER {algo or 'default'}: "
+            f"{ms:.1f} ms per update (its events bracket the SVD's host "
+            f"syncs), singular values vs LAPACK {err:.1e}")
+
+
 def main():
     t_start = time.time()
     smi = phase_device()
@@ -1010,10 +1361,15 @@ def main():
     phase_write_back(eng, sites, wb)
     phase_ramp()
     z_launches, zmv = phase_hofstadter(hof)
-    log(f"[8] kernel max_abs_err: synthetic f64 "
+    psi_gs = phase_tebd_ground_state()
+    tebd_eng, t_launches, _ = phase_tebd_quench(psi_gs, smi)
+    phase_tebd_jax_case()
+    tmv = phase_tebd_kernel(tebd_eng)
+    log(f"[9] kernel max_abs_err: synthetic f64 "
         f"{max_abs_synth[torch.float64]:.2e}, complex128 "
         f"{max_abs_synth[torch.complex128]:.2e}; main-path shapes f64 "
-        f"{mv['max_abs']:.2e}, complex128 {zmv['max_abs']:.2e}")
+        f"{mv['max_abs']:.2e}, complex128 {zmv['max_abs']:.2e}, TEBD "
+        f"complex128 {tmv['max_abs']:.2e}")
 
     def entry(name, n, m):
         return {'name': name, 'route': 'cuda',
@@ -1024,11 +1380,14 @@ def main():
                 'bound_by': m['bound_by'], 'library_ms': m['library_ms']}
 
     # times, bound and library time: per matvec (4 tensordots), f64 at
-    # chi=256 (Hubbard), complex128 at chi=128 (Hofstadter)
+    # chi=256 (Hubbard), complex128 at chi=128 (Hofstadter); per TEBD bond
+    # update (3 tensordots), complex128 at chi=512 (XXZ quench)
     print(json.dumps({'kernels': [
         entry('packed_contract', launches, mv),
-        entry('packed_contract_complex128', z_launches, zmv)]}), flush=True)
-    log(f"[8] chip_smoke wall {time.time() - t_start:.1f} s")
+        entry('packed_contract_complex128', z_launches, zmv),
+        entry('packed_contract_complex128_tebd', t_launches, tmv)]}),
+        flush=True)
+    log(f"[9] chip_smoke wall {time.time() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

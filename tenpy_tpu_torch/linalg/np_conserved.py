@@ -26,7 +26,8 @@ import torch
 from .charges import QTYPE, LegCharge, LegPipe
 
 __all__ = ['Array', 'zeros', 'eye_like', 'diag', 'outer', 'inner',
-           'tensordot', 'grid_outer', 'norm', 'svd', 'qr', 'lq', 'eigh',
+           'tensordot', 'grid_outer', 'norm', 'trace', 'svd', 'qr', 'lq',
+           'eigh',
            'detect_qtotal', 'conj_label', 'as_dtype', 'result_type']
 
 _NP_TO_TORCH = {np.dtype(np.float64): torch.float64,
@@ -811,6 +812,21 @@ def grid_outer(grid, grid_legs, qtotal=None, grid_labels=None):
 def norm(a):
     """Frobenius norm of an Array (a float)."""
     return float(np.sqrt(sum(float((b.abs() ** 2).sum()) for b in a._data)))
+
+
+def trace(a, leg1=0, leg2=1):
+    """The full trace of a 2-leg Array over its contractible legs ``leg1``
+    and ``leg2`` (a 0-dim tensor); ``tenpy_tpu``'s partial trace of more
+    legs is not ported."""
+    i1, i2 = a.get_leg_index(leg1), a.get_leg_index(leg2)
+    if a.rank != 2:
+        raise NotImplementedError("trace of more than two legs")
+    a.legs[i1].test_contractible(a.legs[i2])
+    total = torch.zeros((), dtype=a.dtype)
+    for row, block in zip(a._qdata, a._data):
+        if row[i1] == row[i2]:
+            total = total + torch.trace(block)
+    return total
 
 
 # ----------------------------------------------------------- combine / split

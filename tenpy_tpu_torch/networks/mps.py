@@ -1,7 +1,7 @@
 r"""Matrix product states and their environments on the host.
 
-Port of the ``MPS`` container and ``BaseEnvironment`` of
-``tenpy_tpu/networks/mps.py``, with the same conventions:
+Port of the ``MPS`` container, ``BaseEnvironment`` and ``MPSEnvironment``
+of ``tenpy_tpu/networks/mps.py``, with the same conventions:
 
 * tensor labels ``vL, p, vR``; virtual legs have ``qconj=+1`` (vL) and
   ``-1`` (vR);
@@ -16,8 +16,10 @@ sweeps of a finite MPS; for an infinite one the inverse-free iterated QR
 gauge with its transfer-matrix fixed-point fallback and noise-floor
 compression rescue) and measures (``entanglement_entropy``,
 ``expectation_value``, ``correlation_length`` through
-:class:`TransferMatrix`).  The blocks stay on the host; the eigensolvers
-are :class:`~tenpy_tpu_torch.linalg.krylov_based.Arnoldi`.
+:class:`TransferMatrix`, and ``overlap``: the full contraction of an
+:class:`MPSEnvironment` for finite bc, the dominant transfer-matrix
+eigenvalue per unit cell for infinite bc).  The blocks stay on the host;
+the eigensolvers are :class:`~tenpy_tpu_torch.linalg.krylov_based.Arnoldi`.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from ..tools.params import asConfig
 
 logger = logging.getLogger(__name__)
 
-__all__ = ['MPS', 'BaseEnvironment', 'TransferMatrix']
+__all__ = ['MPS', 'BaseEnvironment', 'MPSEnvironment', 'TransferMatrix']
 
 
 class MPS:
@@ -400,15 +402,20 @@ class MPS:
             res = res.real
         return res
 
-    def correlation_length(self, target=1, tol_ev0=1e-8):
+    def correlation_length(self, target=1, tol_ev0=1e-8, **kwargs):
         """``-L / log|eta_k|`` of the subleading transfer-matrix eigenvalues
         ``eta_1..eta_target`` (infinite bc; a float for ``target=1``).
 
+        ``kwargs`` go to the Arnoldi solver.  By default, as in
+        ``tenpy_tpu``, it stops once the dominant eigenpair has converged,
+        so the subleading eigenvalues may not have: ``N_min = N_max = 30``
+        converges them on the chi=256 Hubbard cylinder state, where the
+        default is 7.2e-3 off (``tests/test_torch_state_distance.py``).
         ``tenpy_tpu``'s ``charge_sector`` option is not ported: its transfer
         matrix ignores it, so any sector but 0 gave a wrong answer."""
         assert not self.finite
         etas, _ = TransferMatrix(self, self).eigenvectors(
-            num_ev=max(target + 2, 3), which='LM')
+            num_ev=max(target + 2, 3), which='LM', **kwargs)
         etas = np.asarray(etas)
         if abs(np.abs(etas[0]) - 1.) > tol_ev0:
             warnings.warn(f"dominant TM eigenvalue not 1: {etas[0]}")
@@ -421,6 +428,15 @@ class MPS:
         with np.errstate(divide='ignore'):
             xi = np.where(abs_etas >= 1., np.inf, -self.L / np.log(abs_etas))
         return float(xi[0]) if target == 1 else xi
+
+    def overlap(self, other):
+        """``<self|other>``: for finite bc the full contraction of an
+        :class:`MPSEnvironment`; for infinite bc the overlap per unit cell,
+        the dominant eigenvalue of the mixed :class:`TransferMatrix`."""
+        if self.finite:
+            return MPSEnvironment(self, other).full_contraction(0)
+        etas, _ = TransferMatrix(self, other).eigenvectors(which='LM')
+        return complex(etas[0])
 
     # --------------------------------------------------------- canonical form
     def canonical_form(self, **kwargs):
@@ -750,6 +766,47 @@ class BaseEnvironment:
         self._RP_age[i % self.L] = age
 
 
+class MPSEnvironment(BaseEnvironment):
+    """Partial contractions of ``<bra|ket>`` with no operator between:
+    ``LP[i]`` (legs ``vR*, vR``) from the A forms, ``RP[i]`` (legs ``vL,
+    vL*``) from the B forms, starting from the identity."""
+
+    def init_LP(self, i):
+        leg = self.ket.get_B(i, None).get_leg('vL')
+        return npc.diag(1., leg, dtype=self.dtype, labels=['vR*', 'vR'])
+
+    def init_RP(self, i):
+        leg = self.ket.get_B(i, None).get_leg('vR')
+        return npc.diag(1., leg.conj(), dtype=self.dtype,
+                        labels=['vL', 'vL*'])
+
+    def _contract_LP(self, i, LP):
+        LP = npc.tensordot(LP, self.ket.get_B(i, 'A'), axes=[['vR'], ['vL']])
+        return npc.tensordot(self.bra.get_B(i, 'A').conj(), LP,
+                             axes=[['vL*', 'p*'], ['vR*', 'p']])
+
+    def _contract_RP(self, i, RP):
+        RP = npc.tensordot(self.ket.get_B(i, 'B'), RP, axes=[['vR'], ['vL']])
+        return npc.tensordot(RP, self.bra.get_B(i, 'B').conj(),
+                             axes=[['p', 'vL*'], ['p*', 'vR*']])
+
+    def full_contraction(self, i0):
+        """``<bra|ket>`` (times both norms), split at bond ``i0``: for
+        ``i0 == 0`` (or ``L - 1`` for finite bc) the whole chain contracted
+        into ``LP`` and traced, else ``LP[i0]`` and ``RP[i0-1]`` with the
+        Schmidt values of bond ``i0`` between them."""
+        if i0 == 0 or (self.ket.finite and i0 + 1 == self.L):
+            LP = self._contract_LP(self.L - 1, self.get_LP(self.L - 1))
+            contr = npc.trace(LP, 'vR*', 'vR')
+        else:
+            LP = self.get_LP(i0).scale_axis(
+                np.conj(np.asarray(self.bra.get_SL(i0))), 'vR*')
+            LP = LP.iscale_axis(np.asarray(self.ket.get_SL(i0)), 'vR')
+            contr = npc.tensordot(LP, self.get_RP(i0 - 1),
+                                  axes=[['vR*', 'vR'], ['vL*', 'vL']])
+        return complex(contr) * self.bra.norm * self.ket.norm
+
+
 class _DeflatedLinearOperator:
     """``(1 - P) T (1 - P)``, ``P`` the projector onto found eigenvectors:
     degenerate copies of a dominant eigenvalue show up in its spectrum."""
@@ -794,12 +851,32 @@ class TransferMatrix:
         self.dtype = npc.result_type(bra.dtype, ket.dtype)
 
     def initial_guess(self, diag=1.):
-        """The identity in the vectors' leg structure."""
-        if not self.transpose:
-            leg = self.ket.get_B(0, self.form).get_leg('vL')
-            return npc.diag(diag, leg, dtype=self.dtype, labels=['vL', 'vL*'])
-        leg = self.ket.get_B(self.L - 1, self.form).get_leg('vR')
-        return npc.diag(diag, leg, dtype=self.dtype, labels=['vR', 'vR*'])
+        """The identity in the vectors' leg structure.  Where bra and ket
+        have different bond legs (two states whose truncations kept
+        different sectors), the identity on the sectors both legs hold."""
+        i, lab = (0, 'vL') if not self.transpose else (self.L - 1, 'vR')
+        leg = self.ket.get_B(i, self.form).get_leg(lab)
+        leg_bra = self.bra.get_B(i, self.form).get_leg(lab)
+        labels = [lab, lab + '*']
+        if leg_bra == leg:
+            return npc.diag(diag, leg, dtype=self.dtype, labels=labels)
+        res = npc.Array([leg, leg_bra.conj()], self.dtype, None, labels)
+        chinfo = leg.chinfo
+        pos = {tuple(chinfo.make_valid(leg_bra.charges[b] * leg_bra.qconj)):
+               b for b in range(leg_bra.block_number)}
+        rows, blocks = [], []
+        for a in range(leg.block_number):
+            b = pos.get(tuple(chinfo.make_valid(leg.charges[a] * leg.qconj)))
+            if b is None:
+                continue
+            rows.append((a, b))
+            blocks.append(diag * torch.eye(
+                int(leg.slices[a + 1] - leg.slices[a]),
+                int(leg_bra.slices[b + 1] - leg_bra.slices[b]),
+                dtype=self.dtype))
+        res._set_blocks(np.array(rows, np.intp).reshape(len(rows), 2),
+                        blocks)
+        return res
 
     def matvec(self, vec):
         X = vec

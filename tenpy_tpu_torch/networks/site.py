@@ -1,7 +1,8 @@
-r"""Local Hilbert spaces: :class:`Site`, :class:`FermionSite` and
-:class:`SpinHalfFermionSite`.
+r"""Local Hilbert spaces: :class:`Site`, :class:`SpinHalfSite`,
+:class:`SpinSite`, :class:`FermionSite` and :class:`SpinHalfFermionSite`.
 
-Port of ``Site``, ``FermionSite`` and ``SpinHalfFermionSite`` from
+Port of ``Site``, ``SpinHalfSite``, ``SpinSite``, ``FermionSite`` and
+``SpinHalfFermionSite`` from
 ``tenpy_tpu/networks/site.py``, with the same state order, operator names,
 charges and Jordan-Wigner bookkeeping, so models built on them give the
 same MPO.  Operators are :class:`~tenpy_tpu_torch.linalg.np_conserved.Array`
@@ -16,7 +17,8 @@ from ..linalg import np_conserved as npc
 from ..linalg.charges import ChargeInfo, LegCharge
 from ..tools.misc import inverse_permutation
 
-__all__ = ['Site', 'FermionSite', 'SpinHalfFermionSite']
+__all__ = ['Site', 'SpinHalfSite', 'SpinSite', 'FermionSite',
+           'SpinHalfFermionSite']
 
 
 class Site:
@@ -202,6 +204,91 @@ class Site:
 
     def multiply_op_names(self, names):
         return ' '.join(names)
+
+
+class SpinHalfSite(Site):
+    """Spin-1/2: states ``['up', 'down']``.
+
+    Operators: Sz, Sp, Sm, Sigmaz, and without Sz conservation also Sx,
+    Sy, Sigmax, Sigmay.  ``conserve`` in {'Sz', 'parity', 'None'}.
+    """
+
+    def __init__(self, conserve='Sz', sort_charge=True):
+        conserve = conserve or 'None'
+        if conserve not in ('Sz', 'parity', 'None'):
+            raise ValueError(f"invalid conserve {conserve!r}")
+        Sx = [[0., 0.5], [0.5, 0.]]
+        Sy = [[0., -0.5j], [0.5j, 0.]]
+        Sz = [[0.5, 0.], [0., -0.5]]
+        ops = dict(Sp=[[0., 1.], [0., 0.]], Sm=[[0., 0.], [1., 0.]], Sz=Sz)
+        if conserve == 'Sz':
+            leg = LegCharge.from_qflat(ChargeInfo([1], ['2*Sz']), [1, -1])
+        else:
+            ops.update(Sx=Sx, Sy=Sy)
+            if conserve == 'parity':
+                leg = LegCharge.from_qflat(ChargeInfo([2], ['parity_Sz']),
+                                           [1, 0])
+            else:
+                leg = LegCharge.from_trivial(2)
+        self.conserve = conserve
+        Site.__init__(self, leg, ['up', 'down'], sort_charge=sort_charge,
+                      **ops)
+        self.state_labels['-0.5'] = self.state_labels['down']
+        self.state_labels['0.5'] = self.state_labels['up']
+        if conserve != 'Sz':
+            self.add_op('Sigmax', 2. * np.asarray(Sx), permute_dense=True)
+            self.add_op('Sigmay', 2. * np.asarray(Sy), permute_dense=True)
+        self.add_op('Sigmaz', 2. * np.asarray(Sz), permute_dense=True)
+        self.charge_to_JW_parity = np.zeros(leg.chinfo.qnumber, int)
+
+    def __repr__(self):
+        return f"SpinHalfSite({self.conserve!r})"
+
+
+class SpinSite(Site):
+    """Spin-S: ``2S+1`` states from ``'down'`` (Sz = -S) to ``'up'``
+    (Sz = +S), also labelled by their Sz (``'-1.0'``, ..., ``'1.0'``).
+
+    Operators: Sz, Sp, Sm, and without Sz conservation also Sx, Sy.
+    ``conserve`` in {'Sz', 'parity', 'None'} (``tenpy_tpu``'s 'dipole' is
+    not ported).
+    """
+
+    def __init__(self, S=0.5, conserve='Sz', sort_charge=True):
+        conserve = conserve or 'None'
+        if conserve not in ('Sz', 'parity', 'None'):
+            raise ValueError(f"invalid conserve {conserve!r}")
+        self.S = S = float(S)
+        d = 2 * S + 1
+        if d <= 1 or np.rint(d) != d:
+            raise ValueError("S must be half-integer")
+        d = int(d)
+        Sz_diag = -S + np.arange(d)
+        Sp = np.zeros((d, d))
+        for n in range(d - 1):
+            m = n - S
+            Sp[n + 1, n] = np.sqrt(S * (S + 1) - m * (m + 1))
+        Sm = Sp.T.copy()
+        ops = dict(Sp=Sp, Sm=Sm, Sz=np.diag(Sz_diag))
+        if conserve == 'Sz':
+            leg = LegCharge.from_qflat(ChargeInfo([1], ['2*Sz']),
+                                       np.array(2 * Sz_diag, np.int64))
+        else:
+            ops.update(Sx=0.5 * (Sp + Sm), Sy=0.5j * (Sm - Sp))
+            if conserve == 'parity':
+                leg = LegCharge.from_qflat(ChargeInfo([2], ['parity_Sz']),
+                                           np.mod(np.arange(d), 2))
+            else:
+                leg = LegCharge.from_trivial(d)
+        self.conserve = conserve
+        names = [str(i) for i in np.arange(-S, S + 1, 1.)]
+        Site.__init__(self, leg, names, sort_charge=sort_charge, **ops)
+        self.state_labels['down'] = self.state_labels[names[0]]
+        self.state_labels['up'] = self.state_labels[names[-1]]
+        self.charge_to_JW_parity = np.zeros(leg.chinfo.qnumber, int)
+
+    def __repr__(self):
+        return f"SpinSite(S={self.S}, {self.conserve!r})"
 
 
 class FermionSite(Site):

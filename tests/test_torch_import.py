@@ -34,8 +34,13 @@ MODULES = ['tenpy_tpu_torch', 'tenpy_tpu_torch._build',
            'tenpy_tpu_torch.models.model',
            'tenpy_tpu_torch.models.hubbard',
            'tenpy_tpu_torch.models.hofstadter',
+           'tenpy_tpu_torch.models.spins',
+           'tenpy_tpu_torch.models.tf_ising',
+           'tenpy_tpu_torch.models.xxz_chain',
            'tenpy_tpu_torch.algorithms.mps_common',
            'tenpy_tpu_torch.algorithms.packed_dmrg',
+           'tenpy_tpu_torch.algorithms.tebd',
+           'tenpy_tpu_torch.algorithms.packed_tebd',
            'chip_smoke', 'profile_torch_sweep']
 
 

@@ -23,6 +23,10 @@ chi=256 Hubbard-cylinder file and the ramp references::
         tests/benchmark_data/hubbard_cyl_ly2_chi16_exchange.npz
     python tests/torch_exchange.py --write-hofstadter \
         tests/benchmark_data/hofstadter_reference.npz
+    python tests/torch_exchange.py --write-tebd \
+        tests/benchmark_data/tebd_reference.npz
+    python tests/torch_exchange.py --write-states \
+        tests/benchmark_data/written_back_states.npz
 """
 
 import argparse
@@ -367,7 +371,8 @@ def charge_frame(psi):
 def write_back_reference(case):
     """``tenpy_tpu``'s ``DeviceSweepEngine.run()`` on a write-back case: the
     energy of every sweep, ``norm_test`` before the re-gauge, and
-    :func:`measure_written_back` of the written-back state."""
+    :func:`measure_written_back` of the written-back state; returns
+    ``(ref, psi)``, ``psi`` the written-back state."""
     import tenpy_tpu.networks.mps as mpsmod
     from tenpy_tpu.algorithms.packed_dmrg import DeviceSweepEngine
     from tenpy_tpu.models.hubbard import FermiHubbardChain
@@ -383,7 +388,7 @@ def write_back_reference(case):
     ref.update(sweep_E=np.asarray(eng.sweep_stats['E']),
                norm_test_before=np.asarray(probe.before),
                options=np.array(json.dumps(options)))
-    return ref
+    return ref, psi
 
 
 def chi256_write_back_reference():
@@ -439,7 +444,7 @@ def write_write_back(path, cases):
     for case in cases:
         t0 = time.time()
         ref = chi256_write_back_reference() if case == 'chi256' \
-            else write_back_reference(case)
+            else write_back_reference(case)[0]
         flat = {k: v for k, v in flat.items()
                 if not k.startswith(case + '.')}
         flat.update({f'{case}.{k}': np.asarray(v) for k, v in ref.items()})
@@ -516,7 +521,8 @@ def hofstadter_reference(case):
     state; the energy of every sweep, every update of the first sweep and
     every stage, the charge-unit rescale, and
     :func:`measure_hofstadter` of the written-back state.  For 'finite'
-    also the host DMRG energy of tests/test_packed_dmrg.py:204."""
+    also the host DMRG energy of tests/test_packed_dmrg.py:204.  Returns
+    ``(ref, psi)``, ``psi`` the written-back state."""
     import jax
     import tenpy_tpu.algorithms.packed_dmrg as jpd
     params, _, options = HOFSTADTER_CASES[case]
@@ -585,7 +591,7 @@ def hofstadter_reference(case):
             'trunc_params': {'chi_max': 16, 'svd_min': 1e-12},
             'max_sweeps': 10, 'mixer': True}).run()
         ref['E_host'] = np.asarray(float(np.real(E_host)))
-    return ref
+    return ref, psi
 
 
 def write_hofstadter(path, cases):
@@ -593,7 +599,7 @@ def write_hofstadter(path, cases):
     keeping the other cases an existing file holds."""
     flat = exchange.load_flat(path) if os.path.exists(path) else {}
     for case in cases:
-        ref = hofstadter_reference(case)
+        ref, _ = hofstadter_reference(case)
         flat = {k: v for k, v in flat.items()
                 if not k.startswith(case + '.')}
         flat.update({f'{case}.{k}': np.asarray(v) for k, v in ref.items()})
@@ -602,6 +608,180 @@ def write_hofstadter(path, cases):
               f"k={ref['gauge_k']} ({float(ref['cpu_seconds']):.0f} s)",
               flush=True)
     exchange.save_flat(path, flat)
+
+def state_flat(prefix, psi):
+    """An MPS of either package in the exchange format, every key under
+    ``prefix``: its tensors in their stored forms, no MPO or
+    environments."""
+    names = {v: k for k, v in type(psi)._valid_forms.items()}
+    L = psi.L
+    S = [np.asarray(psi.get_SL(i)) for i in range(L)]
+    if psi.bc == 'finite':
+        S.append(np.asarray(psi.get_SR(L - 1)))
+    flat = exchange.state_to_flat(psi.bc, psi.chi, list(psi._B), None, S,
+                                  None, None, psi.chinfo,
+                                  forms=[names[f] for f in psi.form])
+    return {f'{prefix}.{k}': v for k, v in flat.items()}
+
+
+def load_state(flat, prefix, sites):
+    """The state :func:`state_flat` stored under ``prefix`` as the port's
+    MPS on ``sites``."""
+    sub = {k[len(prefix) + 1:]: v for k, v in flat.items()
+           if k.startswith(prefix + '.')}
+    return exchange.load_mps(sub, sites)
+
+
+def sorted_S(psi):
+    """The Schmidt values of every bond (``L`` for infinite bc, ``L + 1``
+    for finite), each sorted descending, of an MPS of either package."""
+    n = psi.L + 1 if psi.bc == 'finite' else psi.L
+    return [np.sort(np.asarray(psi._S[i]))[::-1] for i in range(n)]
+
+
+def bond_energies(psi, model):
+    """``<H_bond>`` on every bond of the unit cell (finite: bonds
+    ``1..L-1``; infinite: ``H_bond[i]`` on sites ``(i-1, i)`` for
+    ``i = 1..L``), for an MPS and model of either package."""
+    L = psi.L
+    if psi.bc == 'finite':
+        return np.real(np.asarray(psi.expectation_value(
+            model.H_bond[1:], range(L - 1))))
+    ops = [model.H_bond[(i + 1) % L] for i in range(L)]
+    return np.real(np.asarray(psi.expectation_value(ops, range(L))))
+
+
+# the TEBD cases of tests/test_packed_tebd.py: real time (:32) on the S=1
+# chain from its host-DMRG state, finite L=8 and infinite L=2; imaginary
+# time (:57) on the transverse-field Ising chain with parity, in two dt
+# stages.  tests/test_torch_tebd.py runs the port on the same states
+def spin1_params(bc, L):
+    """The S=1 XXZ chain of tests/test_packed_tebd.py:20."""
+    return {'S': 1., 'L': L, 'Jx': 1., 'Jy': 1., 'Jz': 0.7, 'bc_MPS': bc,
+            'conserve': 'Sz'}
+
+
+TEBD_REAL_CASES = {'real_finite': ('finite', 8), 'real_infinite':
+                   ('infinite', 2)}
+TEBD_REAL_OPTIONS = {'N_steps': 3, 'dt': 0.05, 'order': 2, 'chi_max': 32,
+                     'svd_min': 1e-10, 'multiple': 8, 'type_evo': 'real'}
+TFI_PARAMS = {'L': 8, 'J': 1., 'g': 1.2, 'bc_MPS': 'finite',
+              'conserve': 'parity'}
+TEBD_IMAG_DTS = (0.1, 0.01)
+TEBD_IMAG_OPTIONS = {'N_steps': 20, 'order': 2, 'type_evo': 'imag',
+                     'chi_max': 16, 'svd_min': 1e-12, 'multiple': 8}
+# the seed of tests/test_packed_dmrg.py:329 (test_device_ramp_staged):
+# _ramped_state(L=8, chi=4, sweeps=2) on the S=1 Heisenberg chain, and the
+# host DMRG energy at chi=32 it is held to
+RAMP_SPIN_PARAMS = {'S': 1., 'L': 8, 'Jx': 1., 'Jy': 1., 'Jz': 1.,
+                    'bc_MPS': 'finite', 'conserve': 'Sz'}
+RAMP_SPIN_OPTIONS = {'chi_max': 32, 'svd_min': 1e-12, 'lanczos_K': 10,
+                     'sweeps_per_stage': 3, 'n_sweeps': 10, 'multiple': 8}
+
+
+def _host_dmrg(psi, m, chi, sweeps):
+    from tenpy_tpu.algorithms import dmrg
+    E, _ = dmrg.TwoSiteDMRGEngine(psi, m, {
+        'trunc_params': {'chi_max': chi, 'svd_min': 1e-12},
+        'max_sweeps': sweeps, 'mixer': True}).run()
+    return float(np.real(E))
+
+
+def tebd_reference():
+    """``tenpy_tpu``'s ``DeviceTEBDEngine`` on the cases of
+    tests/test_packed_tebd.py, as a flat dict: the start states (the host
+    DMRG states, ``<case>.psi0``), the evolved time, the truncation error,
+    the Schmidt values per bond of the written-back state (``S.<bond>``,
+    sorted; before any re-gauge, as the engine leaves them), and ``Sz``
+    per site and the bond energies of that state after
+    ``canonical_form()``; for the finite real-time case also the
+    written-back state itself (``<case>.psi``).  Then the imaginary-time
+    stages, each followed by ``canonical_form()`` as in the test, and the
+    seed state and host energy of test_device_ramp_staged."""
+    from tenpy_tpu.algorithms.packed_tebd import DeviceTEBDEngine
+    from tenpy_tpu.models.spins import SpinChain
+    from tenpy_tpu.models.tf_ising import TFIChain
+    from tenpy_tpu.networks.mps import MPS as JMPS
+    flat = {}
+    for case, (bc, L) in TEBD_REAL_CASES.items():
+        t0 = time.time()
+        m = SpinChain(spin1_params(bc, L))
+        psi = JMPS.from_product_state(m.lat.mps_sites(),
+                                      (['1.0', '-1.0'] * L)[:L], bc=bc)
+        _host_dmrg(psi, m, 24, 3 if bc == 'finite' else 10)
+        flat.update(state_flat(f'{case}.psi0', psi))
+        eng = DeviceTEBDEngine(psi, m, dict(TEBD_REAL_OPTIONS))
+        err = eng.run()
+        ref = {'evolved_time': eng.evolved_time, 'trunc_err': err.eps,
+               'norm_test': float(np.max(psi.norm_test()))}
+        for i, S in enumerate(sorted_S(psi)):
+            ref[f'S.{i}'] = S
+        if bc == 'finite':
+            flat.update(state_flat(f'{case}.psi', psi))
+        psi.canonical_form()
+        ref['Sz'] = np.real(np.asarray(psi.expectation_value('Sz')))
+        ref['E_bond'] = bond_energies(psi, m)
+        flat.update({f'{case}.{k}': np.asarray(v) for k, v in ref.items()})
+        print(f"{case}: trunc_err {err.eps:.3e}, norm_test "
+              f"{ref['norm_test']:.2e} ({time.time() - t0:.0f} s)",
+              flush=True)
+    t0 = time.time()
+    m = TFIChain(dict(TFI_PARAMS))
+    L = TFI_PARAMS['L']
+    psi = JMPS.from_product_state(m.lat.mps_sites(), ['up'] * L,
+                                  bc='finite')
+    for k, dt in enumerate(TEBD_IMAG_DTS):
+        eng = DeviceTEBDEngine(psi, m, dict(TEBD_IMAG_OPTIONS, dt=dt))
+        err = eng.run()
+        psi.canonical_form()
+        ref = {'evolved_time': eng.evolved_time, 'trunc_err': err.eps,
+               'E_bond': bond_energies(psi, m)}
+        for i, S in enumerate(sorted_S(psi)):
+            ref[f'S.{i}'] = S
+        flat.update({f'imag.{k}.{key}': np.asarray(v)
+                     for key, v in ref.items()})
+    print(f"imag: E {np.sum(flat['imag.1.E_bond']):.12f} "
+          f"({time.time() - t0:.0f} s)", flush=True)
+    t0 = time.time()
+    m = SpinChain(dict(RAMP_SPIN_PARAMS))
+    L = RAMP_SPIN_PARAMS['L']
+    psi = JMPS.from_product_state(m.lat.mps_sites(),
+                                  (['1.0', '-1.0'] * L)[:L], bc='finite')
+    _host_dmrg(psi, m, 4, 2)
+    flat.update(state_flat('ramp_spin.psi0', psi))
+    flat['ramp_spin.E_host'] = np.asarray(_host_dmrg(psi.copy(), m, 32, 20))
+    print(f"ramp_spin: E_host {float(flat['ramp_spin.E_host']):.12f} "
+          f"({time.time() - t0:.0f} s)", flush=True)
+    flat['options'] = np.array(json.dumps({
+        'spin1': {case: spin1_params(bc, L)
+                  for case, (bc, L) in TEBD_REAL_CASES.items()},
+        'real': TEBD_REAL_OPTIONS, 'imag': TEBD_IMAG_OPTIONS,
+        'imag_dts': TEBD_IMAG_DTS, 'tfi': TFI_PARAMS,
+        'ramp_spin': [RAMP_SPIN_PARAMS, RAMP_SPIN_OPTIONS]}))
+    return flat
+
+
+def written_back_states():
+    """``tenpy_tpu``'s written-back states of two committed cases, for the
+    distance to the port's: the ionic chain of ``WRITE_BACK_CASES`` (its
+    TM energy beside it, to tie it to
+    ``hubbard_write_back_reference.npz``) and the finite Hofstadter case
+    of ``HOFSTADTER_CASES`` (its energy, likewise for
+    ``hofstadter_reference.npz``)."""
+    flat = {}
+    t0 = time.time()
+    ref, psi = write_back_reference('ionic')
+    flat.update(state_flat('ionic.psi', psi))
+    flat['ionic.tm_E'] = np.asarray(ref['tm_E'])
+    print(f"ionic: tm_E {ref['tm_E']!r} ({time.time() - t0:.0f} s)",
+          flush=True)
+    t0 = time.time()
+    ref, psi = hofstadter_reference('finite')
+    flat.update(state_flat('hofstadter_finite.psi', psi))
+    flat['hofstadter_finite.E'] = np.asarray(ref['E'])
+    print(f"hofstadter finite: E {ref['E']!r} ({time.time() - t0:.0f} s)",
+          flush=True)
+    return flat
 
 
 def main(argv=None):
@@ -616,6 +796,10 @@ def main(argv=None):
                     help='output .npz path (write-back references)')
     ap.add_argument('--write-hofstadter',
                     help='output .npz path (Hofstadter references)')
+    ap.add_argument('--write-tebd',
+                    help='output .npz path (DeviceTEBDEngine references)')
+    ap.add_argument('--write-states',
+                    help='output .npz path (written-back JAX states)')
     ap.add_argument('--cases', nargs='+',
                     help='write-back or Hofstadter cases to (re)compute')
     args = ap.parse_args(argv)
@@ -632,6 +816,12 @@ def main(argv=None):
     if args.write_hofstadter:
         write_hofstadter(args.write_hofstadter,
                          args.cases or list(HOFSTADTER_CASES))
+    for path, make in ((args.write_tebd, tebd_reference),
+                       (args.write_states, written_back_states)):
+        if path:
+            exchange.save_flat(path, make())
+            print(f"wrote {path} ({os.path.getsize(path) / 1e6:.3f} MB)",
+                  flush=True)
     if not args.write:
         return
     t0 = time.time()
