@@ -61,13 +61,28 @@ Phases (any failure exits nonzero):
    committed real-time case of ``tests/benchmark_data/tebd_reference.npz``
    held to JAX's engine; and the kernel against its plain version on the
    three tensordots of one chi=512 bond update, timed;
-then a JSON line on the kernels (the f64 mode, the complex128 mode and
-the complex128 mode on the TEBD shapes) and, last,
-``{"ok": true, "device": ...}``.
+9. TeNPy's own entry point: ``dmrg.run(psi, model, options,
+   device='cuda')`` (``TwoSiteDMRGEngine``, host tensors, every two-site
+   Lanczos update forced onto the packed Lanczos on the card by
+   ``lanczos_params['device_K']``) on the open XX chain from the Neel
+   state, ramped by ``chi_list`` to chi=512; held to the free-fermion
+   energy, canonical, total Sz 0, the kernel's launches equal to 4 per
+   device matvec and to the tensordots run; seconds per sweep, the time
+   per update by part (ED_block, pack, device Lanczos, unpack, split,
+   environment update), plan builds and cache hits, peak memory; at the
+   centre bond of the result the card's ``_diag_device_lanczos`` against
+   the host ``LanczosGroundState`` on the same effective H; the two
+   routes timed against each other at several sizes N of one sweep (the
+   crossover); one more sweep profiled (the device's idle share); and the
+   kernel against its plain version on the centre update's matvec, timed;
+then a JSON line on the kernels (the f64 mode, the complex128 mode, the
+complex128 mode on the TEBD shapes and the f64 mode on the host DMRG's
+shapes) and, last, ``{"ok": true, "device": ...}``.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.
 """
 
+import copy
 import json
 import os
 import statistics
@@ -80,12 +95,16 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from tenpy_tpu_torch import _build
+from tenpy_tpu_torch.algorithms import dmrg
+from tenpy_tpu_torch.algorithms import mps_common as mc
 from tenpy_tpu_torch.algorithms.mps_common import _matvec_2site_packed
 from tenpy_tpu_torch.algorithms.packed_dmrg import DeviceSweepEngine, \
     device_ramp
 from tenpy_tpu_torch.algorithms.packed_tebd import DeviceTEBDEngine, \
     _bond_step
 from tenpy_tpu_torch.linalg import grouped_gemm as gg
+from tenpy_tpu_torch.linalg import np_conserved as npc
+from tenpy_tpu_torch.linalg.krylov_based import LanczosGroundState
 from tenpy_tpu_torch.linalg import packed as pk
 from tenpy_tpu_torch.linalg import packed_split as ps
 from tenpy_tpu_torch.models.hofstadter import HofstadterFermions
@@ -206,6 +225,29 @@ TEBD_REF = os.path.join(ROOT, 'tests', 'benchmark_data',
                         'tebd_reference.npz')
 TEBD_STEPS = ['B0.B1 over vR/vL', 'U.C over (p0*,p1*)',
               "C.B'^H over (p1,vR)"]
+# the host DMRG path: dmrg.run on the open XX chain (Sz conserved) from the
+# Neel state, ramped to chi=512 (the width phase 8 runs XXZChain at); every
+# two-site Lanczos update is forced onto the card (device_K: at most that
+# many Lanczos steps, with the early exit).  norm_tol: TeNPy's end-of-run
+# canonicalization where the last sweep's bond-1 update left the norm test
+# above it (tests/test_torch_host_dmrg.py: 1.3e-10 at L=16)
+XX_MODEL = {'L': 64, 'Jxx': 1., 'Jz': 0., 'hz': 0., 'bc_MPS': 'finite'}
+XX_DEVICE_K = 20
+XX_OPTIONS = {'trunc_params': {'chi_max': 512, 'svd_min': 1e-12},
+              'chi_list': {0: 64, 2: 256, 4: 512}, 'mixer': False,
+              'max_E_err': 1e-11, 'max_sweeps': 10, 'norm_tol': 1e-10,
+              'lanczos_params': {'device_K': XX_DEVICE_K}}
+# |E - E_exact| / |E_exact|, the exact energy from free fermions
+XX_E_TOL = 1e-8
+XX_NORM_TOL = 1e-10
+# the centre update, card against host: Lanczos steps, the guess's seeded
+# perturbation (norm relative to theta) and the tolerances
+XX_CHECK_K, XX_CHECK_NOISE, XX_CHECK_SEED = 40, 1e-2, 9
+XX_CHECK_E_TOL, XX_CHECK_OV_TOL = 1e-10, 1e-8
+# the crossover: both routes run XX_CROSS_K fixed Lanczos steps on the
+# effective H of these bonds (sizes N from about 1e2 to the centre's)
+XX_CROSS_K = 10
+XX_CROSS_BONDS = (2, 4, 6, 8, 10, None)    # None: the centre bond
 
 
 def log(*a):
@@ -1328,6 +1370,291 @@ def svd_survey(eng, B0, B1, S0, U, plan):
             f"{ms:.1f} ms per update (its events bracket the SVD's host "
             f"syncs), singular values vs LAPACK {err:.1e}")
 
+def e0_xx_finite(L, Jxx):
+    """The open XX chain's ground energy at Sz = 0: the sum of the negative
+    eigenvalues of the L x L free-fermion hopping matrix (Jxx / 2)."""
+    t = np.diag(np.full(L - 1, Jxx / 2.), 1)
+    w = np.linalg.eigvalsh(t + t.T)
+    return float(np.sum(w[w < 0]))
+
+
+class HostDMRGProbe:
+    """Within ``with``: the host DMRG engine's parts timed per update
+    (wall seconds on the host; the device route syncs inside each part),
+    its sweeps with their kernel launches, the device updates' Lanczos
+    steps, and the packed path's plan builds and cache hits, by wrapping
+    the functions the engine calls (restored on exit)."""
+
+    PARTS = ('ED_block', 'host Lanczos', 'pack', 'device Lanczos', 'unpack',
+             'split', 'env update')
+
+    def __init__(self, n_td):
+        self.n_td = n_td
+        self.parts = {k: [] for k in self.PARTS}    # (sweep, seconds)
+        self.sweeps = []      # (optimize, seconds, launches, tensordots)
+        self.diag_N = []      # (sweep, N of the effective H)
+        self.device_N = []    # (sweep, Lanczos steps of a device update)
+        self.plans = []       # (sweep, 'packed' | 'transpose', cache hit)
+        self.engine = None
+        self._patches = []
+
+    def _patch(self, obj, name, make):
+        own = name in vars(obj)
+        orig = getattr(obj, name)
+        setattr(obj, name, make(orig))
+        self._patches.append((obj, name, orig, own))
+
+    def _timed(self, key, orig):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = orig(*a, **kw)
+            self.parts[key].append((self._sweep(), time.perf_counter() - t0))
+            return out
+        return run
+
+    def _sweep(self):
+        return self.engine.sweeps if self.engine is not None else 0
+
+    def __enter__(self):
+        probe = self
+        Eng = dmrg.TwoSiteDMRGEngine
+
+        def capture(orig):
+            def run(self):
+                probe.engine = self
+                return orig(self)
+            return run
+
+        def sweep(orig):
+            def run(self, optimize=True):
+                n0, c0, t0 = gg.LAUNCHES, probe.n_td[0], time.perf_counter()
+                out = orig(self, optimize)
+                probe.sweeps.append((optimize, time.perf_counter() - t0,
+                                     gg.LAUNCHES - n0, probe.n_td[0] - c0))
+                return out
+            return run
+
+        def diag(orig):
+            def run(self, theta):
+                probe.diag_N.append((self.sweeps, self.eff_H.N))
+                return orig(self, theta)
+            return run
+
+        def lanczos(orig):
+            timed = self._timed('device Lanczos', orig)
+
+            def run(*a, **kw):
+                out = timed(*a, **kw)
+                probe.device_N.append((probe._sweep(), int(out[2])))
+                return out
+            return run
+
+        def plan(kind, cache, key_of):
+            def make(orig):
+                def run(*a):
+                    probe.plans.append((probe._sweep(), kind,
+                                        key_of(*a) in cache))
+                    return orig(*a)
+                return run
+            return make
+
+        self._patch(Eng, 'run', capture)
+        self._patch(Eng, 'sweep', sweep)
+        self._patch(Eng, 'diag', diag)
+        self._patch(Eng, 'mixed_svd', lambda o: self._timed('split', o))
+        self._patch(Eng, 'update_env', lambda o: self._timed('env update',
+                                                             o))
+        self._patch(dmrg, 'full_diag_effH',
+                    lambda o: self._timed('ED_block', o))
+        self._patch(LanczosGroundState, 'run',
+                    lambda o: self._timed('host Lanczos', o))
+        self._patch(pk, 'pack', lambda o: self._timed('pack', o))
+        self._patch(dmrg, '_to_host', lambda o: self._timed('unpack', o))
+        self._patch(pk, 'unpack', lambda o: self._timed('unpack', o))
+        self._patch(mc, 'lanczos_K_2site_packed', lanczos)
+        self._patch(pk, '_packed_plan', plan(
+            'packed', pk._PACKED_PLAN_CACHE,
+            lambda a, b, n: (a.struct_sig(), b.struct_sig(), n)))
+        self._patch(pk, '_transpose_plan', plan(
+            'transpose', pk._TRANSPOSE_CACHE,
+            lambda sig, shapes, qdatas, perm: (sig, perm)))
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, orig, own in reversed(self._patches):
+            if own:
+                setattr(obj, name, orig)
+            else:
+                delattr(obj, name)
+        self._patches = []
+
+
+def phase_host_dmrg(smi):
+    """TeNPy's entry point on the card: ``dmrg.run`` on the open XX chain
+    to chi=512 with the two-site eigensolves on the packed Lanczos; then
+    the centre update card against host, the crossover of the two routes,
+    a profiled sweep and the kernel on the centre update's matvec.
+    Returns the path's kernel launches and the kernel's measurement."""
+    model = XXZChain(dict(XX_MODEL))
+    L = XX_MODEL['L']
+    psi = MPS.from_product_state(model.lat.mps_sites(),
+                                 ['up', 'down'] * (L // 2))
+    E_exact = e0_xx_finite(L, XX_MODEL['Jxx'])
+    n_td, restore = counted_contract()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"[9] torch.get_num_threads() = {torch.get_num_threads()}")
+    gg.LAUNCHES = 0                    # count the host DMRG's launches only
+    try:
+        with HostDMRGProbe(n_td) as probe:
+            t0 = time.time()
+            info = dmrg.run(psi, model, copy.deepcopy(XX_OPTIONS),
+                            device='cuda')
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+    finally:
+        restore()
+    launches, tensordots = gg.LAUNCHES, n_td[0]
+    peak = torch.cuda.max_memory_allocated()
+    eng = probe.engine
+    ss = eng.sweep_stats
+    E = info['E']
+    rel = abs(E - E_exact) / abs(E_exact)
+    opt = [x for x in probe.sweeps if x[0]]
+    for k, (_, sec, n, c) in enumerate(opt):
+        n_dev = sum(1 for sw, _ in probe.device_N if sw == k)
+        steps = sum(m for sw, m in probe.device_N if sw == k)
+        plans = {(kind, hit): sum(1 for sw, kd, h in probe.plans
+                                  if sw == k and kd == kind and h == hit)
+                 for kind in ('packed', 'transpose') for hit in (0, 1)}
+        log(f"[9] sweep {k + 1}: {sec:.2f} s, E={ss['E'][k]:.12f}, max_chi "
+            f"{ss['max_chi'][k]}, max_trunc_err {ss['max_trunc_err'][k]:.2e}"
+            f", {n_dev} device updates ({steps} Lanczos steps), kernel "
+            f"launches {n} (tensordots {c}); tensordot plans "
+            f"{plans['packed', 0]} built, {plans['packed', 1]} hits; "
+            f"transpose plans {plans['transpose', 0]} built, "
+            f"{plans['transpose', 1]} hits")
+    log(f"[9] dmrg.run wall {wall:.2f} s, {len(opt)} sweeps, E "
+        f"{E:.12f}, free fermions {E_exact:.12f}: rel {rel:.2e} (tolerance "
+        f"{XX_E_TOL:.0e}); chi {max(psi.chi)}; peak memory "
+        f"{peak / 2**30:.3f} GiB; card {smi}")
+    last = len(opt) - 1
+    for key in HostDMRGProbe.PARTS:
+        t_all = [t for _, t in probe.parts[key]]
+        t_last = [t for sw, t in probe.parts[key] if sw == last]
+        if t_all:
+            log(f"[9] {key}: {len(t_all)} calls, {sum(t_all):.2f} s in all; "
+                f"last sweep {len(t_last)} calls, "
+                f"{1e3 * sum(t_last) / max(len(t_last), 1):.2f} ms per call")
+    log("[9] host Lanczos: not on the path (device_K sends every Lanczos "
+        "update to the card); timed in the comparison and the crossover")
+    n_lanczos = sum(1 for _, N in probe.diag_N if N >= 64)
+    steps = sum(m for _, m in probe.device_N)
+    log(f"[9] {len(probe.diag_N)} two-site updates, {n_lanczos} of them "
+        f"Lanczos updates (N >= 64), {len(probe.device_N)} on the card with "
+        f"{steps} Lanczos steps; kernel launches {launches}, tensordots "
+        f"{tensordots}, 4 per matvec {4 * steps}")
+    check(rel <= XX_E_TOL, "dmrg.run's energy is not the free-fermion one")
+    check(len(probe.device_N) == n_lanczos and n_lanczos > 0
+          and all(m >= 1 for _, m in probe.device_N),
+          "a Lanczos update did not run the packed Lanczos on the card")
+    check(all(any(sw == k for sw, _ in probe.device_N)
+              for k in range(1, len(opt))),
+          "a sweep after the first ran no update on the card")
+    check(launches == tensordots == 4 * steps,
+          "kernel launches differ from the device route's tensordots")
+    norm = float(np.max(psi.norm_test()))
+    sz = np.real(np.asarray(psi.expectation_value('Sz')))
+    log(f"[9] norm_test {norm:.2e}; total Sz {float(np.sum(sz)):+.2e}, "
+        f"max |Sz_i| {float(np.max(np.abs(sz))):.2e}")
+    check(norm <= XX_NORM_TOL, "the state is not canonical")
+    check(abs(float(np.sum(sz))) <= 1e-10, "total Sz is not 0")
+    check(np.isfinite(ss['E']).all(), "non-finite sweep energy")
+
+    # the centre update of the result, card against host, from one guess
+    lp = eng.lanczos_params
+    saved = {k: lp[k] for k in ('P_tol', 'device_K')}
+    eng.i0, eng.move_right = L // 2 - 1, True
+    lp['P_tol'], lp['device_K'] = 1e-14, XX_CHECK_K
+    theta = eng.prepare_update_local()
+    eff = eng.eff_H
+    rng = np.random.default_rng(XX_CHECK_SEED)
+    noise = npc.Array.from_ndarray(rng.standard_normal(theta.shape),
+                                   theta.legs, qtotal=theta.qtotal,
+                                   labels=theta.get_leg_labels(),
+                                   warn_wrong_sector=False)
+    guess = theta + noise * (XX_CHECK_NOISE * npc.norm(theta)
+                             / npc.norm(noise))
+    t0 = time.time()
+    E_dev, th_dev, N_dev, _ = eng._diag_device_lanczos(guess)
+    dev_s = time.time() - t0
+    t0 = time.time()
+    E_host, th_host, N_host = LanczosGroundState(
+        eff, guess, {'N_max': XX_CHECK_K, 'P_tol': 1e-14}).run()
+    host_s = time.time() - t0
+    ov = abs(complex(npc.inner(th_dev.conj(), th_host, axes='range')))
+    e_rel = abs(E_dev - E_host) / abs(E_host)
+    log(f"[9] centre update (N={eff.N}, guess perturbed by "
+        f"{XX_CHECK_NOISE:g}): card {E_dev:.14f} in {N_dev} steps "
+        f"({dev_s:.2f} s), host {E_host:.14f} in {N_host} steps "
+        f"({host_s:.2f} s): rel {e_rel:.2e}, 1 - |<dev|host>| {1 - ov:.2e}")
+    check(e_rel <= XX_CHECK_E_TOL and 1. - ov <= XX_CHECK_OV_TOL,
+          "the card's Lanczos disagrees with the host's")
+
+    # the crossover: XX_CROSS_K fixed steps on both routes, by N
+    lp['P_tol'], lp['device_K'] = 0., XX_CROSS_K
+    log(f"[9] crossover ({XX_CROSS_K} Lanczos steps each; the card's first "
+        f"call packs the environments and builds the plans, as every "
+        f"update of a sweep does; its second reuses both):")
+    for b in XX_CROSS_BONDS:
+        eng.i0 = L // 2 - 1 if b is None else b
+        th = eng.prepare_update_local()
+        t0 = time.time()
+        LanczosGroundState(eng.eff_H, th, {'N_min': XX_CROSS_K,
+                                           'N_max': XX_CROSS_K, 'P_tol': 0.,
+                                           'cutoff': 0.}).run()
+        h_ms = 1e3 * (time.time() - t0)
+        t0 = time.time()
+        eng._diag_device_lanczos(th)
+        cold_ms = 1e3 * (time.time() - t0)
+        t0 = time.time()
+        eng._diag_device_lanczos(th)
+        warm_ms = 1e3 * (time.time() - t0)
+        log(f"[9]   bond {eng.i0 + 1}: N={eng.eff_H.N:8d}: host "
+            f"{h_ms:9.2f} ms, card {cold_ms:9.2f} ms (first call), "
+            f"{warm_ms:9.2f} ms (second): card/host {cold_ms / h_ms:.3f}")
+    for k, v in saved.items():
+        lp[k] = v
+
+    # one more sweep, profiled: the device's idle share and host syncs
+    with HostDMRGProbe([0]) as p2, \
+            profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        eng.sweep()
+        torch.cuda.synchronize()
+        prof_s = time.time() - t0
+    busy, _, kernel_us, rows = device_time(prof)
+    steps = sum(m for _, m in p2.device_N)
+    dtoh = sum(n for name, _, n in rows if 'DtoH' in name)
+    log(f"[9] profiled sweep {prof_s:.2f} s: device busy {busy / 1e6:.3f} s,"
+        f" idle {100 * (1 - busy / 1e6 / prof_s):.1f}%; the kernel "
+        f"{kernel_us / 1e6:.3f} s; {dtoh} device-to-host copies for "
+        f"{len(p2.device_N)} device updates (one Ritz vector each) and "
+        f"{steps} Lanczos steps (one (alpha, beta) read each)")
+    for name, us, n in rows[:6]:
+        log(f"[9]   {us / 1e6:8.4f} s {n:6d} x  {name[:80]}")
+
+    # the kernel on the centre update's matvec
+    LPp, RPp, W0p, W1p = eff._device_packed
+    theta_p = pk.pack(guess, multiple=mc.BUCKET_MULTIPLE,
+                      pad_labels=('vL', 'vR', 'vL*', 'vR*'),
+                      device=eng.device)
+    _, calls = recorded_calls(lambda: _matvec_2site_packed(
+        LPp, RPp, W0p, W1p, theta_p))
+    check(len(calls) == 4, "the centre matvec is not four tensordots")
+    tot = measure_contractions(calls, MATVEC_STEPS, 9)
+    return launches, tot
+
 
 def main():
     t_start = time.time()
@@ -1365,11 +1692,13 @@ def main():
     tebd_eng, t_launches, _ = phase_tebd_quench(psi_gs, smi)
     phase_tebd_jax_case()
     tmv = phase_tebd_kernel(tebd_eng)
-    log(f"[9] kernel max_abs_err: synthetic f64 "
+    h_launches, hmv = phase_host_dmrg(smi)
+    log(f"[10] kernel max_abs_err: synthetic f64 "
         f"{max_abs_synth[torch.float64]:.2e}, complex128 "
         f"{max_abs_synth[torch.complex128]:.2e}; main-path shapes f64 "
         f"{mv['max_abs']:.2e}, complex128 {zmv['max_abs']:.2e}, TEBD "
-        f"complex128 {tmv['max_abs']:.2e}")
+        f"complex128 {tmv['max_abs']:.2e}, host DMRG f64 "
+        f"{hmv['max_abs']:.2e}")
 
     def entry(name, n, m):
         return {'name': name, 'route': 'cuda',
@@ -1380,14 +1709,16 @@ def main():
                 'bound_by': m['bound_by'], 'library_ms': m['library_ms']}
 
     # times, bound and library time: per matvec (4 tensordots), f64 at
-    # chi=256 (Hubbard), complex128 at chi=128 (Hofstadter); per TEBD bond
-    # update (3 tensordots), complex128 at chi=512 (XXZ quench)
+    # chi=256 (Hubbard), complex128 at chi=128 (Hofstadter), f64 at the
+    # centre of the chi=512 XX chain (host DMRG); per TEBD bond update (3
+    # tensordots), complex128 at chi=512 (XXZ quench)
     print(json.dumps({'kernels': [
         entry('packed_contract', launches, mv),
         entry('packed_contract_complex128', z_launches, zmv),
-        entry('packed_contract_complex128_tebd', t_launches, tmv)]}),
+        entry('packed_contract_complex128_tebd', t_launches, tmv),
+        entry('packed_contract_host_dmrg', h_launches, hmv)]}),
         flush=True)
-    log(f"[9] chip_smoke wall {time.time() - t_start:.1f} s")
+    log(f"[10] chip_smoke wall {time.time() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

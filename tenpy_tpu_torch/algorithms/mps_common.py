@@ -1,29 +1,104 @@
-r"""Two-site effective-Hamiltonian matvec and Lanczos on the packed layout.
+r"""Sweeps, effective Hamiltonians, mixers, and the packed two-site Lanczos.
 
-Port of the device path of ``tenpy_tpu/algorithms/mps_common.py``
-(``BUCKET_MULTIPLE``, ``_matvec_2site_packed``,
-``_lanczos_K_2site_packed_impl``).  The ``lax.scan`` / ``lax.while_loop``
-of the JAX version become Python loops over device tensors; the K x K
-tridiagonal eigenproblem runs on a host f64 copy.  The early-exit loop reads
-one scalar pair per iteration from the device.  A complex Hamiltonian or
-guess runs the same loop on complex128 vectors: alpha = Re<v|Hv> and
-beta = |w| are real, so the tridiagonal problem stays real.
+Port of ``tenpy_tpu/algorithms/mps_common.py`` up to the compression
+engines, in two parts.
+
+The host engines' machinery: the plain effective-Hamiltonian matvecs on
+:class:`~tenpy_tpu_torch.linalg.np_conserved.Array` s,
+:class:`EffectiveH` (:class:`TwoSiteH`, :class:`OneSiteH`,
+:class:`ZeroSiteH`), the mixers (:class:`DensityMatrixMixer`,
+:class:`SubspaceExpansion`), and :class:`Sweep` / :class:`IterativeSweeps`,
+on which :mod:`~tenpy_tpu_torch.algorithms.dmrg` stands.  ``tenpy_tpu``
+also ``jax.jit`` s the plain matvec per block structure above a size
+threshold (``JIT_SIZE_THRESHOLD``, 2**62: off by default) and has a
+per-block jitted Lanczos; neither is ported, the plain matvec is their
+counterpart.
+
+The device path (``BUCKET_MULTIPLE``, ``_matvec_2site_packed``,
+``_lanczos_K_2site_packed_impl`` and its wrapper
+:func:`lanczos_K_2site_packed`): every matvec is four packed tensordots,
+each one launch of the hand-written kernel on a CUDA device.  The
+``lax.scan`` / ``lax.while_loop`` of the JAX version become Python loops
+over device tensors; the K x K tridiagonal eigenproblem runs on a host f64
+copy.  The early-exit loop reads one scalar pair per iteration from the
+device.  A complex Hamiltonian or guess runs the same loop on complex128
+vectors: alpha = Re<v|Hv> and beta = |w| are real, so the tridiagonal
+problem stays real.  ``DEVICE_LANCZOS_THRESHOLD`` is the size of the
+effective problem above which :class:`~tenpy_tpu_torch.algorithms.dmrg.
+DMRGEngine` sends a two-site update there by default.
 """
 
 from __future__ import annotations
 
+import logging
+import time
+
 import numpy as np
 import torch
 
+from .algorithm import Algorithm
+from ..linalg import np_conserved as npc
 from ..linalg import packed as pk
+from ..linalg.charges import QTYPE, LegCharge
+from ..linalg.sparse import NpcLinearOperator, OrthogonalNpcLinearOperator
+from ..linalg.truncation import TruncationError, svd_theta, eigh_rho
+from ..networks.mpo import MPOEnvironment
+from ..networks.mps import MPSEnvironment
+from ..tools.misc import find_subclass
+from ..tools.params import asConfig
 
-__all__ = ['BUCKET_MULTIPLE', '_matvec_2site_packed',
-           '_lanczos_K_2site_packed_impl']
+logger = logging.getLogger(__name__)
+
+__all__ = ['BUCKET_MULTIPLE', 'DEVICE_LANCZOS_THRESHOLD',
+           '_matvec_2site_packed', '_lanczos_K_2site_packed_impl',
+           'lanczos_K_2site_packed', 'Sweep', 'IterativeSweeps',
+           'EffectiveH', 'OneSiteH', 'TwoSiteH', 'ZeroSiteH', 'Mixer',
+           'DensityMatrixMixer', 'SubspaceExpansion']
 
 # Sector sizes of virtual legs are rounded up to this multiple on the packed
 # path; the same constant as tenpy_tpu's default, so both packages build the
 # same layouts.
 BUCKET_MULTIPLE = 64
+# The size N of a two-site effective problem from which the DMRG engines
+# send its eigensolve to the packed Lanczos by default: tenpy_tpu's value,
+# chosen for the TPU's compile per block structure (the card compiles
+# nothing per structure; lanczos_params['device_K'] forces the route).
+DEVICE_LANCZOS_THRESHOLD = 1 << 20
+
+
+def _matvec_2site_plain_impl(LP, RP, W0, W1, theta):
+    """``(LP W0 W1 RP) theta`` for theta with legs ``(vL, p0, p1, vR)``."""
+    x = npc.tensordot(LP, theta, axes=[['vR'], ['vL']])
+    x = npc.tensordot(x, W0, axes=[['wR', 'p0'], ['wL', 'p0*']])
+    x = npc.tensordot(x, W1, axes=[['wR', 'p1'], ['wL', 'p1*']])
+    x = npc.tensordot(x, RP, axes=[['wR', 'vR'], ['wL', 'vL']])
+    x.ireplace_labels(['vR*', 'vL*'], ['vL', 'vR'])
+    return x.itranspose(['vL', 'p0', 'p1', 'vR'])
+
+
+def _matvec_2site_combined_impl(LHeff, RHeff, theta):
+    """``LHeff theta RHeff`` for theta with legs ``((vL.p0), (p1.vR))``."""
+    x = npc.tensordot(LHeff, theta, axes=[['(vR.p0*)'], ['(vL.p0)']])
+    x = npc.tensordot(x, RHeff, axes=[['wR', '(p1.vR)'], ['wL', '(p1*.vL)']])
+    x.ireplace_labels(['(vR*.p0)', '(p1.vL*)'], ['(vL.p0)', '(p1.vR)'])
+    return x
+
+
+def _matvec_1site_plain_impl(LP, RP, W0, theta):
+    """theta with legs ``(vL, p0, vR)``."""
+    x = npc.tensordot(LP, theta, axes=[['vR'], ['vL']])
+    x = npc.tensordot(x, W0, axes=[['wR', 'p0'], ['wL', 'p0*']])
+    x = npc.tensordot(x, RP, axes=[['wR', 'vR'], ['wL', 'vL']])
+    x.ireplace_labels(['vR*', 'vL*'], ['vL', 'vR'])
+    return x.itranspose(['vL', 'p0', 'vR'])
+
+
+def _matvec_0site_impl(LP, RP, theta):
+    """theta with legs ``(vL, vR)``."""
+    x = npc.tensordot(LP, theta, axes=[['vR'], ['vL']])
+    x = npc.tensordot(x, RP, axes=[['wR', 'vR'], ['wL', 'vL']])
+    x.ireplace_labels(['vR*', 'vL*'], ['vL', 'vR'])
+    return x.itranspose(['vL', 'vR'])
 
 
 def _matvec_2site_packed(LPp, RPp, W0p, W1p, v):
@@ -175,3 +250,890 @@ def _lanczos_K_2site_packed_impl(LPp, RPp, W0p, W1p, theta0, K,
     resid = abs(betas[max(i - 1, 0)] * c[max(i - 1, 0)])
     theta_gs = normalized(_combine(vs, c[:len(vs)]))
     return final_E(E0, theta_gs), theta_gs, i, resid
+
+
+def lanczos_K_2site_packed(LPp, RPp, W0p, W1p, theta0, K, P_tol=0.,
+                           N_min=2, reortho=False, matvec_mode=None,
+                           exact_E=False):
+    """The packed two-site Lanczos: :func:`_lanczos_K_2site_packed_impl`
+    (``tenpy_tpu`` compiles it once per ``K`` and options; here it is a
+    plain call)."""
+    return _lanczos_K_2site_packed_impl(LPp, RPp, W0p, W1p, theta0, K,
+                                        P_tol, N_min, reortho, matvec_mode,
+                                        exact_E)
+
+
+# ================================================== effective Hamiltonians
+class EffectiveH(NpcLinearOperator):
+    """Base of the effective Hamiltonians of a few sites between their
+    environments: ``length`` sites, vectors with legs ``acts_on``."""
+
+    length = None
+    acts_on = None
+
+    def __init__(self, env, i0, combine=False, move_right=True):
+        raise NotImplementedError
+
+    def combine_theta(self, theta):
+        return theta
+
+    def to_matrix(self):
+        raise NotImplementedError
+
+
+class TwoSiteH(EffectiveH):
+    r"""Two-site effective Hamiltonian ``LP -- W0 -- W1 -- RP``.
+
+    With ``combine=True``, ``LHeff = LP W0`` and ``RHeff = W1 RP`` are
+    contracted once with their legs combined, so each matvec is two
+    contractions of pipe legs.  ``N`` is the dimension of the vectors.
+    """
+
+    length = 2
+    acts_on = ['vL', 'p0', 'p1', 'vR']
+
+    def __init__(self, env, i0, combine=False, move_right=True):
+        self.i0 = i0
+        self.combine = combine
+        self.LP = env.get_LP(i0)
+        self.RP = env.get_RP(i0 + 1)
+        self.W0 = env.H.get_W(i0).replace_labels(['p', 'p*'], ['p0', 'p0*'])
+        self.W1 = env.H.get_W(i0 + 1).replace_labels(['p', 'p*'],
+                                                    ['p1', 'p1*'])
+        self.dtype = npc.result_type(self.LP.dtype, self.RP.dtype,
+                                     self.W0.dtype, self.W1.dtype)
+        self.N = (self.LP.get_leg('vR').ind_len
+                  * self.W0.get_leg('p0').ind_len
+                  * self.W1.get_leg('p1').ind_len
+                  * self.RP.get_leg('vL').ind_len)
+        if combine:
+            self.combine_Heff(env)
+
+    def combine_Heff(self, env):
+        """Contract ``LHeff`` / ``RHeff`` with combined pipe legs."""
+        LHeff = npc.tensordot(self.LP, self.W0, axes=[['wR'], ['wL']])
+        LHeff = LHeff.combine_legs([['vR*', 'p0'], ['vR', 'p0*']],
+                                   qconj=[+1, -1])
+        self.LHeff = LHeff.itranspose(['(vR*.p0)', 'wR', '(vR.p0*)'])
+        RHeff = npc.tensordot(self.W1, self.RP, axes=[['wR'], ['wL']])
+        RHeff = RHeff.combine_legs([['p1', 'vL*'], ['p1*', 'vL']],
+                                   qconj=[-1, +1])
+        self.RHeff = RHeff.itranspose(['(p1*.vL)', 'wL', '(p1.vL*)'])
+        self.acts_on = ['(vL.p0)', '(p1.vR)']
+        self.pipeL = self.LHeff.get_leg('(vR*.p0)')
+        self.pipeR = self.RHeff.get_leg('(p1.vL*)')
+
+    def matvec(self, theta):
+        if self.combine:
+            return _matvec_2site_combined_impl(self.LHeff, self.RHeff, theta)
+        return _matvec_2site_plain_impl(self.LP, self.RP, self.W0, self.W1,
+                                        theta)
+
+    def combine_theta(self, theta):
+        """theta with its legs combined as the matvec takes them."""
+        if self.combine:
+            theta = theta.combine_legs([['vL', 'p0'], ['p1', 'vR']],
+                                       pipes=[self.pipeL, self.pipeR])
+        return theta.itranspose(self.acts_on)
+
+    def to_matrix(self):
+        if self.combine:
+            mat = npc.tensordot(self.LHeff, self.RHeff, axes=[['wR'], ['wL']])
+            return mat.combine_legs([['(vR*.p0)', '(p1.vL*)'],
+                                     ['(vR.p0*)', '(p1*.vL)']],
+                                    qconj=[+1, -1])
+        mat = npc.tensordot(self.LP, self.W0, axes=[['wR'], ['wL']])
+        mat = npc.tensordot(mat, self.W1, axes=[['wR'], ['wL']])
+        mat = npc.tensordot(mat, self.RP, axes=[['wR'], ['wL']])
+        return mat.combine_legs([['vR*', 'p0', 'p1', 'vL*'],
+                                 ['vR', 'p0*', 'p1*', 'vL']], qconj=[+1, -1])
+
+    def update_LP(self, env, i, U=None):
+        """Set ``env``'s LP[i] (from ``LHeff`` and ``U`` if combined)."""
+        if self.combine and U is not None:
+            LP = npc.tensordot(self.LHeff, U, axes=[['(vR.p0*)'],
+                                                    ['(vL.p0)']])
+            LP = npc.tensordot(U.conj(), LP, axes=[['(vL*.p0*)'],
+                                                   ['(vR*.p0)']])
+            LP.iset_leg_labels(['vR*', 'wR', 'vR'])
+            env.set_LP(i, LP, age=env.get_LP_age(i - 1) + 1)
+        else:
+            # from LP[i-1] (the slot itself may hold stale data)
+            LP = env._contract_LP(i - 1, env.get_LP(i - 1, store=False))
+            env.set_LP(i, LP, age=env.get_LP_age(i - 1) + 1)
+
+    def update_RP(self, env, i, VH=None):
+        if self.combine and VH is not None:
+            RP = npc.tensordot(VH, self.RHeff, axes=[['(p1.vR)'],
+                                                     ['(p1*.vL)']])
+            RP = npc.tensordot(RP, VH.conj(), axes=[['(p1.vL*)'],
+                                                    ['(p1*.vR*)']])
+            RP.iset_leg_labels(['vL', 'wL', 'vL*'])
+            RP.itranspose(['vL*', 'wL', 'vL'])
+            env.set_RP(i, RP, age=env.get_RP_age(i + 1) + 1)
+        else:
+            RP = env._contract_RP(i + 1, env.get_RP(i + 1, store=False))
+            env.set_RP(i, RP, age=env.get_RP_age(i + 1) + 1)
+
+
+class OneSiteH(EffectiveH):
+    """One-site effective Hamiltonian ``LP -- W0 -- RP``."""
+
+    length = 1
+    acts_on = ['vL', 'p0', 'vR']
+
+    def __init__(self, env, i0, combine=False, move_right=True):
+        self.i0 = i0
+        self.combine = combine
+        self.move_right = move_right
+        self.LP = env.get_LP(i0)
+        self.RP = env.get_RP(i0)
+        self.W0 = env.H.get_W(i0).replace_labels(['p', 'p*'], ['p0', 'p0*'])
+        self.dtype = npc.result_type(self.LP.dtype, self.RP.dtype,
+                                     self.W0.dtype)
+        self.N = (self.LP.get_leg('vR').ind_len
+                  * self.W0.get_leg('p0').ind_len
+                  * self.RP.get_leg('vL').ind_len)
+        if combine:
+            self.combine_Heff(env)
+
+    def combine_Heff(self, env):
+        if self.move_right:
+            LHeff = npc.tensordot(self.LP, self.W0, axes=[['wR'], ['wL']])
+            LHeff = LHeff.combine_legs([['vR*', 'p0'], ['vR', 'p0*']],
+                                       qconj=[+1, -1])
+            self.LHeff = LHeff.itranspose(['(vR*.p0)', 'wR', '(vR.p0*)'])
+            self.pipeL = self.LHeff.get_leg('(vR*.p0)')
+            self.acts_on = ['(vL.p0)', 'vR']
+        else:
+            RHeff = npc.tensordot(self.W0, self.RP, axes=[['wR'], ['wL']])
+            RHeff = RHeff.combine_legs([['p0', 'vL*'], ['p0*', 'vL']],
+                                       qconj=[-1, +1])
+            self.RHeff = RHeff.itranspose(['(p0*.vL)', 'wL', '(p0.vL*)'])
+            self.pipeR = self.RHeff.get_leg('(p0.vL*)')
+            self.acts_on = ['vL', '(p0.vR)']
+
+    def matvec(self, theta):
+        if not self.combine:
+            return _matvec_1site_plain_impl(self.LP, self.RP, self.W0, theta)
+        if self.move_right:
+            x = npc.tensordot(self.LHeff, theta, axes=[['(vR.p0*)'],
+                                                       ['(vL.p0)']])
+            x = npc.tensordot(x, self.RP, axes=[['wR', 'vR'], ['wL', 'vL']])
+            x.ireplace_labels(['(vR*.p0)', 'vL*'], ['(vL.p0)', 'vR'])
+            return x.itranspose(['(vL.p0)', 'vR'])
+        x = npc.tensordot(theta, self.RHeff, axes=[['(p0.vR)'], ['(p0*.vL)']])
+        x = npc.tensordot(self.LP, x, axes=[['wR', 'vR'], ['wL', 'vL']])
+        x.ireplace_labels(['vR*', '(p0.vL*)'], ['vL', '(p0.vR)'])
+        return x.itranspose(['vL', '(p0.vR)'])
+
+    def combine_theta(self, theta):
+        if self.combine:
+            if self.move_right:
+                theta = theta.combine_legs([['vL', 'p0']], pipes=[self.pipeL])
+            else:
+                theta = theta.combine_legs([['p0', 'vR']], pipes=[self.pipeR])
+        return theta.itranspose(self.acts_on)
+
+    def to_matrix(self):
+        mat = npc.tensordot(self.LP, self.W0, axes=[['wR'], ['wL']])
+        mat = npc.tensordot(mat, self.RP, axes=[['wR'], ['wL']])
+        return mat.combine_legs([['vR*', 'p0', 'vL*'], ['vR', 'p0*', 'vL']],
+                                qconj=[+1, -1])
+
+    def update_LP(self, env, i, U=None):
+        LP = env._contract_LP(i - 1, env.get_LP(i - 1, store=False))
+        env.set_LP(i, LP, age=env.get_LP_age(i - 1) + 1)
+
+    def update_RP(self, env, i, VH=None):
+        RP = env._contract_RP(i + 1, env.get_RP(i + 1, store=False))
+        env.set_RP(i, RP, age=env.get_RP_age(i + 1) + 1)
+
+
+class ZeroSiteH(EffectiveH):
+    """Zero-site effective Hamiltonian ``LP -- RP`` on bond ``i0``."""
+
+    length = 0
+    acts_on = ['vL', 'vR']
+
+    def __init__(self, env, i0):
+        self.i0 = i0
+        self.LP = env.get_LP(i0)
+        self.RP = env.get_RP(i0 - 1)
+        self.dtype = npc.result_type(self.LP.dtype, self.RP.dtype)
+        self.N = self.LP.get_leg('vR').ind_len * self.RP.get_leg('vL').ind_len
+
+    def matvec(self, theta):
+        return _matvec_0site_impl(self.LP, self.RP, theta)
+
+    def to_matrix(self):
+        mat = npc.tensordot(self.LP, self.RP, axes=[['wR'], ['wL']])
+        return mat.combine_legs([['vR*', 'vL*'], ['vR', 'vL']],
+                                qconj=[+1, -1])
+
+
+# ================================================================== mixers
+class Mixer:
+    """Base of the mixers, which perturb the split of a local update to let
+    it reach charge sectors the state lacks.
+
+    Options: ``amplitude`` (1e-5), ``decay`` (2.: the amplitude is divided
+    by it per sweep), ``disable_after`` (15 sweeps).
+    """
+
+    can_decompose_theta = False
+    update_sites = 2
+
+    def __init__(self, options, sweep_activated=0):
+        self.options = options = asConfig(options, 'Mixer')
+        self.amplitude = options.get('amplitude', 1e-5, 'real')
+        self.decay = options.get('decay', 2., 'real')
+        self.disable_after = options.get('disable_after', 15, int)
+        self.sweep_activated = sweep_activated
+        self.current_amplitude = self.amplitude
+
+    def update_amplitude(self, sweeps):
+        """Lower the amplitude; None once the mixer is to be disabled."""
+        amp = self.amplitude / self.decay ** max(0, sweeps
+                                                 - self.sweep_activated)
+        if self.disable_after is not None and \
+                sweeps >= self.sweep_activated + self.disable_after:
+            return None
+        self.current_amplitude = amp
+        return self
+
+    def perturb_svd(self, engine, theta, i0, update_LP, update_RP):
+        raise NotImplementedError
+
+
+class DensityMatrixMixer(Mixer):
+    r"""Perturb the two-site reduced density matrices by the environment's
+    channels: ``rho_L = tr_R |theta><theta| + a sum_w (LP W0 theta)
+    (LP W0 theta)^dagger`` (and mirrored for ``rho_R``), then truncate each
+    by its eigendecomposition."""
+
+    def perturb_svd(self, engine, theta, i0, update_LP, update_RP):
+        """``(U, S, VH, err, S_approx)`` as a truncated SVD of theta; ``S``
+        is the bond matrix ``U^dagger theta VH^dagger``."""
+        amp = self.current_amplitude
+        env = engine.env
+        theta_s = theta.split_legs() if theta.rank == 2 else theta
+        rho_L = npc.tensordot(theta_s, theta_s.conj(),
+                              axes=[['p1', 'vR'], ['p1*', 'vR*']])
+        rho_L = rho_L.combine_legs([['vL', 'p0'], ['vL*', 'p0*']],
+                                   qconj=[+1, -1])
+        rho_R = npc.tensordot(theta_s, theta_s.conj(),
+                              axes=[['vL', 'p0'], ['vL*', 'p0*']])
+        rho_R = rho_R.combine_legs([['p1', 'vR'], ['p1*', 'vR*']],
+                                   qconj=[-1, +1])
+        if update_LP:
+            LP = env.get_LP(i0)
+            W0 = env.H.get_W(i0).replace_labels(['p', 'p*'], ['p0', 'p0*'])
+            mixL = npc.tensordot(LP, theta_s, axes=[['vR'], ['vL']])
+            mixL = npc.tensordot(mixL, W0, axes=[['wR', 'p0'],
+                                                 ['wL', 'p0*']])
+            add = npc.tensordot(mixL, mixL.conj(),
+                                axes=[['p1', 'vR', 'wR'],
+                                      ['p1*', 'vR*', 'wR*']])
+            add.iset_leg_labels(['vL', 'p0', 'vL*', 'p0*'])
+            add = add.combine_legs([['vL', 'p0'], ['vL*', 'p0*']],
+                                   qconj=[+1, -1])
+            rho_L = rho_L + amp * add
+        if update_RP:
+            RP = env.get_RP(i0 + 1)
+            W1 = env.H.get_W(i0 + 1).replace_labels(['p', 'p*'],
+                                                    ['p1', 'p1*'])
+            mixR = npc.tensordot(theta_s, RP, axes=[['vR'], ['vL']])
+            mixR = npc.tensordot(mixR, W1, axes=[['wL', 'p1'],
+                                                 ['wR', 'p1*']])
+            add = npc.tensordot(mixR, mixR.conj(),
+                                axes=[['vL', 'p0', 'wL'],
+                                      ['vL*', 'p0*', 'wL*']])
+            add.iset_leg_labels(['vL', 'p1', 'vL*', 'p1*'])
+            add.ireplace_labels(['vL', 'vL*'], ['vR', 'vR*'])
+            add = add.combine_legs([['p1', 'vR'], ['p1*', 'vR*']],
+                                   qconj=[-1, +1])
+            rho_R = rho_R + amp * add
+        # U: legs ('(vL.p0)', inner 'vR'); V: ('(p1.vR)', inner 'vL')
+        trunc_par = engine.trunc_params
+        W_L, U, errL, _ = eigh_rho(rho_L, trunc_par, sort='m>')
+        W_R, V, errR, _ = eigh_rho(rho_R, trunc_par, sort='m>')
+        U.iset_leg_labels(['(vL.p0)', 'vR'])
+        V.iset_leg_labels(['(p1.vR)', 'vL'])
+        # charges as svd_theta: U carries the old A tensor's, VH the rest
+        chinfo = theta.chinfo
+        qtotal_L = engine.psi.get_B(i0, None).qtotal
+        U = U.gauge_total_charge('vR', chinfo.make_valid(qtotal_L))
+        VH = V.transpose(['vL', '(p1.vR)'])
+        VH = VH.gauge_total_charge('vL', chinfo.make_valid(
+            chinfo.make_valid(theta.qtotal) - qtotal_L))
+        theta_c = theta if theta.rank == 2 else \
+            theta_s.combine_legs([['vL', 'p0'], ['p1', 'vR']],
+                                 qconj=[+1, -1])
+        # theta in the mixed bases is a non-diagonal bond matrix; keeping it
+        # (not re-SVDing) keeps the sectors the mixer added
+        S_mat = npc.tensordot(U.conj(), theta_c,
+                              axes=[['(vL*.p0*)'], ['(vL.p0)']])
+        S_mat = npc.tensordot(S_mat, VH.conj(), axes=[['(p1.vR)'],
+                                                      ['(p1*.vR*)']])
+        S_mat.ireplace_labels(['vR*', 'vL*'], ['vL', 'vR'])
+        S_mat = S_mat / npc.norm(S_mat)
+        S_approx = np.sqrt(np.maximum(np.asarray(W_L), 0.))
+        nrm = np.linalg.norm(S_approx)
+        if nrm > 0:
+            S_approx = S_approx / nrm
+        err = TruncationError(errL.eps + errR.eps,
+                              (1 - errL.eps) * (1 - errR.eps))
+        return U, S_mat, VH, err, S_approx
+
+
+def _isometry_with_complement(M, side='left'):
+    """The full left basis of a 2-leg ``M`` (K x n, norm 1):
+    ``(U_full, S_padded, C)`` with ``U_full`` a K x K unitary, block
+    diagonal by charge sector, whose first columns are M's left singular
+    vectors; ``S_padded`` M's singular values padded with exact zeros; and
+    ``C = U_full^dagger M``.  ``side='right'`` mirrors it (``C = M
+    V_full``)."""
+    if side == 'right':
+        V_full, S_pad, Ct = _isometry_with_complement(M.transpose([1, 0]),
+                                                      'left')
+        C = Ct.transpose([1, 0])
+        C.iset_leg_labels(['vL', 'vR'])
+        return V_full, S_pad, C
+    leg = M.legs[0]
+    chinfo = M.chinfo
+    by_row = {}
+    for bi, row in enumerate(M._qdata):
+        by_row.setdefault(int(row[0]), []).append(bi)
+    rows_u, blocks_u, s_parts, charges, sizes = [], [], [], [], []
+    for qi in range(leg.block_number):
+        m = int(leg.slices[qi + 1] - leg.slices[qi])
+        q_row = chinfo.make_valid(leg.charges[qi] * leg.qconj)
+        s_full = np.zeros(m)
+        if qi in by_row:
+            sub = np.concatenate([M._data[bi].numpy() for bi in by_row[qi]],
+                                 axis=1)
+            u, s, _ = np.linalg.svd(sub, full_matrices=True)
+            s_full[:min(sub.shape)] = s
+        else:
+            u = np.eye(m)
+        rows_u.append((qi, len(charges)))
+        blocks_u.append(torch.from_numpy(np.ascontiguousarray(u)))
+        s_parts.append(s_full)
+        charges.append(q_row)       # the inner leg: qconj -1, charge q_row
+        sizes.append(m)
+    leg_inner = LegCharge(chinfo, np.concatenate([[0], np.cumsum(sizes)]),
+                          np.array(charges, QTYPE).reshape(len(charges),
+                                                           chinfo.qnumber),
+                          -1)
+    U_full = npc.Array([leg, leg_inner], M.dtype, None, [None, None])
+    U_full._set_blocks(np.array(rows_u, QTYPE).reshape(len(rows_u), 2),
+                       [b.to(M.dtype) for b in blocks_u])
+    S_pad = np.concatenate(s_parts) if s_parts else np.zeros(0)
+    C = npc.tensordot(U_full.conj(), M, axes=[[0], [0]])
+    C.iset_leg_labels(['vL', 'vR'])
+    return U_full, S_pad, C
+
+
+class SubspaceExpansion(Mixer):
+    """The single-site mixer: expand the kept space by the environment's
+    channels ``LP W0 theta`` (moving right) or ``theta W0 RP`` (left)."""
+
+    can_decompose_theta = True
+    update_sites = 1
+
+    @staticmethod
+    def _trunc(engine):
+        return engine.trunc_params
+
+    def perturb_svd(self, engine, theta, i0, move_right, next_B):
+        """One-site subspace expansion of theta (legs ``vL, p0, vR``).
+
+        The SVD of theta with the ``amp * LP W0`` channels stacked on gives
+        the new isometry; the bond matrix is the ORIGINAL theta projected
+        onto it, rotated into its singular basis padded with the orthogonal
+        complement, so the neighbour's legs stay as they are and the
+        expanded directions enter with weight zero.  Returns ``(A, S,
+        VH_eff, err)`` moving right, ``(U_eff, S, B, err)`` moving left.
+        """
+        amp = np.sqrt(self.current_amplitude)
+        env = engine.env
+        theta = theta.itranspose(['vL', 'p0', 'vR'])
+        W0 = env.H.get_W(i0).replace_labels(['p', 'p*'], ['p0', 'p0*'])
+        if move_right:
+            LP = env.get_LP(i0)
+            expand = npc.tensordot(LP, theta, axes=[['vR'], ['vL']])
+            expand = npc.tensordot(expand, W0, axes=[['wR', 'p0'],
+                                                     ['wL', 'p0*']])
+            expand = expand.combine_legs([['wR', 'vR']], qconj=[-1])
+            expand.ireplace_labels(['vR*', '(wR.vR)'], ['vL', 'vR'])
+            expand = (expand * amp).itranspose(['vL', 'p0', 'vR'])
+            theta_ex = npc.concatenate([theta, expand], axis='vR')
+            theta_c = theta_ex.combine_legs([['vL', 'p0']], qconj=[+1])
+            U, _, _, err, _ = svd_theta(theta_c, self._trunc(engine))
+            A = U.split_legs([0])
+            M = npc.tensordot(A.conj(), theta, axes=[['vL*', 'p0*'],
+                                                     ['vL', 'p0']])
+            M.iset_leg_labels(['vL', 'vR'])
+            M = M / max(npc.norm(M), 1e-300)
+            U_full, S_pad, C = _isometry_with_complement(M, 'left')
+            A_f = npc.tensordot(A, U_full, axes=[['vR'], [0]])
+            A_f.iset_leg_labels(['vL', 'p0', 'vR'])
+            return A_f, S_pad, C, err
+        RP = env.get_RP(i0)
+        expand = npc.tensordot(theta, RP, axes=[['vR'], ['vL']])
+        expand = npc.tensordot(expand, W0, axes=[['wL', 'p0'],
+                                                 ['wR', 'p0*']])
+        expand = expand.combine_legs([['wL', 'vL']], qconj=[+1])
+        expand.ireplace_label('(wL.vL)', 'vL')
+        expand.ireplace_label('vL*', 'vR')
+        expand = (expand * amp).itranspose(['vL', 'p0', 'vR'])
+        theta_ex = npc.concatenate([theta, expand], axis='vL')
+        theta_c = theta_ex.combine_legs([['p0', 'vR']], qconj=[-1])
+        theta_c.itranspose(['vL', '(p0.vR)'])
+        _, _, VH, err, _ = svd_theta(theta_c, self._trunc(engine))
+        B = VH.split_legs([1])
+        M = npc.tensordot(theta, B.conj(), axes=[['p0', 'vR'],
+                                                 ['p0*', 'vR*']])
+        M.iset_leg_labels(['vL', 'vR'])
+        M = M / max(npc.norm(M), 1e-300)
+        V_full, S_pad, C = _isometry_with_complement(M, 'right')
+        B_f = npc.tensordot(V_full, B, axes=[[0], ['vL']])
+        B_f.iset_leg_labels(['vL', 'p0', 'vR'])
+        return C, S_pad, B_f, err
+
+    def mixed_svd_2site(self, engine, theta, i0):
+        """The two-site split with the enclosed bond's right basis expanded
+        by the ``W(i0+1) RP`` channels; the ORIGINAL theta is then split
+        exactly inside the expanded basis, so both tensors are isometries
+        and ``S`` holds theta's Schmidt values.  ``theta`` has legs
+        ``('(vL.p0)', '(p1.vR)')``; returns ``(U, S, VH, err, S)``."""
+        amp = np.sqrt(self.current_amplitude)
+        env = engine.env
+        th = theta
+        if '(vL.p0)' not in th.get_leg_labels():
+            th = th.combine_legs([['vL', 'p0'], ['p1', 'vR']],
+                                 qconj=[+1, -1])
+        th_r = th.split_legs(['(p1.vR)']).itranspose(['(vL.p0)', 'p1', 'vR'])
+        RP = env.get_RP(i0 + 1)
+        W1 = env.H.get_W(i0 + 1).replace_labels(['p', 'p*'], ['p1', 'p1*'])
+        ex = npc.tensordot(th_r, RP, axes=[['vR'], ['vL']])
+        ex = npc.tensordot(ex, W1, axes=[['wL', 'p1'], ['wR', 'p1*']])
+        ex = ex.combine_legs([['wL', '(vL.p0)']], qconj=[+1])
+        ex.ireplace_labels(['(wL.(vL.p0))', 'vL*'], ['(vL.p0)', 'vR'])
+        ex = (ex * amp).itranspose(['(vL.p0)', 'p1', 'vR'])
+        th_ex = npc.concatenate([th_r, ex], axis='(vL.p0)')
+        th_ex = th_ex.combine_legs([['p1', 'vR']], qconj=[-1])
+        _, _, VH, err, _ = svd_theta(th_ex, self._trunc(engine),
+                                     qtotal_LR=[th_ex.qtotal, None],
+                                     inner_labels=['vR', 'vL'])
+        M = npc.tensordot(th, VH.conj(), axes=[['(p1.vR)'], ['(p1*.vR*)']])
+        M.ireplace_label('vL*', 'vR')
+        qtotal_L = engine.psi.get_B(i0, None).qtotal
+        U, S, V2 = npc.svd(M, qtotal_LR=[th.chinfo.make_valid(qtotal_L),
+                                         None], inner_labels=['vR', 'vL'])
+        S = np.asarray(S)
+        nrm = np.linalg.norm(S)
+        if nrm > 0:
+            S = S / nrm
+        VH_f = npc.tensordot(V2, VH, axes=[['vR'], ['vL']])
+        return U, S, VH_f, err, S
+
+
+# ================================================================== sweeps
+class Sweep(Algorithm):
+    """Sweeps left and right with local updates, environment updates and
+    effective Hamiltonians.
+
+    Options: ``combine`` (False), ``lanczos_params``, ``trunc_params``,
+    ``chi_list`` ({sweep: chi_max}), ``mixer``, ``mixer_params``,
+    ``start_env`` (infinite bc: sites contracted into the start
+    environments, 1).  ``orthogonal_to``: states to stay orthogonal to
+    (excited states).  ``tenpy_tpu``'s ``mixer_env_reseed='tm'`` (off by
+    default, used by no test) is not ported: the environments restart
+    from trivial boundaries when the mixer is switched off.
+    """
+
+    EffectiveH = None
+    DefaultMixer = None
+    use_mixer_by_default = False
+
+    def __init__(self, psi, model, options, *, orthogonal_to=None, **kwargs):
+        if self.EffectiveH is None:
+            raise NotImplementedError(
+                f"{self.__class__.__name__} needs EffectiveH")
+        super().__init__(psi, model, options, **kwargs)
+        options = self.options
+        self.combine = options.get('combine', False, bool)
+        self.finite = self.psi.finite
+        self.lanczos_params = options.subconfig('lanczos_params')
+        self.mixer = None
+        self.env = None
+        self.ortho_to_envs = []
+        self.init_env(model, resume_data=self.resume_data,
+                      orthogonal_to=orthogonal_to)
+        self.i0 = 0
+        self.move_right = True
+        self.update_LP_RP = (True, False)
+        self.sweeps = 0
+        self.time0 = time.time()
+        self.trunc_err_list = []
+        self.e_L = self.e_R = None
+
+    @property
+    def n_optimize(self):
+        return self.EffectiveH.length
+
+    @property
+    def S_inv_cutoff(self):
+        return 1e-15
+
+    def init_env(self, model=None, resume_data=None, orthogonal_to=None):
+        """(Re)build the MPO environment (and those of ``orthogonal_to``)."""
+        H = model.H_MPO if model is not None else self.env.H
+        if resume_data is None:
+            resume_data = {}
+        init_env_data = resume_data.get('init_env_data', {})
+        if not self.psi.finite:
+            start_env = self.options.get('start_env', 1, int)
+            init_env_data.setdefault('start_env_sites', start_env)
+        cache = self.cache.create_subcache('env')
+        self.env = MPOEnvironment(self.psi, H, self.psi, cache=cache,
+                                  **init_env_data)
+        if orthogonal_to:
+            self.ortho_to_envs = [MPSEnvironment(self.psi, ortho)
+                                  for ortho in orthogonal_to]
+        self.reset_stats()
+
+    def reset_stats(self, resume_data=None):
+        self.sweeps = 0
+        self.shelve = False
+        self.chi_list = self.options.get('chi_list', None)
+        if self.chi_list is not None:
+            self.chi_list = dict(self.chi_list)
+
+    def sweep(self, optimize=True):
+        """One sweep left to right and back; returns the largest truncation
+        error."""
+        if optimize and self.chi_list is not None:
+            new_chi = self.chi_list.get(self.sweeps, None)
+            if new_chi is not None:
+                self.trunc_params['chi_max'] = new_chi
+                logger.info("sweep %d: setting chi_max=%d", self.sweeps,
+                            new_chi)
+        self.trunc_err_list = []
+        for i0, move_right, update_LP_RP in self.get_sweep_schedule():
+            self.i0 = i0
+            self.move_right = move_right
+            self.update_LP_RP = update_LP_RP
+            self._cache_optimize()
+            theta = self.prepare_update_local()
+            update_data = self.update_local(theta, optimize=optimize)
+            self.update_env(**update_data)
+            self.post_update_local(**update_data)
+            self.free_no_longer_needed_envs()
+        if optimize:
+            self.sweeps += 1
+            self.mixer_cleanup_after_sweep()
+        return np.max(self.trunc_err_list) if self.trunc_err_list else 0.
+
+    def get_sweep_schedule(self):
+        """The ``(i0, move_right, (update_LP, update_RP))`` of a sweep."""
+        L = self.psi.L
+        n = self.EffectiveH.length
+        if self.finite:
+            assert L > n - 1
+            if n == 0:
+                i0s = list(range(1, L)) + list(range(L - 1, 0, -1))
+                move_right = [True] * (L - 1) + [False] * (L - 1)
+                update_LP_RP = [[True, False]] * (L - 1) + \
+                    [[False, True]] * (L - 1)
+                return zip(i0s, move_right, update_LP_RP)
+            if n == 1:
+                i0s = list(range(0, L)) + list(range(L - 1, -1, -1))
+                move_right = [True] * L + [False] * L
+                update_LP_RP = [[True, False]] * L + [[False, True]] * L
+            else:
+                i0s = list(range(0, L - n)) + list(range(L - n, 0, -1))
+                move_right = [True] * (L - n) + [False] * (L - n)
+                update_LP_RP = [[True, False]] * (L - n) + \
+                    [[False, True]] * (L - n)
+        elif n == 2:
+            i0s = list(range(0, L)) + list(range(L, 0, -1))
+            move_right = [True] * L + [False] * L
+            update_LP_RP = ([[True, True]] * 2 + [[True, False]] * (L - 2)
+                            + [[True, True]] * 2 + [[False, True]] * (L - 2))
+        elif n == 1:
+            i0s = list(range(0, L)) + list(range(L, 0, -1))
+            move_right = [True] * L + [False] * L
+            update_LP_RP = ([[True, True]] + [[True, False]] * (L - 1)
+                            + [[True, True]] + [[False, True]] * (L - 1))
+        else:
+            raise ValueError("n_optimize not in (1, 2)")
+        return zip(i0s, move_right, update_LP_RP)
+
+    def _cache_optimize(self):
+        i0 = self.i0
+        move_right = self.move_right
+        if self.n_optimize == 2:
+            kwargs = {'short_term_LP': [i0, i0 + 1],
+                      'short_term_RP': [i0, i0 + 1]}
+            if move_right:
+                kwargs['preload_RP'] = i0 + 2
+            elif move_right is False:
+                kwargs['preload_LP'] = i0 - 1
+        elif move_right:
+            kwargs = {'short_term_LP': [i0, i0 + 1], 'short_term_RP': [i0],
+                      'preload_RP': i0 + 1}
+        elif move_right is None:
+            kwargs = {'short_term_LP': [i0], 'short_term_RP': [i0]}
+        else:
+            kwargs = {'short_term_LP': [i0], 'short_term_RP': [i0 - 1, i0],
+                      'preload_LP': i0 - 1}
+        self.env.cache_optimize(**kwargs)
+
+    def prepare_update_local(self):
+        """Build ``eff_H`` and the current theta, the guess."""
+        self.make_eff_H()
+        theta = self.psi.get_theta(self.i0, n=self.n_optimize,
+                                   cutoff=self.S_inv_cutoff)
+        return self.eff_H.combine_theta(theta)
+
+    def make_eff_H(self):
+        self.eff_H = self.EffectiveH(self.env, self.i0, self.combine,
+                                     self.move_right)
+        if getattr(self.env.H, 'explicit_plus_hc', False) and \
+                not hasattr(self.eff_H, 'matvec_hc'):
+            raise NotImplementedError(
+                "H has explicit_plus_hc=True, which no ported engine takes")
+        if len(self.ortho_to_envs) > 0:
+            self._wrap_ortho_eff_H()
+
+    def _wrap_ortho_eff_H(self):
+        """Project the states of ``orthogonal_to`` out of ``eff_H``."""
+        ortho_vecs = []
+        i0 = self.i0
+        n = self.eff_H.length
+        for o_env in self.ortho_to_envs:
+            theta = o_env.ket.get_theta(i0, n=n)
+            LP = o_env.get_LP(i0, store=True)
+            RP = o_env.get_RP(i0 + n - 1, store=True)
+            theta = npc.tensordot(LP, theta, axes=[['vR'], ['vL']])
+            theta = npc.tensordot(theta, RP, axes=[['vR'], ['vL']])
+            theta.ireplace_labels(['vR*', 'vL*'], ['vL', 'vR'])
+            theta = self.eff_H.combine_theta(theta)
+            if float(npc.norm(theta)) < 1e-30:
+                continue        # e.g. a state in another charge sector
+            ortho_vecs.append(theta)
+        if ortho_vecs:
+            self.eff_H = OrthogonalNpcLinearOperator(self.eff_H, ortho_vecs)
+
+    def update_local(self, theta, optimize=True):
+        raise NotImplementedError
+
+    @property
+    def _all_envs(self):
+        return [self.env] + self.ortho_to_envs
+
+    def update_env(self, **update_data):
+        """Update the environments after the local update.
+
+        Finite bc: every ``LP[j]`` with ``j > i0`` and ``RP[j]`` with
+        ``j < i0 + n - 1`` was built from the old tensors and is dropped
+        (one more on the far side of the bond for single-site updates and
+        mixers).  Infinite bc keeps them: the iDMRG environments age
+        towards the fixed point.
+        """
+        i0 = self.i0
+        n = self.n_optimize
+        L = self.psi.L
+        update_LP, update_RP = self.update_LP_RP
+        base_H = self.eff_H
+        while not isinstance(base_H, EffectiveH) and \
+                hasattr(base_H, 'orig_operator'):
+            base_H = base_H.orig_operator
+        if self.finite:
+            lo_LP = i0 + 1            # del_LP(j) for j >= lo_LP
+            hi_RP = i0 + n - 1        # del_RP(j) for j <  hi_RP
+            if n == 1 or getattr(self, 'mixer', None) is not None:
+                if self.move_right:
+                    hi_RP += 1
+                else:
+                    lo_LP -= 1
+            for env in self._all_envs:
+                for j in range(max(lo_LP, 1), L):
+                    env.del_LP(j)
+                for j in range(0, min(hi_RP, L - 1)):
+                    env.del_RP(j)
+        # finite bc: LP[L] / RP[-1] do not exist (the keys wrap mod L)
+        if self.finite and i0 + 1 > L - 1:
+            update_LP = False
+        if self.finite and i0 + n - 2 < 0:
+            update_RP = False
+        if update_LP:
+            base_H.update_LP(self.env, i0 + 1, update_data.get('U', None))
+            for o_env in self.ortho_to_envs:
+                o_env.get_LP(i0 + 1, store=True)
+        if update_RP:
+            base_H.update_RP(self.env, i0 + n - 2, update_data.get('VH', None))
+            for o_env in self.ortho_to_envs:
+                o_env.get_RP(i0 + n - 2, store=True)
+
+    def post_update_local(self, err=None, **update_data):
+        self.trunc_err_list.append(err.eps if err is not None else 0.)
+
+    def free_no_longer_needed_envs(self):
+        """Stale environments are dropped in :meth:`update_env`."""
+        return
+
+    # ------------------------------------------------------------- mixer
+    def mixer_activate(self):
+        """Switch the mixer on where the options ask for one."""
+        use_mixer = self.options.get('mixer', self.use_mixer_by_default)
+        if use_mixer:
+            if use_mixer is True:
+                MixerCls = self.DefaultMixer
+            elif isinstance(use_mixer, str):
+                MixerCls = find_subclass(Mixer, use_mixer)
+            else:
+                MixerCls = use_mixer
+            if MixerCls is None:
+                return
+            mixer_params = self.options.subconfig('mixer_params')
+            self.mixer = MixerCls(mixer_params, self.sweeps)
+
+    def mixer_deactivate(self):
+        if self.mixer is not None:
+            logger.info("disable mixer after %d sweeps", self.sweeps)
+        self.mixer = None
+        had_matrix = any(isinstance(s, npc.Array) for s in self.psi._S)
+        self._absorb_matrix_S()
+        if had_matrix and self.env is not None:
+            # the absorption rotated bond bases: the environments are stale
+            self.env.clear()
+            self.env.init_first_LP_last_RP()
+            for env in self.ortho_to_envs:
+                env.clear()
+                env.init_first_LP_last_RP()
+
+    def _absorb_matrix_S(self):
+        """SVD every bond matrix the mixer left back to diagonal Schmidt
+        values, rotating the neighbours' bond bases (an A-form left
+        neighbour by ``U``, a B-form one by ``VH^dagger``; mirrored on the
+        right)."""
+        psi = self.psi
+        for b in range(psi.L + 1 if psi.finite else psi.L):
+            S = psi._S[b]
+            if not isinstance(S, npc.Array):
+                continue
+            # drop the numerically zero directions the mixer added
+            U, s, VH = npc.svd(S, cutoff=1e-14, inner_labels=['vR', 'vL'])
+            s = np.asarray(s)
+            nrm = np.linalg.norm(s)
+            s_diag = s / (nrm if nrm > 0 else 1.)
+            if b == psi.L:
+                psi._S[b] = s_diag
+            else:
+                psi.set_SL(b, s_diag)
+            iL = (b - 1) % psi.L
+            iR = b % psi.L
+            fL = psi.form[iL]
+            fR = psi.form[iR]
+            if fL is None or fR is None or fL[1] not in (0., 1.) \
+                    or fR[0] not in (0., 1.):
+                raise ValueError("can't absorb matrix S next to form "
+                                 f"{fL}, {fR}")
+            TL = psi.get_B(iL, None)
+            if fL[1] == 0.:
+                TL = npc.tensordot(TL, U, axes=[['vR'], ['vL']])
+            else:
+                TL = npc.tensordot(TL, VH.conj(), axes=[['vR'], ['vR*']])
+                TL.ireplace_label('vL*', 'vR')
+            psi.set_B(iL, TL, psi.form[iL])
+            TR = psi.get_B(iR, None)
+            if fR[0] == 0.:
+                TR = npc.tensordot(VH, TR, axes=[['vR'], ['vL']])
+            else:
+                TR = npc.tensordot(U.conj(), TR, axes=[['vL*'], ['vL']])
+                TR.ireplace_label('vR*', 'vL')
+            psi.set_B(iR, TR, psi.form[iR])
+
+    def mixer_cleanup_after_sweep(self):
+        if self.mixer is not None:
+            mixer = self.mixer.update_amplitude(self.sweeps)
+            if mixer is None:
+                self.mixer_deactivate()
+            else:
+                self.mixer = mixer
+
+    def mixer_cleanup(self):
+        if self.mixer is not None:
+            self.mixer_deactivate()
+
+    def get_resume_data(self, sequential_simulations=False):
+        data = super().get_resume_data(sequential_simulations)
+        data['sweeps'] = self.sweeps
+        return data
+
+    def environment_sweeps(self, N_sweeps):
+        """Sweeps that update only the environments."""
+        for _ in range(max(N_sweeps, 0)):
+            self.sweep(optimize=False)
+
+
+class IterativeSweeps(Sweep):
+    """``run()``: :meth:`run_iteration` until :meth:`stopping_criterion`."""
+
+    def run(self):
+        self.shelve = False
+        self.pre_run_initialize()
+        is_first_sweep = True
+        result = None
+        while True:
+            iteration_start_time = time.time()
+            if self.stopping_criterion(
+                    iteration_start_time=iteration_start_time):
+                break
+            if not is_first_sweep:
+                self.checkpoint.emit(self)
+            result = self.run_iteration()
+            self.status_update(iteration_start_time=iteration_start_time)
+            is_first_sweep = False
+        self.post_run_cleanup()
+        return result
+
+    def pre_run_initialize(self):
+        self.time0 = time.time()
+
+    def run_iteration(self):
+        raise NotImplementedError
+
+    def status_update(self, iteration_start_time):
+        pass
+
+    def is_converged(self):
+        raise NotImplementedError
+
+    def stopping_criterion(self, iteration_start_time):
+        """Options ``min_sweeps`` (1), ``max_sweeps`` (1000), ``max_hours``;
+        converged with the mixer on disables the mixer and goes on."""
+        options = self.options
+        min_sweeps = options.get('min_sweeps', 1, int)
+        max_sweeps = options.get('max_sweeps', 1000, int)
+        max_hours = options.get('max_hours', 24 * 365, 'real')
+        if self.sweeps >= max_sweeps:
+            return True
+        if self.sweeps >= min_sweeps and self.is_converged():
+            if self.mixer is None:
+                return True
+            logger.info("converged with mixer on: disable and continue")
+            self.mixer_deactivate()
+            return False
+        if time.time() - self.time0 > max_hours * 3600:
+            self.shelve = True
+            logger.warning("max_hours exceeded: shelving")
+            return True
+        return False
+
+    def post_run_cleanup(self):
+        self.mixer_cleanup()

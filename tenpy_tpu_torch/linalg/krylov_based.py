@@ -1,12 +1,13 @@
-"""Krylov solvers on Arrays: GMRES and Arnoldi.
+"""Krylov solvers on Arrays: Lanczos, GMRES and Arnoldi.
 
-Port of ``KrylovBased``, ``GMRES``, ``Arnoldi``, ``gram_schmidt`` and the
-vector helpers of ``tenpy_tpu/linalg/krylov_based.py``.  The Krylov vectors
-are host :class:`~.np_conserved.Array` s; the small Hessenberg problems
-(GMRES's least squares, Arnoldi's eigenproblem) run in numpy.  GMRES builds
-the environments of an infinite MPS; Arnoldi finds transfer-matrix fixed
-points (canonical form, correlation length, the environments' Arnoldi
-route).  The Lanczos solvers of the host engines are not ported.
+Port of ``KrylovBased``, ``LanczosGroundState``, ``GMRES``, ``Arnoldi``,
+``lanczos_arpack``, ``gram_schmidt`` and the vector helpers of
+``tenpy_tpu/linalg/krylov_based.py``.  The Krylov vectors are host
+:class:`~.np_conserved.Array` s; the small tridiagonal
+and Hessenberg problems run in numpy.  Lanczos is the host eigensolver of
+the DMRG engines (:mod:`~tenpy_tpu_torch.algorithms.dmrg`), GMRES builds
+the environments of an infinite MPS, Arnoldi finds transfer-matrix fixed
+points.  ``LanczosEvolution`` (TDVP) is not ported yet.
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ from . import np_conserved as npc
 from ..tools.misc import argsort
 from ..tools.params import asConfig
 
-__all__ = ['KrylovBased', 'GMRES', 'Arnoldi', 'gram_schmidt']
+__all__ = ['KrylovBased', 'LanczosGroundState', 'GMRES', 'Arnoldi',
+           'lanczos_arpack', 'gram_schmidt']
 
 
 def _v_norm(v):
@@ -38,9 +40,21 @@ def _v_axpy(a, x, y):
     return y + a * x
 
 
+def _tridiag(alphas, betas):
+    N = len(alphas)
+    T = np.zeros((N, N))
+    T[np.arange(N), np.arange(N)] = alphas
+    if N > 1:
+        b = np.asarray(betas[:N - 1])
+        T[np.arange(N - 1), np.arange(1, N)] = b
+        T[np.arange(1, N), np.arange(N - 1)] = b
+    return T
+
+
 class KrylovBased:
     """Base class of the Krylov solvers: options ``N_min`` (2), ``N_max``
-    (20), ``P_tol`` (1e-14), ``cutoff`` (1e-12)."""
+    (20), ``P_tol`` (1e-14), ``reortho`` (False), ``E_shift`` (None),
+    ``cutoff`` (1e-12)."""
 
     def __init__(self, H, psi0, options):
         self.H = H
@@ -49,8 +63,122 @@ class KrylovBased:
         self.N_min = options.get('N_min', 2, int)
         self.N_max = options.get('N_max', 20, int)
         self.P_tol = options.get('P_tol', 1e-14, 'real')
+        self.reortho = options.get('reortho', False, bool)
+        self.E_shift = options.get('E_shift', None, 'real')
         self._cutoff = options.get('cutoff', 1e-12, 'real')
         self.Es = []
+
+    def _to_cache(self, psi, cache, keep=None):
+        cache.append(psi)
+        if keep is not None and len(cache) > keep:
+            del cache[0]
+
+
+class LanczosGroundState(KrylovBased):
+    """Lanczos search for the ground state of a hermitian operator.
+
+    Options add ``E_tol`` (convergence on the change of the lowest Ritz
+    value; off by default) and ``N_cache`` (Krylov vectors kept, default
+    ``N_max``: fewer re-run the iteration to build the Ritz vector).  It
+    stops once the weight ``(beta <e_N|gs>)^2`` of the next vector is
+    below ``P_tol`` (after ``N_min`` steps), on a Krylov breakdown
+    (``beta < cutoff``) or after ``N_max`` steps.  :meth:`run` returns
+    ``(E0, psi0, N)``: the lowest Ritz value, its normalized Ritz vector
+    and the iterations used.  ``orthogonal_to`` projects states out of
+    the operator.
+    """
+
+    def __init__(self, H, psi0, options, orthogonal_to=()):
+        super().__init__(H, psi0, options)
+        self.E_tol = self.options.get('E_tol', np.inf, 'real')
+        self.N_cache = self.options.get('N_cache', self.N_max, int)
+        if self.N_cache < 2:
+            raise ValueError("N_cache < 2 cannot reconstruct the result")
+        if len(orthogonal_to) > 0:
+            from .sparse import OrthogonalNpcLinearOperator
+            self.H = OrthogonalNpcLinearOperator(self.H, list(orthogonal_to))
+
+    def run(self):
+        norm0 = _v_norm(self.psi0)
+        if norm0 < 1e-14:
+            raise ValueError("Lanczos with zero initial vector")
+        w = _v_scale(self.psi0, 1. / norm0)
+        cache = [w]
+        alphas, betas = [], []
+        E_prev = None
+        vecs_all = [w] if self.reortho else None
+        for k in range(self.N_max):
+            hw = self.H.matvec(cache[-1])
+            if self.E_shift is not None:
+                hw = _v_axpy(self.E_shift, cache[-1], hw)
+            alpha = float(np.real(_v_inner(cache[-1], hw)))
+            alphas.append(alpha)
+            hw = _v_axpy(-alpha, cache[-1], hw)
+            if len(cache) > 1:
+                hw = _v_axpy(-betas[-1], cache[-2], hw)
+            if self.reortho:
+                for v in vecs_all[:-1]:
+                    hw = _v_axpy(-_v_inner(v, hw), v, hw)
+            beta = _v_norm(hw)
+            evals, evecs = np.linalg.eigh(_tridiag(alphas, betas))
+            E = evals[0]
+            self.Es.append(evals)
+            converged = False
+            if beta < self._cutoff:
+                converged = True
+            elif k + 1 >= self.N_min:
+                if (beta * abs(evecs[-1, 0])) ** 2 < self.P_tol:
+                    converged = True
+                if E_prev is not None and self.E_tol < np.inf and \
+                        abs(E - E_prev) < self.E_tol:
+                    converged = True
+            E_prev = E
+            if converged or k + 1 == self.N_max:
+                N = k + 1
+                if len(cache) >= N:     # every basis vector cached
+                    coeff = evecs[:, 0]
+                    psi_out = _v_scale(cache[0], coeff[0])
+                    for j in range(1, N):
+                        psi_out = _v_axpy(coeff[j], cache[j], psi_out)
+                    n_out = _v_norm(psi_out)
+                    if n_out > 0:
+                        psi_out = _v_scale(psi_out, 1. / n_out)
+                else:                   # re-run the iteration
+                    psi_out = self._build_vector(evecs[:, 0], N)
+                return float(E - (self.E_shift or 0.)), psi_out, N
+            betas.append(float(beta))
+            w_next = _v_scale(hw, 1. / beta)
+            self._to_cache(w_next, cache, self.N_cache)
+            if self.reortho:
+                vecs_all.append(w_next)
+        raise RuntimeError("unreachable")
+
+    def _build_vector(self, coeff, N):
+        """The Ritz vector ``sum_k coeff[k] v_k``, re-running the iteration
+        (for a cache too small to hold the basis)."""
+        psi = _v_scale(self.psi0, 1. / _v_norm(self.psi0))
+        cache = [psi]
+        result = _v_scale(psi, coeff[0])
+        betas = []
+        for k in range(N - 1):
+            hw = self.H.matvec(cache[-1])
+            if self.E_shift is not None:
+                hw = _v_axpy(self.E_shift, cache[-1], hw)
+            alpha = float(np.real(_v_inner(cache[-1], hw)))
+            hw = _v_axpy(-alpha, cache[-1], hw)
+            if len(cache) > 1:
+                hw = _v_axpy(-betas[-1], cache[-2], hw)
+            beta = _v_norm(hw)
+            if beta < self._cutoff:
+                break
+            betas.append(beta)
+            w = _v_scale(hw, 1. / beta)
+            result = _v_axpy(coeff[k + 1], w, result)
+            self._to_cache(w, cache, 2)
+        n = _v_norm(result)
+        if n > 0:
+            result = _v_scale(result, 1. / n)
+        return result
 
 
 class GMRES(KrylovBased):
@@ -168,6 +296,22 @@ class Arnoldi(KrylovBased):
                 return evals[:len(psis)], psis, k + 1
             vecs.append(_v_scale(w, 1. / beta))
         raise RuntimeError("unreachable")
+
+
+def lanczos_arpack(H, psi0, options={}):
+    """The ground state of ``H`` by ARPACK (``scipy.sparse.linalg.eigsh``)
+    on the flat vectors of ``psi0``'s charge sector: ``(E0, psi)``."""
+    from .sparse import FlatHermitianOperator, _np_dtype
+    options = asConfig(options, 'Lanczos')
+    flat_op, psi_flat = FlatHermitianOperator.from_guess_with_pipe(
+        H.matvec, psi0, dtype=_np_dtype(psi0.dtype))
+    tol = options.get('P_tol', 1e-14, 'real')
+    options.get('N_min', None, int)
+    E, V = flat_op.eigenvectors(num_ev=1, which='SA', v0_npc=psi_flat,
+                                tol=tol)
+    psi = V[0].split_legs([0])
+    psi.iset_leg_labels(psi0.get_leg_labels())
+    return float(np.real(E[0])), psi
 
 
 def gram_schmidt(vecs, rcond=1e-14):

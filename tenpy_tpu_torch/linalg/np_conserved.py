@@ -2,8 +2,11 @@ r"""Charge-conserving block-sparse host tensors: :class:`Array` and friends.
 
 Port of the part of ``tenpy_tpu/linalg/np_conserved.py`` that the host side
 of the sweep engine runs: site operators, MPO construction, MPS tensors,
-environments and their initialisation, and the write-back's canonical form
-and measurements (``svd``, ``qr``/``lq``, ``eigh``).  An :class:`Array`
+environments and their initialisation, the write-back's canonical form
+and measurements (``svd``, ``qr``/``lq``, ``eigh``), and the host DMRG
+engines (``concatenate`` for the subspace expansion, ``eigh`` with a sort
+order for the density-matrix mixer, ``gauge_total_charge``, combining legs
+into given pipes).  An :class:`Array`
 holds its charge structure (legs, ``qtotal``, labels, the block rows
 ``_qdata``) in numpy and one CPU ``torch`` tensor per stored charge block
 in ``_data``.
@@ -27,7 +30,7 @@ from .charges import QTYPE, LegCharge, LegPipe
 
 __all__ = ['Array', 'zeros', 'eye_like', 'diag', 'outer', 'inner',
            'tensordot', 'grid_outer', 'norm', 'trace', 'svd', 'qr', 'lq',
-           'eigh',
+           'eigh', 'concatenate',
            'detect_qtotal', 'conj_label', 'as_dtype', 'result_type']
 
 _NP_TO_TORCH = {np.dtype(np.float64): torch.float64,
@@ -353,6 +356,26 @@ class Array:
     def conj(self, complex_conj=True):
         return self.copy(deep=False).iconj(complex_conj)
 
+    def gauge_total_charge(self, axis, newqtotal=None, new_qconj=None):
+        """A copy with total charge ``newqtotal`` (default zero): the
+        difference moves into the charges of leg ``axis`` (whose qconj
+        becomes ``new_qconj``)."""
+        axis = self.get_leg_index(axis)
+        leg = self.legs[axis]
+        chinfo = self.chinfo
+        newqtotal = chinfo.make_valid(newqtotal)
+        if new_qconj is None:
+            new_qconj = leg.qconj
+        dq = chinfo.make_valid(np.array(newqtotal, QTYPE)
+                               - np.array(self.qtotal, QTYPE))
+        q_new = chinfo.make_valid((leg.charges * leg.qconj + dq) * new_qconj)
+        res = self.copy(deep=False)
+        legs = list(res.legs)
+        legs[axis] = LegCharge(chinfo, leg.slices, q_new, new_qconj)
+        res.legs = tuple(legs)
+        res.qtotal = tuple(int(q) for q in newqtotal)
+        return res
+
     # ---------------------------------------------------------- arithmetic
     def _binary(self, other, op):
         if isinstance(other, Array):
@@ -466,12 +489,14 @@ class Array:
         return norm(self)
 
     # ------------------------------------------------------- combine / split
-    def combine_legs(self, combine_legs, qconj=None):
+    def combine_legs(self, combine_legs, pipes=None, qconj=None):
         """Fuse groups of legs into :class:`LegPipe` s.
 
         ``combine_legs`` is a list of groups of labels or indices; each group
         becomes one leg at the position of its first leg, the other legs
-        keep their order."""
+        keep their order.  ``pipes`` (one per group, None to build one)
+        gives the pipes to combine into, e.g. those of another array whose
+        legs must match."""
         if len(combine_legs) > 0 and not isinstance(combine_legs[0],
                                                     (list, tuple)):
             combine_legs = [combine_legs]
@@ -496,11 +521,15 @@ class Array:
                 perm.append(v)
                 pos += 1
         a = self.transpose(perm)
+        if pipes is None:
+            pipes = [None] * len(groups)
         built = []
         for p0, gk in pipe_pos:
             glen = len(groups[gk])
-            built.append((p0, glen, LegPipe(a.legs[p0:p0 + glen],
-                                            qconj=qconj[gk])))
+            pipe = pipes[gk]
+            if pipe is None:
+                pipe = LegPipe(a.legs[p0:p0 + glen], qconj=qconj[gk])
+            built.append((p0, glen, pipe))
         return _combine_consecutive(a, built)
 
     def split_legs(self, axes=None):
@@ -703,11 +732,17 @@ def tensordot(a, b, axes=2):
     if at.stored_blocks == 0 or bt.stored_blocks == 0:
         return res
     out_rows, out_shapes, tasks = _tensordot_plan(at, bt, n_axes)
-    a_data = [x.reshape(-1).to(dtype) for x in at._data]
-    b_data = [x.reshape(-1).to(dtype) for x in bt._data]
+    a_data = [x if x.dtype == dtype else x.to(dtype) for x in at._data]
+    b_data = [x if x.dtype == dtype else x.to(dtype) for x in bt._data]
+    a_mats, b_mats = {}, {}      # each block as its matrix, made once
     partial = [None] * len(out_shapes)
     for i, j, oi, m, k, n in tasks:
-        am, bm = a_data[i].view(m, k), b_data[j].view(k, n)
+        am = a_mats.get(i)
+        if am is None:
+            am = a_mats[i] = a_data[i].reshape(m, k)
+        bm = b_mats.get(j)
+        if bm is None:
+            bm = b_mats[j] = b_data[j].reshape(k, n)
         if partial[oi] is None:
             partial[oi] = torch.matmul(am, bm)
         else:
@@ -754,6 +789,49 @@ def outer(a, b):
         for rb, bb in zip(b._qdata, b._data):
             qdata.append(np.concatenate([ra, rb]))
             data.append(torch.tensordot(ba.to(dtype), bb.to(dtype), dims=0))
+    res._set_blocks(np.array(qdata, QTYPE).reshape(len(qdata), len(legs)),
+                    data)
+    return res
+
+
+def concatenate(arrays, axis=0):
+    """Stack arrays along leg ``axis``: the new leg lists the sectors of
+    each array's leg in turn (its qconj that of the first); every other
+    leg and the total charge must agree."""
+    arrays = list(arrays)
+    a0 = arrays[0]
+    axis = a0.get_leg_index(axis)
+    chinfo = a0.chinfo
+    for a in arrays[1:]:
+        if a.rank != a0.rank or a.qtotal != a0.qtotal:
+            raise ValueError("incompatible arrays")
+        for i, (la, lb) in enumerate(zip(a0.legs, a.legs)):
+            if i != axis:
+                la.test_equal(lb)
+    slices, charges, offsets, qoff = [0], [], [], 0
+    for a in arrays:
+        leg = a.legs[axis]
+        offsets.append(qoff)
+        for qi in range(leg.block_number):
+            slices.append(slices[-1] + int(leg.slices[qi + 1]
+                                           - leg.slices[qi]))
+            charges.append(leg.charges[qi])
+        qoff += leg.block_number
+    new_leg = LegCharge(chinfo, slices,
+                        np.array(charges, QTYPE).reshape(len(charges),
+                                                         chinfo.qnumber),
+                        a0.legs[axis].qconj)
+    legs = list(a0.legs)
+    legs[axis] = new_leg
+    dtype = result_type(*[a.dtype for a in arrays])
+    res = Array(legs, dtype, a0.qtotal, a0._labels)
+    qdata, data = [], []
+    for a, off in zip(arrays, offsets):
+        for row, block in zip(a._qdata, a._data):
+            r = np.array(row, QTYPE)
+            r[axis] += off
+            qdata.append(r)
+            data.append(block.to(dtype))
     res._set_blocks(np.array(qdata, QTYPE).reshape(len(qdata), len(legs)),
                     data)
     return res
@@ -1073,12 +1151,14 @@ def _robust_svd(block):
     return torch.from_numpy(u), torch.from_numpy(s), torch.from_numpy(vh)
 
 
-def eigh(a):
+def eigh(a, UPLO='L', sort=None):
     """Blockwise hermitian eigendecomposition of a square 2-leg Array of
-    zero charge: ``(W, V)`` with ``W`` a numpy vector along leg 0 (each
-    sector's eigenvalues ascending) and ``V`` an Array with legs
-    ``[a.legs[0], a.legs[0].conj()]``; a sector without a stored block has
-    ``W = 0`` and ``V = 1``."""
+    zero charge: ``(W, V)`` with ``W`` a numpy vector along leg 0 and ``V``
+    an Array with legs ``[a.legs[0], a.legs[0].conj()]``; a sector without
+    a stored block has ``W = 0`` and ``V = 1``.  Each sector's eigenvalues
+    are ascending, or in the order ``sort`` ('m>', 'm<', '>', '<', as
+    ``tenpy_tpu``'s numpy argsort).  ``UPLO`` is accepted for the API and,
+    as in ``tenpy_tpu``, not used: the whole block is read."""
     if a.rank != 2:
         raise ValueError("need 2-leg array")
     a.legs[0].test_contractible(a.legs[1])
@@ -1092,9 +1172,28 @@ def eigh(a):
         if row[0] != row[1]:
             raise ValueError("off-diagonal block in eigh")
         w, v = torch.linalg.eigh(block)
-        W[leg.get_slice(int(row[0]))] = w.numpy()
+        w = w.numpy()
+        if sort is not None:
+            perm = _eig_sort_perm(w, sort)
+            w = w[perm]
+            v = v[:, torch.from_numpy(perm)]
+        W[leg.get_slice(int(row[0]))] = w
         V._data[v_rows[(int(row[0]), int(row[0]))]] = v
     return W, V
+
+
+def _eig_sort_perm(w, sort):
+    """``tenpy_tpu``'s order of eigenvalues (numpy's default argsort, so
+    the same order of ties)."""
+    if sort == 'm>':
+        return np.argsort(-abs(w))
+    if sort == 'm<':
+        return np.argsort(abs(w))
+    if sort == '>':
+        return np.argsort(-w.real)
+    if sort == '<':
+        return np.argsort(w.real)
+    raise ValueError(f"unknown sort {sort!r}")
 
 
 def qr(a, inner_labels=(None, None), pos_diag_R=False, qtotal_Q=None,

@@ -1,10 +1,12 @@
 r"""Truncation of Schmidt spectra and the truncated SVD of a wave function.
 
-Port of ``TruncationError``, ``truncate`` and ``svd_theta`` of
-``tenpy_tpu/linalg/truncation.py``: what :meth:`~tenpy_tpu_torch.networks.
-mps.MPS.compress_svd` runs in the noise-floor rescue of
-``canonical_form_infinite``.  The decision which Schmidt values to keep runs
-in numpy on the host, the SVD on the Array's CPU blocks.
+Port of ``TruncationError``, ``truncate``, ``svd_theta`` and ``eigh_rho``
+of ``tenpy_tpu/linalg/truncation.py``: what :meth:`~tenpy_tpu_torch.
+networks.mps.MPS.compress_svd` runs in the noise-floor rescue of
+``canonical_form_infinite``, and the splits of the host DMRG engines
+(``svd_theta``; ``eigh_rho`` for the density-matrix mixer).  The decision
+which Schmidt values to keep runs in numpy on the host, the SVD on the
+Array's CPU blocks.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import numpy as np
 from . import np_conserved as npc
 from ..tools.params import asConfig
 
-__all__ = ['TruncationError', 'truncate', 'svd_theta']
+__all__ = ['TruncationError', 'truncate', 'svd_theta', 'eigh_rho']
 
 
 class TruncationError:
@@ -138,3 +140,23 @@ def svd_theta(theta, trunc_par, qtotal_LR=(None, None),
     U = U.copy(deep=False).iproject(piv, 1)
     VH = VH.copy(deep=False).iproject(piv, 0)
     return U, S, VH, err, renormalization
+
+
+def eigh_rho(rho, trunc_par, UPLO='L', sort=None):
+    """Hermitian eigendecomposition of a density matrix, truncated.
+
+    Returns ``(W, V, err, renormalization)``: the kept eigenvalues scaled
+    so that ``rho ~= V diag(W) V^H`` after the cut, with
+    ``renormalization`` the trace of ``rho`` after zeroing eigenvalues
+    below 1e-14 (negative noise); the cut is decided on ``sqrt(W)``, the
+    Schmidt-value scale."""
+    W, V = npc.eigh(rho, UPLO=UPLO, sort=sort)
+    W = np.asarray(W).copy()
+    W[W < 1e-14] = 0.
+    renormalization = float(np.sum(W))
+    if renormalization > 0.:
+        W = W / renormalization
+    piv, new_norm, err = truncate(np.sqrt(W), trunc_par)
+    V = V.copy(deep=False).iproject(piv, 1)
+    W_kept = W[piv] / new_norm ** 2 * renormalization
+    return W_kept, V, err, renormalization

@@ -436,7 +436,13 @@ class MPOEnvironment(BaseEnvironment):
     @staticmethod
     def _scale_S_axis(T, S, axis, conj):
         """``T`` with the Schmidt values ``S`` (conjugated with ``conj``)
-        multiplied onto leg ``axis``."""
+        multiplied onto leg ``axis``; ``S`` may be a mixer's bond matrix."""
+        if isinstance(S, npc.Array):
+            if conj:
+                T = npc.tensordot(T, S.conj(), axes=[[axis], ['vL*']])
+                return T.ireplace_label('vR*', axis)
+            T = npc.tensordot(T, S, axes=[[axis], ['vL']])
+            return T.ireplace_label('vR', axis)
         S = np.asarray(S)
         return T.copy(deep=False).iscale_axis(np.conj(S) if conj else S,
                                               axis)

@@ -9,7 +9,10 @@ of ``tenpy_tpu/networks/mps.py``, with the same conventions:
   multiplied on the left and right: ``'B'=(0,1)``, ``'A'=(1,0)``,
   ``'C'=(0.5,0.5)``, ``'G'=(0,0)``, ``'Th'=(1,1)``;
 * ``_S[i]`` are the Schmidt values on the bond left of site ``i`` (L+1
-  entries; for infinite bc entry L mirrors entry 0), as numpy arrays.
+  entries; for infinite bc entry L mirrors entry 0), as numpy arrays; a
+  density-matrix mixer of the host DMRG engines leaves a non-diagonal bond
+  matrix (an Array with legs ``vL, vR``) there mid-run, which the form
+  conversions and ``norm_test`` accept.
 
 Since the write-back it also canonicalizes (``canonical_form``: the QR
 sweeps of a finite MPS; for an infinite one the inverse-free iterated QR
@@ -34,6 +37,7 @@ from ..linalg import np_conserved as npc
 from ..linalg.charges import LegCharge
 from ..linalg.krylov_based import Arnoldi, gram_schmidt
 from ..linalg.truncation import TruncationError, svd_theta
+from ..tools.cache import DictCache
 from ..tools.math import entropy
 from ..tools.params import asConfig
 
@@ -211,10 +215,36 @@ class MPS:
         dL = new_form[0] - old_form[0]
         dR = new_form[1] - old_form[1]
         if dL != 0.:
-            B = B.scale_axis(self._scale_S(self.get_SL(i), dL, cutoff), 'vL')
+            SL = self.get_SL(i)
+            if isinstance(SL, npc.Array):       # a mixer's bond matrix
+                B = npc.tensordot(self._matrix_S_pow(SL, dL, cutoff), B,
+                                  axes=[['vR'], ['vL']])
+            else:
+                B = B.scale_axis(self._scale_S(SL, dL, cutoff), 'vL')
         if dR != 0.:
-            B = B.scale_axis(self._scale_S(self.get_SR(i), dR, cutoff), 'vR')
+            SR = self.get_SR(i)
+            if isinstance(SR, npc.Array):
+                B = npc.tensordot(B, self._matrix_S_pow(SR, dR, cutoff),
+                                  axes=[['vR'], ['vL']])
+            else:
+                B = B.scale_axis(self._scale_S(SR, dR, cutoff), 'vR')
         return B
+
+    @staticmethod
+    def _matrix_S_pow(S, exp, cutoff=1e-16):
+        """A bond matrix ``S`` or its pseudo-inverse (``exp`` +-1);
+        directions with a singular value below ``cutoff`` pass with factor
+        1, as in :meth:`_scale_S`."""
+        if exp == 1.:
+            return S
+        if exp != -1.:
+            raise ValueError("matrix-valued S: only exponents +-1 supported")
+        U, s, VH = npc.svd(S, inner_labels=['vR', 'vL'])
+        s_inv = 1. / np.where(np.asarray(s) > cutoff, np.asarray(s), 1.)
+        Sinv = npc.tensordot(VH.conj().iscale_axis(s_inv, 'vL*'), U.conj(),
+                             axes=[['vL*'], ['vR*']])
+        Sinv.iset_leg_labels(['vL', 'vR'])
+        return Sinv
 
     @staticmethod
     def _scale_S(S, exp, cutoff=1e-16):
@@ -238,18 +268,22 @@ class MPS:
         i = self._to_valid_index(i)
         if self.finite or i + 1 < self.L:
             return self._S[i + 1]
-        return self._S[0]
+        return self._S[0] if self.bc == 'infinite' else self._S[self.L]
 
     def set_SL(self, i, S):
         i = self._to_valid_index(i)
-        self._S[i] = np.asarray(S)
+        if not isinstance(S, npc.Array):     # a mixer's bond matrix stays
+            S = np.asarray(S)
+        self._S[i] = S
         if not self.finite and i == 0:
             self._S[self.L] = self._S[0]
 
     def set_SR(self, i, S):
         i = self._to_valid_index(i)
-        S = np.asarray(S)
-        self._S[i + 1] = S
+        if not isinstance(S, npc.Array):
+            S = np.asarray(S)
+        if i + 1 <= self.L:
+            self._S[i + 1] = S
         if not self.finite and i + 1 == self.L:
             self._S[0] = S
 
@@ -280,8 +314,8 @@ class MPS:
 
     def norm_test(self):
         """Canonical-form check without dividing by S: the single-site
-        density matrices against the bond Schmidt values.  Returns an
-        ``(L, 2)`` array of left/right errors."""
+        density matrices against the bond Schmidt values (or ``S S^H`` of a
+        bond matrix).  Returns an ``(L, 2)`` array of left/right errors."""
         res = np.empty((self.L, 2))
         for i in range(self.L):
             th = self.get_theta(i, 1)
@@ -289,15 +323,24 @@ class MPS:
             pc = [l + '*' for l in p]
             rho_L = npc.tensordot(th, th.conj(),
                                   axes=[p + ['vR'], pc + ['vR*']])
-            rho_L2 = npc.diag(np.asarray(self.get_SL(i)) ** 2,
-                              rho_L.get_leg('vL'), dtype=rho_L.dtype,
-                              labels=['vL', 'vL*'])
+            S = self.get_SL(i)
+            if isinstance(S, npc.Array):
+                rho_L2 = npc.tensordot(S, S.conj(), axes=[['vR'], ['vR*']])
+                rho_L2.iset_leg_labels(['vL', 'vL*'])
+            else:
+                rho_L2 = npc.diag(np.asarray(S) ** 2, rho_L.get_leg('vL'),
+                                  dtype=rho_L.dtype, labels=['vL', 'vL*'])
             res[i, 0] = npc.norm(rho_L - rho_L2)
             rho_R = npc.tensordot(th, th.conj(),
                                   axes=[['vL'] + p, ['vL*'] + pc])
-            rho_R2 = npc.diag(np.asarray(self.get_SR(i)) ** 2,
-                              rho_R.get_leg('vR'), dtype=rho_R.dtype,
-                              labels=['vR', 'vR*'])
+            S = self.get_SR(i)
+            if isinstance(S, npc.Array):
+                rho_R2 = npc.tensordot(S.conj(), S, axes=[['vL*'], ['vL']])
+                rho_R2.iset_leg_labels(['vR*', 'vR']).itranspose(['vR',
+                                                                  'vR*'])
+            else:
+                rho_R2 = npc.diag(np.asarray(S) ** 2, rho_R.get_leg('vR'),
+                                  dtype=rho_R.dtype, labels=['vR', 'vR*'])
             res[i, 1] = npc.norm(rho_R - rho_R2)
         return res
 
@@ -338,6 +381,9 @@ class MPS:
             st = self.form[i]
             if st is None:
                 return np.inf
+            if isinstance(self.get_SL(i), npc.Array) or \
+                    isinstance(self.get_SR(i), npc.Array):
+                continue        # a mixer's bond matrix: forms not comparable
             if st[0] >= 1. - 1e-12 and st[1] <= 1e-12:     # 'A': check B
                 B = self.get_B(i, 'B')
                 c = npc.tensordot(B, B.conj(),
@@ -695,45 +741,76 @@ class MPS:
 
 
 class BaseEnvironment:
-    """Partial contractions ``LP[i]`` / ``RP[i]`` of ``<bra|ket>``, cached
-    with their ages (a plain dict cache).
+    """Partial contractions ``LP[i]`` / ``RP[i]`` of ``<bra|ket>``, kept
+    with their ages in a cache.
 
     ``LP[i]`` contracts everything left of site ``i`` (legs ``vR*, vR``),
     ``RP[i]`` everything right of site ``i`` (legs ``vL, vL*``);
     :class:`~tenpy_tpu_torch.networks.mpo.MPOEnvironment` adds the MPO leg
-    and the start tensors.  ``cache``: a dict to keep them in (default a
-    new one).
+    and the start tensors.  ``cache``: a
+    :class:`~tenpy_tpu_torch.tools.cache.DictCache` (or a sub-cache of one)
+    to keep them in; default a new in-memory one.  The age of a tensor
+    counts the sites contracted into it since its start tensor; an absent
+    tensor has age None.
     """
 
     def __init__(self, bra, ket, cache=None, **init_env_data):
         self.bra = bra
         self.ket = ket
         assert bra.L == ket.L
-        self.L = bra.L
+        self.L = L = bra.L
         self.finite = bra.finite
         self.dtype = npc.result_type(bra.dtype, ket.dtype)
-        self.cache = {} if cache is None else cache
-        self._LP_age = [None] * self.L
-        self._RP_age = [None] * self.L
+        self.cache = cache if cache is not None else DictCache.trivial()
+        self._LP_keys = [f'LP_{i}' for i in range(L)]
+        self._RP_keys = [f'RP_{i}' for i in range(L)]
+        self._LP_age = [None] * L
+        self._RP_age = [None] * L
         self.init_first_LP_last_RP(**init_env_data)
 
     def init_first_LP_last_RP(self, init_LP=None, init_RP=None, age_LP=0,
-                              age_RP=0):
+                              age_RP=0, start_env_sites=None):
+        """Set ``LP[0]`` and ``RP[L-1]``: given, or the start tensors
+        ``start_env_sites`` sites outside contracted in."""
         if init_LP is None:
-            init_LP = self.init_LP(0)
+            init_LP = self.init_LP(0, start_env_sites or 0)
         if init_RP is None:
-            init_RP = self.init_RP(self.L - 1)
+            init_RP = self.init_RP(self.L - 1, start_env_sites or 0)
         self.set_LP(0, init_LP, age=age_LP)
         self.set_RP(self.L - 1, init_RP, age=age_RP)
 
+    def _update_gauge_boundaries(self, psi, U_L, V_R):
+        """Rotate the stored boundary environments after a gauge change of
+        ``psi``'s boundary bases by ``(U_L, V_R)`` (a segment's
+        ``canonical_form_finite``)."""
+        LP = self.get_LP(0, store=False)
+        RP = self.get_RP(self.L - 1, store=False)
+        ageL = self.get_LP_age(0)
+        ageR = self.get_RP_age(self.L - 1)
+        self.clear()
+        if self.ket is psi:
+            LP = npc.tensordot(LP, U_L, axes=[['vR'], ['vL']])
+            RP = npc.tensordot(V_R, RP, axes=[['vR'], ['vL']])
+        if self.bra is psi:
+            LP = npc.tensordot(LP, U_L.conj(), axes=[['vR*'], ['vL*']])
+            RP = npc.tensordot(V_R.conj(), RP, axes=[['vR*'], ['vL*']])
+        LP.itranspose(['vR*', 'wR', 'vR'] if 'wR' in LP.get_leg_labels()
+                      else ['vR*', 'vR'])
+        RP.itranspose(['wL', 'vL', 'vL*'] if 'wL' in RP.get_leg_labels()
+                      else ['vL', 'vL*'])
+        self.set_LP(0, LP, age=ageL)
+        self.set_RP(self.L - 1, RP, age=ageR)
+
     def get_LP(self, i, store=True):
-        """LP[i], contracted (and cached) from the nearest one available."""
+        """LP[i], contracted (and stored, with ``store``) from the nearest
+        one available to its left."""
         i0 = i
-        while ('LP', i0 % self.L) not in self.cache:
+        while self._LP_age[i0 % self.L] is None or \
+                self._LP_keys[i0 % self.L] not in self.cache:
             i0 -= 1
             if i - i0 > 2 * self.L:
                 raise ValueError("no LP available")
-        LP = self.cache[('LP', i0 % self.L)]
+        LP = self.cache[self._LP_keys[i0 % self.L]]
         age = self._LP_age[i0 % self.L]
         for j in range(i0, i):
             LP = self._contract_LP(j, LP)
@@ -743,12 +820,15 @@ class BaseEnvironment:
         return LP
 
     def get_RP(self, i, store=True):
+        """RP[i], contracted (and stored) from the nearest one to its
+        right."""
         i0 = i
-        while ('RP', i0 % self.L) not in self.cache:
+        while self._RP_age[i0 % self.L] is None or \
+                self._RP_keys[i0 % self.L] not in self.cache:
             i0 += 1
             if i0 - i > 2 * self.L:
                 raise ValueError("no RP available")
-        RP = self.cache[('RP', i0 % self.L)]
+        RP = self.cache[self._RP_keys[i0 % self.L]]
         age = self._RP_age[i0 % self.L]
         for j in range(i0, i, -1):
             RP = self._contract_RP(j, RP)
@@ -758,12 +838,58 @@ class BaseEnvironment:
         return RP
 
     def set_LP(self, i, LP, age=0):
-        self.cache[('LP', i % self.L)] = LP
-        self._LP_age[i % self.L] = age
+        i = i % self.L
+        self.cache[self._LP_keys[i]] = LP
+        self._LP_age[i] = age
 
     def set_RP(self, i, RP, age=0):
-        self.cache[('RP', i % self.L)] = RP
-        self._RP_age[i % self.L] = age
+        i = i % self.L
+        self.cache[self._RP_keys[i]] = RP
+        self._RP_age[i] = age
+
+    def get_LP_age(self, i):
+        return self._LP_age[i % self.L]
+
+    def get_RP_age(self, i):
+        return self._RP_age[i % self.L]
+
+    def has_LP(self, i):
+        return self._LP_age[i % self.L] is not None
+
+    def has_RP(self, i):
+        return self._RP_age[i % self.L] is not None
+
+    def del_LP(self, i):
+        i = i % self.L
+        if self._LP_keys[i] in self.cache:
+            del self.cache[self._LP_keys[i]]
+        self._LP_age[i] = None
+
+    def del_RP(self, i):
+        i = i % self.L
+        if self._RP_keys[i] in self.cache:
+            del self.cache[self._RP_keys[i]]
+        self._RP_age[i] = None
+
+    def clear(self):
+        for i in range(self.L):
+            self.del_LP(i)
+            self.del_RP(i)
+
+    def cache_optimize(self, short_term_LP=(), short_term_RP=(),
+                       preload_LP=None, preload_RP=None):
+        """Tell the cache which tensors to keep in RAM and which to load
+        next."""
+        keys = [self._LP_keys[i % self.L] for i in short_term_LP] + \
+            [self._RP_keys[i % self.L] for i in short_term_RP]
+        self.cache.set_short_term_keys(*keys)
+        pre = []
+        if preload_LP is not None:
+            pre.append(self._LP_keys[preload_LP % self.L])
+        if preload_RP is not None:
+            pre.append(self._RP_keys[preload_RP % self.L])
+        if pre:
+            self.cache.preload(*pre)
 
 
 class MPSEnvironment(BaseEnvironment):
@@ -771,14 +897,21 @@ class MPSEnvironment(BaseEnvironment):
     ``LP[i]`` (legs ``vR*, vR``) from the A forms, ``RP[i]`` (legs ``vL,
     vL*``) from the B forms, starting from the identity."""
 
-    def init_LP(self, i):
-        leg = self.ket.get_B(i, None).get_leg('vL')
-        return npc.diag(1., leg, dtype=self.dtype, labels=['vR*', 'vR'])
+    def init_LP(self, i, start_env_sites=0):
+        i0 = i - start_env_sites
+        leg = self.ket.get_B(i0, None).get_leg('vL')
+        LP = npc.diag(1., leg, dtype=self.dtype, labels=['vR*', 'vR'])
+        for j in range(i0, i):
+            LP = self._contract_LP(j, LP)
+        return LP
 
-    def init_RP(self, i):
-        leg = self.ket.get_B(i, None).get_leg('vR')
-        return npc.diag(1., leg.conj(), dtype=self.dtype,
-                        labels=['vL', 'vL*'])
+    def init_RP(self, i, start_env_sites=0):
+        i0 = i + start_env_sites
+        leg = self.ket.get_B(i0, None).get_leg('vR')
+        RP = npc.diag(1., leg.conj(), dtype=self.dtype, labels=['vL', 'vL*'])
+        for j in range(i0, i, -1):
+            RP = self._contract_RP(j, RP)
+        return RP
 
     def _contract_LP(self, i, LP):
         LP = npc.tensordot(LP, self.ket.get_B(i, 'A'), axes=[['vR'], ['vL']])

@@ -1,15 +1,21 @@
 """Small helpers for models, lattices and eigensolvers.
 
-Port of ``to_array``, ``argsort``, ``inverse_permutation`` and
-``find_subclass`` from ``tenpy_tpu/tools/misc.py``: the helpers that the
-sites, lattices, models and the eigensolvers import.
+Port of ``to_array``, ``argsort``, ``inverse_permutation``,
+``find_subclass`` and ``consistency_check`` from
+``tenpy_tpu/tools/misc.py``: the helpers that the sites, lattices, models,
+the eigensolvers and the algorithms import.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ['to_array', 'argsort', 'inverse_permutation', 'find_subclass']
+__all__ = ['to_array', 'argsort', 'inverse_permutation', 'find_subclass',
+           'consistency_check', 'TenpyInconsistencyError']
+
+
+class TenpyInconsistencyError(Exception):
+    """Raised by :func:`consistency_check` when a guard rail is violated."""
 
 
 def to_array(a, shape=(None,), dtype=None):
@@ -80,3 +86,28 @@ def find_subclass(base_class, subclass_name):
         raise ValueError(f"multiple subclasses named {subclass_name!r}")
     raise ValueError(f"no subclass of {base_class.__name__} named "
                      f"{subclass_name!r} is loaded")
+
+
+def consistency_check(value, options, threshold_key, threshold_default, msg,
+                      compare='<='):
+    """Raise :class:`TenpyInconsistencyError` unless ``value compare
+    threshold``, the threshold read from ``options[threshold_key]``
+    (default ``threshold_default``; None disables the check)."""
+    threshold = options.get(threshold_key, threshold_default)
+    if threshold is None:
+        return
+    if compare == '<=':
+        ok = value <= threshold
+    elif compare == '<':
+        ok = value < threshold
+    elif compare == '>=':
+        ok = value >= threshold
+    elif compare == '>':
+        ok = value > threshold
+    else:
+        raise ValueError(f"unknown compare {compare!r}")
+    if not ok:
+        raise TenpyInconsistencyError(
+            f"{msg} (got {value!r}, threshold {threshold_key}="
+            f"{threshold!r}; raise the threshold option to silence this "
+            f"check)")

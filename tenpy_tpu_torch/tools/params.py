@@ -2,8 +2,11 @@
 
 Port of ``Config`` and ``asConfig`` from ``tenpy_tpu/tools/params.py``:
 ``get(key, default)`` stores the default it returns, so the options a model
-was built with are complete afterwards, and keys never read stay in
-``unused``.
+or an engine was built with are complete afterwards, and keys never read
+stay in ``unused``.  Nested option dicts (``trunc_params``,
+``lanczos_params``, ...) become sub-Configs by :meth:`Config.subconfig`;
+the dict interface (``cfg[key] = value``, ``in``, ``setdefault``) is what
+the sweep engines use to adapt options while they run.
 """
 
 from __future__ import annotations
@@ -34,6 +37,25 @@ class Config:
         self.name = str(name)
         self.unused = set(self.options.keys())
 
+    # --------------------------------------------------------- dict interface
+    def __getitem__(self, key):
+        self.unused.discard(key)
+        return self.options[key]
+
+    def __setitem__(self, key, value):
+        if key not in self.options:
+            self.unused.add(key)
+        self.options[key] = value
+
+    def __contains__(self, key):
+        return key in self.options
+
+    def setdefault(self, key, default):
+        if key not in self.options:
+            self.options[key] = default
+        return self.get(key, default)
+
+    # ---------------------------------------------------------------- reading
     def get(self, key, default, expect_type=None):
         """Read an option, storing ``default`` if the key is absent.
 
@@ -53,6 +75,20 @@ class Config:
         """Like :meth:`get`, without storing the default or marking the key
         as used."""
         return self.options.get(key, default)
+
+    def subconfig(self, key, default=None):
+        """The nested option dict ``key`` as a sub-:class:`Config` (stored
+        in place of the dict, so later reads share it)."""
+        self.unused.discard(key)
+        if key not in self.options:
+            self.options[key] = {} if default is None else default
+        val = self.options[key]
+        if isinstance(val, Config):
+            return val
+        sub = Config(val if isinstance(val, dict) else {},
+                     f"{self.name}.{key}")
+        self.options[key] = sub
+        return sub
 
     def _check_type(self, key, val, expect_type):
         ok = True

@@ -13,7 +13,8 @@ MODULES = ['tenpy_tpu_torch', 'tenpy_tpu_torch._build',
            'tenpy_tpu_torch.networks', 'tenpy_tpu_torch.models',
            'tenpy_tpu_torch.algorithms',
            'tenpy_tpu_torch.tools.misc', 'tenpy_tpu_torch.tools.params',
-           'tenpy_tpu_torch.tools.math',
+           'tenpy_tpu_torch.tools.math', 'tenpy_tpu_torch.tools.events',
+           'tenpy_tpu_torch.tools.cache', 'tenpy_tpu_torch.tools.process',
            'tenpy_tpu_torch.linalg.charges',
            'tenpy_tpu_torch.linalg.np_conserved',
            'tenpy_tpu_torch.linalg.sparse',
@@ -37,7 +38,9 @@ MODULES = ['tenpy_tpu_torch', 'tenpy_tpu_torch._build',
            'tenpy_tpu_torch.models.spins',
            'tenpy_tpu_torch.models.tf_ising',
            'tenpy_tpu_torch.models.xxz_chain',
+           'tenpy_tpu_torch.algorithms.algorithm',
            'tenpy_tpu_torch.algorithms.mps_common',
+           'tenpy_tpu_torch.algorithms.dmrg',
            'tenpy_tpu_torch.algorithms.packed_dmrg',
            'tenpy_tpu_torch.algorithms.tebd',
            'tenpy_tpu_torch.algorithms.packed_tebd',

@@ -27,6 +27,10 @@ chi=256 Hubbard-cylinder file and the ramp references::
         tests/benchmark_data/tebd_reference.npz
     python tests/torch_exchange.py --write-states \
         tests/benchmark_data/written_back_states.npz
+    python tests/torch_exchange.py --write-host-dmrg \
+        tests/benchmark_data/host_dmrg_reference.npz
+    python tests/torch_exchange.py --write-ramp-drift \
+        tests/benchmark_data/ramp_drift_reference.npz
 """
 
 import argparse
@@ -784,6 +788,267 @@ def written_back_states():
     return flat
 
 
+# the cases of tests/test_dmrg.py:76-184 (TeNPy's dmrg.run on the
+# transverse-field Ising and Heisenberg chains, built from terms as there);
+# tests/test_torch_host_dmrg.py runs the port's dmrg.run on the same models
+# and start states and holds it to these values
+class FakeModel:
+    """The model stub of tests/test_dmrg.py: a lattice stub and H_MPO."""
+
+    def __init__(self, sites, H):
+        L = len(sites)
+
+        class _Lat:
+            bc_MPS = H.bc if H.bc != 'segment' else 'finite'
+            dim = 1
+            Ls = [L]
+            unit_cell = [sites[0]]
+
+            def mps_sites(self):
+                return sites
+
+        self.lat = _Lat()
+        self.H_MPO = H
+
+
+def _host_modules(package):
+    if package == 'jax':
+        from tenpy_tpu.networks import mpo, mps, site, terms
+    else:
+        from tenpy_tpu_torch.networks import mpo, mps, site, terms
+    return site, terms, mpo, mps
+
+
+def tfi_model(package, L, J=1., g=1.5, bc='finite'):
+    """The transverse-field Ising chain of tests/test_dmrg.py:47 (Z_2
+    parity) in ``package`` ('jax' or 'torch'): ``(model, MPS class)``."""
+    site, terms, mpo, mps = _host_modules(package)
+    sites = [site.SpinHalfSite('parity')] * L
+    ot = terms.OnsiteTerms(L)
+    ct = terms.CouplingTerms(L)
+    for i in range(L):
+        ot.add_onsite_term(-g, i, 'Sigmaz')
+    for i in range(L - 1 if bc == 'finite' else L):
+        ct.add_coupling_term(-J, i, i + 1, 'Sigmax', 'Sigmax')
+    H = mpo.MPOGraph.from_terms([ot, ct], sites, bc).build_MPO()
+    return FakeModel(sites, H), mps.MPS
+
+
+def heisenberg_model(package, L, J=1., bc='finite'):
+    """The Heisenberg chain of tests/test_dmrg.py:61 (Sz conserved)."""
+    site, terms, mpo, mps = _host_modules(package)
+    sites = [site.SpinHalfSite('Sz')] * L
+    ct = terms.CouplingTerms(L)
+    for i in range(L - 1 if bc == 'finite' else L):
+        ct.add_coupling_term(J, i, i + 1, 'Sz', 'Sz')
+        ct.add_coupling_term(J / 2., i, i + 1, 'Sp', 'Sm')
+        ct.add_coupling_term(J / 2., i, i + 1, 'Sm', 'Sp')
+    H = mpo.MPOGraph.from_terms([ct], sites, bc).build_MPO()
+    return FakeModel(sites, H), mps.MPS
+
+
+def _trunc(chi, svd_min):
+    return {'chi_max': chi, 'svd_min': svd_min}
+
+
+# case: (model, L, bc, product state, options) of each test of
+# tests/test_dmrg.py:76-184; 'excited' adds the first excited state from
+# the Neel state shifted by one site, orthogonal to the ground state
+HOST_DMRG_CASES = {
+    'tfi': ('tfi', 16, 'finite', ['up'] * 16, {
+        'trunc_params': _trunc(32, 1e-13), 'max_E_err': 1e-12,
+        'max_sweeps': 30, 'combine': False, 'mixer': False}),
+    'tfi_combine': ('tfi', 16, 'finite', ['up'] * 16, {
+        'trunc_params': _trunc(32, 1e-13), 'max_E_err': 1e-12,
+        'max_sweeps': 30, 'combine': True, 'mixer': False}),
+    'excited': ('heisenberg', 8, 'finite', ['up', 'down'] * 4, {
+        'trunc_params': _trunc(64, 1e-14), 'max_E_err': 1e-12,
+        'max_sweeps': 40, 'mixer': False}),
+    'mixer': ('heisenberg', 10, 'finite', ['up', 'down'] * 5, {
+        'trunc_params': _trunc(64, 1e-14), 'max_E_err': 1e-12,
+        'max_sweeps': 40, 'mixer': True,
+        'mixer_params': {'amplitude': 1e-6, 'decay': 1.5,
+                         'disable_after': 5}}),
+    'single_site': ('heisenberg', 10, 'finite', None, {
+        'active_sites': 1, 'mixer': False,
+        'trunc_params': _trunc(64, 1e-14), 'max_E_err': 1e-12,
+        'max_sweeps': 50}),
+    'growth': ('heisenberg', 10, 'finite', ['up', 'down'] * 5, {
+        'active_sites': 1, 'trunc_params': _trunc(64, 1e-14),
+        'max_E_err': 1e-12, 'max_sweeps': 20,
+        'mixer_params': {'amplitude': 1e-5, 'decay': 1.2,
+                         'disable_after': 10}}),
+    'idmrg': ('tfi', 2, 'infinite', ['up', 'up'], {
+        'trunc_params': _trunc(32, 1e-14), 'max_E_err': 1e-12,
+        'max_sweeps': 60, 'N_sweeps_check': 5, 'mixer': False,
+        'update_env': 2}),
+}
+# test_single_site_dmrg starts from a random state of chi 32 (seed 7), made
+# by tenpy_tpu; the port loads it from the reference file
+SINGLE_SITE_SEED = {'chi': 32, 'seed': 7}
+# tests/test_packed.py:187 (test_diag_device_lanczos_integration): the
+# infinite Hubbard chain after tenpy_tpu's 3 sweeps with the device route
+# forced (device_K) and the mixer; its state is stored, and the port's test
+# compares both packages' device route and the port's host Lanczos on the
+# next update's effective H
+INTEGRATION_MODEL = {'L': 2, 't': 1., 'U': 4., 'bc_MPS': 'infinite'}
+INTEGRATION_OPTIONS = {'trunc_params': {'chi_max': 32, 'svd_min': 1e-10},
+                       'max_sweeps': 3, 'mixer': True, 'combine': False,
+                       'lanczos_params': {'N_min': 30, 'N_max': 30,
+                                          'device_K': 30, 'reortho': True}}
+
+
+def host_dmrg_case(case, package):
+    """``(model, psi, options)`` of a case of :data:`HOST_DMRG_CASES` in
+    ``package``; the random start state of 'single_site' only for 'jax'
+    (the port loads tenpy_tpu's)."""
+    import copy
+    name, L, bc, p_state, options = HOST_DMRG_CASES[case]
+    make = tfi_model if name == 'tfi' else heisenberg_model
+    model, MPS = make(package, L, bc=bc)
+    sites = model.lat.mps_sites()
+    if p_state is None:
+        psi = MPS.from_desired_bond_dimension(
+            sites, SINGLE_SITE_SEED['chi'], seed=SINGLE_SITE_SEED['seed'],
+            p_state=['up', 'down'] * (L // 2)) if package == 'jax' else None
+    else:
+        psi = MPS.from_product_state(sites, p_state, bc=bc)
+    return model, psi, copy.deepcopy(options)
+
+
+def host_dmrg_result(prefix, info_E, stats, psi):
+    """A run's energy, per-sweep energies and sorted Schmidt values as
+    flat keys under ``prefix``."""
+    flat = {f'{prefix}.E': np.asarray(float(np.real(info_E))),
+            f'{prefix}.sweep_E': np.asarray(stats['E'], float)}
+    for i, S in enumerate(sorted_S(psi)):
+        flat[f'{prefix}.S.{i}'] = S
+    return flat
+
+
+def host_dmrg_reference():
+    """``tenpy_tpu``'s ``dmrg.run`` on every case of
+    :data:`HOST_DMRG_CASES`, as a flat dict: energy, per-sweep energies
+    and Schmidt values (``<case>.*``), the exact energies the JAX tests
+    hold it to (``ExactDiag`` for the Heisenberg chains, free fermions for
+    the Ising chains), the start state of 'single_site', and the final
+    state of 'excited', whose centre update the device-route test
+    takes."""
+    from tenpy_tpu.algorithms import dmrg
+    from tenpy_tpu.algorithms.exact_diag import ExactDiag
+    flat = {}
+    for case in HOST_DMRG_CASES:
+        t0 = time.time()
+        model, psi, options = host_dmrg_case(case, 'jax')
+        if case == 'single_site':
+            flat.update(state_flat(f'{case}.psi0', psi))
+        if case == 'excited':
+            eng = dmrg.TwoSiteDMRGEngine(psi, model, options)
+            E0, _ = eng.run()
+            flat.update(host_dmrg_result('excited.ground', E0,
+                                         eng.sweep_stats, psi))
+            flat.update(state_flat('excited.ground.psi', psi))
+            options1 = host_dmrg_case(case, 'jax')[2]
+            psi1 = type(psi).from_product_state(
+                model.lat.mps_sites(), ['down', 'up'] * 4)
+            eng1 = dmrg.TwoSiteDMRGEngine(psi1, model, options1,
+                                          orthogonal_to=[psi])
+            E1, _ = eng1.run()
+            flat.update(host_dmrg_result('excited.first', E1,
+                                         eng1.sweep_stats, psi1))
+            flat['excited.overlap'] = np.asarray(abs(psi.overlap(psi1)))
+        else:
+            info = dmrg.run(psi, model, options)
+            flat.update(host_dmrg_result(case, info['E'],
+                                         info['sweep_statistics'], psi))
+        if HOST_DMRG_CASES[case][0] == 'heisenberg':
+            ed = ExactDiag.from_H_mpo(model.H_MPO, charge_sector=[0])
+            ed.full_diagonalization()
+            flat[f'{case}.E_exact'] = np.asarray(
+                float(ed.groundstate()[0]))
+            flat[f'{case}.E_levels'] = np.sort(np.asarray(ed.E))[:2]
+        E = flat.get(f'{case}.E', flat.get(f'{case}.ground.E'))
+        print(f"{case}: E {float(E):.14f} ({time.time() - t0:.1f} s)",
+              flush=True)
+    t0 = time.time()
+    from tenpy_tpu.models.hubbard import FermiHubbardChain
+    from tenpy_tpu.networks.mps import MPS as JMPS
+    m = FermiHubbardChain(dict(INTEGRATION_MODEL))
+    psi = JMPS.from_product_state(m.lat.mps_sites(), ['up', 'down'],
+                                  bc='infinite')
+    import copy
+    E, _ = dmrg.TwoSiteDMRGEngine(psi, m, copy.deepcopy(
+        INTEGRATION_OPTIONS)).run()
+    flat.update(state_flat('integration.psi', psi))
+    flat['integration.E'] = np.asarray(float(E))
+    print(f"integration: E {float(E):.14f} ({time.time() - t0:.1f} s)",
+          flush=True)
+    flat['cases'] = np.array(json.dumps(HOST_DMRG_CASES))
+    flat['single_site_seed'] = np.array(json.dumps(SINGLE_SITE_SEED))
+    flat['integration'] = np.array(json.dumps([INTEGRATION_MODEL,
+                                               INTEGRATION_OPTIONS]))
+    return flat
+
+
+# the ramp's write-back drift: one device_ramp that grows chi 16x within
+# the ramp (8 -> 128; 128x from the product state) on the infinite Hubbard
+# chain (L=2, half filling), small enough for tenpy_tpu on the CPU.  The
+# drift is max(norm_test) of the written-back state before the re-gauge
+# (the unit-cell seam), its ratio to the last sweep's largest truncation
+# error per update is what the two packages are compared by
+DRIFT_CASE = ({'L': 2, 'bc_MPS': 'infinite', 't': 1., 'U': 4., 'mu': 0.},
+              ['up', 'down'],
+              {'chi_list': [[8, 2], [16, 2], [32, 2], [64, 2], [128, 4]],
+               'svd_min': 1e-12, 'lanczos_K': 10, 'lanczos_K_seam': 60,
+               'multiple': 16, 'backend': 'svd'})
+
+
+def ramp_drift(package):
+    """``device_ramp`` of :data:`DRIFT_CASE` in ``package`` ('jax' or
+    'torch', the port on the CPU): the drift before the re-gauge, the last
+    sweep's largest truncation error, their ratio, the sweep energies and
+    the written-back state's norm_test, chi and TM energy."""
+    import importlib
+    prefix = 'tenpy_tpu' if package == 'jax' else 'tenpy_tpu_torch'
+    hub = importlib.import_module(prefix + '.models.hubbard')
+    mpsmod = importlib.import_module(prefix + '.networks.mps')
+    pd = importlib.import_module(prefix + '.algorithms.packed_dmrg')
+    params, init, options = DRIFT_CASE
+    m = hub.FermiHubbardChain(dict(params))
+    psi = mpsmod.MPS.from_product_state(m.lat.mps_sites(), init,
+                                        bc='infinite')
+    kw = {'device': 'cpu'} if package == 'torch' else {}
+    t0 = time.time()
+    with CanonicalFormProbe(mpsmod) as probe:
+        eng = pd.device_ramp(psi, m, dict(options), **kw)
+    seconds = time.time() - t0
+    st = eng.sweep_stats
+    drift = probe.before[-1] if probe.before else 0.
+    last_err = float(st['max_err'][-1])
+    return {'drift': drift, 'last_max_err': last_err,
+            'ratio': drift / last_err, 'sweep_E': np.asarray(st['E']),
+            'sweep_max_err': np.asarray(st['max_err']),
+            'norm_test_after': float(np.max(psi.norm_test())),
+            'chi': np.asarray(psi.chi),
+            'tm_E': float(np.real(m.H_MPO.expectation_value(psi))),
+            'seconds': seconds}
+
+
+def ramp_drift_reference():
+    """:func:`ramp_drift` in both packages, under ``jax.*`` and
+    ``torch.*``, with the case."""
+    flat = {'case': np.array(json.dumps(DRIFT_CASE))}
+    for package in ('jax', 'torch'):
+        out = ramp_drift(package)
+        flat.update({f'{package}.{k}': np.asarray(v) for k, v in out.items()})
+        print(f"{package}: drift {out['drift']:.3e}, last max_err "
+              f"{out['last_max_err']:.3e}, ratio {out['ratio']:.3f}, chi "
+              f"{list(out['chi'])}, TM energy {out['tm_E']!r}, norm_test "
+              f"after {out['norm_test_after']:.1e} ({out['seconds']:.0f} s)",
+              flush=True)
+    return flat
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--write',
@@ -800,6 +1065,10 @@ def main(argv=None):
                     help='output .npz path (DeviceTEBDEngine references)')
     ap.add_argument('--write-states',
                     help='output .npz path (written-back JAX states)')
+    ap.add_argument('--write-host-dmrg',
+                    help='output .npz path (dmrg.run references)')
+    ap.add_argument('--write-ramp-drift',
+                    help='output .npz path (the ramp write-back drift)')
     ap.add_argument('--cases', nargs='+',
                     help='write-back or Hofstadter cases to (re)compute')
     args = ap.parse_args(argv)
@@ -817,7 +1086,9 @@ def main(argv=None):
         write_hofstadter(args.write_hofstadter,
                          args.cases or list(HOFSTADTER_CASES))
     for path, make in ((args.write_tebd, tebd_reference),
-                       (args.write_states, written_back_states)):
+                       (args.write_states, written_back_states),
+                       (args.write_host_dmrg, host_dmrg_reference),
+                       (args.write_ramp_drift, ramp_drift_reference)):
         if path:
             exchange.save_flat(path, make())
             print(f"wrote {path} ({os.path.getsize(path) / 1e6:.3f} MB)",
