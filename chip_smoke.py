@@ -1,6 +1,6 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives ``tenpy_tpu_torch``'s main path, the device-resident two-site iDMRG
+Drives ``tenpy_tpu_torch``'s main paths, the device-resident two-site iDMRG
 sweep (``DeviceSweepEngine``) on the Fermi-Hubbard U=8 Ly=4 cylinder,
 U(1)xU(1), at chi=256, and the chi ramp (``device_ramp``) to chi=256 from a
 Neel product state; then its complex128 path, the ramp to chi=128 of the
@@ -64,8 +64,9 @@ Phases (any failure exits nonzero):
 9. TeNPy's own entry point: ``dmrg.run(psi, model, options,
    device='cuda')`` (``TwoSiteDMRGEngine``, host tensors, every two-site
    Lanczos update forced onto the packed Lanczos on the card by
-   ``lanczos_params['device_K']``) on the open XX chain from the Neel
-   state, ramped by ``chi_list`` to chi=512; held to the free-fermion
+   ``lanczos_params['device_K']``) on the open XX chain (L=32) from the
+   Neel state, ramped by ``chi_list`` to chi_max=512 (the state needs 432
+   above svd_min); held to the free-fermion
    energy, canonical, total Sz 0, the kernel's launches equal to 4 per
    device matvec and to the tensordots run; seconds per sweep, the time
    per update by part (ED_block, pack, device Lanczos, unpack, split,
@@ -75,9 +76,25 @@ Phases (any failure exits nonzero):
    routes timed against each other at several sizes N of one sweep (the
    crossover); one more sweep profiled (the device's idle share); and the
    kernel against its plain version on the centre update's matvec, timed;
+10. TeNPy's simulation layer and command line (``console_main`` in this
+   process, or where PyYAML is absent ``run_simulation`` and
+   ``run_seq_simulations`` on copies of the files' options), with no
+   ``device_K``: the engine's own ``DEVICE_LANCZOS_THRESHOLD`` sends the
+   eigensolves to the card.  10a: the repo's ``minimal_DMRG.yml`` (L=32,
+   chi=100) with ``device=cpu`` and on the card, energies held to each
+   other, every update from the threshold up on the card; 10b:
+   ``sequential_chi_ramp.yml`` on the XX chain at L=64, chi 128, 256, 512,
+   each stage from the last one's state, per stage the phases' times,
+   sweeps, the card's share of the updates, launches (4 per Lanczos step)
+   and plan builds, the last energy held to free fermions and the state
+   checked; 10c: the stage files loaded (``psi``, measurements, energy,
+   resume data), the last one resumed on the card, the results as
+   ``.h5`` where h5py imports; then the kernel against its plain version
+   on the final state's chi=512 centre matvec, timed;
 then a JSON line on the kernels (the f64 mode, the complex128 mode, the
 complex128 mode on the TEBD shapes and the f64 mode on the host DMRG's
-shapes) and, last, ``{"ok": true, "device": ...}``.
+and on the simulation's shapes) and, last, ``{"ok": true, "device":
+...}``.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.
 """
@@ -94,6 +111,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+import tenpy_tpu_torch
 from tenpy_tpu_torch import _build
 from tenpy_tpu_torch.algorithms import dmrg
 from tenpy_tpu_torch.algorithms import mps_common as mc
@@ -230,8 +248,11 @@ TEBD_STEPS = ['B0.B1 over vR/vL', 'U.C over (p0*,p1*)',
 # two-site Lanczos update is forced onto the card (device_K: at most that
 # many Lanczos steps, with the early exit).  norm_tol: TeNPy's end-of-run
 # canonicalization where the last sweep's bond-1 update left the norm test
-# above it (tests/test_torch_host_dmrg.py: 1.3e-10 at L=16)
-XX_MODEL = {'L': 64, 'Jxx': 1., 'Jz': 0., 'hz': 0., 'bc_MPS': 'finite'}
+# above it (tests/test_torch_host_dmrg.py: 1.3e-10 at L=16).  L=32, cut
+# from 64 when phase 10 joined the smoke (the whole smoke took 620 s at
+# L=64): the crossover's bonds remain, the chain's centre needs chi=432
+# above svd_min, and phase 10 runs L=64 to chi=512
+XX_MODEL = {'L': 32, 'Jxx': 1., 'Jz': 0., 'hz': 0., 'bc_MPS': 'finite'}
 XX_DEVICE_K = 20
 XX_OPTIONS = {'trunc_params': {'chi_max': 512, 'svd_min': 1e-12},
               'chi_list': {0: 64, 2: 256, 4: 512}, 'mixer': False,
@@ -245,9 +266,69 @@ XX_NORM_TOL = 1e-10
 XX_CHECK_K, XX_CHECK_NOISE, XX_CHECK_SEED = 40, 1e-2, 9
 XX_CHECK_E_TOL, XX_CHECK_OV_TOL = 1e-10, 1e-8
 # the crossover: both routes run XX_CROSS_K fixed Lanczos steps on the
-# effective H of these bonds (sizes N from about 1e2 to the centre's)
+# effective H of these bonds (N = 64, 256, 1024, 4096, ... up to the
+# centre's; the chain's doubling bonds give no N between 64 and 256), the
+# whole table XX_CROSS_REPEATS times
 XX_CROSS_K = 10
-XX_CROSS_BONDS = (2, 4, 6, 8, 10, None)    # None: the centre bond
+XX_CROSS_BONDS = (1, 2, 3, 4, 6, 8, 10, None)    # None: the centre bond
+XX_CROSS_REPEATS = 3
+
+
+# the simulation layer and the command line (phase 10): the repo's own
+# YAML files through console_main, as TeNPy users run them; no device_K, so
+# the engine's own rule (DEVICE_LANCZOS_THRESHOLD) decides the route
+SIM_MINIMAL_YML = os.path.join(ROOT, 'examples', 'yaml', 'minimal_DMRG.yml')
+SIM_SEQ_YML = os.path.join(ROOT, 'examples', 'yaml',
+                           'sequential_chi_ramp.yml')
+# logging: no handler on stdout and no .log file (stdout keeps the smoke's
+# lines; warnings still reach stderr)
+SIM_LOG = {'to_stdout': None, 'to_file': None}
+# 10b: the XX chain (Jz=0: free fermions) at L=64 up to chi=512, the width
+# of phases 8 and 9.  The file's own norm_tol (TeNPy's default, 1e-5)
+# applies, so the final state's norm_test is held as the sweeps left it,
+# before the engine's end-of-run cleanup
+SIM_SEQ_OVERRIDES = ['model_params.L=64', 'model_params.Jz=0.',
+                     'algorithm_params.trunc_params.chi_max=[128, 256, 512]',
+                     'algorithm_params.max_E_err=1e-11']
+SIM_SEQ_CHIS = (128, 256, 512)
+# where PyYAML is absent, run_simulation and run_seq_simulations take these
+# copies of the two files with the same overrides (checked against the
+# files where yaml imports)
+SIM_MINIMAL_PARAMS = {
+    'simulation_class': 'GroundStateSearch',
+    'output_filename': 'results_minimal_DMRG.pkl',
+    'model_class': 'SpinChain',
+    'model_params': {'L': 32, 'bc_MPS': 'finite'},
+    'initial_state_params': {'method': 'lat_product_state',
+                             'product_state': [['up'], ['down']]},
+    'algorithm_class': 'TwoSiteDMRGEngine',
+    'algorithm_params': {'trunc_params': {'svd_min': 1e-8, 'chi_max': 100}},
+}
+SIM_SEQ_PARAMS = {
+    'simulation_class': 'GroundStateSearch',
+    'output_filename_params': {
+        'prefix': 'results_sequential',
+        'parts': {'algorithm_params.trunc_params.chi_max': 'chi_{0:04d}'},
+        'suffix': '.pkl'},
+    'model_class': 'SpinChain',
+    'model_params': {'L': 64, 'bc_MPS': 'finite', 'Jz': 0.},
+    'initial_state_params': {'method': 'lat_product_state',
+                             'product_state': [['up'], ['down']]},
+    'algorithm_class': 'TwoSiteDMRGEngine',
+    'algorithm_params': {'trunc_params': {'chi_max': [128, 256, 512]},
+                         'max_E_err': 1e-11},
+    'sequential': {'recursive_keys':
+                   ['algorithm_params.trunc_params.chi_max']},
+}
+# 10a: the card's run against the CPU run of the same file (svd_min 1e-8
+# in the file, and the two runs' Lanczos stop differently); 10b: the last
+# stage against free fermions; 10c: the resumed run against the loaded
+# energy, two more sweeps at most
+SIM_CPU_REL = 1e-8
+SIM_E_REL = 1e-10
+SIM_NORM_TOL = 1e-10
+SIM_RESUME_REL = 1e-11
+SIM_RESUME_SWEEPS = 2
 
 
 def log(*a):
@@ -1491,7 +1572,7 @@ class HostDMRGProbe:
 
 def phase_host_dmrg(smi):
     """TeNPy's entry point on the card: ``dmrg.run`` on the open XX chain
-    to chi=512 with the two-site eigensolves on the packed Lanczos; then
+    to chi_max=512 with the two-site eigensolves on the packed Lanczos; then
     the centre update card against host, the crossover of the two routes,
     a profiled sweep and the kernel on the centre update's matvec.
     Returns the path's kernel launches and the kernel's measurement."""
@@ -1604,24 +1685,36 @@ def phase_host_dmrg(smi):
     lp['P_tol'], lp['device_K'] = 0., XX_CROSS_K
     log(f"[9] crossover ({XX_CROSS_K} Lanczos steps each; the card's first "
         f"call packs the environments and builds the plans, as every "
-        f"update of a sweep does; its second reuses both):")
-    for b in XX_CROSS_BONDS:
-        eng.i0 = L // 2 - 1 if b is None else b
-        th = eng.prepare_update_local()
-        t0 = time.time()
-        LanczosGroundState(eng.eff_H, th, {'N_min': XX_CROSS_K,
-                                           'N_max': XX_CROSS_K, 'P_tol': 0.,
-                                           'cutoff': 0.}).run()
-        h_ms = 1e3 * (time.time() - t0)
-        t0 = time.time()
-        eng._diag_device_lanczos(th)
-        cold_ms = 1e3 * (time.time() - t0)
-        t0 = time.time()
-        eng._diag_device_lanczos(th)
-        warm_ms = 1e3 * (time.time() - t0)
-        log(f"[9]   bond {eng.i0 + 1}: N={eng.eff_H.N:8d}: host "
-            f"{h_ms:9.2f} ms, card {cold_ms:9.2f} ms (first call), "
-            f"{warm_ms:9.2f} ms (second): card/host {cold_ms / h_ms:.3f}")
+        f"update of a sweep does; its second reuses both; the table "
+        f"{XX_CROSS_REPEATS} times):")
+    worst = {}
+    for rep in range(XX_CROSS_REPEATS):
+        for b in XX_CROSS_BONDS:
+            eng.i0 = L // 2 - 1 if b is None else b
+            th = eng.prepare_update_local()
+            t0 = time.time()
+            LanczosGroundState(eng.eff_H, th, {'N_min': XX_CROSS_K,
+                                               'N_max': XX_CROSS_K,
+                                               'P_tol': 0.,
+                                               'cutoff': 0.}).run()
+            h_ms = 1e3 * (time.time() - t0)
+            t0 = time.time()
+            eng._diag_device_lanczos(th)
+            cold_ms = 1e3 * (time.time() - t0)
+            t0 = time.time()
+            eng._diag_device_lanczos(th)
+            warm_ms = 1e3 * (time.time() - t0)
+            N = eng.eff_H.N
+            worst[N] = max(worst.get(N, 0.), cold_ms / h_ms)
+            log(f"[9]   run {rep + 1} bond {eng.i0 + 1}: N={N:8d}: host "
+                f"{h_ms:9.2f} ms, card {cold_ms:9.2f} ms (first call), "
+                f"{warm_ms:9.2f} ms (second): card/host "
+                f"{cold_ms / h_ms:.3f}")
+    wins = sorted(N for N, r in worst.items() if r < 1.)
+    log(f"[9] crossover: the card's first call wins in every run at N = "
+        f"{wins}; worst card/host by N "
+        f"{ {N: round(r, 3) for N, r in sorted(worst.items())} }; "
+        f"DEVICE_LANCZOS_THRESHOLD = {mc.DEVICE_LANCZOS_THRESHOLD}")
     for k, v in saved.items():
         lp[k] = v
 
@@ -1653,6 +1746,334 @@ def phase_host_dmrg(smi):
         LPp, RPp, W0p, W1p, theta_p))
     check(len(calls) == 4, "the centre matvec is not four tensordots")
     tot = measure_contractions(calls, MATVEC_STEPS, 9)
+    return launches, tot
+
+
+class SimulationProbe:
+    """Within ``with``: per stage of a ground-state simulation (from its
+    ``__enter__`` to its ``__exit__``) the wall seconds of its phases,
+    kernel launches, the ``HostDMRGProbe`` records of its updates, sweeps
+    and peak device memory, and the engine's end-of-run cleanup (the
+    state's ``norm_test`` before it, the ``norm_tol`` that applied and
+    whether it canonicalized); the simulations themselves are kept."""
+
+    PHASES = ('init_model', 'init_state', 'init_algorithm', 'run_algorithm',
+              'final_measurements', 'save_results')
+
+    def __init__(self, probe):
+        self.probe = probe
+        self.stages = []
+        self._patches = []
+
+    def _marks(self):
+        p = self.probe
+        return {'t': time.perf_counter(), 'launches': gg.LAUNCHES,
+                'diag': len(p.diag_N), 'device': len(p.device_N),
+                'plans': len(p.plans), 'sweeps': len(p.sweeps)}
+
+    def __enter__(self):
+        from tenpy_tpu_torch.simulations.simulation import GroundStateSearch
+        sp = self
+
+        def patch(name, make, cls=GroundStateSearch):
+            own = name in vars(cls)
+            orig = getattr(cls, name)
+            setattr(cls, name, make(orig))
+            self._patches.append((cls, name, orig, own))
+
+        def enter(orig):
+            def run(sim):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                sp.stages.append({'sim': sim, 'start': sp._marks(),
+                                  'phases': {}})
+                return orig(sim)
+            return run
+
+        def exit_(orig):
+            def run(sim, *exc):
+                out = orig(sim, *exc)
+                torch.cuda.synchronize()
+                st = sp.stages[-1]
+                st['end'] = sp._marks()
+                st['peak'] = torch.cuda.max_memory_allocated()
+                return out
+            return run
+
+        def timed(name):
+            def make(orig):
+                def run(sim, *a, **kw):
+                    t0 = time.perf_counter()
+                    out = orig(sim, *a, **kw)
+                    ph = sp.stages[-1]['phases']
+                    ph[name] = ph.get(name, 0.) + time.perf_counter() - t0
+                    return out
+                return run
+            return make
+
+        def cleanup(orig):
+            def run(eng):
+                norm_test = eng.psi.norm_test()
+                out = orig(eng)
+                norm_tol = eng.options['norm_tol']
+                sp.stages[-1]['cleanup'] = {
+                    'norm_before': float(np.max(norm_test)),
+                    'norm_tol': norm_tol, 'canonicalized':
+                        bool(np.linalg.norm(norm_test) > norm_tol)}
+                return out
+            return run
+
+        patch('__enter__', enter)
+        patch('__exit__', exit_)
+        for name in self.PHASES:
+            patch(name, timed(name))
+        patch('post_run_cleanup', cleanup, dmrg.DMRGEngine)
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, orig, own in reversed(self._patches):
+            if own:
+                setattr(cls, name, orig)
+            else:
+                delattr(cls, name)
+
+    def stage_stats(self, st):
+        """The stage's numbers: wall seconds, sweeps, updates (all
+        two-site, on the card, at or above the threshold), Lanczos steps
+        on the card, launches, plan builds and hits, peak memory."""
+        p, a, b = self.probe, st['start'], st['end']
+        diag = p.diag_N[a['diag']:b['diag']]
+        dev = p.device_N[a['device']:b['device']]
+        plans = p.plans[a['plans']:b['plans']]
+        sweeps = [x for x in p.sweeps[a['sweeps']:b['sweeps']] if x[0]]
+        return {
+            'wall': b['t'] - a['t'], 'phases': dict(st['phases']),
+            'sweeps': len(sweeps), 'sweep_s': [x[1] for x in sweeps],
+            'updates': len(diag), 'device': len(dev),
+            'above': sum(1 for _, N in diag
+                         if N >= mc.DEVICE_LANCZOS_THRESHOLD),
+            'steps': sum(m for _, m in dev),
+            'launches': b['launches'] - a['launches'],
+            'plans_built': sum(1 for _, _, hit in plans if not hit),
+            'plan_hits': sum(1 for _, _, hit in plans if hit),
+            'peak': st['peak'], 'energy': st['sim'].results.get('energy'),
+        }
+
+
+def sim_argv(path, overrides):
+    argv = [path]
+    for o in overrides:
+        argv += ['-o', o]
+    return argv
+
+
+def sim_params(params, overrides):
+    """``params`` (a copy) with the ``key=value`` overrides applied by the
+    command line's own parser."""
+    return tenpy_tpu_torch.apply_overrides(copy.deepcopy(params), overrides)
+
+
+def run_sim_file(has_yaml, path, params, overrides):
+    """The command line on ``path`` with ``overrides`` (``console_main``
+    in this process), or where PyYAML is absent the same options through
+    ``run_simulation`` / ``run_seq_simulations``."""
+    from tenpy_tpu_torch.simulations import simulation as sim_mod
+    if has_yaml:
+        check(tenpy_tpu_torch.console_main(sim_argv(path, overrides)) == 0,
+              f"console_main failed on {path}")
+        return
+    opts = sim_params(params, overrides)
+    cls = opts.pop('simulation_class')
+    if 'sequential' in opts:
+        sim_mod.run_seq_simulations(opts.pop('sequential'),
+                                    simulation_class=cls, **opts)
+    else:
+        sim_mod.run_simulation(simulation_class=cls, **opts)
+
+
+def log_stage(tag, name, s):
+    ph = s['phases']
+    alg = ph.get('run_algorithm', 0.)
+    rest = s['wall'] - alg
+    log(f"[10{tag}] {name}: {s['wall']:.2f} s ({alg:.2f} s run_algorithm, "
+        f"{rest:.2f} s besides: " + ', '.join(
+            f"{k} {v:.2f}" for k, v in ph.items() if k != 'run_algorithm')
+        + f"), {s['sweeps']} sweeps, s/sweep "
+        + ' '.join(f"{x:.2f}" for x in s['sweep_s'])
+        + f"; {s['device']} of {s['updates']} two-site updates on the card "
+        f"({100. * s['device'] / max(s['updates'], 1):.1f}%; "
+        f"{s['above']} with N >= {mc.DEVICE_LANCZOS_THRESHOLD}), "
+        f"{s['steps']} Lanczos steps, kernel launches {s['launches']} "
+        f"(4 x steps {4 * s['steps']}); plans {s['plans_built']} built, "
+        f"{s['plan_hits']} hits; peak memory {s['peak'] / 2**30:.3f} GiB; "
+        f"E {s['energy']!r}")
+
+
+def phase_simulation(smi):
+    """The simulation layer and the command line on the card: 10a the
+    repo's ``minimal_DMRG.yml`` on the CPU and on the card, 10b the
+    sequential chi ramp of ``sequential_chi_ramp.yml`` to chi=512 on the
+    XX chain at L=64, 10c the output files and the resume; then the kernel
+    on the chi=512 centre matvec.  Returns the phase's kernel launches and
+    the kernel's measurement."""
+    import shutil
+    import tempfile
+    import warnings
+    from tenpy_tpu_torch.algorithms.dmrg import TwoSiteDMRGEngine
+    from tenpy_tpu_torch.simulations import simulation as sim_mod
+    from tenpy_tpu_torch.tools import io as tio
+    try:
+        import yaml  # noqa: F401
+        has_yaml = True
+    except ImportError:
+        has_yaml = False
+    try:
+        import h5py  # noqa: F401
+        has_h5py = True
+    except ImportError:
+        has_h5py = False
+    log(f"[10] PyYAML imports: {has_yaml}; h5py imports: {has_h5py}; "
+        f"DEVICE_LANCZOS_THRESHOLD = {mc.DEVICE_LANCZOS_THRESHOLD}")
+    if not has_yaml:
+        log("console_main not driven: no yaml")
+    else:
+        from tenpy_tpu_torch.tools.params import load_yaml_with_py_eval
+        for path, params, over in (
+                (SIM_MINIMAL_YML, SIM_MINIMAL_PARAMS, []),
+                (SIM_SEQ_YML, SIM_SEQ_PARAMS, SIM_SEQ_OVERRIDES)):
+            check(sim_params(load_yaml_with_py_eval(path), over) == params,
+                  f"the smoke's copy of {path} differs from the file")
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_sim_')
+    log_o = f'log_params={SIM_LOG!r}'
+    n_td, restore = counted_contract()
+    warnings.filterwarnings('ignore', message='unused options')
+    try:
+        with HostDMRGProbe(n_td) as probe, SimulationProbe(probe) as sp:
+            # 10a: the repo's file as users have it, on the CPU, then on
+            # the card (the kernel's count starts here)
+            over = [log_o, f"output_filename={os.path.join(tmp, 'cpu.pkl')}",
+                    'device=cpu']
+            run_sim_file(has_yaml, SIM_MINIMAL_YML, SIM_MINIMAL_PARAMS, over)
+            gg.LAUNCHES = 0
+            over = [log_o, f"output_filename={os.path.join(tmp, 'card.pkl')}"]
+            run_sim_file(has_yaml, SIM_MINIMAL_YML, SIM_MINIMAL_PARAMS, over)
+            a_cpu, a_card = [sp.stage_stats(st) for st in sp.stages]
+            # 10b: the sequential ramp to chi=512
+            prefix = os.path.join(tmp, 'results_sequential')
+            over = SIM_SEQ_OVERRIDES + [
+                log_o, f'output_filename_params.prefix={prefix}']
+            run_sim_file(has_yaml, SIM_SEQ_YML, SIM_SEQ_PARAMS, over)
+            b_stages = [sp.stage_stats(st) for st in sp.stages[2:]]
+            final_stage = sp.stages[-1]
+            final = final_stage['sim']
+            # 10c: the last stage's file resumed for two more sweeps
+            files = [f"{prefix}_chi_{chi:04d}.pkl" for chi in SIM_SEQ_CHIS]
+            loaded = [tio.load(fn) for fn in files]
+            sweeps = int(loaded[-1]['resume_data']['sweeps'])
+            t0 = time.time()
+            res = sim_mod.resume_from_checkpoint(
+                filename=files[-1], update_sim_params={
+                    'algorithm_params.max_sweeps': sweeps + SIM_RESUME_SWEEPS})
+            resume_s = time.time() - t0
+            c_stage = sp.stage_stats(sp.stages[-1])
+            launches, tensordots = gg.LAUNCHES, n_td[0]
+    finally:
+        restore()
+        warnings.filterwarnings('default', message='unused options')
+
+    # 10a
+    log_stage('a', 'minimal_DMRG.yml, device=cpu', a_cpu)
+    log_stage('a', 'minimal_DMRG.yml, the card', a_card)
+    e_rel = abs(a_card['energy'] - a_cpu['energy']) / abs(a_cpu['energy'])
+    log(f"[10a] card E {a_card['energy']!r}, CPU E {a_cpu['energy']!r}: rel "
+        f"{e_rel:.2e} (tolerance {SIM_CPU_REL:.0e}); wall card "
+        f"{a_card['wall']:.2f} s, CPU {a_cpu['wall']:.2f} s")
+    check(e_rel <= SIM_CPU_REL, "the card's run differs from the CPU run")
+    check(a_cpu['device'] == 0 and a_cpu['launches'] == 0,
+          "the CPU run used the card")
+    check(a_card['device'] > 0 and a_card['device'] == a_card['above'],
+          "the card run's updates from the threshold up did not all go to "
+          "the card")
+    # 10b
+    L = SIM_SEQ_PARAMS['model_params']['L']
+    E_exact = e0_xx_finite(L, 1.)
+    for chi, s in zip(SIM_SEQ_CHIS, b_stages):
+        log_stage('b', f'stage chi={chi}', s)
+    for s in [a_card] + b_stages + [c_stage]:
+        check(s['launches'] == 4 * s['steps'],
+              "kernel launches differ from 4 x the device Lanczos steps")
+        check(s['device'] == s['above'] and s['device'] > 0,
+              "a stage's updates from the threshold up did not all go to "
+              "the card")
+    E = b_stages[-1]['energy']
+    rel = abs(E - E_exact) / abs(E_exact)
+    psi = final.psi
+    norm = float(np.max(psi.norm_test()))
+    cl = final_stage['cleanup']
+    sz = float(np.sum(np.real(np.asarray(psi.expectation_value('Sz')))))
+    log(f"[10b] final E {E!r}, free fermions {E_exact!r}: rel {rel:.2e} "
+        f"(tolerance {SIM_E_REL:.0e}); norm_test {cl['norm_before']:.2e} "
+        f"after the sweeps, {norm:.2e} after the end-of-run cleanup "
+        f"(norm_tol {cl['norm_tol']:.0e}, canonicalized: "
+        f"{cl['canonicalized']}); total Sz {sz:+.2e}; chi {max(psi.chi)}; "
+        f"card {smi}")
+    check(rel <= SIM_E_REL, "the sequential run missed the free-fermion "
+          "energy")
+    check(cl['norm_before'] <= SIM_NORM_TOL and norm <= SIM_NORM_TOL,
+          "the final state is not canonical")
+    check(abs(sz) <= 1e-10, "total Sz is not 0")
+    # 10c
+    for chi, data, s in zip(SIM_SEQ_CHIS, loaded, b_stages):
+        meas = data['measurements']
+        check(isinstance(data['psi'], MPS) and all(
+            b.device.type == 'cpu' for B in data['psi']._B
+            for b in B._data), "the saved psi is not a host MPS")
+        check(all(k in meas for k in ('max_chi', 'entropy', 'energy_MPO'))
+              and data['finished_run'] and 'resume_data' in data
+              and data['energy'] == s['energy'],
+              "a stage's file lacks its results")
+        check(meas['max_chi'][-1] == chi, f"stage chi={chi}: max_chi "
+              f"{meas['max_chi'][-1]}")
+    E_res = res['energy']
+    r_rel = abs(E_res - E) / abs(E)
+    log(f"[10c] {len(files)} stage files loaded (psi, measurements, "
+        f"energy, resume_data); max_chi per stage "
+        f"{[d['measurements']['max_chi'][-1] for d in loaded]}; resumed "
+        f"from sweep count {sweeps} with max_sweeps {sweeps + 2}: "
+        f"{resume_s:.2f} s, E {E_res!r}, rel to the loaded {r_rel:.2e} "
+        f"(tolerance {SIM_RESUME_REL:.0e})")
+    log_stage('c', 'resume', c_stage)
+    check(r_rel <= SIM_RESUME_REL, "the resumed run moved the energy")
+    if has_h5py:
+        fn = os.path.join(tmp, 'final.h5')
+        t0 = time.time()
+        tio.save(loaded[-1], fn)
+        back = tio.load(fn)
+        h5_s = time.time() - t0
+        ov = abs(complex(back['psi'].overlap(loaded[-1]['psi'])))
+        log(f"[10c] final results as .h5: {os.path.getsize(fn) / 2**20:.1f}"
+            f" MiB, save and load {h5_s:.2f} s; |overlap| - 1 {ov - 1:.1e}")
+        check(back['energy'] == loaded[-1]['energy'] and abs(ov - 1) < 1e-12,
+              "the .h5 results differ")
+    log(f"[10] phase launches {launches} (tensordots {tensordots})")
+    check(launches == tensordots, "launches differ from the tensordots run")
+
+    # the kernel on the chi=512 centre matvec of the final state
+    eng = TwoSiteDMRGEngine(final.psi, final.model,
+                            {'trunc_params': {'chi_max': 512},
+                             'lanczos_params': {'device_K': 2}},
+                            device='cuda')
+    eng.i0, eng.move_right = L // 2 - 1, True
+    theta = eng.prepare_update_local()
+    eng._diag_device_lanczos(theta)
+    LPp, RPp, W0p, W1p = eng.eff_H._device_packed
+    theta_p = pk.pack(theta, multiple=mc.BUCKET_MULTIPLE,
+                      pad_labels=('vL', 'vR', 'vL*', 'vR*'), device='cuda')
+    _, calls = recorded_calls(lambda: _matvec_2site_packed(
+        LPp, RPp, W0p, W1p, theta_p))
+    check(len(calls) == 4, "the centre matvec is not four tensordots")
+    tot = measure_contractions(calls, MATVEC_STEPS, 10)
+    shutil.rmtree(tmp, ignore_errors=True)
     return launches, tot
 
 
@@ -1693,12 +2114,13 @@ def main():
     phase_tebd_jax_case()
     tmv = phase_tebd_kernel(tebd_eng)
     h_launches, hmv = phase_host_dmrg(smi)
-    log(f"[10] kernel max_abs_err: synthetic f64 "
+    s_launches, smv = phase_simulation(smi)
+    log(f"[11] kernel max_abs_err: synthetic f64 "
         f"{max_abs_synth[torch.float64]:.2e}, complex128 "
         f"{max_abs_synth[torch.complex128]:.2e}; main-path shapes f64 "
         f"{mv['max_abs']:.2e}, complex128 {zmv['max_abs']:.2e}, TEBD "
         f"complex128 {tmv['max_abs']:.2e}, host DMRG f64 "
-        f"{hmv['max_abs']:.2e}")
+        f"{hmv['max_abs']:.2e}, simulation f64 {smv['max_abs']:.2e}")
 
     def entry(name, n, m):
         return {'name': name, 'route': 'cuda',
@@ -1716,9 +2138,10 @@ def main():
         entry('packed_contract', launches, mv),
         entry('packed_contract_complex128', z_launches, zmv),
         entry('packed_contract_complex128_tebd', t_launches, tmv),
-        entry('packed_contract_host_dmrg', h_launches, hmv)]}),
+        entry('packed_contract_host_dmrg', h_launches, hmv),
+        entry('packed_contract_simulation', s_launches, smv)]}),
         flush=True)
-    log(f"[10] chip_smoke wall {time.time() - t_start:.1f} s")
+    log(f"[11] chip_smoke wall {time.time() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

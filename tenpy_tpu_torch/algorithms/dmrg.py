@@ -13,12 +13,14 @@ environments and the local updates live on the host as
 ``'cuda'``, which raises where PyTorch sees no card) says where the two-site
 eigensolve runs when the engine sends it to the packed Lanczos
 (:meth:`DMRGEngine._use_device_lanczos`: forced by
-``lanczos_params['device_K'] > 0``, else above
-``DEVICE_LANCZOS_THRESHOLD`` once the ``chi_list`` ramp is done, and never
-on the CPU by default).  There the environments, W tensors and guess are
-packed onto the device, each matvec is four launches of the hand-written
-kernel (:func:`~tenpy_tpu_torch.linalg.grouped_gemm.packed_contract`), and
-the ground state comes back to the host.  A failure there raises; the
+``lanczos_params['device_K'] > 0``, disabled by 0, else from
+``DEVICE_LANCZOS_THRESHOLD`` = 256 up, the card's crossover against the
+host Lanczos measured on an H100 by ``chip_smoke.py`` phase 9, ``chi_list``
+ramp included; never on the CPU by default).  There the environments, W
+tensors and guess are packed onto the device, each matvec is four launches
+of the hand-written kernel
+(:func:`~tenpy_tpu_torch.linalg.grouped_gemm.packed_contract`), and the
+ground state comes back to the host.  A failure there raises; the
 engine never retries on the host Lanczos.
 """
 
@@ -385,8 +387,10 @@ class DMRGEngine(IterativeSweeps):
         ``lanczos_params['device_K']``: 0 disables, > 0 forces (with that
         many steps at most).  Otherwise: only for a plain :class:`TwoSiteH`
         (no ``combine``, no ``orthogonal_to``), never with the engine on
-        the CPU, only from ``DEVICE_LANCZOS_THRESHOLD`` up, and not during
-        the ``chi_list`` ramp (every sweep there has new structures)."""
+        the CPU, and from ``DEVICE_LANCZOS_THRESHOLD`` up, during a
+        ``chi_list`` ramp too: the threshold is the card's crossover with
+        the first call's packing and plan builds included, so new
+        structures do not change the choice."""
         if self.ortho_to_envs:
             return False
         eff = self.eff_H
@@ -399,12 +403,7 @@ class DMRGEngine(IterativeSweeps):
             return True
         if self.device.type == 'cpu':
             return False
-        if eff.N < mps_common.DEVICE_LANCZOS_THRESHOLD:
-            return False
-        if self.chi_list is not None:
-            if self.sweeps < max(self.chi_list.keys()) + 1:
-                return False
-        return True
+        return eff.N >= mps_common.DEVICE_LANCZOS_THRESHOLD
 
     def _diag_device_lanczos(self, theta_guess):
         """The packed Lanczos of this update on ``self.device``.

@@ -24,8 +24,9 @@ copy.  The early-exit loop reads one scalar pair per iteration from the
 device.  A complex Hamiltonian or guess runs the same loop on complex128
 vectors: alpha = Re<v|Hv> and beta = |w| are real, so the tridiagonal
 problem stays real.  ``DEVICE_LANCZOS_THRESHOLD`` is the size of the
-effective problem above which :class:`~tenpy_tpu_torch.algorithms.dmrg.
-DMRGEngine` sends a two-site update there by default.
+effective problem from which :class:`~tenpy_tpu_torch.algorithms.dmrg.
+DMRGEngine` sends a two-site update there by default: the card's own
+crossover against the host Lanczos, not ``tenpy_tpu``'s TPU value.
 """
 
 from __future__ import annotations
@@ -60,10 +61,15 @@ __all__ = ['BUCKET_MULTIPLE', 'DEVICE_LANCZOS_THRESHOLD',
 # same layouts.
 BUCKET_MULTIPLE = 64
 # The size N of a two-site effective problem from which the DMRG engines
-# send its eigensolve to the packed Lanczos by default: tenpy_tpu's value,
-# chosen for the TPU's compile per block structure (the card compiles
-# nothing per structure; lanczos_params['device_K'] forces the route).
-DEVICE_LANCZOS_THRESHOLD = 1 << 20
+# send its eigensolve to the packed Lanczos on a CUDA device by default: the
+# card's crossover, measured by chip_smoke.py phase 9 on an H100 80GB HBM3
+# at 700 W (PERF.md): 10 Lanczos steps, the card's first call (packing and
+# plan builds included) against the host Lanczos on the same effective H of
+# the chi=512 XX chain.  The card won in every run from N=256 up (0.52-0.91x
+# the host's time at N=256; at N=64 it lost a cold first call, 1.62x); below
+# N=64 the engines take ED_block anyway.  lanczos_params['device_K'] forces
+# (> 0) or disables (0) the route.
+DEVICE_LANCZOS_THRESHOLD = 256
 
 
 def _matvec_2site_plain_impl(LP, RP, W0, W1, theta):

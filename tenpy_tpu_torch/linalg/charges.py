@@ -1,9 +1,11 @@
 r"""Abelian charge bookkeeping: :class:`ChargeInfo`, :class:`LegCharge`,
 :class:`LegPipe`.
 
-Port of ``tenpy_tpu/linalg/charges.py`` without its HDF5 and dipole parts.
+Port of ``tenpy_tpu/linalg/charges.py`` without its dipole part.
 Every class is immutable and hashable: the packed tensordot and the split
-cache their host-side plans on leg structures.
+cache their host-side plans on leg structures.  ``save_hdf5``/``from_hdf5``
+write and read the reference library's HDF5 layout
+(:mod:`~tenpy_tpu_torch.tools.io`).
 
 Conventions (as in ``tenpy_tpu``):
 
@@ -84,6 +86,22 @@ class ChargeInfo:
 
     def __repr__(self):
         return f"ChargeInfo({list(self.mod)}, {list(self.names)})"
+
+    def save_hdf5(self, hdf5_saver, h5gr, subpath):
+        """The reference layout: ``mod`` as dataset ``'U1_ZN'``,
+        ``names``, attribute ``num_charges``."""
+        h5gr.attrs['num_charges'] = self.qnumber
+        hdf5_saver.save(np.array(self.mod, QTYPE), subpath + 'U1_ZN')
+        hdf5_saver.save(list(self.names), subpath + 'names')
+
+    @classmethod
+    def from_hdf5(cls, hdf5_loader, h5gr, subpath):
+        qmod = np.asarray(hdf5_loader.load(subpath + 'U1_ZN'), QTYPE)
+        names = hdf5_loader.load(subpath + 'names') if 'names' in h5gr \
+            else None
+        obj = cls(tuple(int(m) for m in qmod), names)
+        hdf5_loader.memorize_load(h5gr, obj)
+        return obj
 
 
 class LegCharge:
@@ -275,6 +293,41 @@ class LegCharge:
         return (f"LegCharge(qconj={self.qconj:+d}, len={self.ind_len}, "
                 f"sectors={self.block_number})")
 
+    def save_hdf5(self, hdf5_saver, h5gr, subpath):
+        """The reference ``'blocks'`` layout: datasets ``slices`` and
+        ``charges``, child ``chinfo``, attributes ``format``, ``ind_len``,
+        ``qconj``, ``block_number``, ``sorted``, ``bunched``."""
+        h5gr.attrs['format'] = 'blocks'
+        h5gr.attrs['ind_len'] = self.ind_len
+        h5gr.attrs['qconj'] = self.qconj
+        h5gr.attrs['block_number'] = self.block_number
+        h5gr.attrs['sorted'] = bool(self.sorted)
+        h5gr.attrs['bunched'] = bool(self.bunched)
+        hdf5_saver.save(self.chinfo, subpath + 'chinfo')
+        hdf5_saver.save(np.asarray(self.slices), subpath + 'slices')
+        hdf5_saver.save(np.asarray(self.charges), subpath + 'charges')
+
+    @classmethod
+    def from_hdf5(cls, hdf5_loader, h5gr, subpath):
+        """Reads the ``'blocks'``, ``'compact'`` and ``'flat'`` layouts."""
+        fmt = hdf5_loader.get_attr(h5gr, 'format')
+        qconj = int(hdf5_loader.get_attr(h5gr, 'qconj'))
+        chinfo = hdf5_loader.load(subpath + 'chinfo')
+        if fmt == 'blocks':
+            obj = cls(chinfo, hdf5_loader.load(subpath + 'slices'),
+                      hdf5_loader.load(subpath + 'charges'), qconj)
+        elif fmt == 'compact':
+            bc = np.asarray(hdf5_loader.load(subpath + 'blockcharges'))
+            obj = cls(chinfo, np.concatenate([bc[:, 0], bc[-1:, 1]]),
+                      np.asarray(bc[:, 2:], QTYPE), qconj)
+        elif fmt == 'flat':
+            obj = cls.from_qflat(chinfo, np.asarray(
+                hdf5_loader.load(subpath + 'charges')), qconj)
+        else:
+            raise ValueError(f"unknown LegCharge hdf5 format {fmt!r}")
+        hdf5_loader.memorize_load(h5gr, obj)
+        return obj
+
 
 class LegPipe(LegCharge):
     """A :class:`LegCharge` made by fusing several legs into one.
@@ -354,6 +407,18 @@ class LegPipe(LegCharge):
     @property
     def nlegs(self):
         return len(self.legs)
+
+    def save_hdf5(self, hdf5_saver, h5gr, subpath):
+        """The :class:`LegCharge` layout and the constituent ``legs``."""
+        LegCharge.save_hdf5(self, hdf5_saver, h5gr, subpath)
+        hdf5_saver.save(list(self.legs), subpath + 'legs')
+
+    @classmethod
+    def from_hdf5(cls, hdf5_loader, h5gr, subpath):
+        qconj = int(hdf5_loader.get_attr(h5gr, 'qconj'))
+        obj = cls(hdf5_loader.load(subpath + 'legs'), qconj)
+        hdf5_loader.memorize_load(h5gr, obj)
+        return obj
 
     def conj(self):
         """Flip qconj of the pipe and of every constituent leg."""

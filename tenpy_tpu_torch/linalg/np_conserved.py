@@ -52,6 +52,11 @@ def as_dtype(dtype):
     return _NP_TO_TORCH[np.dtype(dtype)]
 
 
+def _numpy_dtype(dtype):
+    """The numpy dtype of a torch dtype."""
+    return torch.empty(0, dtype=dtype).numpy().dtype
+
+
 def result_type(*dtypes):
     """Promoted torch dtype of several dtypes (any form :func:`as_dtype`
     takes)."""
@@ -315,6 +320,44 @@ class Array:
 
     def to_numpy(self):
         return self.to_ndarray().numpy()
+
+    # ------------------------------------------------------------------ hdf5
+    def save_hdf5(self, hdf5_saver, h5gr, subpath):
+        """The reference layout: children ``chinfo``, ``legs``, ``dtype``,
+        ``total_charge``, ``labels``, ``blocks`` (numpy arrays) and
+        ``block_inds``; attributes ``block_inds_sorted``, ``rank``,
+        ``shape``."""
+        hdf5_saver.save(self.chinfo, subpath + 'chinfo')
+        hdf5_saver.save(list(self.legs), subpath + 'legs')
+        hdf5_saver.save(_numpy_dtype(self.dtype), subpath + 'dtype')
+        hdf5_saver.save(np.array(self.qtotal, QTYPE), subpath + 'total_charge')
+        hdf5_saver.save(list(self._labels), subpath + 'labels')
+        hdf5_saver.save([b.detach().cpu().resolve_conj().numpy()
+                         for b in self._data], subpath + 'blocks')
+        hdf5_saver.save(np.asarray(self._qdata), subpath + 'block_inds')
+        h5gr.attrs['block_inds_sorted'] = True
+        h5gr.attrs['rank'] = self.rank
+        h5gr.attrs['shape'] = np.array(self.shape, np.intp)
+
+    @classmethod
+    def from_hdf5(cls, hdf5_loader, h5gr, subpath):
+        """The blocks come back as CPU torch tensors."""
+        obj = cls.__new__(cls)
+        hdf5_loader.memorize_load(h5gr, obj)
+        legs = tuple(hdf5_loader.load(subpath + 'legs'))
+        dtype = hdf5_loader.load(subpath + 'dtype')
+        qtotal = hdf5_loader.load(subpath + 'total_charge')
+        labels = hdf5_loader.load(subpath + 'labels')
+        blocks = hdf5_loader.load(subpath + 'blocks')
+        qdata = np.asarray(hdf5_loader.load(subpath + 'block_inds'), QTYPE)
+        obj.legs = legs
+        obj.dtype = as_dtype(np.dtype(dtype))
+        obj.qtotal = tuple(int(q) for q in legs[0].chinfo.make_valid(qtotal))
+        obj._labels = tuple(labels)
+        obj._set_blocks(qdata.reshape(len(blocks), len(legs)),
+                        [torch.from_numpy(np.array(b)).to(obj.dtype)
+                         for b in blocks])
+        return obj
 
     def test_sanity(self):
         assert len(self._data) == len(self._qdata)

@@ -16,6 +16,7 @@ import copy
 import numpy as np
 
 from .lattice import Lattice, get_lattice, Chain
+from ..linalg import np_conserved as npc
 from ..networks import mpo
 from ..networks.terms import OnsiteTerms, CouplingTerms, order_combine_term
 from ..tools.misc import to_array
@@ -41,6 +42,25 @@ class NearestNeighborModel(Model):
     def __init__(self, lattice, H_bond):
         Model.__init__(self, lattice)
         self.H_bond = list(H_bond)
+
+    def bond_energies(self, psi):
+        """``<psi|H_bond[i]|psi>`` per bond (the L-1 inner bonds for
+        finite bc, all L for infinite bc)."""
+        E = []
+        L = psi.L
+        for i in (range(1, L) if psi.finite else range(L)):
+            h = self.H_bond[i % L]
+            if h is None:
+                E.append(0.)
+                continue
+            theta = psi.get_theta(i - 1, 2)
+            h_th = npc.tensordot(h, theta, axes=[['p0*', 'p1*'],
+                                                 ['p0', 'p1']])
+            val = npc.tensordot(theta.conj(), h_th,
+                                axes=[['vL*', 'p0*', 'p1*', 'vR*'],
+                                      ['vL', 'p0', 'p1', 'vR']])
+            E.append(float(np.real(complex(val))))
+        return np.array(E)
 
 
 class MPOModel(Model):

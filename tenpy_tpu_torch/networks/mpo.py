@@ -66,6 +66,36 @@ class MPO:
             raise ValueError(f"invalid bc {bc!r}")
         self.test_sanity()
 
+    def save_hdf5(self, hdf5_saver, h5gr, subpath):
+        """The reference layout (the port groups no sites: ``grouped``
+        1)."""
+        hdf5_saver.save(self.sites, subpath + 'sites')
+        hdf5_saver.save(self.chinfo, subpath + 'chinfo')
+        hdf5_saver.save(self._W, subpath + 'tensors')
+        hdf5_saver.save(list(self.IdL), subpath + 'index_identity_left')
+        hdf5_saver.save(list(self.IdR), subpath + 'index_identity_right')
+        hdf5_saver.save(self.bc, subpath + 'boundary_condition')
+        hdf5_saver.save(self.max_range, subpath + 'max_range')
+        h5gr.attrs['grouped'] = 1
+        h5gr.attrs['explicit_plus_hc'] = self.explicit_plus_hc
+        h5gr.attrs['L'] = self.L
+
+    @classmethod
+    def from_hdf5(cls, hdf5_loader, h5gr, subpath):
+        obj = cls.__new__(cls)
+        hdf5_loader.memorize_load(h5gr, obj)
+        obj.sites = list(hdf5_loader.load(subpath + 'sites'))
+        obj.chinfo = hdf5_loader.load(subpath + 'chinfo')
+        obj._W = list(hdf5_loader.load(subpath + 'tensors'))
+        obj.IdL = list(hdf5_loader.load(subpath + 'index_identity_left'))
+        obj.IdR = list(hdf5_loader.load(subpath + 'index_identity_right'))
+        obj.bc = hdf5_loader.load(subpath + 'boundary_condition')
+        obj.max_range = hdf5_loader.load(subpath + 'max_range')
+        obj.explicit_plus_hc = bool(h5gr.attrs.get('explicit_plus_hc',
+                                                   False))
+        obj.dtype = npc.result_type(*[W.dtype for W in obj._W])
+        return obj
+
     @staticmethod
     def _get_Id(Id, L):
         if Id is None:

@@ -43,7 +43,8 @@ from ..tools.params import asConfig
 
 logger = logging.getLogger(__name__)
 
-__all__ = ['MPS', 'BaseEnvironment', 'MPSEnvironment', 'TransferMatrix']
+__all__ = ['MPS', 'BaseEnvironment', 'MPSEnvironment', 'TransferMatrix',
+           'InitialStateBuilder', 'build_initial_state']
 
 
 class MPS:
@@ -137,6 +138,45 @@ class MPS:
         for B in self._B:
             assert set(B.get_leg_labels()) >= {'vL', 'p', 'vR'}
 
+    def save_hdf5(self, hdf5_saver, h5gr, subpath):
+        """The reference layout: children ``sites``, ``tensors``,
+        ``singular_values``, ``boundary_condition``, ``canonical_form``,
+        ``chinfo``, ``segment_boundaries``; attributes ``norm``,
+        ``grouped``, ``transfermatrix_keep``, ``L`` (the port groups no
+        sites and keeps one transfer-matrix eigenvector: 1 and 1)."""
+        hdf5_saver.save(self.sites, subpath + 'sites')
+        hdf5_saver.save(self._B, subpath + 'tensors')
+        hdf5_saver.save(list(self._S), subpath + 'singular_values')
+        hdf5_saver.save(self.bc, subpath + 'boundary_condition')
+        hdf5_saver.save([None if f is None else list(f) for f in self.form],
+                        subpath + 'canonical_form')
+        hdf5_saver.save(self.chinfo, subpath + 'chinfo')
+        hdf5_saver.save((None, None), subpath + 'segment_boundaries')
+        h5gr.attrs['norm'] = self.norm
+        h5gr.attrs['grouped'] = 1
+        h5gr.attrs['transfermatrix_keep'] = 1
+        h5gr.attrs['L'] = self.L
+
+    @classmethod
+    def from_hdf5(cls, hdf5_loader, h5gr, subpath):
+        obj = cls.__new__(cls)
+        hdf5_loader.memorize_load(h5gr, obj)
+        obj.sites = list(hdf5_loader.load(subpath + 'sites'))
+        obj._B = list(hdf5_loader.load(subpath + 'tensors'))
+        obj._S = [np.asarray(S) if not isinstance(S, npc.Array) else S
+                  for S in hdf5_loader.load(subpath + 'singular_values')]
+        obj.bc = hdf5_loader.load(subpath + 'boundary_condition')
+        obj.form = [None if f is None else tuple(f) for f in
+                    hdf5_loader.load(subpath + 'canonical_form')]
+        obj.chinfo = hdf5_loader.load(subpath + 'chinfo')
+        obj.norm = float(hdf5_loader.get_attr(h5gr, 'norm'))
+        grouped = int(h5gr.attrs.get('grouped', 1))
+        if grouped != 1:
+            raise NotImplementedError(f"an MPS of grouped sites "
+                                      f"({grouped}) is not supported")
+        obj.dtype = npc.result_type(*[B.dtype for B in obj._B])
+        return obj
+
     def __repr__(self):
         return (f"<MPS L={self.L} bc={self.bc!r} max_chi="
                 f"{max(self.chi) if self.chi else 1}>")
@@ -193,6 +233,101 @@ class MPS:
             qL = np.array(qR, np.int64)
             legL = legR.conj()
         return cls(sites, Bs, SVs, bc=bc, form=form)
+
+    @classmethod
+    def from_lat_product_state(cls, lat, p_state, allow_incommensurate=False,
+                               **kwargs):
+        """Product state given in lattice order: ``p_state`` indexed like
+        the lattice's ``shape`` (each axis tiled periodically), entries as
+        in :meth:`from_product_state` (with one more axis for local
+        vectors)."""
+        from ..tools.misc import to_array
+        p_state = np.array(p_state, dtype=object)
+        shape = list(lat.shape)
+        if p_state.ndim == len(shape):
+            p_state = to_array(p_state, shape,
+                               allow_incommensurate=allow_incommensurate)
+            flat = [p_state[tuple(idx)] for idx in lat.order]
+        elif p_state.ndim == len(shape) + 1:
+            p_state = to_array(p_state, shape + [None],
+                               allow_incommensurate=allow_incommensurate)
+            flat = [np.array(p_state[tuple(idx)], float)
+                    for idx in lat.order]
+        else:
+            raise ValueError("wrong dimension of p_state")
+        return cls.from_product_state(lat.mps_sites(), flat, bc=lat.bc_MPS,
+                                      **kwargs)
+
+    @classmethod
+    def from_desired_bond_dimension(cls, sites, chi, bc='finite', seed=0,
+                                    dtype=np.float64, p_state=None,
+                                    n_sweeps=4):
+        """A random charge-conserving MPS of bond dimension up to ``chi``:
+        the product state ``p_state`` (default: basis state ``i % dim`` on
+        site ``i``) after ``n_sweeps`` sweeps of random two-site gates
+        (orthogonal for a real ``dtype``, else unitary), each truncated
+        to ``chi``; canonical.  ``tenpy_tpu`` builds its state the same
+        way from its own random numbers, so the two packages' states
+        differ."""
+        sites = list(sites)
+        chi = int(chi) if np.isscalar(chi) else int(max(chi))
+        if p_state is None:
+            p_state = [i % s.dim for i, s in enumerate(sites)]
+        psi = cls.from_product_state(sites, p_state, bc=bc, dtype=dtype)
+        psi._random_gate_sweeps(n_sweeps, {'chi_max': chi, 'svd_min': 1e-14,
+                                           'trunc_cut': None},
+                                np.random.default_rng(seed), 1.)
+        psi.canonical_form()
+        return psi
+
+    def perturb(self, randomize_params=None, close_1=True,
+                canonicalize=True):
+        """Apply random two-site gates, in place: ``N_steps`` (1) sweeps,
+        each gate close to the identity with ``close_1`` (``exp(0.1 i
+        H)``, H random), else fully random; truncated by
+        ``randomize_params['trunc_params']``; ``seed`` (None: a fresh
+        generator).  Used by the ``'randomized'`` initial state."""
+        options = asConfig(randomize_params or {}, 'randomize')
+        n_steps = options.get('N_steps', 1, int)
+        close_1 = options.get('close_1', close_1)
+        seed = options.get('seed', None)
+        trunc = options.subconfig('trunc_params')
+        trunc.setdefault('chi_max', 100)
+        trunc.setdefault('svd_min', 1e-14)
+        self._random_gate_sweeps(n_steps, trunc,
+                                 np.random.default_rng(seed),
+                                 0.1 if close_1 else 1.)
+        if canonicalize:
+            self.canonical_form()
+        return self
+
+    def _random_gate_sweeps(self, n_sweeps, trunc_par, rng, a):
+        """``n_sweeps`` sweeps of random charge-conserving two-site gates
+        ``exp(a X)``, X antisymmetric (a real state) or anti-hermitian,
+        each followed by a truncated SVD as in :meth:`compress_svd`."""
+        real = not self.dtype.is_complex
+        for _ in range(n_sweeps):
+            for i in range(self.L - 1 if self.finite else self.L):
+                theta = self.get_theta(i, 2)
+                U = _random_gate(theta.get_leg('p0'), theta.get_leg('p1'),
+                                 rng, a, real)
+                theta = npc.tensordot(U, theta, axes=[['p0*', 'p1*'],
+                                                      ['p0', 'p1']])
+                theta = theta.itranspose(['vL', 'p0', 'p1', 'vR'])
+                theta = theta.combine_legs([['vL', 'p0'], ['p1', 'vR']],
+                                           qconj=[+1, -1])
+                Ut, S, VH, _, _ = svd_theta(theta, trunc_par)
+                A_L = Ut.split_legs([0]).ireplace_label('p0', 'p')
+                B_R = VH.split_legs([1]).ireplace_label('p1', 'p')
+                self.set_SR(i, S)
+                self.set_B(i + 1, B_R, 'B')
+                if self.finite:
+                    self.set_B(i, A_L, 'A')
+                else:
+                    B_L = A_L.iscale_axis(self._scale_S(self.get_SL(i), -1.),
+                                          'vL')
+                    self.set_B(i, B_L.iscale_axis(S, 'vR'), 'B')
+        return self
 
     # --------------------------------------------------------------- tensors
     def get_B(self, i, form='B', copy=False, cutoff=1e-16, label_p=None):
@@ -1227,3 +1362,114 @@ def _cf_orthogonalize(Ms, X, tol, p_label, left, arnoldi_params=None,
 class _GaugePlateauError(RuntimeError):
     """The QR gauge iteration plateaued (degenerate or near-critical
     transfer matrix)."""
+
+
+def _random_gate(leg0, leg1, rng, a, real):
+    """A random two-site gate ``exp(a X)`` on the legs ``p0, p1`` that
+    conserves their charges: X is antisymmetric (``real``) or
+    anti-hermitian with normal entries within each charge sector of the
+    pair.  Legs ``p0, p1, p0*, p1*``."""
+    import scipy.linalg
+    d0, d1 = leg0.ind_len, leg1.ind_len
+    chinfo = leg0.chinfo
+    q = (leg0.to_qflat()[:, None, :] * leg0.qconj
+         + leg1.to_qflat()[None, :, :] * leg1.qconj).reshape(
+             d0 * d1, chinfo.qnumber)
+    q = chinfo.make_valid(q)
+    U = np.zeros((d0 * d1, d0 * d1), np.float64 if real else np.complex128)
+    for qs in np.unique(q, axis=0):
+        idx = np.nonzero(np.all(q == qs, axis=1))[0]
+        n = len(idx)
+        X = rng.standard_normal((n, n))
+        if not real:
+            X = X + 1j * rng.standard_normal((n, n))
+        X = (X - X.conj().T) * 0.5
+        U[np.ix_(idx, idx)] = scipy.linalg.expm(a * X)
+    # zero outside the sectors by construction (the check's roundoff
+    # would warn)
+    return npc.Array.from_ndarray(U.reshape(d0, d1, d0, d1),
+                                  [leg0, leg1, leg0.conj(), leg1.conj()],
+                                  labels=['p0', 'p1', 'p0*', 'p1*'],
+                                  warn_wrong_sector=False)
+
+
+class InitialStateBuilder:
+    """The initial MPS of a simulation, from options.
+
+    Options: ``method``, one of 'lat_product_state' (``product_state`` in
+    lattice order, ``allow_incommensurate``), 'mps_product_state'
+    (``product_state`` in MPS order), 'randomized' (the state of
+    ``randomized_from_method`` perturbed by ``randomize_params``,
+    ``randomize_close_1``), 'desired_bond_dimension' (``chi``) and
+    'from_file' (``filename``, ``data_key`` 'psi': a result file of this
+    package, or an HDF5 file of the JAX package or the reference
+    library)."""
+
+    def __init__(self, lattice, options, model_dtype=np.float64):
+        self.lattice = lattice
+        self.options = asConfig(options, 'InitialStateBuilder')
+        self.model_dtype = model_dtype
+
+    def run(self):
+        method_name = self.options.get('method', 'lat_product_state', str)
+        method = getattr(self, method_name, None)
+        if method is None or method_name.startswith('_') or \
+                method_name in ('run', 'check_total_charge'):
+            raise ValueError(f"unknown InitialStateBuilder method "
+                             f"{method_name!r}")
+        psi = method()
+        self.check_total_charge(psi)
+        return psi
+
+    def check_total_charge(self, psi):
+        psi.test_sanity()
+        return True
+
+    def lat_product_state(self, p_state=None):
+        if p_state is None:
+            p_state = self.options['product_state']
+        allow = self.options.get('allow_incommensurate', False)
+        return MPS.from_lat_product_state(self.lattice, p_state,
+                                          allow_incommensurate=allow,
+                                          dtype=self.model_dtype)
+
+    def mps_product_state(self, p_state=None):
+        if p_state is None:
+            p_state = self.options['product_state']
+        return MPS.from_product_state(self.lattice.mps_sites(), p_state,
+                                      bc=self.lattice.bc_MPS,
+                                      dtype=self.model_dtype)
+
+    def randomized(self):
+        method = self.options.get('randomized_from_method',
+                                  'lat_product_state', str)
+        psi = getattr(self, method)()
+        randomize_params = self.options.subconfig('randomize_params')
+        close_1 = self.options.get('randomize_close_1', False)
+        psi.perturb(randomize_params, close_1=close_1)
+        return psi
+
+    def desired_bond_dimension(self):
+        return MPS.from_desired_bond_dimension(
+            self.lattice.mps_sites(), self.options['chi'],
+            bc=self.lattice.bc_MPS, dtype=self.model_dtype)
+
+    def from_file(self):
+        from ..tools.io import load
+        data = load(self.options['filename'])
+        data_key = self.options.get('data_key', 'psi', str)
+        return data[data_key] if isinstance(data, dict) else data
+
+
+def build_initial_state(size, states, filling, mode='random', seed=None):
+    """``size`` entries of ``states`` in the fractions ``filling``
+    (rounded; the first state takes the remainder), shuffled with
+    ``mode='random'``."""
+    n_each = np.array(np.round(np.asarray(filling) * size), int)
+    n_each[0] += size - int(np.sum(n_each))
+    result = []
+    for st, n in zip(states, n_each):
+        result.extend([st] * int(n))
+    if mode == 'random':
+        np.random.default_rng(seed).shuffle(result)
+    return result

@@ -76,6 +76,28 @@ class Site:
     def __repr__(self):
         return f"<Site d={self.dim}, ops={sorted(self.opnames)}>"
 
+    def save_hdf5(self, hdf5_saver, h5gr, subpath):
+        """The instance dict in the dict layouts (sets as sorted lists),
+        as the reference library's ``Site``."""
+        from ..tools.io import ATTR_FORMAT
+        type_repr = hdf5_saver.save_dict_content(
+            {k: (sorted(v) if isinstance(v, set) else v)
+             for k, v in self.__dict__.items()}, h5gr, subpath)
+        h5gr.attrs[ATTR_FORMAT] = type_repr
+
+    @classmethod
+    def from_hdf5(cls, hdf5_loader, h5gr, subpath):
+        from ..tools.io import ATTR_FORMAT
+        obj = cls.__new__(cls)
+        hdf5_loader.memorize_load(h5gr, obj)
+        data = hdf5_loader.load_dict(h5gr, hdf5_loader.get_attr(
+            h5gr, ATTR_FORMAT), subpath)
+        for k in ('opnames', 'need_JW_string'):
+            if k in data:
+                data[k] = set(data[k])
+        obj.__dict__.update(data)
+        return obj
+
     # -------------------------------------------------------------------- ops
     def add_op(self, name, op, need_JW=False, hc=None, permute_dense=None):
         """Add an on-site operator (a dense matrix or an Array).

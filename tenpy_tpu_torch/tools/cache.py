@@ -1,16 +1,30 @@
-"""The in-memory cache of environment tensors.
+"""The cache of environment tensors, in memory or on disk.
 
-Port of ``Storage``, ``DictCache`` and ``_PrefixedCache`` from
-``tenpy_tpu/tools/cache.py``: a dict-like cache with a short-term layer
-over a storage, and sub-caches that share one storage under a key prefix.
-The environments of the sweep engines keep their ``LP``/``RP`` tensors
-here.  Only the in-memory storage is ported; the file-backed storages
-(pickle, HDF5, threaded) are not.
+Port of ``tenpy_tpu/tools/cache.py``: a dict-like cache
+(:class:`DictCache`) with a short-term layer over a storage, and
+sub-caches that share one storage under a key prefix.  The environments of
+the sweep engines keep their ``LP``/``RP`` tensors here.  The storages:
+:class:`Storage` (in memory), :class:`PickleStorage` (a file per key in a
+directory), :class:`Hdf5Storage` (a group per key of one HDF5 file, h5py
+imported when it is opened) and :class:`ThreadedStorage` (another storage
+driven by a worker thread, with preloading); :class:`CacheFile` opens one
+from a simulation's ``cache_params``.  The file-backed storages move CUDA
+tensors to the host before they write.
 """
 
 from __future__ import annotations
 
-__all__ = ['Storage', 'DictCache']
+import logging
+import os
+import shutil
+import tempfile
+
+from .thread import Worker
+
+logger = logging.getLogger(__name__)
+
+__all__ = ['Storage', 'PickleStorage', 'Hdf5Storage', 'ThreadedStorage',
+           'DictCache', 'CacheFile']
 
 
 class Storage:
@@ -51,6 +65,185 @@ class Storage:
 
     def preload(self, *keys):
         pass
+
+
+class PickleStorage(Storage):
+    """One pickle file per key in a directory (a temporary one by
+    default, removed on close with ``delete``)."""
+
+    trivial = False
+
+    def __init__(self, directory, delete=True):
+        super().__init__()
+        self.directory = str(directory)
+        self._delete_on_close = delete
+        os.makedirs(self.directory, exist_ok=True)
+        self._keys = set()
+
+    @classmethod
+    def open(cls, directory=None, tmpdir=None, delete=True, **kwargs):
+        if directory is None:
+            directory = tempfile.mkdtemp(prefix='tenpy_tpu_torch_cache_',
+                                         dir=tmpdir)
+        return cls(directory, delete)
+
+    def close(self):
+        if self._delete_on_close and os.path.isdir(self.directory):
+            shutil.rmtree(self.directory, ignore_errors=True)
+        self._keys.clear()
+
+    def _fn(self, key):
+        return os.path.join(self.directory,
+                            str(key).replace('/', '_') + '.pkl')
+
+    def keys(self):
+        return set(self._keys)
+
+    def __contains__(self, key):
+        return key in self._keys
+
+    def save(self, key, value):
+        from .io import save_pickle
+        with open(self._fn(key), 'wb') as f:
+            save_pickle(value, f)
+        self._keys.add(key)
+
+    def load(self, key):
+        from .io import load_pickle
+        with open(self._fn(key), 'rb') as f:
+            return load_pickle(f)
+
+    def delete(self, key):
+        if key in self._keys:
+            try:
+                os.remove(self._fn(key))
+            except OSError:
+                pass
+            self._keys.discard(key)
+
+
+class Hdf5Storage(Storage):
+    """One group per key in one HDF5 file (a temporary one by default,
+    removed on close with ``delete``), written and read by
+    :mod:`~tenpy_tpu_torch.tools.io`'s HDF5 format."""
+
+    trivial = False
+
+    def __init__(self, h5file, filename=None, delete=True):
+        super().__init__()
+        self.h5file = h5file
+        self.filename = filename
+        self._delete_on_close = delete
+        self._keys = set()
+
+    @classmethod
+    def open(cls, filename=None, tmpdir=None, delete=True, mode='w',
+             **kwargs):
+        import h5py
+        if filename is None:
+            fd, filename = tempfile.mkstemp(
+                suffix='.h5', prefix='tenpy_tpu_torch_cache_', dir=tmpdir)
+            os.close(fd)
+        return cls(h5py.File(filename, mode), filename, delete)
+
+    def close(self):
+        if self.h5file is not None:
+            self.h5file.close()
+            self.h5file = None
+        if self._delete_on_close and self.filename and \
+                os.path.isfile(self.filename):
+            os.remove(self.filename)
+        self._keys.clear()
+
+    @staticmethod
+    def _grp(key):
+        return str(key).replace('/', '_')
+
+    def keys(self):
+        return set(self._keys)
+
+    def __contains__(self, key):
+        return key in self._keys
+
+    def save(self, key, value):
+        from .io import save_to_hdf5
+        name = self._grp(key)
+        if name in self.h5file:
+            del self.h5file[name]
+        save_to_hdf5(self.h5file, value, name)
+        self._keys.add(key)
+
+    def load(self, key):
+        from .io import load_from_hdf5
+        if key not in self._keys:
+            raise KeyError(key)
+        return load_from_hdf5(self.h5file, self._grp(key))
+
+    def delete(self, key):
+        if key in self._keys:
+            name = self._grp(key)
+            if name in self.h5file:
+                del self.h5file[name]
+            self._keys.discard(key)
+
+
+class ThreadedStorage(Storage):
+    """Another storage whose saves and preloads run on a worker thread.
+
+    ``preload`` fetches keys in the background; ``save``, ``load`` and
+    ``delete`` first wait for the queued tasks, so no read overtakes a
+    write."""
+
+    trivial = False
+
+    def __init__(self, storage, worker=None):
+        super().__init__()
+        self.storage = storage
+        self._own_worker = worker is None
+        self.worker = worker or Worker('cache_io').__enter__()
+        self._preloaded = {}
+
+    @classmethod
+    def open(cls, storage=None, **kwargs):
+        if storage is None:
+            storage = PickleStorage.open(**kwargs)
+        return cls(storage)
+
+    def close(self):
+        self.worker.join_tasks()
+        if self._own_worker:
+            self.worker.__exit__(None, None, None)
+        self.storage.close()
+        self._preloaded.clear()
+
+    def keys(self):
+        return self.storage.keys()
+
+    def __contains__(self, key):
+        return key in self._preloaded or key in self.storage
+
+    def save(self, key, value):
+        self.worker.join_tasks()
+        self._preloaded.pop(key, None)
+        self.worker.put_task(self.storage.save, key, value)
+
+    def load(self, key):
+        self.worker.join_tasks()
+        if key in self._preloaded:
+            return self._preloaded.pop(key)
+        return self.storage.load(key)
+
+    def delete(self, key):
+        self.worker.join_tasks()
+        self._preloaded.pop(key, None)
+        self.storage.delete(key)
+
+    def preload(self, *keys):
+        for key in keys:
+            if key in self._preloaded or key not in self.storage:
+                continue
+            self.worker.put_task(self.storage.load, key,
+                                 return_dict=self._preloaded, return_key=key)
 
 
 class DictCache:
@@ -154,3 +347,36 @@ class _PrefixedCache:
 
     def close(self):
         pass
+
+
+class CacheFile(DictCache):
+    """A :class:`DictCache` opened from options (a simulation's
+    ``cache_params``): ``storage_class`` ('Storage', 'PickleStorage' or
+    'Hdf5Storage', which takes 'PickleStorage' where h5py is absent),
+    ``use_threading``, ``delete``, ``tmpdir``."""
+
+    @classmethod
+    def open(cls, storage_class='Storage', use_threading=False, delete=True,
+             tmpdir=None, **kwargs):
+        if storage_class == 'Storage':
+            storage = Storage.open()
+        elif storage_class == 'PickleStorage':
+            storage = PickleStorage.open(tmpdir=tmpdir, delete=delete)
+        elif storage_class == 'Hdf5Storage':
+            try:
+                storage = Hdf5Storage.open(tmpdir=tmpdir, delete=delete)
+            except ImportError:
+                logger.warning("Hdf5Storage unavailable (no h5py); using "
+                               "PickleStorage")
+                storage = PickleStorage.open(tmpdir=tmpdir, delete=delete)
+        else:
+            raise ValueError(f"unknown storage_class {storage_class!r}")
+        if use_threading and not storage.trivial:
+            storage = ThreadedStorage.open(storage)
+        return cls(storage)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

@@ -1,12 +1,15 @@
-"""Option dictionaries that record their defaults.
+"""Option dictionaries that record their defaults, and YAML parameter
+files.
 
-Port of ``Config`` and ``asConfig`` from ``tenpy_tpu/tools/params.py``:
-``get(key, default)`` stores the default it returns, so the options a model
-or an engine was built with are complete afterwards, and keys never read
-stay in ``unused``.  Nested option dicts (``trunc_params``,
-``lanczos_params``, ...) become sub-Configs by :meth:`Config.subconfig`;
-the dict interface (``cfg[key] = value``, ``in``, ``setdefault``) is what
-the sweep engines use to adapt options while they run.
+Port of ``Config``, ``asConfig`` and ``load_yaml_with_py_eval`` from
+``tenpy_tpu/tools/params.py``: ``get(key, default)`` stores the default it
+returns, so the options a model or an engine was built with are complete
+afterwards (a simulation saves them with its results), and keys never read
+stay in ``unused`` (:meth:`Config.warn_unused` reports them: typos).
+Nested option dicts (``trunc_params``, ``lanczos_params``, ...) become
+sub-Configs by :meth:`Config.subconfig`; the dict interface is what the
+sweep engines use to adapt options while they run.  PyYAML is imported
+only by :func:`load_yaml_with_py_eval`.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import numpy as np
 
 logger = logging.getLogger(__name__)
 
-__all__ = ['Config', 'asConfig']
+__all__ = ['Config', 'asConfig', 'load_yaml_with_py_eval']
 
 
 class Config:
@@ -47,8 +50,41 @@ class Config:
             self.unused.add(key)
         self.options[key] = value
 
+    def __delitem__(self, key):
+        self.unused.discard(key)
+        del self.options[key]
+
     def __contains__(self, key):
         return key in self.options
+
+    def __iter__(self):
+        return iter(self.options)
+
+    def __len__(self):
+        return len(self.options)
+
+    def keys(self):
+        return self.options.keys()
+
+    def values(self):
+        return self.options.values()
+
+    def items(self):
+        return self.options.items()
+
+    def copy(self):
+        res = Config(dict(self.options), self.name)
+        res.unused = set(self.unused)
+        return res
+
+    def as_dict(self):
+        """A plain-dict snapshot (sub-Configs converted recursively)."""
+        return {k: v.as_dict() if isinstance(v, Config) else v
+                for k, v in self.options.items()}
+
+    def update(self, other):
+        for k, v in dict(other).items():
+            self[k] = v
 
     def setdefault(self, key, default):
         if key not in self.options:
@@ -75,6 +111,24 @@ class Config:
         """Like :meth:`get`, without storing the default or marking the key
         as used."""
         return self.options.get(key, default)
+
+    def touch(self, *keys):
+        """Mark ``keys`` as used without reading them."""
+        for k in keys:
+            self.unused.discard(k)
+        return self
+
+    def warn_unused(self, recursive=False):
+        """Warn about the options never read (with ``recursive``, in the
+        sub-Configs too)."""
+        unused = sorted(self.unused)
+        if unused:
+            warnings.warn(f"unused options in config {self.name!r}: "
+                          f"{unused}", UserWarning, stacklevel=2)
+        if recursive:
+            for v in self.options.values():
+                if isinstance(v, Config):
+                    v.warn_unused(True)
 
     def subconfig(self, key, default=None):
         """The nested option dict ``key`` as a sub-:class:`Config` (stored
@@ -111,9 +165,41 @@ class Config:
     def __repr__(self):
         return f"Config({self.name!r}, <{len(self.options)} options>)"
 
+    def __getstate__(self):
+        return {'options': self.as_dict(), 'name': self.name,
+                'unused': sorted(self.unused)}
+
+    def __setstate__(self, state):
+        self.options = dict(state['options'])
+        self.name = state['name']
+        self.unused = set(state.get('unused', ()))
+
 
 def asConfig(config, name):
     """Wrap a dict as :class:`Config` (a Config passes through)."""
     if isinstance(config, Config):
         return config
     return Config(config, name)
+
+
+def load_yaml_with_py_eval(filename=None, yaml_content=None, context=None):
+    """Load YAML (a file, or the string ``yaml_content``) in which the tag
+    ``!py_eval`` evaluates a python expression (``np`` and ``context`` in
+    scope)."""
+    import yaml
+
+    context_ns = {'np': np}
+    if context:
+        context_ns.update(context)
+
+    class PyEvalLoader(yaml.SafeLoader):
+        pass
+
+    def _py_eval(loader, node):
+        return eval(loader.construct_scalar(node), context_ns)  # noqa: S307
+
+    PyEvalLoader.add_constructor('!py_eval', _py_eval)
+    if yaml_content is not None:
+        return yaml.load(yaml_content, Loader=PyEvalLoader)
+    with open(filename, 'r') as f:
+        return yaml.load(f, Loader=PyEvalLoader)

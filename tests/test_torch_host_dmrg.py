@@ -17,8 +17,10 @@ against ``tenpy_tpu``'s.
   state of that test's run (stored by the exporter), one two-site update
   forced onto the packed Lanczos with ``device='cpu'`` (the plain kernel),
   against the port's host Lanczos and against ``tenpy_tpu``'s
-  ``_diag_device_lanczos`` on the same effective H; and
-  ``_use_device_lanczos`` against tenpy_tpu's rule.
+  ``_diag_device_lanczos`` on the same effective H;
+  ``_use_device_lanczos`` against tenpy_tpu's rule with the port's own
+  threshold; and ``dmrg.run(..., device='cuda')`` without ``device_K``
+  routing its updates from the threshold up to the packed Lanczos.
 * The XX chain at L=16, chi=64 against its free-fermion energy.
 * ``device='cuda'`` raising without a card.
 """
@@ -235,10 +237,11 @@ def test_device_route_vs_host_and_jax(ref):
 
 
 def test_device_route_rule(monkeypatch):
-    """``_use_device_lanczos`` keeps tenpy_tpu's rule: ``device_K = 0``
-    disables, > 0 forces (not with combined legs); otherwise off on the
-    CPU, below ``DEVICE_LANCZOS_THRESHOLD`` and during the ``chi_list``
-    ramp.  (The engine's device is set to CUDA after construction for the
+    """``_use_device_lanczos`` keeps tenpy_tpu's rule where it applies:
+    ``device_K = 0`` disables, > 0 forces (not with combined legs), off on
+    the CPU; otherwise the port's own ``DEVICE_LANCZOS_THRESHOLD`` (256,
+    the card's measured crossover) decides, during a ``chi_list`` ramp
+    too.  (The engine's device is set to CUDA after construction for the
     rule alone; no update runs.)"""
     model, psi, _ = tx.host_dmrg_case('tfi', 'torch')
     opts = {'trunc_params': {'chi_max': 8}, 'mixer': False}
@@ -261,12 +264,66 @@ def test_device_route_rule(monkeypatch):
     assert use({'device_K': 6}) is True
     assert use({'device_K': 6}, combine=True) is False
     assert use({'device_K': 0}, device='cuda') is False
-    assert use({}, device='cuda') is False               # N below 2**20
-    assert mps_common.DEVICE_LANCZOS_THRESHOLD == 1 << 20
+    assert use({}, device='cuda') is False               # N = 4 < 256
+    assert mps_common.DEVICE_LANCZOS_THRESHOLD == 256
     monkeypatch.setattr(mps_common, 'DEVICE_LANCZOS_THRESHOLD', 4)
-    assert use({}, device='cuda') is True
-    assert use({}, device='cuda', chi_list={0: 4, 3: 8}, sweeps=3) is False
+    assert use({}, device='cuda') is True                # N = 4 at it
+    # no chi_list exclusion: the ramp's updates go to the card as well
+    assert use({}, device='cuda', chi_list={0: 4, 3: 8}, sweeps=3) is True
     assert use({}, device='cuda', chi_list={0: 4, 3: 8}, sweeps=4) is True
+    monkeypatch.setattr(mps_common, 'DEVICE_LANCZOS_THRESHOLD', 5)
+    assert use({}, device='cuda', chi_list={0: 4, 3: 8}, sweeps=3) is False
+
+
+def test_device_route_default_in_run(monkeypatch):
+    """``dmrg.run(..., device='cuda')`` with TeNPy's options and no
+    ``device_K`` sends every two-site update with N at or above
+    ``DEVICE_LANCZOS_THRESHOLD`` to the packed Lanczos, during its
+    ``chi_list`` ramp too, and no other.  There is no card here: the
+    engine is built as on one (``checked_device`` passes 'cuda' through),
+    and the recorded device route runs its packed Lanczos on the CPU
+    (the plain kernel).  The energy matches the host route's run."""
+    L = 16
+    model = XXZChain({'L': L, 'Jxx': 1., 'Jz': 0., 'hz': 0.,
+                      'bc_MPS': 'finite'})
+    options = {'trunc_params': {'chi_max': 32, 'svd_min': 1e-12},
+               'chi_list': {0: 8, 2: 32}, 'mixer': False,
+               'max_E_err': 1e-11, 'max_sweeps': 6}
+    sites = model.lat.mps_sites()
+    psi_h = MPS.from_product_state(sites, ['up', 'down'] * 8)
+    E_host = dmrg.run(psi_h, model, copy.deepcopy(options),
+                      device='cpu')['E']
+    checked = dmrg.pk.checked_device
+    monkeypatch.setattr(dmrg.pk, 'checked_device',
+                        lambda d: torch.device('cuda') if d == 'cuda'
+                        else checked(d))
+    orig_diag, orig_dev = TwoSiteDMRGEngine.diag, \
+        TwoSiteDMRGEngine._diag_device_lanczos
+    sizes, on_card = [], []
+
+    def diag(self, theta_guess):
+        sizes.append((self.sweeps, self.eff_H.N))
+        return orig_diag(self, theta_guess)
+
+    def device_lanczos(self, theta_guess):
+        on_card.append((self.sweeps, self.eff_H.N))
+        self.device = torch.device('cpu')
+        try:
+            return orig_dev(self, theta_guess)
+        finally:
+            self.device = torch.device('cuda')
+
+    monkeypatch.setattr(TwoSiteDMRGEngine, 'diag', diag)
+    monkeypatch.setattr(TwoSiteDMRGEngine, '_diag_device_lanczos',
+                        device_lanczos)
+    psi = MPS.from_product_state(sites, ['up', 'down'] * 8)
+    E = dmrg.run(psi, model, copy.deepcopy(options), device='cuda')['E']
+    thr = mps_common.DEVICE_LANCZOS_THRESHOLD
+    assert on_card == [x for x in sizes if x[1] >= thr]
+    assert any(N == thr for _, N in on_card)
+    assert any(sw < 2 for sw, _ in on_card)              # in the ramp
+    assert abs(E - E_host) <= 1e-10 * abs(E_host)
+    assert abs(E - e0_xx_finite(L, 1.)) <= 1e-10 * abs(E)
 
 
 def test_dmrg_defaults_to_the_card():

@@ -8,13 +8,15 @@ import torch
 torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-MODULES = ['tenpy_tpu_torch', 'tenpy_tpu_torch._build',
+MODULES = ['tenpy_tpu_torch', 'tenpy_tpu_torch.__main__',
+           'tenpy_tpu_torch._build',
            'tenpy_tpu_torch.tools', 'tenpy_tpu_torch.linalg',
            'tenpy_tpu_torch.networks', 'tenpy_tpu_torch.models',
            'tenpy_tpu_torch.algorithms',
            'tenpy_tpu_torch.tools.misc', 'tenpy_tpu_torch.tools.params',
            'tenpy_tpu_torch.tools.math', 'tenpy_tpu_torch.tools.events',
            'tenpy_tpu_torch.tools.cache', 'tenpy_tpu_torch.tools.process',
+           'tenpy_tpu_torch.tools.thread', 'tenpy_tpu_torch.tools.io',
            'tenpy_tpu_torch.linalg.charges',
            'tenpy_tpu_torch.linalg.np_conserved',
            'tenpy_tpu_torch.linalg.sparse',
@@ -44,6 +46,11 @@ MODULES = ['tenpy_tpu_torch', 'tenpy_tpu_torch._build',
            'tenpy_tpu_torch.algorithms.packed_dmrg',
            'tenpy_tpu_torch.algorithms.tebd',
            'tenpy_tpu_torch.algorithms.packed_tebd',
+           'tenpy_tpu_torch.algorithms.exact_diag',
+           'tenpy_tpu_torch.simulations',
+           'tenpy_tpu_torch.simulations.measurement',
+           'tenpy_tpu_torch.simulations.post_processing',
+           'tenpy_tpu_torch.simulations.simulation',
            'chip_smoke', 'profile_torch_sweep']
 
 

@@ -31,6 +31,8 @@ chi=256 Hubbard-cylinder file and the ramp references::
         tests/benchmark_data/host_dmrg_reference.npz
     python tests/torch_exchange.py --write-ramp-drift \
         tests/benchmark_data/ramp_drift_reference.npz
+    python tests/torch_exchange.py --write-simulation \
+        tests/benchmark_data/simulation_reference.npz
 """
 
 import argparse
@@ -1049,6 +1051,227 @@ def ramp_drift_reference():
     return flat
 
 
+# ------------------------------------------------------------- simulations
+# the ground-state configs of tests/test_simulation.py (XXZ L=8), and the
+# repo's two DMRG YAML files cut small (L=8; chi 8, and chi 4, 8, 16 in
+# the sequential stages); logging goes nowhere (no handler, no .log file)
+SIM_GS_PARAMS = {
+    'model_class': 'XXZChain',
+    'model_params': {'L': 8, 'Jxx': 1., 'Jz': 1., 'bc_MPS': 'finite'},
+    'initial_state_params': {'method': 'lat_product_state',
+                             'product_state': [['up'], ['down']]},
+    'algorithm_class': 'TwoSiteDMRGEngine',
+    'algorithm_params': {'trunc_params': {'chi_max': 32, 'svd_min': 1e-12},
+                         'max_E_err': 1e-10, 'mixer': False},
+}
+SIM_LOG = {'to_stdout': None, 'to_file': None}
+SIM_YAML = {
+    'minimal': ('examples/yaml/minimal_DMRG.yml',
+                ['model_params.L=8',
+                 'algorithm_params.trunc_params.chi_max=8']),
+    'sequential': ('examples/yaml/sequential_chi_ramp.yml',
+                   ['model_params.L=8',
+                    'algorithm_params.trunc_params.chi_max=[4, 8, 16]']),
+}
+
+
+def _sim_api(package):
+    """``(simulation module, console_main, io module, kwargs of the
+    simulation functions)`` of ``package``."""
+    if package == 'jax':
+        import tenpy_tpu
+        from tenpy_tpu.simulations import simulation
+        from tenpy_tpu.tools import io
+        return simulation, tenpy_tpu.console_main, io, {}
+    import tenpy_tpu_torch
+    from tenpy_tpu_torch.simulations import simulation
+    from tenpy_tpu_torch.tools import io
+    return simulation, tenpy_tpu_torch.console_main, io, {'device': 'cpu'}
+
+
+def _sim_result(prefix, res):
+    """The energy, final MPO energy and final max_chi of one result."""
+    meas = res['measurements']
+    return {f'{prefix}.energy': np.asarray(float(np.real(res['energy']))),
+            f'{prefix}.energy_MPO': np.asarray(
+                float(np.real(meas['energy_MPO'][-1]))),
+            f'{prefix}.max_chi': np.asarray(int(meas['max_chi'][-1]))}
+
+
+def simulation_case(package, case, tmpdir):
+    """One simulation case in ``package`` ('jax' or 'torch'), its output
+    under ``tmpdir``; a flat dict of the energies and max_chi of every
+    stage (``<case>.<stage>.*``)."""
+    import copy
+    sim, console_main, io, kw = _sim_api(package)
+    params = copy.deepcopy(SIM_GS_PARAMS)
+    params['log_params'] = dict(SIM_LOG)
+    out = {}
+    if case == 'gs':
+        params['output_filename'] = os.path.join(tmpdir, 'gs.pkl')
+        out.update(_sim_result('gs.0', sim.run_simulation(
+            simulation_class='GroundStateSearch', **params, **kw)))
+    elif case == 'checkpoint':
+        fn = os.path.join(tmpdir, 'ckpt.pkl')
+        params['output_filename'] = fn
+        params['algorithm_params'].update(max_sweeps=2, min_sweeps=2,
+                                          max_E_err=1e-16)
+        out.update(_sim_result('checkpoint.0', sim.run_simulation(
+            simulation_class='GroundStateSearch', **params, **kw)))
+        out.update(_sim_result('checkpoint.1', sim.resume_from_checkpoint(
+            filename=fn, update_sim_params={
+                'algorithm_params.max_sweeps': 20,
+                'algorithm_params.max_E_err': 1e-10}, **kw)))
+    elif case == 'seq':
+        params['algorithm_params']['max_sweeps'] = 10
+        for k, res in enumerate(sim.run_seq_simulations(
+                {'recursive_keys': ['model_params.Jz'],
+                 'value_lists': [[0.5, 1.0]]},
+                simulation_class='GroundStateSearch', **params, **kw)):
+            out.update(_sim_result(f'seq.{k}', res))
+    elif case == 'cli':
+        import yaml
+        fn_yaml = os.path.join(tmpdir, 'params.yml')
+        params['simulation_class'] = 'GroundStateSearch'
+        params['output_filename'] = os.path.join(tmpdir, 'cli.pkl')
+        params.update(kw)
+        with open(fn_yaml, 'w') as f:
+            yaml.safe_dump(params, f)
+        assert console_main([fn_yaml, '-o',
+                             'algorithm_params.trunc_params.chi_max=16']) == 0
+        out.update(_sim_result('cli.0', io.load(params['output_filename'])))
+    else:
+        fn_yaml, overrides = SIM_YAML[case]
+        argv = [os.path.join(_ROOT, fn_yaml)]
+        for o in overrides + [f'log_params={SIM_LOG!r}']:
+            argv += ['-o', o]
+        if package == 'torch':
+            argv += ['-o', 'device=cpu']
+        if case == 'minimal':
+            fn = os.path.join(tmpdir, 'minimal.pkl')
+            argv += ['-o', f'output_filename={fn}']
+            assert console_main(argv) == 0
+            out.update(_sim_result('minimal.0', io.load(fn)))
+        else:
+            prefix = os.path.join(tmpdir, 'results_sequential')
+            argv += ['-o', f'output_filename_params.prefix={prefix}']
+            assert console_main(argv) == 0
+            for k, chi in enumerate([4, 8, 16]):
+                out.update(_sim_result(f'sequential.{k}', io.load(
+                    f'{prefix}_chi_{chi:04d}.pkl')))
+    return out
+
+
+# the entry points a simulation reaches besides its run: the memory
+# estimate (by estimate_simulation_RAM and by console_main --RAM) of the
+# XXZ chain's simulation from a state of bond dimension 16; switch_engine
+# from the two-site engine (one sweep at chi 8) to the single-site one
+# (two sweeps with the subspace-expansion mixer, which grows the bonds to
+# 16); and the dense H of an XXZ chain L=6 in a field
+ENTRY_CASES = ('ram', 'switch_engine', 'numpy_H')
+ENTRY_RAM_STATE = {'method': 'desired_bond_dimension', 'chi': 16,
+                   'product_state': [['up'], ['down']]}
+ENTRY_SWITCH = ({'trunc_params': {'chi_max': 8, 'svd_min': 1e-12},
+                 'max_sweeps': 1, 'min_sweeps': 1, 'mixer': False},
+                {'trunc_params': {'chi_max': 16, 'svd_min': 1e-12},
+                 'max_sweeps': 2, 'min_sweeps': 2, 'mixer': True})
+ENTRY_NUMPY_H = {'L': 6, 'Jxx': 1., 'Jz': 1.3, 'hz': 0.1, 'bc_MPS': 'finite'}
+
+
+def entry_point_case(package, case, tmpdir):
+    """One of :data:`ENTRY_CASES` in ``package`` ('jax' or 'torch'); a
+    flat dict of its values (``<case>.*``)."""
+    import contextlib
+    import copy
+    import io as _io
+    sim, console_main, _, kw = _sim_api(package)
+    if package == 'jax':
+        from tenpy_tpu.algorithms import dmrg, exact_diag
+        from tenpy_tpu.models.xxz_chain import XXZChain
+        from tenpy_tpu.networks.mps import MPS
+    else:
+        from tenpy_tpu_torch.algorithms import dmrg, exact_diag
+        from tenpy_tpu_torch.models.xxz_chain import XXZChain
+        from tenpy_tpu_torch.networks.mps import MPS
+    if case == 'ram':
+        import yaml
+        params = copy.deepcopy(SIM_GS_PARAMS)
+        params.update(log_params=dict(SIM_LOG),
+                      initial_state_params=dict(ENTRY_RAM_STATE))
+        ram = sim.estimate_simulation_RAM(
+            simulation_class='GroundStateSearch', **params, **kw)
+        fn_yaml = os.path.join(tmpdir, 'ram.yml')
+        with open(fn_yaml, 'w') as f:
+            yaml.safe_dump(dict(params, **kw), f)
+        out = _io.StringIO()
+        with contextlib.redirect_stdout(out):
+            assert console_main([fn_yaml, '--RAM']) == 0
+        line = out.getvalue().strip().splitlines()[-1]
+        return {'ram.estimate': np.asarray(float(ram)),
+                'ram.cli': np.array(line)}
+    if case == 'switch_engine':
+        model = XXZChain(dict(SIM_GS_PARAMS['model_params']))
+        psi = MPS.from_lat_product_state(model.lat, [['up'], ['down']])
+        eng = dmrg.TwoSiteDMRGEngine(psi, model,
+                                     copy.deepcopy(ENTRY_SWITCH[0]), **kw)
+        E0, _ = eng.run()
+        eng1 = eng.switch_engine(dmrg.SingleSiteDMRGEngine,
+                                 options=copy.deepcopy(ENTRY_SWITCH[1]))
+        assert isinstance(eng1, dmrg.SingleSiteDMRGEngine) and \
+            eng1.psi is psi
+        E1, _ = eng1.run()
+        return {'switch_engine.E0': np.asarray(float(np.real(E0))),
+                'switch_engine.E1': np.asarray(float(np.real(E1))),
+                'switch_engine.chi': np.asarray(max(psi.chi))}
+    model = XXZChain(dict(ENTRY_NUMPY_H))
+    H = np.asarray(exact_diag.get_numpy_Hamiltonian(model))
+    H_sp = exact_diag.get_scipy_sparse_Hamiltonian(model)
+    np.testing.assert_array_equal(H_sp.toarray(), H)
+    return {'numpy_H.H': H}
+
+
+def simulation_reference():
+    """``tenpy_tpu``'s runs of every simulation case, and its
+    ``ExactDiag`` ground energy of the XXZ L=8 chain in sector 0 (the
+    ``gs`` case) and spectra of that chain and of the Ising chain L=8
+    without charges (``ed.*``)."""
+    import tempfile
+    import warnings
+    from tenpy_tpu.algorithms.exact_diag import ExactDiag
+    from tenpy_tpu.models.xxz_chain import XXZChain
+    from tenpy_tpu.models.tf_ising import TFIChain
+    flat = {'gs_params': np.array(json.dumps(SIM_GS_PARAMS)),
+            'yaml': np.array(json.dumps(SIM_YAML))}
+    warnings.simplefilter('ignore')
+    for case in ('gs', 'checkpoint', 'seq', 'cli', 'minimal', 'sequential'):
+        t0 = time.time()
+        with tempfile.TemporaryDirectory() as tmpdir:
+            res = simulation_case('jax', case, tmpdir)
+        flat.update(res)
+        print(f"{case}: {time.time() - t0:.1f} s; " + ', '.join(
+            f"{k} {float(v)!r}" for k, v in res.items()), flush=True)
+    for name, model, sector in ED_CASES:
+        ed = ExactDiag(XXZChain(dict(model)) if name == 'xxz'
+                       else TFIChain(dict(model)), charge_sector=sector)
+        ed.full_diagonalization()
+        flat[f'ed.{name}.E'] = np.sort(np.asarray(ed.E))
+    with tempfile.TemporaryDirectory() as tmpdir:
+        for case in ENTRY_CASES:
+            flat.update(entry_point_case('jax', case, tmpdir))
+        # a results file as JAX writes it (its default format, pickle), to
+        # hold the port's refusal of such pickles to
+        simulation_case('jax', 'gs', tmpdir)
+        with open(os.path.join(tmpdir, 'gs.pkl'), 'rb') as f:
+            flat['jax_results_pkl'] = np.frombuffer(f.read(), np.uint8)
+    return flat
+
+
+# exact diagonalization: (name, model params, charge sector)
+ED_CASES = (('xxz', {'L': 8, 'Jxx': 1., 'Jz': 1., 'bc_MPS': 'finite'}, [0]),
+            ('tfi', {'L': 8, 'J': 1., 'g': 0.7, 'bc_MPS': 'finite',
+                     'conserve': None}, None))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--write',
@@ -1069,6 +1292,8 @@ def main(argv=None):
                     help='output .npz path (dmrg.run references)')
     ap.add_argument('--write-ramp-drift',
                     help='output .npz path (the ramp write-back drift)')
+    ap.add_argument('--write-simulation',
+                    help='output .npz path (simulation references)')
     ap.add_argument('--cases', nargs='+',
                     help='write-back or Hofstadter cases to (re)compute')
     args = ap.parse_args(argv)
@@ -1088,7 +1313,8 @@ def main(argv=None):
     for path, make in ((args.write_tebd, tebd_reference),
                        (args.write_states, written_back_states),
                        (args.write_host_dmrg, host_dmrg_reference),
-                       (args.write_ramp_drift, ramp_drift_reference)):
+                       (args.write_ramp_drift, ramp_drift_reference),
+                       (args.write_simulation, simulation_reference)):
         if path:
             exchange.save_flat(path, make())
             print(f"wrote {path} ({os.path.getsize(path) / 1e6:.3f} MB)",
