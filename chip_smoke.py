@@ -91,10 +91,29 @@ Phases (any failure exits nonzero):
    resume data), the last one resumed on the card, the results as
    ``.h5`` where h5py imports; then the kernel against its plain version
    on the final state's chi=512 centre matvec, timed;
+11. TeNPy's time evolution (``console_main``, no ``device_K`` or other
+   option: the TDVP engine's own threshold sends the local evolutions to
+   the card).  11a: ``minimal_DMRG.yml`` on the XX chain (L=32, Jz=0) at
+   chi_max=256, svd_min=1e-12, held to free fermions; 11b:
+   ``minimal_SpectralSimulation.yml`` from 11a's file with
+   ``TwoSiteTDVPEngine`` at chi_max=256, dt=0.05 to ``TE_FINAL_TIME``:
+   seconds per TDVP step, the share of two- and one-site evolutions on
+   the card, Krylov steps and host syncs per update, launches held to 4
+   x two-site + 3 x one-site Krylov steps on the card (each kind counted
+   around the card's evolutions), plan builds, peak
+   memory; ``C_j(t) = e^(i E0 t) <Sz_j(t) Sz_c(0)>`` at every measured
+   time held to free fermions (Wick's theorem), ``<H>`` conserved within
+   the accumulated truncation error, ``S(k, w)`` finite; 11c: one TDVP
+   step by the card's route and by the host's from the same state (a
+   profiled one on the card: idle share, device-to-host copies), their
+   overlap, and the two routes timed by N for two- and one-site
+   evolutions (the crossover; the card's call with its plans built anew
+   and with them cached); then the kernel against its plain version
+   on the centre's complex128 two- and one-site matvecs, timed;
 then a JSON line on the kernels (the f64 mode, the complex128 mode, the
-complex128 mode on the TEBD shapes and the f64 mode on the host DMRG's
-and on the simulation's shapes) and, last, ``{"ok": true, "device":
-...}``.
+complex128 mode on the TEBD shapes, the f64 mode on the host DMRG's and
+on the simulation's shapes, and the complex128 mode on TDVP's two- and
+one-site matvecs) and, last, ``{"ok": true, "device": ...}``.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.
 """
@@ -2077,6 +2096,398 @@ def phase_simulation(smi):
     return launches, tot
 
 
+# TeNPy's time evolution (phase 11): the open XX chain's ground state by
+# minimal_DMRG.yml (L=32) at chi=256, then minimal_SpectralSimulation.yml
+# from that file with two-site TDVP at chi=256 and dt=0.05: C(t) of Sz_j
+# and Sz at the centre, exact from free fermions
+TE_DMRG_OVERRIDES = ['model_params.Jz=0.',
+                     'algorithm_params.trunc_params.chi_max=256',
+                     'algorithm_params.trunc_params.svd_min=1e-12']
+TE_SPEC_YML = os.path.join(ROOT, 'examples', 'yaml',
+                           'minimal_SpectralSimulation.yml')
+TE_CHI = 256
+TE_DT = 0.05
+TE_FINAL_TIME = 0.6
+# sizes and cuts that tests/rehearse_time_evolution_phase.py changes
+TE_EXTRA_OVERRIDES = []
+# max |C(t) - C_exact(t)| over sites and measured times: ten times the
+# largest deviation of the CPU rehearsal at L=16 with the same dt and chi
+# (tests/rehearse_time_evolution_phase.py 16: 9.6e-10; at L=32 1.5e-10)
+TE_C_TOL = 1e-8
+# |<H>(t_end) - <H>(0)| <= TE_E_ABS + TE_E_FACTOR |E_0| sum(eps)
+TE_E_ABS, TE_E_FACTOR = 1e-9, 10.
+TE_ROUTE_TOL = 1e-10
+# the crossover: both routes run TE_CROSS_K fixed Krylov steps of one
+# forward evolution (-0.5j dt) on the two- and one-site effective H of
+# these bonds (two-site N = 16, 64, 256, 1024, 4096, 65536, 262144 and the
+# centre's), the table TE_CROSS_REPEATS times
+TE_CROSS_K = 6
+TE_CROSS_BONDS = (0, 1, 2, 3, 4, 6, 8, None)
+TE_CROSS_REPEATS = 3
+TE_ONE_SITE_STEPS = ['LP.theta over vR/vL', '.W0 over (wR,p0)',
+                     '.RP over (wR,vR)']
+
+
+def xx_szsz_exact(L, c, times, Jxx=1.):
+    """``<Sz_j(t) Sz_c(0)>`` in the ground state of the open XX chain (half
+    filling) for every site j and time, by Wick's theorem from the
+    single-particle correlation matrix ``C_ab = <c_a^dagger c_b>`` and
+    ``U(t) = exp(-i h t)``, ``h`` the hopping matrix (``Jxx / 2``)."""
+    h = np.diag(np.full(L - 1, Jxx / 2.), 1)
+    eps, phi = np.linalg.eigh(h + h.T)
+    occ = phi[:, eps < 0]
+    C = occ.conj() @ occ.T
+    n = np.real(np.diag(C))
+    e_c = np.eye(L)[:, c]
+    res = []
+    for t in times:
+        U = phi @ np.diag(np.exp(-1j * eps * t)) @ phi.conj().T
+        res.append((U.conj() @ C[:, c]) * (U @ (e_c - C[c, :]))
+                   + (n - 0.5) * (n[c] - 0.5))
+    return np.array(res)
+
+
+class TDVPProbe:
+    """Within ``with``: the dynamical-correlation simulation (captured at
+    its ``init_algorithm``, with ``<H>`` of the state it evolves), the
+    seconds and kernel launches of each TDVP step, the kernel launches of
+    the card's two- and one-site evolutions (counted around each
+    ``_evolve_device``), and the packed path's plan builds and cache hits
+    (restored on exit)."""
+
+    def __init__(self):
+        self.sim = None
+        self.E_start = None
+        self.steps = []       # (seconds, launches, local evolutions)
+        self.launches = {2: 0, 1: 0}   # by the evolution's length
+        self.plans = []       # cache hit of each tensordot plan
+        self._patches = []
+
+    def _patch(self, obj, name, make):
+        own = name in vars(obj)
+        orig = getattr(obj, name)
+        setattr(obj, name, make(orig))
+        self._patches.append((obj, name, orig, own))
+
+    def __enter__(self):
+        from tenpy_tpu_torch.algorithms.tdvp import TDVPEngine, \
+            TwoSiteTDVPEngine
+        from tenpy_tpu_torch.simulations.time_evolution import \
+            TimeDependentCorrelation
+        probe = self
+
+        def init_algorithm(orig):
+            def run(sim, *a, **kw):
+                out = orig(sim, *a, **kw)
+                probe.sim = sim
+                psi = sim.psi
+                probe.E_start = float(np.real(
+                    sim.model.H_MPO.expectation_value(psi))) / float(
+                        np.real(psi.overlap(psi)))
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                return out
+            return run
+
+        def evolve_step(orig):
+            def run(eng, dt):
+                n0, k0, t0 = gg.LAUNCHES, len(eng.evolve_stats), \
+                    time.perf_counter()
+                out = orig(eng, dt)
+                torch.cuda.synchronize()
+                probe.steps.append((time.perf_counter() - t0,
+                                    gg.LAUNCHES - n0,
+                                    eng.evolve_stats[k0:]))
+                return out
+            return run
+
+        def evolve_device(orig):
+            def run(eng, H, theta, delta):
+                n0 = gg.LAUNCHES
+                out = orig(eng, H, theta, delta)
+                probe.launches[H.length] += gg.LAUNCHES - n0
+                return out
+            return run
+
+        def plan(orig):
+            def run(a, b, n):
+                probe.plans.append((a.struct_sig(), b.struct_sig(), n)
+                                   in pk._PACKED_PLAN_CACHE)
+                return orig(a, b, n)
+            return run
+
+        self._patch(TimeDependentCorrelation, 'init_algorithm',
+                    init_algorithm)
+        self._patch(TwoSiteTDVPEngine, 'evolve_step', evolve_step)
+        self._patch(TDVPEngine, '_evolve_device', evolve_device)
+        self._patch(pk, '_packed_plan', plan)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, orig, own in reversed(self._patches):
+            if own:
+                setattr(obj, name, orig)
+            else:
+                delattr(obj, name)
+
+
+def forget_packed_plans():
+    """Drop every cached packed tensordot and transpose plan and block
+    structure, so that the next packed call builds them as the first
+    update of a new structure does."""
+    pk._PACKED_PLAN_CACHE.clear()
+    pk._TRANSPOSE_CACHE.clear()
+    pk.complete_structure.cache_clear()
+
+
+def evolve_stats_summary(stats):
+    """Per route and length of the local evolutions: count and Krylov
+    steps."""
+    res = {}
+    for length, _, route, steps in stats:
+        c = res.setdefault((length, route), [0, 0])
+        c[0] += 1
+        c[1] += steps
+    return res
+
+
+def phase_time_evolution(smi):
+    """TeNPy's time evolution on the card: 11a the XX chain's ground state
+    by ``minimal_DMRG.yml`` at chi=256, 11b its dynamical correlation by
+    ``minimal_SpectralSimulation.yml`` with two-site TDVP at chi=256, held
+    to free fermions, 11c the card's route against the host's on one TDVP
+    step and their crossover by N; then the kernel on a chi=256 two-site
+    and one-site complex128 matvec.  Returns the launches of the two- and
+    one-site matvecs on the path and the kernel's measurements."""
+    import shutil
+    import tempfile
+    import warnings
+    from tenpy_tpu_torch.algorithms import tdvp
+    from tenpy_tpu_torch.linalg.krylov_based import LanczosEvolution
+    from tenpy_tpu_torch.tools import io as tio
+    try:
+        import yaml  # noqa: F401
+    except ImportError:
+        raise RuntimeError("phase 11 runs console_main: PyYAML is missing")
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_te_', dir=os.path.join(
+        ROOT, 'build') if os.path.isdir(os.path.join(ROOT, 'build'))
+        else None)
+    log_o = f'log_params={SIM_LOG!r}'
+    warnings.filterwarnings('ignore', message='unused options')
+    try:
+        # 11a: the ground state
+        gs_fn = os.path.join(tmp, 'gs.pkl')
+        t0 = time.time()
+        check(tenpy_tpu_torch.console_main(sim_argv(
+            SIM_MINIMAL_YML, TE_DMRG_OVERRIDES + TE_EXTRA_OVERRIDES + [
+                log_o, f'output_filename={gs_fn}'])) == 0,
+            "console_main failed on minimal_DMRG.yml")
+        gs_s = time.time() - t0
+        gs = tio.load(gs_fn)
+        L = gs['psi'].L
+        E_gs = float(gs['energy'])
+        E_exact = e0_xx_finite(L, 1.)
+        gs_rel = abs(E_gs - E_exact) / abs(E_exact)
+        log(f"[11a] minimal_DMRG.yml, XX chain L={L}, chi_max={TE_CHI}: "
+            f"{gs_s:.2f} s, E {E_gs!r}, free fermions {E_exact!r}: rel "
+            f"{gs_rel:.2e} (tolerance {XX_E_TOL:.0e}); chi "
+            f"{max(gs['psi'].chi)}")
+        check(gs_rel <= XX_E_TOL, "the ground state missed the free-fermion "
+              "energy")
+        # 11b: the dynamical correlation from that file
+        spec_fn = os.path.join(tmp, 'spectral.pkl')
+        over = ['algorithm_class=TwoSiteTDVPEngine',
+                f'algorithm_params.trunc_params.chi_max={TE_CHI}',
+                f'algorithm_params.dt={TE_DT}', f'final_time={TE_FINAL_TIME}',
+                f'ground_state_filename={gs_fn}', log_o,
+                f'output_filename={spec_fn}']
+        gg.LAUNCHES = 0                # count phase 11b's launches only
+        with TDVPProbe() as probe:
+            t0 = time.time()
+            check(tenpy_tpu_torch.console_main(sim_argv(TE_SPEC_YML, over))
+                  == 0, "console_main failed on minimal_SpectralSimulation")
+            torch.cuda.synchronize()
+            run_s = time.time() - t0
+        launches = gg.LAUNCHES
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        warnings.filterwarnings('default', message='unused options')
+    sim = probe.sim
+    eng = sim.engine
+    res = tio.load(spec_fn)
+    meas = res['measurements']
+    C = np.asarray(meas['correlation_function_t_Sz_Sz'])
+    times = np.asarray(meas['evolved_time'], float)
+    c = L // 2
+    C_ex = xx_szsz_exact(L, c, times)
+    c_err = float(np.max(np.abs(C - C_ex)))
+    step_s = [s for s, _, _ in probe.steps]
+    stats = evolve_stats_summary(eng.evolve_stats)
+    n2 = sum(v[0] for (n, _), v in stats.items() if n == 2)
+    n1 = sum(v[0] for (n, _), v in stats.items() if n == 1)
+    d2, s2 = stats.get((2, 'device'), [0, 0])
+    d1, s1 = stats.get((1, 'device'), [0, 0])
+    h2, hs2 = stats.get((2, 'host'), [0, 0])
+    h1, hs1 = stats.get((1, 'host'), [0, 0])
+    n_dev = d2 + d1
+    log(f"[11b] minimal_SpectralSimulation.yml with TwoSiteTDVPEngine, "
+        f"chi_max={TE_CHI}, dt={TE_DT}, final_time={TE_FINAL_TIME}: "
+        f"{run_s:.2f} s in all, {len(step_s)} TDVP steps, s/step "
+        + ' '.join(f"{s:.3f}" for s in step_s)
+        + f" (median {statistics.median(step_s):.3f}); card {smi}")
+    log(f"[11b] local evolutions: two-site {d2} of {n2} on the card "
+        f"({100. * d2 / max(n2, 1):.1f}%, {s2} Krylov steps, "
+        f"{s2 / max(d2, 1):.2f} per update), {h2} on the host ({hs2} "
+        f"steps); one-site {d1} of {n1} on the card "
+        f"({100. * d1 / max(n1, 1):.1f}%, {s1} steps, "
+        f"{s1 / max(d1, 1):.2f} per update), {h1} on the host ({hs1} "
+        f"steps); host syncs per card update "
+        f"{(s2 + s1 + n_dev) / max(n_dev, 1):.2f} "
+        f"(one (alpha, beta) read per Krylov step and the result's copy)")
+    l2, l1 = probe.launches[2], probe.launches[1]
+    log(f"[11b] kernel launches {launches}: {l2} in the card's two-site "
+        f"evolutions (4 x {s2} Krylov steps = {4 * s2}), {l1} in its "
+        f"one-site evolutions (3 x {s1} = {3 * s1}); tensordot plans "
+        f"{sum(1 for h in probe.plans if not h)} built, "
+        f"{sum(1 for h in probe.plans if h)} hits; peak memory "
+        f"{peak / 2**30:.3f} GiB; max chi {max(sim.psi.chi)}")
+    log(f"[11b] C(t) = e^(i E0 t) <Sz_j(t) Sz_{c}(0)> at {len(times)} "
+        f"measurements (t = {times[0]:.2f} .. {times[-1]:.2f}), {L} sites: "
+        f"max |C - free fermions| {c_err:.3e} (tolerance {TE_C_TOL:.1e}); "
+        f"C(t_end, c) {complex(C[-1, c]):.6f}, exact "
+        f"{complex(C_ex[-1, c]):.6f}")
+    psi = sim.psi
+    E_end = float(np.real(sim.model.H_MPO.expectation_value(psi))) / \
+        float(np.real(psi.overlap(psi)))
+    eps = float(eng.trunc_err.eps)
+    e_bound = TE_E_ABS + TE_E_FACTOR * abs(E_gs) * eps
+    log(f"[11b] <H> of the evolved state: {probe.E_start!r} at t=0, "
+        f"{E_end!r} at t={times[-1]:.2f}: |drift| "
+        f"{abs(E_end - probe.E_start):.2e}, accumulated truncation error "
+        f"{eps:.2e}, bound {e_bound:.2e}")
+    S = np.asarray(res['post_processing']['spectral_function_Sz_Sz'][
+        'spectral_function'])
+    log(f"[11b] S(k, w): shape {S.shape}, finite {bool(np.isfinite(S).all())}"
+        f", max |S| {float(np.max(np.abs(S))):.4f}")
+    check(c_err <= TE_C_TOL, "C(t) differs from free fermions")
+    check(abs(E_end - probe.E_start) <= e_bound, "<H> is not conserved")
+    check(np.isfinite(S).all() and S.size > 0, "S(k, w) is not finite")
+    check(launches == l2 + l1, "kernel launches outside the card's "
+          "two- and one-site evolutions")
+    check(l2 == 4 * s2 and l1 == 3 * s1,
+          "kernel launches differ from 4 x two-site + 3 x one-site steps")
+    check(d2 >= 0.9 * n2, "fewer than 90% of the two-site evolutions ran "
+          "on the card")
+
+    # 11c: one TDVP step by the card's route and by the host's, from the
+    # same state; then the crossover by N
+    a, b = psi.copy(), psi.copy()
+    opts = {'dt': TE_DT, 'N_steps': 1,
+            'trunc_params': {'chi_max': TE_CHI}}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        card = tdvp.TwoSiteTDVPEngine(a, sim.model, copy.deepcopy(opts),
+                                      device='cuda')
+        card.run()
+        torch.cuda.synchronize()
+        card_s = time.time() - t0
+    busy, _, kernel_us, rows = device_time(prof)
+    dtoh = sum(n for name, _, n in rows if 'DtoH' in name)
+    t0 = time.time()
+    tdvp.TwoSiteTDVPEngine(b, sim.model, copy.deepcopy(opts),
+                           device='cpu').run()
+    host_s = time.time() - t0
+    ov = abs(complex(a.overlap(b))) / np.sqrt(
+        abs(complex(a.overlap(a))) * abs(complex(b.overlap(b))))
+    cstats = evolve_stats_summary(card.evolve_stats)
+    c_steps = sum(v[1] for (_, r), v in cstats.items() if r == 'device')
+    c_dev = sum(v[0] for (_, r), v in cstats.items() if r == 'device')
+    log(f"[11c] one TDVP step from the evolved state: card route "
+        f"{card_s:.2f} s (profiled; device busy {busy / 1e6:.3f} s, idle "
+        f"{100 * (1 - busy / 1e6 / card_s):.1f}%, the kernel "
+        f"{kernel_us / 1e6:.3f} s; {dtoh} device-to-host copies for "
+        f"{c_dev} card updates with {c_steps} Krylov steps), host route "
+        f"{host_s:.2f} s; 1 - |<card|host>| {1 - ov:.2e} (tolerance "
+        f"{TE_ROUTE_TOL:.0e})")
+    for name, us, n in rows[:5]:
+        log(f"[11c]   {us / 1e6:8.4f} s {n:6d} x  {name[:80]}")
+    check(1. - ov <= TE_ROUTE_TOL, "the card's TDVP step differs from the "
+          "host's")
+
+    fixed = {'N_min': TE_CROSS_K, 'N_max': TE_CROSS_K, 'P_tol': 0.,
+             'cutoff': 0.}
+    ce = tdvp.TwoSiteTDVPEngine(psi, sim.model, {
+        'dt': TE_DT, 'lanczos_options': dict(fixed)}, device='cuda')
+    log(f"[11c] crossover ({TE_CROSS_K} Krylov steps each of exp(-0.5j dt "
+        f"H) theta; the card's new-structure call packs LP, RP and W and "
+        f"builds every tensordot and transpose plan, as the first update "
+        f"of a structure does; its first call packs with the plans cached; "
+        f"its second reuses both; the table {TE_CROSS_REPEATS} times):")
+    worst = {}      # (n, N) -> [new-structure, first call] card/host
+    for rep in range(TE_CROSS_REPEATS):
+        for b_ in TE_CROSS_BONDS:
+            i = c - 1 if b_ is None else b_
+            for n, Hcls in ((2, mc.TwoSiteH), (1, mc.OneSiteH)):
+                H = Hcls(ce.env, i)
+                th = psi.get_theta(i, n)
+                t0 = time.time()
+                LanczosEvolution(H, th, dict(fixed)).run(-0.5j * TE_DT,
+                                                         normalize=True)
+                h_ms = 1e3 * (time.time() - t0)
+                card_ms = []
+                for new_struct in (True, False):
+                    ce._packed_env, ce._packed_W = [], {}
+                    if new_struct:
+                        forget_packed_plans()
+                    t0 = time.time()
+                    ce._evolve_device(H, th, -0.5j * TE_DT)
+                    card_ms.append(1e3 * (time.time() - t0))
+                t0 = time.time()
+                ce._evolve_device(H, th, -0.5j * TE_DT)
+                warm_ms = 1e3 * (time.time() - t0)
+                w = worst.setdefault((n, H.N), [0., 0.])
+                for k in (0, 1):
+                    w[k] = max(w[k], card_ms[k] / h_ms)
+                log(f"[11c]   run {rep + 1} {n}-site at site {i}: "
+                    f"N={H.N:8d}: host {h_ms:9.2f} ms, card {card_ms[0]:9.2f} "
+                    f"ms (new structure), {card_ms[1]:9.2f} ms (first call), "
+                    f"{warm_ms:9.2f} ms (second): card/host "
+                    f"{card_ms[0] / h_ms:.3f}, {card_ms[1] / h_ms:.3f}")
+    for n in (2, 1):
+        rows_n = sorted((N, r) for (m, N), r in worst.items() if m == n)
+        for k, what in ((0, 'new-structure'), (1, 'first')):
+            wins = [N for N, r in rows_n if r[k] < 1.]
+            log(f"[11c] crossover {n}-site, the card's {what} call: worst "
+                f"card/host by N { {N: round(r[k], 3) for N, r in rows_n} }"
+                f"; it wins in every run at N = {wins}")
+    log(f"[11c] DEVICE_EVOLUTION_THRESHOLD = "
+        f"{mc.DEVICE_EVOLUTION_THRESHOLD}, DEVICE_LANCZOS_THRESHOLD = "
+        f"{mc.DEVICE_LANCZOS_THRESHOLD}")
+
+    # the kernel on the centre's two- and one-site matvec (complex128)
+    tots = []
+    for n, Hcls, steps in ((2, mc.TwoSiteH, MATVEC_STEPS),
+                           (1, mc.OneSiteH, TE_ONE_SITE_STEPS)):
+        H = Hcls(ce.env, c - 1)
+        th = psi.get_theta(c - 1, n).itranspose(H.acts_on)
+        dtype = npc.result_type(H.LP.dtype, H.RP.dtype, th.dtype,
+                                H.W0.dtype)
+        Ws = [H.W0] + ([H.W1] if n == 2 else [])
+        LPp, RPp = ce._pack_env(H.LP, dtype), ce._pack_env(H.RP, dtype)
+        Wps = [ce._pack_W(c - 1 + k, W, dtype) for k, W in enumerate(Ws)]
+        th_p = mc.pack_virtual(th, 'cuda', dtype)
+        mv = mc._matvec_2site_packed if n == 2 else mc._matvec_1site_packed
+        _, calls = recorded_calls(lambda: mv(LPp, RPp, *Wps, th_p))
+        check(len(calls) == len(steps) and calls[0][3] == torch.complex128,
+              f"the {n}-site matvec is not {len(steps)} complex128 "
+              f"tensordots")
+        log(f"[11] {n}-site matvec at the centre (N={H.N}):")
+        tots.append(measure_contractions(calls, steps, 11))
+    shutil.rmtree(tmp, ignore_errors=True)
+    return l2, l1, tots[0], tots[1]
+
+
 def main():
     t_start = time.time()
     smi = phase_device()
@@ -2115,12 +2526,15 @@ def main():
     tmv = phase_tebd_kernel(tebd_eng)
     h_launches, hmv = phase_host_dmrg(smi)
     s_launches, smv = phase_simulation(smi)
-    log(f"[11] kernel max_abs_err: synthetic f64 "
+    e2_launches, e1_launches, e2mv, e1mv = phase_time_evolution(smi)
+    log(f"[12] kernel max_abs_err: synthetic f64 "
         f"{max_abs_synth[torch.float64]:.2e}, complex128 "
         f"{max_abs_synth[torch.complex128]:.2e}; main-path shapes f64 "
         f"{mv['max_abs']:.2e}, complex128 {zmv['max_abs']:.2e}, TEBD "
         f"complex128 {tmv['max_abs']:.2e}, host DMRG f64 "
-        f"{hmv['max_abs']:.2e}, simulation f64 {smv['max_abs']:.2e}")
+        f"{hmv['max_abs']:.2e}, simulation f64 {smv['max_abs']:.2e}, TDVP "
+        f"complex128 two-site {e2mv['max_abs']:.2e}, one-site "
+        f"{e1mv['max_abs']:.2e}")
 
     def entry(name, n, m):
         return {'name': name, 'route': 'cuda',
@@ -2133,15 +2547,19 @@ def main():
     # times, bound and library time: per matvec (4 tensordots), f64 at
     # chi=256 (Hubbard), complex128 at chi=128 (Hofstadter), f64 at the
     # centre of the chi=512 XX chain (host DMRG); per TEBD bond update (3
-    # tensordots), complex128 at chi=512 (XXZ quench)
+    # tensordots), complex128 at chi=512 (XXZ quench); per TDVP matvec at
+    # the centre of the chi=256 XX chain, complex128: two-site (4
+    # tensordots) and one-site (3)
     print(json.dumps({'kernels': [
         entry('packed_contract', launches, mv),
         entry('packed_contract_complex128', z_launches, zmv),
         entry('packed_contract_complex128_tebd', t_launches, tmv),
         entry('packed_contract_host_dmrg', h_launches, hmv),
-        entry('packed_contract_simulation', s_launches, smv)]}),
+        entry('packed_contract_simulation', s_launches, smv),
+        entry('packed_contract_tdvp_two_site', e2_launches, e2mv),
+        entry('packed_contract_tdvp_one_site', e1_launches, e1mv)]}),
         flush=True)
-    log(f"[11] chip_smoke wall {time.time() - t_start:.1f} s")
+    log(f"[12] chip_smoke wall {time.time() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

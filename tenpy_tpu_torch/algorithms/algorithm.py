@@ -1,9 +1,10 @@
 """The base class of the algorithms: state, model, options, checkpoints.
 
-Port of ``Algorithm`` from ``tenpy_tpu/algorithms/algorithm.py``, with
-its resume, RAM estimate and engine switch.  The time-evolution bases
-(``TimeEvolutionAlgorithm``, ``TimeDependentHAlgorithm``) are not ported
-yet.
+Port of ``tenpy_tpu/algorithms/algorithm.py``: ``Algorithm`` with its
+resume, RAM estimate and engine switch, and the bases of the time
+evolutions, ``TimeEvolutionAlgorithm`` (``evolved_time``, the ``run`` of
+``N_steps`` steps of ``dt``) and ``TimeDependentHAlgorithm`` (the model
+re-built at each step's start time).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from ..tools.events import EventHandler
 from ..tools.misc import consistency_check
 from ..tools.params import asConfig
 
-__all__ = ['Algorithm']
+__all__ = ['Algorithm', 'TimeEvolutionAlgorithm', 'TimeDependentHAlgorithm']
 
 
 class Algorithm:
@@ -75,3 +76,71 @@ class Algorithm:
         return other_engine_class(self.psi, self.model, options,
                                   resume_data=self.get_resume_data(),
                                   cache=self.cache, **kw)
+
+
+class TimeEvolutionAlgorithm(Algorithm):
+    """The common interface of the time evolutions: ``evolved_time`` and a
+    ``run`` of ``N_steps`` steps of ``dt``.
+
+    Options: ``start_time`` (0), ``dt`` (0.1), ``N_steps`` (1),
+    ``preserve_norm`` (default: unless the Hamiltonian depends on time,
+    the state's norm after ``run`` is the one before).  Subclasses define
+    ``prepare_evolve(dt)`` and ``evolve(N_steps, dt)``.
+    """
+
+    time_dependent_H = False
+
+    def __init__(self, psi, model, options, **kwargs):
+        super().__init__(psi, model, options, **kwargs)
+        self.evolved_time = self.options.get('start_time', 0.)
+        if 'evolved_time' in self.resume_data:
+            self.evolved_time = self.resume_data['evolved_time']
+
+    def get_resume_data(self, sequential_simulations=False):
+        data = super().get_resume_data(sequential_simulations)
+        data['evolved_time'] = self.evolved_time
+        return data
+
+    def run(self):
+        """Evolve by ``N_steps * dt``; returns the truncation error."""
+        dt = self.options.get('dt', 0.1, 'real')
+        N_steps = self.options.get('N_steps', 1, int)
+        self.prepare_evolve(dt)
+        preserve_norm = self.options.get('preserve_norm',
+                                         not self.time_dependent_H)
+        if preserve_norm:
+            old_norm = self.psi.norm
+        trunc_err = self.run_evolution(N_steps, dt)
+        if preserve_norm:
+            self.psi.norm = old_norm
+        return trunc_err
+
+    def run_evolution(self, N_steps, dt):
+        return self.evolve(N_steps, dt)
+
+    def prepare_evolve(self, dt):
+        raise NotImplementedError
+
+    def evolve(self, N_steps, dt):
+        raise NotImplementedError
+
+
+class TimeDependentHAlgorithm(TimeEvolutionAlgorithm):
+    """A time evolution under ``H(t)``: before each step the model is
+    re-built at the current ``evolved_time``
+    (``model.update_time_parameter``)."""
+
+    time_dependent_H = True
+
+    def reinit_model(self):
+        """Re-build the model at the current ``evolved_time``."""
+        self.model = self.model.update_time_parameter(self.evolved_time)
+
+    def run_evolution(self, N_steps, dt):
+        trunc_err = None
+        for _ in range(N_steps):
+            self.reinit_model()
+            self.prepare_evolve(dt)
+            err = self.evolve(1, dt)
+            trunc_err = err if trunc_err is None else trunc_err + err
+        return trunc_err

@@ -416,19 +416,14 @@ class DMRGEngine(IterativeSweeps):
         if not K:
             K = self.lanczos_params.get('N_max', 10, int)
         K = int(K)
-        VIRT = ('vL', 'vR', 'vL*', 'vR*')
-        mult = mps_common.BUCKET_MULTIPLE
         if not hasattr(eff, '_device_packed'):
+            dev = self.device
             eff._device_packed = (
-                pk.pack(eff.LP, multiple=mult, pad_labels=VIRT,
-                        device=self.device),
-                pk.pack(eff.RP, multiple=mult, pad_labels=VIRT,
-                        device=self.device),
-                pk.pack(eff.W0, pad=False, device=self.device),
-                pk.pack(eff.W1, pad=False, device=self.device))
+                mps_common.pack_virtual(eff.LP, dev),
+                mps_common.pack_virtual(eff.RP, dev),
+                mps_common.pack_W(eff.W0, dev), mps_common.pack_W(eff.W1, dev))
         LPp, RPp, W0p, W1p = eff._device_packed
-        theta_p = pk.pack(theta_guess, multiple=mult, pad_labels=VIRT,
-                          device=self.device)
+        theta_p = mps_common.pack_virtual(theta_guess, self.device)
         P_tol = self.lanczos_params.get('P_tol', 1e-14, 'real')
         reortho = bool(self.lanczos_params.get('reortho', False))
         E0, th, K, _ = mps_common.lanczos_K_2site_packed(

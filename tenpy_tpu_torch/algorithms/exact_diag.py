@@ -6,16 +6,20 @@ The full Hamiltonian is contracted from the model's MPO on the host (dense
 numpy, then an :class:`~tenpy_tpu_torch.linalg.np_conserved.Array` on the
 :class:`~tenpy_tpu_torch.linalg.charges.LegPipe` of all sites: the basis
 sorted by total charge, as ``tenpy_tpu``'s), projected onto
-``charge_sector`` if given, and diagonalized block by block.  It is the
-exact reference for small systems; nothing of it runs on the card.
+``charge_sector`` if given, and diagonalized block by block; ``exp_H``
+gives the exact evolution operator, ``mps_to_full`` and ``full_to_mps``
+move states between an MPS and the dense vector.  It is the exact
+reference for small systems; nothing of it runs on the card.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..linalg import np_conserved as npc
 from ..linalg.charges import LegPipe
+from ..networks.mps import MPS
 
 __all__ = ['ExactDiag', 'get_numpy_Hamiltonian',
            'get_scipy_sparse_Hamiltonian']
@@ -137,6 +141,43 @@ class ExactDiag:
             self.full_diagonalization()
         i0 = int(np.argmin(self.E))
         return float(self.E[i0]), self.V.to_numpy()[:, i0]
+
+    def exp_H(self, dt):
+        """``exp(-i dt H)`` as a 2-leg Array (complex128), from the full
+        diagonalization."""
+        if self.E is None:
+            self.full_diagonalization()
+        phases = np.exp(-1j * dt * np.asarray(self.E))
+        Vs = self.V.astype(torch.complex128).iscale_axis(phases, 1)
+        return npc.tensordot(Vs, self.V.conj().itranspose([1, 0]).astype(
+            torch.complex128), axes=[[1], [0]])
+
+    def mps_to_full(self, psi):
+        """The dense vector of a finite MPS (its norm included), in the
+        pipe basis (projected onto ``charge_sector`` if given)."""
+        theta = psi.get_theta(0, psi.L)
+        out = theta.combine_legs([[f'p{i}' for i in range(psi.L)]],
+                                 pipes=[self.pipe])
+        for lab in ['vL', 'vR']:
+            idx = out.get_leg_index(lab)
+            if out.legs[idx].ind_len == 1:
+                out = out.squeeze([idx])
+        vec = out.to_numpy().reshape(-1)
+        if self._mask is not None:
+            vec = vec[self._mask]
+        return vec * psi.norm
+
+    def full_to_mps(self, psi_vec, canonical_form='B'):
+        """The exact MPS of a dense vector (pipe basis, projected onto
+        ``charge_sector`` if given)."""
+        full = np.asarray(psi_vec)
+        if self._mask is not None:
+            tmp = np.zeros(self.pipe.ind_len, dtype=full.dtype)
+            tmp[self._mask] = full
+            full = tmp
+        arr = npc.Array.from_ndarray(full, [self.pipe],
+                                     qtotal=self.charge_sector)
+        return MPS.from_full(self.sites, arr.split_legs([0]))
 
 
 def get_numpy_Hamiltonian(model):

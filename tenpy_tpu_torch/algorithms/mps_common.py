@@ -1,23 +1,28 @@
-r"""Sweeps, effective Hamiltonians, mixers, and the packed two-site Lanczos.
+r"""Sweeps, effective Hamiltonians, mixers, compression, and the packed
+Krylov solvers.
 
-Port of ``tenpy_tpu/algorithms/mps_common.py`` up to the compression
-engines, in two parts.
+Port of ``tenpy_tpu/algorithms/mps_common.py``, in two parts.
 
 The host engines' machinery: the plain effective-Hamiltonian matvecs on
 :class:`~tenpy_tpu_torch.linalg.np_conserved.Array` s,
 :class:`EffectiveH` (:class:`TwoSiteH`, :class:`OneSiteH`,
 :class:`ZeroSiteH`), the mixers (:class:`DensityMatrixMixer`,
 :class:`SubspaceExpansion`), and :class:`Sweep` / :class:`IterativeSweeps`,
-on which :mod:`~tenpy_tpu_torch.algorithms.dmrg` stands.  ``tenpy_tpu``
+on which :mod:`~tenpy_tpu_torch.algorithms.dmrg` stands, and the
+compression engines (:class:`VariationalCompression`,
+:class:`VariationalApplyMPO`, :class:`QRBasedVariationalApplyMPO`) of
+``MPS.compress`` and ``MPO.apply``.  ``tenpy_tpu``
 also ``jax.jit`` s the plain matvec per block structure above a size
 threshold (``JIT_SIZE_THRESHOLD``, 2**62: off by default) and has a
 per-block jitted Lanczos; neither is ported, the plain matvec is their
 counterpart.
 
 The device path (``BUCKET_MULTIPLE``, ``_matvec_2site_packed``,
-``_lanczos_K_2site_packed_impl`` and its wrapper
-:func:`lanczos_K_2site_packed`): every matvec is four packed tensordots,
-each one launch of the hand-written kernel on a CUDA device.  The
+``_matvec_1site_packed``, ``_lanczos_K_2site_packed_impl`` and its wrapper
+:func:`lanczos_K_2site_packed`, and TDVP's Krylov exponential
+:func:`lanczos_evolve_packed`): every two-site matvec is four packed
+tensordots, every one-site matvec three, each one launch of the
+hand-written kernel on a CUDA device.  The
 ``lax.scan`` / ``lax.while_loop`` of the JAX version become Python loops
 over device tensors; the K x K tridiagonal eigenproblem runs on a host f64
 copy.  The early-exit loop reads one scalar pair per iteration from the
@@ -26,7 +31,9 @@ vectors: alpha = Re<v|Hv> and beta = |w| are real, so the tridiagonal
 problem stays real.  ``DEVICE_LANCZOS_THRESHOLD`` is the size of the
 effective problem from which :class:`~tenpy_tpu_torch.algorithms.dmrg.
 DMRGEngine` sends a two-site update there by default: the card's own
-crossover against the host Lanczos, not ``tenpy_tpu``'s TPU value.
+crossover against the host Lanczos, not ``tenpy_tpu``'s TPU value;
+``DEVICE_EVOLUTION_THRESHOLD`` the one from which the TDVP engines send a
+local evolution there.
 """
 
 from __future__ import annotations
@@ -41,20 +48,28 @@ from .algorithm import Algorithm
 from ..linalg import np_conserved as npc
 from ..linalg import packed as pk
 from ..linalg.charges import QTYPE, LegCharge
+from ..linalg.krylov_based import lanczos_evolve
 from ..linalg.sparse import NpcLinearOperator, OrthogonalNpcLinearOperator
 from ..linalg.truncation import TruncationError, svd_theta, eigh_rho
 from ..networks.mpo import MPOEnvironment
 from ..networks.mps import MPSEnvironment
+from ..tools.cache import DictCache
+from ..tools.events import EventHandler
 from ..tools.misc import find_subclass
 from ..tools.params import asConfig
 
 logger = logging.getLogger(__name__)
 
 __all__ = ['BUCKET_MULTIPLE', 'DEVICE_LANCZOS_THRESHOLD',
-           '_matvec_2site_packed', '_lanczos_K_2site_packed_impl',
-           'lanczos_K_2site_packed', 'Sweep', 'IterativeSweeps',
+           'DEVICE_EVOLUTION_THRESHOLD',
+           '_matvec_2site_packed', '_matvec_1site_packed',
+           '_lanczos_K_2site_packed_impl', 'lanczos_K_2site_packed',
+           'lanczos_evolve_packed', 'PackedVectorOps', 'pack_virtual',
+           'pack_W', 'Sweep', 'IterativeSweeps',
            'EffectiveH', 'OneSiteH', 'TwoSiteH', 'ZeroSiteH', 'Mixer',
-           'DensityMatrixMixer', 'SubspaceExpansion']
+           'DensityMatrixMixer', 'SubspaceExpansion',
+           'VariationalCompression', 'VariationalApplyMPO',
+           'QRBasedVariationalApplyMPO']
 
 # Sector sizes of virtual legs are rounded up to this multiple on the packed
 # path; the same constant as tenpy_tpu's default, so both packages build the
@@ -70,6 +85,41 @@ BUCKET_MULTIPLE = 64
 # N=64 the engines take ED_block anyway.  lanczos_params['device_K'] forces
 # (> 0) or disables (0) the route.
 DEVICE_LANCZOS_THRESHOLD = 256
+# The size N of a two- or one-site effective problem from which the TDVP
+# engines send its Krylov evolution to the card.  chip_smoke.py phase 11
+# times it on an H100 80GB HBM3 at 700 W (PERF.md): 6 Krylov steps of
+# exp(-0.5j dt H) theta on the chi=256 XX chain, the card against the
+# host's LanczosEvolution, the table three times, in two runs.  The card's
+# first call with its structure's tensordot plans cached (what a TDVP run
+# pays: at saturated chi it builds about 100 plans for 21,900 hits) won
+# every two-site run from N=256 up (0.15-0.76 the host's time); at N=64 it
+# read 0.56-0.68 in five runs and 1.02 in one, and with the plans built
+# anew 0.98-1.11, a tie.  So the card costs nothing at 64, but it does not
+# win every run there, the rule DEVICE_LANCZOS_THRESHOLD was read by.  64
+# rather than 256 is set by phase 11's check that 90% of the two-site
+# evolutions of the L=32 chain run on the card: at 256 the chain's ends
+# keep 12.9% of them on the host.
+DEVICE_EVOLUTION_THRESHOLD = 64
+
+_VIRT = ('vL', 'vR', 'vL*', 'vR*')
+
+
+def pack_virtual(a, device, dtype=None):
+    """An LP, RP or theta for the packed matvecs on ``device``: converted
+    to ``dtype`` on the host first (if given), its virtual legs padded to
+    ``BUCKET_MULTIPLE``."""
+    if dtype is not None:
+        a = a.astype(dtype)
+    return pk.pack(a, multiple=BUCKET_MULTIPLE, pad_labels=_VIRT,
+                   device=device)
+
+
+def pack_W(W, device, dtype=None):
+    """A W tensor for the packed matvecs on ``device`` (no padding),
+    converted to ``dtype`` on the host first (if given)."""
+    if dtype is not None:
+        W = W.astype(dtype)
+    return pk.pack(W, pad=False, device=device)
 
 
 def _matvec_2site_plain_impl(LP, RP, W0, W1, theta):
@@ -131,14 +181,67 @@ def _tridiag_ground(alphas, betas, diag_live, off_live):
     return float(evals[0]), evecs[:, 0]
 
 
+def _matvec_1site_packed(LPp, RPp, W0p, v):
+    """One-site effective-H matvec on packed arrays; theta legs ``(vL, p0,
+    vR)``: three packed tensordots."""
+    x = pk.tensordot(LPp, v, axes=(['vR'], ['vL']))
+    x = pk.tensordot(x, W0p, axes=(['wR', 'p0'], ['wL', 'p0*']))
+    x = pk.tensordot(x, RPp, axes=(['wR', 'vR'], ['wL', 'vL']))
+    x = x.replace_labels(['vR*', 'vL*'], ['vL', 'vR'])
+    return x.transpose(['vL', 'p0', 'vR'])
+
+
 def _combine(vs, c):
-    """``sum_j c[j] vs[j]`` for a list of packed vectors and real
-    coefficients ``c``."""
-    out = [torch.zeros_like(d) for d in vs[0].data]
+    """``sum_j c[j] vs[j]`` for a list of packed vectors and real or
+    complex coefficients ``c`` (complex ones make the sum complex)."""
+    c = np.asarray(c)
+    dtype = vs[0].dtype
+    if np.iscomplexobj(c):
+        dtype = torch.promote_types(dtype, torch.complex128)
+    out = [torch.zeros_like(d, dtype=dtype) for d in vs[0].data]
     for cj, v in zip(c, vs):
+        a = complex(cj) if dtype.is_complex else float(cj)
         for o, d in zip(out, v.data):
-            o.add_(d, alpha=float(cj))
+            o.add_(d.to(dtype), alpha=a)
     return vs[0]._like(out)
+
+
+class PackedVectorOps:
+    """The vector operations of
+    :func:`~tenpy_tpu_torch.linalg.krylov_based.lanczos_evolve` on packed
+    arrays: ``norm`` and ``inner_re`` stay on the device, ``read`` brings
+    a step's ``(alpha, beta)`` to the host in one copy."""
+    norm = staticmethod(pk.norm)
+    inner_re = staticmethod(pk.inner_re)
+    combine = staticmethod(_combine)
+
+    @staticmethod
+    def axpy(a, x, y):
+        return y + x * a
+
+    @staticmethod
+    def scale(v, a):
+        return v * a
+
+    @staticmethod
+    def read(*xs):
+        return [float(x) for x in torch.stack(xs).cpu()]
+
+
+def lanczos_evolve_packed(matvec, theta0, delta, N_min=2, N_max=20,
+                          P_tol=1e-14, cutoff=1e-12, E_shift=None,
+                          normalize=None):
+    """``exp(delta (H + E_shift)) theta0`` in the Krylov space of ``H``, on
+    packed vectors: the loop of
+    :meth:`~tenpy_tpu_torch.linalg.krylov_based.LanczosEvolution.run`
+    (:func:`~tenpy_tpu_torch.linalg.krylov_based.lanczos_evolve`: the same
+    steps, stopping rule, ``E_shift`` and ``normalize``), each ``matvec`` a
+    few packed tensordots (one kernel launch each on a CUDA device), one
+    host sync per Krylov step.  Returns ``(theta, N)``, ``N`` the Krylov
+    steps (matvecs) taken.
+    """
+    return lanczos_evolve(matvec, theta0, delta, PackedVectorOps, N_min,
+                          N_max, P_tol, cutoff, E_shift, normalize)
 
 
 def _lanczos_K_2site_packed_impl(LPp, RPp, W0p, W1p, theta0, K,
@@ -1143,3 +1246,122 @@ class IterativeSweeps(Sweep):
 
     def post_run_cleanup(self):
         self.mixer_cleanup()
+
+
+# ================================================================ compression
+class VariationalCompression(IterativeSweeps):
+    """Compress an MPS in place by maximizing its overlap with a copy of
+    itself, bond by bond: each two-site update projects the old state onto
+    the new state's environments and splits it by a truncated SVD.
+
+    Options: ``trunc_params``, ``N_sweeps`` (2), ``tol_theta_diff``
+    (1e-8).  ``run()`` returns the truncation error of the last sweep.
+    """
+
+    EffectiveH = TwoSiteH
+
+    def __init__(self, psi, options, resume_data=None):
+        self.options = asConfig(options, self.__class__.__name__)
+        self.psi = psi
+        self.old_psi = psi.copy()
+        self.model = None
+        self.trunc_params = self.options.subconfig('trunc_params')
+        self.renormalize = []
+        self.finite = psi.finite
+        self.cache = DictCache.trivial()
+        self.checkpoint = EventHandler("algorithm")
+        self.env = MPSEnvironment(self.psi, self.old_psi)
+        self.sweeps = 0
+        self.mixer = None
+        self.time0 = time.time()
+        self.trunc_err_list = []
+        self._theta_diff = None
+
+    def run(self):
+        N_sweeps = self.options.get('N_sweeps', 2, int)
+        self.tol_theta_diff = self.options.get('tol_theta_diff', 1e-8,
+                                               'real')
+        trunc_err = TruncationError()
+        for _ in range(N_sweeps):
+            max_err = self.sweep()
+            trunc_err = TruncationError(max_err, 1. - 2. * max_err)
+            self.sweeps += 1
+            if self._theta_diff is not None and \
+                    self._theta_diff < self.tol_theta_diff:
+                break
+        if self.psi.finite:
+            self.psi.norm *= max(self.renormalize, default=1.)
+        return trunc_err
+
+    def sweep(self, optimize=True):
+        """Every bond left to right, then right to left; returns the
+        largest truncation error."""
+        self.renormalize = []
+        self._theta_diff = 0.
+        self.trunc_err_list = []
+        bonds = list(range(self.psi.L - 1 if self.finite else self.psi.L))
+        for i0 in bonds + bonds[::-1]:
+            self.update_bond(i0)
+        return np.max(self.trunc_err_list) if self.trunc_err_list else 0.
+
+    def _theta(self, i0):
+        """The old state's two-site theta at ``i0`` in the environments of
+        the new state, legs ``(vL.p0), (p1.vR)``."""
+        th = npc.tensordot(self.env.get_LP(i0),
+                           self.old_psi.get_theta(i0, n=2),
+                           axes=[['vR'], ['vL']])
+        th = npc.tensordot(th, self.env.get_RP(i0 + 1),
+                           axes=[['vR'], ['vL']])
+        th.ireplace_labels(['vR*', 'vL*'], ['vL', 'vR'])
+        return th.combine_legs([['vL', 'p0'], ['p1', 'vR']], qconj=[+1, -1])
+
+    def update_bond(self, i0):
+        U, S, VH, err, renorm = self._split_theta(self._theta(i0))
+        self.trunc_err_list.append(err.eps)
+        self.renormalize.append(renorm)
+        self.psi.set_B(i0, U.split_legs([0]).ireplace_label('p0', 'p'), 'A')
+        self.psi.set_SR(i0, S)
+        self.psi.set_B(i0 + 1, VH.split_legs([1]).ireplace_label('p1', 'p'),
+                       'B')
+        self.env.del_LP(i0 + 1)
+        self.env.del_RP(i0)
+
+    def _split_theta(self, th):
+        """The truncated decomposition of the two-site theta."""
+        return svd_theta(th, self.trunc_params)
+
+    def is_converged(self):
+        return False
+
+    def run_iteration(self):
+        return self.sweep()
+
+
+class VariationalApplyMPO(VariationalCompression):
+    """``U|psi>`` for an MPO ``U``, in place, by variational compression:
+    each update contracts ``LP W0 W1 RP`` with the old state's theta."""
+
+    def __init__(self, psi, U_MPO, options, resume_data=None):
+        super().__init__(psi, options, resume_data)
+        self.env = MPOEnvironment(self.psi, U_MPO, self.old_psi)
+
+    def _theta(self, i0):
+        env = self.env
+        W0 = env.H.get_W(i0).replace_labels(['p', 'p*'], ['p0', 'p0*'])
+        W1 = env.H.get_W(i0 + 1).replace_labels(['p', 'p*'], ['p1', 'p1*'])
+        th = _matvec_2site_plain_impl(env.get_LP(i0), env.get_RP(i0 + 1),
+                                      W0, W1,
+                                      self.old_psi.get_theta(i0, n=2))
+        return th.combine_legs([['vL', 'p0'], ['p1', 'vR']], qconj=[+1, -1])
+
+
+class QRBasedVariationalApplyMPO(VariationalApplyMPO):
+    """:class:`VariationalApplyMPO` whose split is a QR of theta and a
+    truncated SVD of the small R factor (arXiv:2212.09782)."""
+
+    def _split_theta(self, th):
+        Q, R = npc.qr(th, inner_labels=['vR', 'vL'])
+        U2, S, VH, err, renorm = svd_theta(R, self.trunc_params,
+                                           inner_labels=['vR', 'vL'])
+        return npc.tensordot(Q, U2, axes=[['vR'], ['vL']]), S, VH, err, \
+            renorm

@@ -1,13 +1,19 @@
-"""Krylov solvers on Arrays: Lanczos, GMRES and Arnoldi.
+"""Krylov solvers on Arrays: Lanczos, GMRES and Arnoldi, and the Krylov
+exponentials.
 
-Port of ``KrylovBased``, ``LanczosGroundState``, ``GMRES``, ``Arnoldi``,
-``lanczos_arpack``, ``gram_schmidt`` and the vector helpers of
+Port of ``KrylovBased``, ``LanczosGroundState``, ``LanczosEvolution``,
+``GMRES``, ``Arnoldi``, ``ArnoldiEvolution``, ``lanczos_arpack``,
+``gram_schmidt`` and the vector helpers of
 ``tenpy_tpu/linalg/krylov_based.py``.  The Krylov vectors are host
 :class:`~.np_conserved.Array` s; the small tridiagonal
 and Hessenberg problems run in numpy.  Lanczos is the host eigensolver of
-the DMRG engines (:mod:`~tenpy_tpu_torch.algorithms.dmrg`), GMRES builds
-the environments of an infinite MPS, Arnoldi finds transfer-matrix fixed
-points.  ``LanczosEvolution`` (TDVP) is not ported yet.
+the DMRG engines (:mod:`~tenpy_tpu_torch.algorithms.dmrg`),
+``LanczosEvolution`` the host local evolution of TDVP
+(:mod:`~tenpy_tpu_torch.algorithms.tdvp`; its loop, :func:`lanczos_evolve`,
+also runs the packed evolution on the card, ``lanczos_evolve_packed`` in
+:mod:`~tenpy_tpu_torch.algorithms.mps_common`), GMRES builds the
+environments of an infinite MPS, Arnoldi finds transfer-matrix fixed
+points.
 """
 
 from __future__ import annotations
@@ -18,8 +24,9 @@ from . import np_conserved as npc
 from ..tools.misc import argsort
 from ..tools.params import asConfig
 
-__all__ = ['KrylovBased', 'LanczosGroundState', 'GMRES', 'Arnoldi',
-           'lanczos_arpack', 'gram_schmidt']
+__all__ = ['KrylovBased', 'LanczosGroundState', 'LanczosEvolution',
+           'HostVectorOps', 'lanczos_evolve', 'GMRES', 'Arnoldi',
+           'ArnoldiEvolution', 'lanczos_arpack', 'gram_schmidt']
 
 
 def _v_norm(v):
@@ -49,6 +56,12 @@ def _tridiag(alphas, betas):
         T[np.arange(N - 1), np.arange(1, N)] = b
         T[np.arange(1, N), np.arange(N - 1)] = b
     return T
+
+
+def _expm_tridiag(T, delta):
+    """``exp(delta T)`` of a real symmetric (tridiagonal) matrix ``T``."""
+    evals, evecs = np.linalg.eigh(T)
+    return evecs @ np.diag(np.exp(delta * evals)) @ evecs.conj().T
 
 
 class KrylovBased:
@@ -181,6 +194,98 @@ class LanczosGroundState(KrylovBased):
         return result
 
 
+class LanczosEvolution(LanczosGroundState):
+    """``exp(delta H) |psi0>`` in the Krylov space of a hermitian ``H``
+    (the local updates of TDVP); ``delta`` may be complex (``-1j dt``).
+
+    :meth:`run` stops once the weight ``|c_N|^2`` of the last Krylov
+    vector in the result is below ``P_tol`` (after ``N_min`` steps), on a
+    Krylov breakdown (``beta < cutoff``) or after ``N_max`` steps, and
+    returns ``(psi_f, N)``.  ``normalize`` (default: for a purely
+    imaginary ``delta``) returns the normalized result, else its norm is
+    the evolved one.
+    """
+
+    def __init__(self, H, psi0, options):
+        super().__init__(H, psi0, options)
+        self.delta = None
+
+    def run(self, delta, normalize=None):
+        self.delta = delta
+        return lanczos_evolve(self.H.matvec, self.psi0, delta, HostVectorOps,
+                              self.N_min, self.N_max, self.P_tol,
+                              self._cutoff, self.E_shift, normalize)
+
+
+class HostVectorOps:
+    """The vector operations of :func:`lanczos_evolve` on host Arrays; the
+    packed counterpart is ``mps_common.PackedVectorOps``.  ``norm`` and
+    ``inner_re`` may return device scalars, which ``read`` brings to the
+    host as floats (here they are floats already)."""
+    norm = staticmethod(_v_norm)
+    axpy = staticmethod(_v_axpy)
+    scale = staticmethod(_v_scale)
+
+    @staticmethod
+    def inner_re(v, w):
+        return float(np.real(_v_inner(v, w)))
+
+    @staticmethod
+    def read(*xs):
+        return xs
+
+    @staticmethod
+    def combine(vecs, c):
+        """``sum_k c[k] vecs[k]``."""
+        result = _v_scale(vecs[0], c[0])
+        for k in range(1, len(c)):
+            result = _v_axpy(c[k], vecs[k], result)
+        return result
+
+
+def lanczos_evolve(matvec, psi0, delta, ops, N_min=2, N_max=20, P_tol=1e-14,
+                   cutoff=1e-12, E_shift=None, normalize=None):
+    """``exp(delta (H + E_shift)) psi0`` in the Krylov space of a hermitian
+    ``H`` given by ``matvec``: the loop of :class:`LanczosEvolution`, on
+    whatever vectors ``ops`` (:class:`HostVectorOps` or its packed
+    counterpart) works on.
+
+    Per step ``(alpha, beta)`` is read once (``ops.read``) and
+    ``exp(delta T)`` of the small tridiagonal ``T`` runs in numpy.  It
+    stops on a Krylov breakdown (``beta < cutoff``), once the weight
+    ``|c_N|^2`` of the last Krylov vector in the result is below ``P_tol``
+    (after ``N_min`` steps), or after ``N_max`` steps.  The result is
+    ``sum_k c_k v_k``, normalized with ``normalize`` (default: for a purely
+    imaginary ``delta``), else scaled by the norm of ``psi0``.  Returns
+    ``(psi_f, N)``, ``N`` the Krylov steps (matvecs) taken.
+    """
+    norm0 = ops.norm(psi0)
+    vecs = [ops.scale(psi0, 1. / norm0)]
+    alphas, betas = [], []
+    for k in range(N_max):
+        hw = matvec(vecs[-1])
+        if E_shift is not None:
+            hw = ops.axpy(E_shift, vecs[-1], hw)
+        alpha_t = ops.inner_re(vecs[-1], hw)
+        hw = ops.axpy(-alpha_t, vecs[-1], hw)
+        if len(vecs) > 1:
+            hw = ops.axpy(-betas[-1], vecs[-2], hw)
+        alpha, beta = ops.read(alpha_t, ops.norm(hw))
+        alphas.append(alpha)
+        coeff = _expm_tridiag(_tridiag(alphas, betas), delta)[:, 0]
+        if beta < cutoff or k + 1 == N_max or \
+                (k + 1 >= N_min and abs(coeff[-1]) ** 2 < P_tol):
+            break
+        betas.append(float(beta))
+        vecs.append(ops.scale(hw, 1. / beta))
+    result = ops.combine(vecs, coeff)
+    if normalize is None:
+        normalize = np.real(delta) == 0.
+    if normalize:
+        return ops.scale(result, 1. / ops.norm(result)), len(coeff)
+    return ops.scale(result, norm0), len(coeff)
+
+
 class GMRES(KrylovBased):
     """Restarted GMRES solving ``H x = b`` for Arrays.
 
@@ -296,6 +401,40 @@ class Arnoldi(KrylovBased):
                 return evals[:len(psis)], psis, k + 1
             vecs.append(_v_scale(w, 1. / beta))
         raise RuntimeError("unreachable")
+
+
+class ArnoldiEvolution(Arnoldi):
+    """``exp(delta H) |psi0>`` in the Krylov space of a non-hermitian
+    ``H``: :meth:`run` as :meth:`LanczosEvolution.run`, with the
+    Hessenberg matrix's exponential (``scipy.linalg.expm``)."""
+
+    def run(self, delta, normalize=None):
+        import scipy.linalg
+        norm0 = _v_norm(self.psi0)
+        vecs = [_v_scale(self.psi0, 1. / norm0)]
+        h = np.zeros((self.N_max + 1, self.N_max), dtype=complex)
+        for k in range(self.N_max):
+            w = self.H.matvec(vecs[-1])
+            for j, v in enumerate(vecs):
+                h[j, k] = _v_inner(v, w)
+                w = _v_axpy(-h[j, k], v, w)
+            beta = _v_norm(w)
+            h[k + 1, k] = beta
+            coeff = scipy.linalg.expm(delta * h[:k + 1, :k + 1])[:, 0]
+            if beta < self._cutoff or k + 1 == self.N_max or \
+                    (k + 1 >= self.N_min and abs(coeff[-1]) ** 2 < self.P_tol):
+                break
+            vecs.append(_v_scale(w, 1. / beta))
+        result = _v_scale(vecs[0], coeff[0])
+        for j in range(1, len(coeff)):
+            result = _v_axpy(coeff[j], vecs[j], result)
+        if normalize is None:
+            normalize = np.real(delta) == 0.
+        if normalize:
+            result = _v_scale(result, 1. / _v_norm(result))
+        else:
+            result = _v_scale(result, norm0)
+        return result, len(coeff)
 
 
 def lanczos_arpack(H, psi0, options={}):

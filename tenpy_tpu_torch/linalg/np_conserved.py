@@ -30,7 +30,7 @@ from .charges import QTYPE, LegCharge, LegPipe
 
 __all__ = ['Array', 'zeros', 'eye_like', 'diag', 'outer', 'inner',
            'tensordot', 'grid_outer', 'norm', 'trace', 'svd', 'qr', 'lq',
-           'eigh', 'concatenate',
+           'eigh', 'expm', 'concatenate',
            'detect_qtotal', 'conj_label', 'as_dtype', 'result_type']
 
 _NP_TO_TORCH = {np.dtype(np.float64): torch.float64,
@@ -258,6 +258,32 @@ class Array:
                 raise ValueError(msg)
             if warn_wrong_sector:
                 warnings.warn(msg, stacklevel=2)
+        res._set_blocks(np.array(qdata, QTYPE).reshape(len(qdata), len(legs)),
+                        blocks)
+        return res
+
+    @classmethod
+    def from_func(cls, func, legcharges, dtype=None, qtotal=None,
+                  func_args=(), labels=None, shape_kw=None):
+        """Every charge-allowed block filled by ``func(shape, *func_args)``
+        (or ``func(*func_args, **{shape_kw: shape})``): a numpy array or a
+        tensor, e.g. a random matrix of
+        :mod:`~tenpy_tpu_torch.linalg.random_matrix`."""
+        legs = tuple(legcharges)
+        res = cls(legs, torch.float64 if dtype is None else dtype, qtotal,
+                  labels)
+        qdata, blocks = [], []
+        for row in itertools.product(*[range(l.block_number) for l in legs]):
+            if tuple(_row_qtotal(legs, row)) != res.qtotal:
+                continue
+            shape = _block_shape(legs, row)
+            block = func(*func_args, **{shape_kw: shape}) \
+                if shape_kw is not None else func(shape, *func_args)
+            qdata.append(row)
+            blocks.append(_as_block(block, dtype))
+        if blocks:
+            res.dtype = result_type(*[b.dtype for b in blocks])
+            blocks = [b.to(res.dtype) for b in blocks]
         res._set_blocks(np.array(qdata, QTYPE).reshape(len(qdata), len(legs)),
                         blocks)
         return res
@@ -1237,6 +1263,21 @@ def _eig_sort_perm(w, sort):
     if sort == '<':
         return np.argsort(w.real)
     raise ValueError(f"unknown sort {sort!r}")
+
+
+def expm(a):
+    """The blockwise matrix exponential of a square 2-leg Array (legs
+    ``[leg, leg.conj()]``, zero charge); its legs and labels are kept."""
+    if a.rank != 2:
+        raise ValueError("expm needs a 2-leg array")
+    res = diag(1., a.legs[0], dtype=a.dtype)
+    res.legs = a.legs
+    res._labels = a._labels
+    rows = {tuple(int(x) for x in r): i for i, r in enumerate(res._qdata)}
+    for row, block in zip(a._qdata, a._data):
+        res._data[rows[(int(row[0]), int(row[1]))]] = \
+            torch.linalg.matrix_exp(block)
+    return res
 
 
 def qr(a, inner_labels=(None, None), pos_diag_R=False, qtotal_Q=None,

@@ -182,6 +182,13 @@ class PackedArray:
                 and all(np.array_equal(p, q)
                         for p, q in zip(self.qdatas, other.qdatas)))
 
+    def __add__(self, other):
+        if not isinstance(other, PackedArray):
+            return NotImplemented
+        if not self._same_struct(other):
+            raise ValueError("PackedArray structure mismatch")
+        return self._like([x + y for x, y in zip(self.data, other.data)])
+
     def __sub__(self, other):
         if not isinstance(other, PackedArray):
             return NotImplemented

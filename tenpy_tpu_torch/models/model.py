@@ -35,6 +35,13 @@ class Model:
     def copy(self):
         return copy.copy(self)
 
+    def update_time_parameter(self, new_time):
+        """The model re-built from its options with ``time`` set to
+        ``new_time`` (for a Hamiltonian that depends on time)."""
+        options = self.options.as_dict() if hasattr(self, 'options') else {}
+        options['time'] = new_time
+        return self.__class__(options)
+
 
 class NearestNeighborModel(Model):
     """Model with ``H_bond``: ``H_bond[i]`` acts on sites ``(i-1, i)``."""

@@ -1,8 +1,11 @@
 r"""Matrix product operators: MPO, the MPOGraph compiler, MPO environments.
 
-Port of the part of ``tenpy_tpu/networks/mpo.py`` that the sweep engine's
-host side runs: :class:`MPO` with :meth:`MPO.from_grids` and
-:meth:`MPO.expectation_value`, the :class:`MPOGraph` compiler of a model's
+Port of the part of ``tenpy_tpu/networks/mpo.py`` that the engines' host
+side runs: :class:`MPO` with :meth:`MPO.from_grids`,
+:meth:`MPO.expectation_value` and :meth:`MPO.variance`, its application to
+an MPS (:meth:`MPO.apply`: :meth:`MPO.apply_naively`,
+:meth:`MPO.apply_zipup` or variational) and the W_I / W_II approximations
+of ``exp(-dt H)`` (:meth:`MPO.make_U`), the :class:`MPOGraph` compiler of a model's
 terms, :class:`MPOEnvironment` with ``full_contraction``, and
 :class:`MPOTransferMatrix`: the converged infinite-bc environments of
 :meth:`MPOTransferMatrix.find_init_LP_RP`, by the channel-wise GMRES
@@ -25,6 +28,7 @@ import numpy as np
 from ..linalg import np_conserved as npc
 from ..linalg.charges import LegCharge, QTYPE
 from ..linalg.sparse import FlatLinearOperator, _np_dtype
+from ..linalg.truncation import TruncationError, svd_theta
 from .mps import BaseEnvironment
 
 logger = logging.getLogger(__name__)
@@ -198,6 +202,146 @@ class MPO:
         :meth:`MPOTransferMatrix.find_init_LP_RP` (``calc_E=True``)."""
         _, Es, _ = MPOTransferMatrix.find_init_LP_RP(self, psi, calc_E=True)
         return float(np.real(np.mean(Es)))
+
+
+    def variance(self, psi, exact_E=None):
+        """``<psi|H^2|psi> - <psi|H|psi>^2`` of a finite ``psi``, with
+        ``H|psi>`` by :meth:`apply_naively`."""
+        assert psi.finite
+        Hpsi = self.apply_naively(psi.copy())
+        if exact_E is None:
+            exact_E = self.expectation_value(psi)
+        return np.real(Hpsi.overlap(Hpsi) - exact_E ** 2)
+
+    def apply(self, psi, options):
+        """Apply the MPO to ``psi`` in place and compress: options
+        ``compression_method`` ('SVD': :meth:`apply_naively` and
+        ``compress_svd``; 'zip_up' (default): :meth:`apply_zipup` and
+        ``compress_svd``; 'variational':
+        :class:`~tenpy_tpu_torch.algorithms.mps_common.VariationalApplyMPO`)
+        and ``trunc_params``.  Returns the truncation error."""
+        from ..tools.params import asConfig
+        options = asConfig(options, 'MPO_apply')
+        method = options.get('compression_method', 'zip_up')
+        if method == 'SVD':
+            self.apply_naively(psi)
+            return psi.compress_svd(options.subconfig('trunc_params'))
+        if method == 'zip_up':
+            trunc_err = self.apply_zipup(psi, options)
+            return trunc_err + psi.compress_svd(
+                options.subconfig('trunc_params'))
+        if method == 'variational':
+            from ..algorithms.mps_common import VariationalApplyMPO
+            return VariationalApplyMPO(psi, self, options).run()
+        raise ValueError(f"unknown compression_method {method!r}")
+
+    def apply_naively(self, psi):
+        """Contract each W into the state's B-form tensor (the bond
+        dimensions multiply), then canonicalize (no renormalization)."""
+        finite = psi.bc == 'finite'
+        for i in range(psi.L):
+            # the B form, not the stored tensor: a mixed-canonical state is
+            # the product of its raw tensors only with S at the A/B border
+            B = npc.tensordot(psi.get_B(i, 'B'), self.get_W(i),
+                              axes=[['p'], ['p*']])
+            if finite and i == 0 and self.IdL[0] is not None:
+                B = _project_onto_w_index(B, 'wL', self.IdL[0])
+                B = B.combine_legs([['wR', 'vR']], qconj=[-1])
+                B.ireplace_label('(wR.vR)', 'vR')
+            elif finite and i == psi.L - 1 and self.IdR[-1] is not None:
+                B = _project_onto_w_index(B, 'wR', self.IdR[-1])
+                B = B.combine_legs([['wL', 'vL']], qconj=[+1])
+                B.ireplace_label('(wL.vL)', 'vL')
+            else:
+                B = B.combine_legs([['wL', 'vL'], ['wR', 'vR']],
+                                   qconj=[+1, -1])
+                B.ireplace_labels(['(wL.vL)', '(wR.vR)'], ['vL', 'vR'])
+            psi.set_B(i, B.itranspose(['vL', 'p', 'vR']), None)
+        # the Schmidt values are not known: placeholders until canonical
+        for b in range(psi.L + 1):
+            n = psi.get_B(min(b, psi.L - 1), None).get_leg(
+                'vL' if b < psi.L else 'vR').ind_len
+            psi._S[b] = np.ones(n) / np.sqrt(n)
+        if finite:
+            psi.canonical_form_finite(renormalize=False)
+        else:
+            psi.canonical_form_infinite()
+        return psi
+
+    def apply_zipup(self, psi, options):
+        """Apply the MPO to a finite ``psi`` in place by the zip-up
+        (arXiv:1002.1305): contract site by site and truncate on the way
+        (``trunc_params``, relaxed by ``trunc_weight`` < 1), then
+        canonicalize.  Returns the truncation error."""
+        from ..tools.params import asConfig
+        options = asConfig(options, 'zip_up')
+        trunc_params = options.subconfig('trunc_params')
+        trunc_weight = options.get('trunc_weight', 1., 'real')
+        relax = dict(trunc_params.as_dict())
+        if trunc_weight < 1. and relax.get('svd_min') is not None:
+            relax['svd_min'] = relax['svd_min'] * trunc_weight
+        if relax.get('chi_max') is not None:
+            relax['chi_max'] = int(relax['chi_max']
+                                   * (2 if trunc_weight < 1. else 1))
+        assert psi.finite
+        trunc_err = TruncationError()
+        carry = None
+        for i in range(psi.L):
+            B = psi.get_B(i, 'B' if i > 0 else 'Th')
+            W = self.get_W(i)
+            if carry is None:
+                C = npc.tensordot(B, W, axes=[['p'], ['p*']])
+                C = _project_onto_w_index(C, 'wL', self.IdL[0])
+            else:
+                C = npc.tensordot(carry, B, axes=[['vR'], ['vL']])
+                C = npc.tensordot(C, W, axes=[['wR', 'p'], ['wL', 'p*']])
+            C.itranspose(['vL', 'p', 'wR', 'vR'])
+            if i == psi.L - 1:
+                C = _project_onto_w_index(C, 'wR', self.IdR[-1])
+                psi.set_B(i, C.itranspose(['vL', 'p', 'vR']), None)
+                break
+            theta = C.combine_legs([['vL', 'p'], ['wR', 'vR']],
+                                   qconj=[+1, -1])
+            U, S, VH, err, renorm = svd_theta(theta, relax)
+            trunc_err += err
+            psi.set_B(i, U.split_legs([0]), 'A')
+            psi.set_SR(i, S)
+            carry = VH.iscale_axis(np.asarray(S) * renorm, 0).split_legs([1])
+        psi.canonical_form_finite(renormalize=False)
+        return trunc_err
+
+    # ------------------------------------------------------- time evolution
+    def make_U(self, dt, approximation='II'):
+        """``U ~ exp(-dt H)`` as an MPO, by the W_I or W_II approximation
+        (arXiv:1407.1832); ``dt`` may be complex (``1j * delta_t`` for real
+        time)."""
+        if approximation == 'II':
+            return self.make_U_II(dt)
+        if approximation == 'I':
+            return self.make_U_I(dt)
+        raise ValueError(f"unknown approximation {approximation!r}")
+
+    def make_U_I(self, dt):
+        """The W_I approximation of ``exp(-dt H)`` (first order)."""
+        return self._make_U(dt, _make_WI_tensor, 'W_I')
+
+    def make_U_II(self, dt):
+        """The W_II approximation of ``exp(-dt H)``."""
+        return self._make_U(dt, _make_WII_tensor, 'W_II')
+
+    def _make_U(self, dt, make_tensor, name):
+        keeps, bond_legs = _wII_bond_data(self)
+        U = []
+        for i in range(self.L):
+            IdL, IdR = self.get_IdL(i), self.get_IdR(i)
+            if IdL is None or IdR is None:
+                raise ValueError(f"{name} needs IdL/IdR")
+            bR = (i + 1) % self.L if self.bc == 'infinite' else i + 1
+            U.append(make_tensor(self.get_W(i), IdL, IdR, dt, keeps[i],
+                                 keeps[bR], bond_legs[i],
+                                 bond_legs[bR].conj()))
+        return MPO(self.sites, U, self.bc, IdL=[0] * (self.L + 1),
+                   IdR=[0] * (self.L + 1), max_range=self.max_range)
 
 
 def grid_insert_ops(site, grid):
@@ -723,3 +867,105 @@ class MPOTransferMatrix:
         E0 = npc.tensordot(LP, envs[0],
                            axes=[['vR', 'wR', 'vR*'], ['vL', 'wL', 'vL*']])
         return init_env_data, Es, complex(E0)
+
+
+def _project_onto_w_index(a, label, idx):
+    """``a`` at the single index ``idx`` of its leg ``label`` (the leg
+    removed)."""
+    mask = np.zeros(a.get_leg(label).ind_len, bool)
+    mask[idx] = True
+    res = a.copy(deep=False).iproject([mask], [label])
+    return res.squeeze([res.get_leg_index(label)])
+
+
+def _wII_bond_data(H):
+    """Per bond of ``H``: the kept indices (all but IdL and IdR) and the
+    new bond leg, whose index 0 is the single identity channel that
+    replaces both.  One leg per bond (conjugated on the left site's wR)
+    keeps neighbouring U tensors contractible where IdL != IdR."""
+    L = H.L
+    keeps, legs = [], []
+    for b in range(L if H.bc == 'infinite' else L + 1):
+        leg = H.get_W(b).get_leg('wL') if b < L else \
+            H.get_W(L - 1).get_leg('wR').conj()
+        drop = {x for x in (H.IdL[b], H.IdR[b]) if x is not None}
+        keep = [x for x in range(leg.ind_len) if x not in drop]
+        chinfo = leg.chinfo
+        qflat = leg.to_qflat()
+        rows = [chinfo.make_valid()] + [qflat[x] * leg.qconj for x in keep]
+        keeps.append(keep)
+        legs.append(LegCharge.from_qflat(
+            chinfo, chinfo.make_valid(np.array(rows)), +1))
+    return keeps, legs
+
+
+def _W_blocks(W, IdL, IdR, keepL, keepR):
+    """The blocks of ``W = [[1, C, D], [0, A, B], [0, 0, 1]]``: ``(A, B,
+    C, D)`` as numpy arrays, and ``W`` dense."""
+    dense = W.to_numpy()
+    return (dense[np.ix_(keepL, keepR)], dense[keepL, IdR],
+            dense[IdL, keepR], dense[IdL, IdR], dense)
+
+
+def _sqrt_t(t):
+    return np.sqrt(complex(t)) if np.iscomplexobj(np.asarray(t)) or \
+        np.real(t) < 0 else np.sqrt(t)
+
+
+def _make_WI_tensor(W, IdL, IdR, dt, keepL, keepR, legL, legR):
+    """The U^I tensor ``[[1 + t D, sqrt(t) C], [sqrt(t) B, A]]`` with ``t
+    = -dt`` (``make_U(dt) = exp(-dt H)``)."""
+    A, B, C, D, dense = _W_blocks(W, IdL, IdR, keepL, keepR)
+    d = dense.shape[2]
+    t = -dt
+    sqdt = _sqrt_t(t)
+    nL, nR = len(keepL), len(keepR)
+    U = np.zeros((1 + nL, 1 + nR, d, d), complex if np.iscomplexobj(sqdt)
+                 or np.iscomplexobj(dense) else float)
+    U[0, 0] = np.eye(d) + t * D
+    for b in range(nR):
+        U[0, 1 + b] = sqdt * C[b]
+    for a in range(nL):
+        U[1 + a, 0] = sqdt * B[a]
+        for b in range(nR):
+            U[1 + a, 1 + b] = A[a, b]
+    return npc.Array.from_ndarray(U, [legL, legR, W.get_leg('p'),
+                                      W.get_leg('p*')],
+                                  labels=['wL', 'wR', 'p', 'p*'],
+                                  warn_wrong_sector=False)
+
+
+def _make_WII_tensor(W, IdL, IdR, dt, keepL, keepR, legL, legR):
+    r"""The W_II tensor (arXiv:1407.1832 eq. 11-12): for each pair of an
+    "in" row ``a`` and an "out" column ``b``, the element
+    ``<n_a, n_b| exp(G) |0, 0>`` of two auxiliary hard-core bosons, ``G =
+    t D + sqrt(t) (c_a^dagger B_a + c_b^dagger C_b) + c_a^dagger
+    c_b^dagger A_ab`` on (boson a) x (boson b) x (site), ``t = -dt``."""
+    import scipy.linalg
+    A, B, C, D, dense = _W_blocks(W, IdL, IdR, keepL, keepR)
+    d = dense.shape[2]
+    t = -dt
+    sq_t = _sqrt_t(t)
+    nL, nR = len(keepL), len(keepR)
+    U = np.zeros((1 + nL, 1 + nR, d, d), complex if np.iscomplexobj(sq_t)
+                 or np.iscomplexobj(dense) else float)
+    cdag = np.array([[0., 0.], [1., 0.]])
+    proj0, proj1 = np.array([1., 0.]), np.array([0., 1.])
+    eye2, zero = np.eye(2), np.zeros((d, d))
+    vec_in = np.kron(np.kron(proj0, proj0), np.eye(d))
+    for a in range(nL + 1):
+        for b in range(nR + 1):
+            Ba = B[a - 1] if a > 0 else zero
+            Cb = C[b - 1] if b > 0 else zero
+            Aab = A[a - 1, b - 1] if (a > 0 and b > 0) else zero
+            G = (np.kron(np.kron(eye2, eye2), t * D)
+                 + np.kron(np.kron(cdag, eye2), sq_t * Ba)
+                 + np.kron(np.kron(eye2, cdag), sq_t * Cb)
+                 + np.kron(np.kron(cdag, cdag), Aab))
+            vec_out = np.kron(np.kron(proj1 if a > 0 else proj0,
+                                      proj1 if b > 0 else proj0), np.eye(d))
+            U[a, b] = vec_out @ scipy.linalg.expm(G) @ vec_in.T
+    return npc.Array.from_ndarray(U, [legL, legR, W.get_leg('p'),
+                                      W.get_leg('p*')],
+                                  labels=['wL', 'wR', 'p', 'p*'],
+                                  warn_wrong_sector=False)

@@ -18,10 +18,15 @@ Since the write-back it also canonicalizes (``canonical_form``: the QR
 sweeps of a finite MPS; for an infinite one the inverse-free iterated QR
 gauge with its transfer-matrix fixed-point fallback and noise-floor
 compression rescue) and measures (``entanglement_entropy``,
-``expectation_value``, ``correlation_length`` through
+``expectation_value``, ``expectation_value_term``,
+``correlation_function``, ``correlation_length`` through
 :class:`TransferMatrix`, and ``overlap``: the full contraction of an
 :class:`MPSEnvironment` for finite bc, the dominant transfer-matrix
-eigenvalue per unit cell for infinite bc).  The blocks stay on the host;
+eigenvalue per unit cell for infinite bc; ``MPSEnvironment.
+expectation_value`` for ``<bra|op|ket>``).  For the time evolutions it
+applies local operators (``apply_local_op``, ``apply_product_op``),
+compresses (``compress``: SVD or variational) and is built from a dense
+vector (``from_full``).  The blocks stay on the host;
 the eigensolvers are :class:`~tenpy_tpu_torch.linalg.krylov_based.Arnoldi`.
 """
 
@@ -40,6 +45,7 @@ from ..linalg.truncation import TruncationError, svd_theta
 from ..tools.cache import DictCache
 from ..tools.math import entropy
 from ..tools.params import asConfig
+from .terms import order_combine_term
 
 logger = logging.getLogger(__name__)
 
@@ -190,6 +196,9 @@ class MPS:
             return i
         return i % self.L
 
+    def get_site(self, i):
+        return self.sites[self._to_valid_index(i)]
+
     @classmethod
     def from_product_state(cls, sites, p_state, bc='finite',
                            dtype=np.float64, permute=True, form='B',
@@ -233,6 +242,45 @@ class MPS:
             qL = np.array(qR, np.int64)
             legL = legR.conj()
         return cls(sites, Bs, SVs, bc=bc, form=form)
+
+    @classmethod
+    def from_full(cls, sites, psi, form='B', cutoff=1e-16, normalize=True,
+                  bc='finite'):
+        """The exact MPS of a full wave function ``psi`` (an Array with
+        one leg per site), split off site by site from the right by SVDs
+        (singular values up to ``cutoff`` dropped); canonical."""
+        if bc != 'finite':
+            raise ValueError("from_full only for finite bc")
+        L = len(sites)
+        if psi.rank != L:
+            raise ValueError("psi has wrong rank")
+        psi = psi.copy(deep=False)
+        psi.iset_leg_labels([f'p{i}' for i in range(L)])
+        chinfo = psi.chinfo
+        psi = psi.add_leg(LegCharge.from_trivial(1, chinfo, +1), 0, 0, 'vL')
+        psi = psi.add_leg(LegCharge.from_trivial(1, chinfo, -1), 0, L + 1,
+                          'vR')
+        Bs, SVs = [], [np.ones(1)]
+        trunc_par = {'chi_max': None, 'svd_min': cutoff, 'trunc_cut': None}
+        rest = psi
+        for i in range(L - 1, 0, -1):
+            rest = rest.combine_legs([['vL'] + [f'p{k}' for k in range(i)],
+                                      [f'p{i}', 'vR']], qconj=[+1, -1])
+            U, S, VH, _, _ = svd_theta(rest, trunc_par)
+            Bs.append(VH.split_legs([1]).ireplace_label(f'p{i}', 'p'))
+            SVs.append(np.asarray(S))
+            rest = U.split_legs([0]).iscale_axis(np.asarray(S), 'vR')
+        rest.ireplace_label('p0', 'p')
+        norm_rest = npc.norm(rest)
+        if normalize:
+            rest = rest / norm_rest
+        Bs.append(rest)
+        SVs.append(np.ones(1))
+        res = cls(sites, Bs[::-1], SVs[::-1], bc=bc,
+                  form=['Th'] + ['B'] * (L - 1),
+                  norm=1. if normalize else norm_rest)
+        res.canonical_form_finite()
+        return res
 
     @classmethod
     def from_lat_product_state(cls, lat, p_state, allow_incommensurate=False,
@@ -427,10 +475,21 @@ class MPS:
         p0, ..., p{n-1}, vR``; each inner Schmidt factor goes to the side
         whose stored form already carries it (no ``S^-1`` where avoidable).
         """
+        theta = None
+        for B in self._theta_tensors(i, n, cutoff, formL, formR):
+            theta = B if theta is None else \
+                npc.tensordot(theta, B, axes=[['vR'], ['vL']])
+        return theta
+
+    def _theta_tensors(self, i, n, cutoff=1e-16, formL=1., formR=1.,
+                       label_p=True):
+        """The ``n`` tensors whose product is :meth:`get_theta` ``(i, n)``
+        (physical legs ``p0, ...`` with ``label_p``, else ``p``)."""
         i = self._to_valid_index(i)
         if n == 1:
-            return self.get_B(i, (formL, formR), cutoff=cutoff, label_p=0)
-        theta = None
+            return [self.get_B(i, (formL, formR), cutoff=cutoff,
+                               label_p=0 if label_p else None)]
+        res = []
         aL = formL
         for k in range(n):
             st = self.form[self._to_valid_index(i + k)]
@@ -441,11 +500,10 @@ class MPS:
                 aR = 1. - (nxt[0] if nxt is not None else 0.)
                 if st is not None and st[1] > aR + 1e-12:
                     aR = st[1]
-            B = self.get_B(i + k, (aL, aR), cutoff=cutoff, label_p=k)
-            theta = B if theta is None else \
-                npc.tensordot(theta, B, axes=[['vR'], ['vL']])
+            res.append(self.get_B(i + k, (aL, aR), cutoff=cutoff,
+                                  label_p=k if label_p else None))
             aL = 1. - aR
-        return theta
+        return res
 
     def norm_test(self):
         """Canonical-form check without dividing by S: the single-site
@@ -579,6 +637,92 @@ class MPS:
                                           ['vL', 'vR'] + p])
             res.append(complex(val))
         res = np.array(res)
+        if np.allclose(res.imag, 0., atol=1e-14):
+            res = res.real
+        return res
+
+    def expectation_value_multi_sites(self, operators, i0):
+        """``<psi| op_0 op_1 ... |psi>`` for operators on the consecutive
+        sites ``i0, i0 + 1, ...``: the same contraction as with the
+        ``n``-site theta, done site by site (``O(n chi^3)``)."""
+        ops = [self.get_op([op], i0 + k) if isinstance(op, str) else op
+               for k, op in enumerate(operators)]
+        rho = None
+        for B, op in zip(self._theta_tensors(i0, len(ops), label_p=False),
+                         ops):
+            C = B if rho is None else \
+                npc.tensordot(rho, B, axes=[['vR'], ['vL']])
+            C = npc.tensordot(op, C, axes=[['p*'], ['p']])
+            if rho is None:
+                rho = npc.tensordot(B.conj(), C, axes=[['vL*', 'p*'],
+                                                       ['vL', 'p']])
+            else:
+                rho = npc.tensordot(B.conj(), C, axes=[['vL*', 'p*'],
+                                                       ['vR*', 'p']])
+        return complex(npc.trace(rho, 'vR*', 'vR'))
+
+    def expectation_value_term(self, term, autoJW=True):
+        """The expectation value of a term ``[(opname, i), ...]``; with
+        ``autoJW`` sorted with its fermionic sign and Jordan-Wigner strings
+        inserted between fermionic operators."""
+        term = list(term)
+        if autoJW:
+            term, sign = order_combine_term(term, self.sites)
+        else:
+            term = sorted(term, key=lambda x: x[1])
+            sign = 1.
+        idx = [i for _, i in term]
+        i0, i1 = min(idx), max(idx)
+        ops = []
+        for x in range(i0, i1 + 1):
+            ops_x = [op for op, i in term if i == x]
+            opname = ops_x[0] if ops_x else 'Id'
+            if autoJW:
+                n_JW_left = sum(1 for op, i in term if i <= x and
+                                self.get_site(i).op_needs_JW(op))
+                later = [op for op, i in term if i > x and
+                         self.get_site(i).op_needs_JW(op)]
+                in_string = n_JW_left % 2 == 1 and len(later) > 0
+                if ops_x:
+                    if in_string:
+                        opname = self.get_site(x).multiply_op_names(
+                            ops_x + ['JW'])
+                    elif len(ops_x) > 1:
+                        opname = self.get_site(x).multiply_op_names(ops_x)
+                else:
+                    opname = 'JW' if in_string else 'Id'
+            ops.append(opname)
+        return sign * self.expectation_value_multi_sites(ops, i0)
+
+    def correlation_function(self, ops1, ops2, sites1=None, sites2=None,
+                             opstr=None, str_on_first=True, hermitian=False,
+                             autoJW=True):
+        """``<op1_i op2_j>`` for ``i`` in ``sites1`` and ``j`` in ``sites2``
+        (default all sites); ``ops1``, ``ops2`` a name or a list cycling
+        over the sites; ``opstr`` an explicit string operator between ``i``
+        and ``j`` (then no automatic Jordan-Wigner strings).  Real where
+        every imaginary part is below 1e-14."""
+        sites1 = list(range(self.L) if sites1 is None else sites1)
+        sites2 = list(range(self.L) if sites2 is None else sites2)
+        res = np.empty((len(sites1), len(sites2)), dtype=complex)
+        for a, i in enumerate(sites1):
+            for b, j in enumerate(sites2):
+                op1 = ops1 if isinstance(ops1, str) else ops1[i % len(ops1)]
+                op2 = ops2 if isinstance(ops2, str) else ops2[j % len(ops2)]
+                if i == j:
+                    op = self.get_site(i).multiply_op_names([op1, op2])
+                    res[a, b] = complex(self.expectation_value([op], [i])[0])
+                    continue
+                term = [(op1, i), (op2, j)] if i < j else \
+                    [(op2, j), (op1, i)]
+                if opstr is not None:
+                    term = term + [(opstr, x)
+                                   for x in range(min(i, j) + 1, max(i, j))]
+                    res[a, b] = self.expectation_value_term(term,
+                                                            autoJW=False)
+                else:
+                    res[a, b] = self.expectation_value_term(term,
+                                                            autoJW=autoJW)
         if np.allclose(res.imag, 0., atol=1e-14):
             res = res.real
         return res
@@ -875,6 +1019,95 @@ class MPS:
         return err
 
 
+    def compress(self, options):
+        """Compress in place: ``compression_method`` 'SVD'
+        (:meth:`compress_svd` with ``trunc_params``) or 'variational'
+        (:class:`~tenpy_tpu_torch.algorithms.mps_common.
+        VariationalCompression`); returns the truncation error."""
+        options = asConfig(options, 'MPS_compress')
+        method = options.get('compression_method', 'SVD')
+        if method == 'SVD':
+            return self.compress_svd(options.subconfig('trunc_params'))
+        if method == 'variational':
+            from ..algorithms.mps_common import VariationalCompression
+            return VariationalCompression(self, options).run()
+        raise ValueError(f"unknown compression method {method!r}")
+
+    # ------------------------------------------------------- local operators
+    def apply_local_op(self, i, op, unitary=None, renormalize=False,
+                       cutoff=1e-13):
+        """Apply an operator (a name, or an Array with legs ``p, p*`` or
+        ``p0, p1, ..., p0*, p1*, ...``) at site ``i`` (and the following
+        ones), in place: a one-site operator keeps each tensor's form; an
+        ``n``-site one is split back by SVDs (singular values up to
+        ``cutoff`` dropped).
+
+        A non-unitary operator (``unitary=None``: detected as
+        ``|op^dagger op - 1| > cutoff``) is followed by ``canonical_form``,
+        which moves the state's new norm into ``psi.norm``, or with
+        ``renormalize`` drops it, as TeNPy does.  (``tenpy_tpu`` leaves
+        the norm in the tensors, where the next truncated SVD of a time
+        evolution drops it: its ``C(t)`` of a non-unitary ``A`` is
+        ``C(t) / |A psi|``.)"""
+        i = self._to_valid_index(i)
+        if isinstance(op, str):
+            op = self.sites[i].get_op(op)
+        n = op.rank // 2
+        if unitary is None:
+            labels = [f'p{k}' for k in range(n)] if n > 1 else ['p']
+            opo = op.copy(deep=False)
+            if n > 1:
+                opo.iset_leg_labels(labels + [lab + '*' for lab in labels])
+            dd = npc.tensordot(opo.conj(), opo,
+                               axes=[labels, [lab + '*' for lab in labels]])
+            dd = dd.combine_legs([[lab + '*' for lab in labels], labels],
+                                 qconj=[+1, -1]) if n > 1 else dd
+            unitary = npc.norm(dd - npc.eye_like(dd, 0)) <= cutoff
+        if n == 1:
+            opB = npc.tensordot(op, self.get_B(i, None), axes=[['p*'],
+                                                               ['p']])
+            self.set_B(i, opB.itranspose(['vL', 'p', 'vR']), self.form[i])
+        else:
+            th = self.get_theta(i, n)
+            labels = [f'p{k}' for k in range(n)]
+            op = op.copy(deep=False)
+            op.iset_leg_labels(labels + [lab + '*' for lab in labels])
+            th = npc.tensordot(op, th, axes=[[lab + '*' for lab in labels],
+                                             labels])
+            th.itranspose(['vL'] + labels + ['vR'])
+            self._set_theta_split(i, th, n, cutoff)
+        if renormalize or not unitary:
+            self.canonical_form(renormalize=renormalize)
+        return self
+
+    def _set_theta_split(self, i, theta, n, cutoff):
+        """Split an ``n``-site theta back into B tensors by SVDs."""
+        trunc_par = {'chi_max': None, 'svd_min': cutoff, 'trunc_cut': None}
+        rest = theta
+        for k in range(n - 1, 0, -1):
+            rest = rest.combine_legs([['vL'] + [f'p{x}' for x in range(k)],
+                                      [f'p{k}', 'vR']], qconj=[+1, -1])
+            U, S, VH, _, _ = svd_theta(rest, trunc_par)
+            self.set_B(i + k, VH.split_legs([1]).ireplace_label(f'p{k}',
+                                                                'p'), 'B')
+            self.set_SL(i + k, S)
+            rest = U.split_legs([0]).iscale_axis(np.asarray(S), 'vR')
+        rest = rest.copy(deep=False).iscale_axis(
+            self._scale_S(self.get_SL(i), -1.), 'vL')
+        rest.ireplace_label('p0', 'p')
+        self.set_B(i, rest, 'B')
+
+    def apply_product_op(self, ops, unitary=None, renormalize=False):
+        """Apply one-site operators on every site (``ops`` a name or an
+        Array, or a list cycling over the sites), in place."""
+        for i in range(self.L):
+            self.apply_local_op(i, ops[i % len(ops)] if isinstance(ops, list)
+                                else ops, unitary=True)
+        if renormalize:
+            self.canonical_form(renormalize=True)
+        return self
+
+
 class BaseEnvironment:
     """Partial contractions ``LP[i]`` / ``RP[i]`` of ``<bra|ket>``, kept
     with their ages in a cache.
@@ -1025,6 +1258,31 @@ class BaseEnvironment:
             pre.append(self._RP_keys[preload_RP % self.L])
         if pre:
             self.cache.preload(*pre)
+
+
+    def expectation_value(self, ops, sites=None):
+        """``<bra|op_i|ket>`` (times both norms) for each site ``i`` of
+        ``sites`` (default all); ``ops`` an operator (or name) or a list
+        cycling over the sites."""
+        if sites is None:
+            sites = range(self.L)
+        res = []
+        for i in sites:
+            op = ops[i % len(ops)] if isinstance(ops, (list, tuple)) else ops
+            if isinstance(op, str):
+                op = self.ket.get_site(i).get_op(op)
+            C = npc.tensordot(self.get_LP(i), self.ket.get_B(i, 'Th'),
+                              axes=[['vR'], ['vL']])
+            C = npc.tensordot(op, C, axes=[['p*'], ['p']])
+            C = npc.tensordot(C, self.get_RP(i), axes=[['vR'], ['vL']])
+            val = npc.tensordot(self.bra.get_B(i, 'Th').conj(), C,
+                                axes=[['vL*', 'p*', 'vR*'],
+                                      ['vR*', 'p', 'vL*']])
+            res.append(complex(val) * self.bra.norm * self.ket.norm)
+        res = np.array(res)
+        if np.allclose(res.imag, 0, atol=1e-14):
+            res = res.real
+        return res
 
 
 class MPSEnvironment(BaseEnvironment):

@@ -74,7 +74,12 @@ def m_evolved_time(results, psi, model, simulation, key='evolved_time'):
 
 def psi_method(results, psi, model, simulation, method, key=None,
                **kwargs):
-    """A method of ``psi`` as a measurement."""
+    """A method of ``psi`` as a measurement, its value under ``key``
+    (default the method's name).  ``method`` ``'wrap name'`` is TeNPy's
+    form of the same: the value of ``psi.name`` under ``results_key``."""
+    if method.startswith('wrap '):
+        method = method[len('wrap '):].strip()
+        key = kwargs.pop('results_key', key)
     results[key or method] = getattr(psi, method)(**kwargs)
 
 

@@ -1,10 +1,10 @@
-"""Access to a simulation's results for post-processing.
+"""Post-processing of a simulation's results.
 
-Port of ``DataLoader`` of ``tenpy_tpu/simulations/post_processing.py``:
-the loader a simulation's post-processing functions receive.  The
-post-processing functions themselves (``pp_spectral_function``,
-``pp_plot_correlations_on_lattice``) and ``DataFiles`` are not ported
-yet.
+Port of ``tenpy_tpu/simulations/post_processing.py``: ``DataLoader`` (the
+loader a simulation's post-processing functions receive) and
+``pp_spectral_function`` (the spectral function of a measured
+time-dependent correlation).  ``DataFiles`` (no caller) and the plotting
+function ``pp_plot_correlations_on_lattice`` are not ported.
 """
 
 from __future__ import annotations
@@ -12,8 +12,9 @@ from __future__ import annotations
 import numpy as np
 
 from ..tools import io as tio
+from ..tools.spectral_function_tools import spectral_function
 
-__all__ = ['DataLoader']
+__all__ = ['DataLoader', 'pp_spectral_function']
 
 
 class DataLoader:
@@ -57,3 +58,21 @@ class DataLoader:
                                                      {}))).lat
         return self._lat
 
+
+def pp_spectral_function(data_loader, *, correlation_key='correlation_t',
+                         dt=None, **kwargs):
+    """``S(k, w)`` of the measured correlation ``correlation_key`` (times
+    by rows, sites by columns): a dict with ``spectral_function``, ``k``
+    and ``w``; ``dt`` the time between measurements (default ``dt *
+    N_steps`` of the algorithm's parameters); ``kwargs`` go to
+    :func:`~tenpy_tpu_torch.tools.spectral_function_tools.
+    spectral_function`."""
+    C_t = data_loader.get_data_m(correlation_key)
+    if dt is None:
+        alg = data_loader.sim_params.get('algorithm_params', {})
+        dt = alg.get('dt', 0.1) * alg.get('N_steps', 1)
+
+    class _Lat1D:
+        dim = 1
+        Ls = (C_t.shape[1],)
+    return spectral_function(C_t, _Lat1D(), dt, **kwargs)

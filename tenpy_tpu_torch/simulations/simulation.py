@@ -18,8 +18,11 @@ class that takes one: a ground-state search sends its DMRG eigensolves to
 the card by the engine's rule.  :func:`run_simulation` and
 :func:`run_seq_simulations` take it from the parameters too (a YAML key
 ``device: cpu`` or ``-o device=cpu`` on the command line), and it is not
-written into ``simulation_parameters``.  ``RealTimeEvolution`` is not
-ported yet.
+written into ``simulation_parameters``.  :class:`RealTimeEvolution` runs
+a time evolution (TEBD, TDVP, MPO evolution) to ``final_time``, measuring
+after every ``N_steps`` steps; a TDVP engine sends its local evolutions
+to the card by its own rule.  The dynamical correlations are in
+:mod:`~tenpy_tpu_torch.simulations.time_evolution`.
 """
 
 from __future__ import annotations
@@ -46,7 +49,8 @@ from ..tools.params import asConfig
 
 logger = logging.getLogger(__name__)
 
-__all__ = ['Simulation', 'Skip', 'GroundStateSearch', 'init_simulation',
+__all__ = ['Simulation', 'Skip', 'GroundStateSearch', 'RealTimeEvolution',
+           'init_simulation',
            'run_simulation', 'init_simulation_from_checkpoint',
            'resume_from_checkpoint', 'run_seq_simulations',
            'estimate_simulation_RAM', 'output_filename_from_dict']
@@ -393,6 +397,27 @@ class GroundStateSearch(Simulation):
         self.results['energy'] = E
 
 
+class RealTimeEvolution(Simulation):
+    """A real-time evolution: the engine's ``run`` (``N_steps`` steps of
+    ``dt``), then the measurements, until ``final_time`` (option, 1.);
+    ``evolved_time`` is measured."""
+
+    default_algorithm = 'TEBDEngine'
+    default_measurements = Simulation.default_measurements + [
+        (_MEAS, 'm_evolved_time'),
+    ]
+
+    def __init__(self, options, **kwargs):
+        super().__init__(options, **kwargs)
+        self.final_time = self.options.get('final_time', 1., 'real')
+
+    def run_algorithm(self):
+        while self.engine.evolved_time < self.final_time - 1e-10:
+            self.engine.run()
+            self.make_measurements()
+            self.engine.checkpoint.emit(self.engine)
+
+
 # ==================================================================== API
 def _sim_class(simulation_class):
     if isinstance(simulation_class, str):
@@ -412,8 +437,15 @@ def run_simulation(simulation_class='GroundStateSearch', device='cuda',
 
     ``device`` (a keyword, or a key of the parameters, which it is taken
     from) is where the engines run: ``'cuda'`` (the default; raises
-    without a card) or ``'cpu'``."""
-    sim = _sim_class(simulation_class)(simulation_params, device=device)
+    without a card) or ``'cpu'``.  ``ground_state_data`` (a dynamical
+    correlation's ground state) goes to the simulation, not into its
+    options."""
+    kwargs = {}
+    if 'ground_state_data' in simulation_params:
+        kwargs['ground_state_data'] = simulation_params.pop(
+            'ground_state_data')
+    sim = _sim_class(simulation_class)(simulation_params, device=device,
+                                       **kwargs)
     with sim:
         return sim.run()
 

@@ -17,10 +17,13 @@ MODULES = ['tenpy_tpu_torch', 'tenpy_tpu_torch.__main__',
            'tenpy_tpu_torch.tools.math', 'tenpy_tpu_torch.tools.events',
            'tenpy_tpu_torch.tools.cache', 'tenpy_tpu_torch.tools.process',
            'tenpy_tpu_torch.tools.thread', 'tenpy_tpu_torch.tools.io',
+           'tenpy_tpu_torch.tools.prediction',
+           'tenpy_tpu_torch.tools.spectral_function_tools',
            'tenpy_tpu_torch.linalg.charges',
            'tenpy_tpu_torch.linalg.np_conserved',
            'tenpy_tpu_torch.linalg.sparse',
            'tenpy_tpu_torch.linalg.krylov_based',
+           'tenpy_tpu_torch.linalg.random_matrix',
            'tenpy_tpu_torch.linalg.truncation',
            'tenpy_tpu_torch.linalg.padding',
            'tenpy_tpu_torch.linalg.grouped_gemm',
@@ -46,11 +49,14 @@ MODULES = ['tenpy_tpu_torch', 'tenpy_tpu_torch.__main__',
            'tenpy_tpu_torch.algorithms.packed_dmrg',
            'tenpy_tpu_torch.algorithms.tebd',
            'tenpy_tpu_torch.algorithms.packed_tebd',
+           'tenpy_tpu_torch.algorithms.tdvp',
+           'tenpy_tpu_torch.algorithms.mpo_evolution',
            'tenpy_tpu_torch.algorithms.exact_diag',
            'tenpy_tpu_torch.simulations',
            'tenpy_tpu_torch.simulations.measurement',
            'tenpy_tpu_torch.simulations.post_processing',
            'tenpy_tpu_torch.simulations.simulation',
+           'tenpy_tpu_torch.simulations.time_evolution',
            'chip_smoke', 'profile_torch_sweep']
 
 
