@@ -110,10 +110,33 @@ Phases (any failure exits nonzero):
    evolutions (the crossover; the card's call with its plans built anew
    and with them cached); then the kernel against its plain version
    on the centre's complex128 two- and one-site matvecs, timed;
+12. TeNPy's VUMPS (no ``device_K``: the engines' own threshold sends the
+   zero-, one- and two-site eigensolves to the packed Lanczos on the card;
+   launches counted around each card eigensolve by kind and held to 2 x
+   zero-site + 4 x two-site (3 x one-site) Lanczos steps; each update
+   timed by part: the environment fixed point, the eigensolves (pack,
+   Lanczos, unpack), the polar decompositions, the SVD).  12a:
+   ``TwoSiteVUMPSEngine`` on the infinite XX chain (Sz) from the Neel
+   state ramped by ``chi_list`` to chi=256 with the subspace-expansion
+   mixer, held to -1/pi and to the port's iDMRG at the same chi_max
+   (``dmrg.run``), canonical, split error under its option, the returned
+   state's MPO and bond energies; its last update's zero- and two-site
+   problems by the card's packed Lanczos against the host
+   ``LanczosGroundState`` (E 1e-12, overlap 1 - 1e-10); the last sweep
+   profiled (idle share).  12b: ``SingleSiteVUMPSEngine`` on phase 7's
+   chi=128 complex128 Hofstadter state, two sweeps, held to phase 7's
+   energy per site (at most + 1e-10), canonical, split errors
+   non-increasing.  12c: ``minimal_DMRG.yml`` as ``TwoSiteVUMPSEngine``
+   on the infinite Heisenberg chain (chi 64) through ``console_main``: the
+   saved energy against the exact one, the measurements of the converged
+   state.  Then the kernel against its plain version on the zero- and
+   two-site (f64, chi=256) and zero- and one-site (complex128, chi=128)
+   matvecs of the last updates, timed;
 then a JSON line on the kernels (the f64 mode, the complex128 mode, the
 complex128 mode on the TEBD shapes, the f64 mode on the host DMRG's and
-on the simulation's shapes, and the complex128 mode on TDVP's two- and
-one-site matvecs) and, last, ``{"ok": true, "device": ...}``.
+on the simulation's shapes, the complex128 mode on TDVP's two- and
+one-site matvecs, and VUMPS's four matvecs) and, last, ``{"ok": true,
+"device": ...}``.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.
 """
@@ -1198,7 +1221,7 @@ def phase_hofstadter(hof):
     check(abs(got['tm_E'] - e_fin) <= 1e-4,
           "TM energy of the written-back state far from its sweeps'")
     mv = phase_matvec(eng, 7, HOF_OPTIONS)
-    return launches, mv
+    return launches, mv, (psi, model, e_fin)
 
 
 def sector_fill(eng):
@@ -2488,6 +2511,498 @@ def phase_time_evolution(smi):
     return l2, l1, tots[0], tots[1]
 
 
+# VUMPS (phase 12): 12a two-site VUMPS on the infinite XX chain (Jz=0: free
+# fermions, -1/pi per site), Sz conserved, from the Neel state ramped by
+# chi_list to chi=256 with the subspace-expansion mixer; 12b single-site
+# VUMPS on phase 7's chi=128 Hofstadter state (complex128, BASELINE config
+# #5) at fixed chi; 12c minimal_DMRG.yml as two-site VUMPS (the infinite
+# Heisenberg chain, chi 64) through console_main.  No device_K: the
+# engines' own DEVICE_LANCZOS_THRESHOLD sends the eigensolves to the card
+# host threads of the phase: the environment fixed point (host Arnoldi
+# over small charge blocks) runs 2-4x faster on one torch thread than on
+# the default (the core count): 4.8 s against 9.7 s (Hofstadter, chi=128)
+# and 3.2 s against 12.2 s (XX chain, chi=256) on an 8-core CPU (my CPU
+# runs)
+VU_HOST_THREADS = 1
+VU_XX_MODEL = {'L': 2, 'Jxx': 1., 'Jz': 0., 'hz': 0., 'bc_MPS': 'infinite',
+               'conserve': 'Sz'}
+VU_XX_INIT = ['up', 'down']
+VU_CHI = 256
+VU_CHI_LIST = {0: 32, 2: 64, 4: 128, 6: VU_CHI}
+# sweeps: two per stage (a cut: the environment fixed point, host
+# Arnoldi, costs seconds per update at chi=256; see PERF.md)
+VU_SWEEPS = 8
+# the two-site engine's split error stays at the truncation's level (its
+# AL C and C AR differ by the cut weight): 7.5e-4 and 9.8e-4 in the two
+# chi=256 sweeps of the CPU rehearsal; the option is set above that, and
+# the run is held to it
+VU_SPLIT_TOL = 1e-2
+VU_OPTIONS = {'chi_list': VU_CHI_LIST, 'max_sweeps': VU_SWEEPS,
+              'min_sweeps': VU_SWEEPS, 'mixer': 'SubspaceExpansion',
+              'mixer_params': {'amplitude': 1e-5, 'disable_after': 4},
+              'trunc_params': {'chi_max': VU_CHI, 'svd_min': 1e-10},
+              'max_E_err': 1e-12, 'max_split_err': VU_SPLIT_TOL,
+              'check_overlap': False, 'norm_tol': 1e-10}
+# the port's own iDMRG at the same chi_max (dmrg.run; its two-site
+# eigensolves on the card by the same threshold), from the same Neel state
+VU_DMRG_OPTIONS = {'trunc_params': {'chi_max': VU_CHI, 'svd_min': 1e-10},
+                   'chi_list': {0: 32, 4: 64, 8: 128, 12: VU_CHI},
+                   'min_sweeps': 20, 'max_sweeps': 30, 'mixer': True,
+                   'max_E_err': 1e-12}
+VU_E_EXACT = -1. / np.pi
+# |E + 1/pi| after VU_SWEEPS: 4.4e-7 in the CPU rehearsal
+# (tests/rehearse_vumps_phase.py 256).  The two-site engine's plateau at a
+# fixed chi falls as chi^-2.6 (7.1e-6 at chi=32, 1.2e-6 at chi=64, my CPU
+# runs), about 3e-8 at chi=256: the two sweeps there, not chi, set the
+# deviation.  A factor 2.3 above the rehearsal allows the card's Lanczos
+# stopping rule (on the energy, not the residual)
+VU_E_TOL = 1e-6
+VU_IDMRG_MARGIN = 1e-10
+VU_ROUTE_K = 40
+VU_ROUTE_E_TOL, VU_ROUTE_OV_TOL = 1e-12, 1e-10
+VU_ZERO_SITE_STEPS = ['LP.C over vR/vL', '.RP over (wR,vR)']
+# 12b: single-site VUMPS at chi=128 from phase 7's written-back state, two
+# sweeps of its 9-site cell (a cut: about 7 s of host Arnoldi per update)
+VU_HOF_SWEEPS = 2
+VU_HOF_OPTIONS = {'max_sweeps': VU_HOF_SWEEPS, 'min_sweeps': VU_HOF_SWEEPS,
+                  'max_E_err': 1e-12, 'max_split_err': 1e-8,
+                  'check_overlap': False, 'norm_tol': 1e-10}
+# E per site against phase 7's iDMRG energy per site: at most that + 1e-10,
+# and within 1e-7 of it (the CPU rehearsal at chi=128: 2.1e-12 below; the
+# chi=64 state's 1e-8 below)
+VU_HOF_E_TOL = 1e-7
+# 12c: minimal_DMRG.yml as two-site VUMPS on the infinite Heisenberg chain
+VU_YAML_CHI = 64
+VU_YAML_OVERRIDES = ['model_params.L=2', 'model_params.bc_MPS=infinite',
+                     'algorithm_class=TwoSiteVUMPSEngine',
+                     f'algorithm_params.trunc_params.chi_max={VU_YAML_CHI}',
+                     'algorithm_params.trunc_params.svd_min=1.e-10',
+                     'algorithm_params.mixer=SubspaceExpansion',
+                     'algorithm_params.chi_list={0: 16, 2: 32, 4: 64}',
+                     'algorithm_params.max_sweeps=8',
+                     'algorithm_params.min_sweeps=8',
+                     'algorithm_params.max_split_err=1e-2',
+                     'algorithm_params.check_overlap=False']
+VU_HEIS_EXACT = 0.25 - np.log(2.)
+# the Heisenberg chain at chi=64 after 8 sweeps: 1.6e-6 above the exact
+# energy in the CPU rehearsal; a factor 6 for the card's stopping rule
+VU_YAML_E_TOL = 1e-5
+
+
+class VUMPSProbe:
+    """Within ``with``: every VUMPS engine's eigensolves, with the kernel
+    launches counted around each by its number of sites, the problems of
+    the last update (effective H and guess, in order), the last problem
+    of each kind, and one sweep profiled on the device (the sweep numbered
+    ``profile_sweep``, if given; restored on exit)."""
+
+    def __init__(self, profile_sweep=None):
+        self.launches = {0: 0, 1: 0, 2: 0}
+        self.engines = []
+        self.last = {}
+        self.last_update = []
+        self._update = None
+        self.profile_sweep = profile_sweep
+        self.prof = None
+        self.prof_s = None
+        self._patches = []
+
+    def __enter__(self):
+        from tenpy_tpu_torch.algorithms.vumps import VUMPSEngine
+        probe = self
+
+        def eigensolve(orig):
+            def run(eng, eff, guess):
+                if not probe.engines or probe.engines[-1] is not eng:
+                    probe.engines.append(eng)
+                update = (id(eng), len(eng.update_timing))
+                if update != probe._update:
+                    probe._update, probe.last_update = update, []
+                n0 = gg.LAUNCHES
+                out = orig(eng, eff, guess)
+                probe.launches[eff.length] += gg.LAUNCHES - n0
+                probe.last[eff.length] = (eff, guess)
+                probe.last_update.append((eff, guess))
+                return out
+            return run
+
+        def sweep(orig):
+            def run(eng, optimize=True):
+                if eng.sweeps != probe.profile_sweep or probe.prof:
+                    return orig(eng, optimize)
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = orig(eng, optimize)
+                    torch.cuda.synchronize()
+                    probe.prof_s = time.perf_counter() - t0
+                probe.prof = prof
+                return out
+            return run
+
+        for name, make in (('eigensolve', eigensolve), ('sweep', sweep)):
+            orig = getattr(VUMPSEngine, name)
+            setattr(VUMPSEngine, name, make(orig))
+            self._patches.append((VUMPSEngine, name, orig))
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, orig in reversed(self._patches):
+            setattr(obj, name, orig)
+        return False
+
+
+def vumps_eig_summary(tag, stats):
+    """Log the eigensolves by kind and route; returns ``{(sites, route):
+    [count, Lanczos steps]}``."""
+    res = {}
+    for n, N, route, steps in stats:
+        c = res.setdefault((n, route), [0, 0])
+        c[0] += 1
+        c[1] += steps
+    kinds = {0: 'zero-site', 1: 'one-site', 2: 'two-site'}
+    for (n, route), (cnt, steps) in sorted(res.items()):
+        log(f"[{tag}] {kinds[n]} eigensolves on the {route}: {cnt}, "
+            f"{steps} Lanczos steps ({steps / cnt:.2f} per solve)")
+    return res
+
+
+def vumps_timing(tag, ups):
+    """Log the time of the updates ``ups`` (entries of a VUMPS engine's
+    ``update_timing``) by part: the environment fixed point, each kind of
+    eigensolve (pack, Lanczos, unpack), the polar decompositions, the SVD;
+    returns the sums."""
+    tot = {'env': 0., 'polar': 0., 'svd': 0.}
+    eig = {}
+    for ut in ups:
+        for k in tot:
+            tot[k] += ut[k]
+        for e in ut['eig']:
+            c = eig.setdefault((e['sites'], e['route']), [0, 0., 0., 0.])
+            c[0] += 1
+            c[1] += e['pack']
+            c[2] += e['lanczos']
+            c[3] += e['unpack']
+    all_eig = sum(c[1] + c[2] + c[3] for c in eig.values())
+    total = tot['env'] + tot['polar'] + tot['svd'] + all_eig
+    log(f"[{tag}] {len(ups)} updates, {total:.2f} s: environment fixed "
+        f"point (host Arnoldi) {tot['env']:.2f} s "
+        f"({100 * tot['env'] / max(total, 1e-300):.1f}%, "
+        f"{tot['env'] / max(len(ups), 1):.3f} s per update), eigensolves "
+        f"{all_eig:.2f} s ({100 * all_eig / max(total, 1e-300):.1f}%), "
+        f"polar {tot['polar']:.2f} s, SVD {tot['svd']:.2f} s")
+    kinds = {0: 'zero-site', 1: 'one-site', 2: 'two-site'}
+    for (n, route), (cnt, pack, lanc, unpack) in sorted(eig.items()):
+        log(f"[{tag}]   {kinds[n]} on the {route}: {cnt} solves, pack "
+            f"{1e3 * pack / cnt:.2f} ms, Lanczos {1e3 * lanc / cnt:.2f} ms, "
+            f"unpack {1e3 * unpack / cnt:.2f} ms per solve")
+    tot['eig'] = all_eig
+    return tot
+
+
+def check_vumps_route(tag, stats):
+    """Every eigensolve from DEVICE_LANCZOS_THRESHOLD up ran on the card."""
+    big = [s for s in stats if s[1] >= mc.DEVICE_LANCZOS_THRESHOLD]
+    on_card = sum(1 for s in big if s[2] == 'device')
+    log(f"[{tag}] eigensolves with N >= {mc.DEVICE_LANCZOS_THRESHOLD}: "
+        f"{on_card} of {len(big)} on the card; below it {len(stats) - len(big)}"
+        f" (host)")
+    check(big and on_card == len(big),
+          "an eigensolve from the threshold up did not run on the card")
+
+
+def check_vumps_launches(tag, probe, stats, launches, per_step):
+    """Launches around the card's eigensolves of each kind equal that
+    kind's tensordots per matvec times its Lanczos steps, and add up to
+    every launch of the run."""
+    steps = {n: sum(s[3] for s in stats if s[0] == n and s[2] == 'device')
+             for n in per_step}
+    kinds = {0: 'zero-site', 1: 'one-site', 2: 'two-site'}
+    log(f"[{tag}] kernel launches {launches}: " + ', '.join(
+        f"{probe.launches[n]} in the {kinds[n]} card eigensolves "
+        f"({per_step[n]} x {steps[n]} Lanczos steps = "
+        f"{per_step[n] * steps[n]})" for n in per_step))
+    check(all(probe.launches[n] == per_step[n] * steps[n]
+              for n in per_step),
+          "kernel launches differ from the eigensolves' Lanczos steps")
+    check(launches == sum(probe.launches[n] for n in per_step),
+          "kernel launches outside the card's eigensolves")
+
+
+def vumps_kernel(tag, eff, guess, steps):
+    """The kernel against its plain version on one matvec of ``eff`` (its
+    packed operands on the card), timed."""
+    th_p = mc.pack_virtual(guess.transpose(eff.acts_on), 'cuda')
+    ops = eff.pack_operands('cuda')
+    _, calls = recorded_calls(lambda: eff.packed_matvec(*ops, th_p))
+    check(len(calls) == len(steps), f"the matvec is not {len(steps)} "
+          f"tensordots")
+    log(f"[{tag}] {len(steps)}-tensordot matvec, N={eff.N}, "
+        f"{calls[0][3]}:")
+    return measure_contractions(calls, steps, tag)
+
+
+def vumps_route_check(tag, eff, guess, name):
+    """One eigenproblem of the run by the card's packed Lanczos and by the
+    host LanczosGroundState, the same VU_ROUTE_K steps from the same
+    guess: E (relative) and |overlap|."""
+    from tenpy_tpu_torch.linalg.krylov_based import LanczosGroundState
+    guess = guess.transpose(eff.acts_on)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    E_c, th, _, _ = mc.lanczos_ground_packed(
+        eff.packed_matvec, eff.pack_operands('cuda'),
+        mc.pack_virtual(guess, 'cuda'), VU_ROUTE_K, 0.)
+    th = pk.unpack(dmrg._to_host(th), orig_legs=[
+        guess.get_leg(lbl) for lbl in th.get_leg_labels()])
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    E_h, th_h, N_h = LanczosGroundState(eff, guess, {
+        'N_min': VU_ROUTE_K, 'N_max': VU_ROUTE_K, 'P_tol': 0.}).run()
+    host_s = time.perf_counter() - t0
+    rel = abs(E_c - E_h) / abs(E_h)
+    ov = abs(complex(npc.inner(th_h.conj(), th, axes='range')))
+    log(f"[{tag}] {name} (N={eff.N}), {VU_ROUTE_K} Lanczos steps each: "
+        f"card {1e3 * card_s:.1f} ms, host {1e3 * host_s:.1f} ms ({N_h} "
+        f"steps); E {E_c!r} vs {E_h!r}: rel {rel:.2e} (tolerance "
+        f"{VU_ROUTE_E_TOL:.0e}); 1 - |overlap| {1 - ov:.2e} (tolerance "
+        f"{VU_ROUTE_OV_TOL:.0e})")
+    check(rel <= VU_ROUTE_E_TOL, f"{name}: the card's E differs from the "
+          f"host's")
+    check(1. - ov <= VU_ROUTE_OV_TOL, f"{name}: the card's ground state "
+          f"differs from the host's")
+
+
+def phase_vumps_xx(smi):
+    """12a: two-site VUMPS on the infinite XX chain to chi=256 against
+    -1/pi and the port's iDMRG at the same chi; the card's eigensolves
+    against the host's on the last update; the time split and the idle
+    share of the last sweep; the kernel on a zero- and a two-site matvec
+    at chi=256.  Returns the launches by kind and the two matvecs'
+    measurements."""
+    from tenpy_tpu_torch.algorithms.vumps import TwoSiteVUMPSEngine
+    model = XXZChain(dict(VU_XX_MODEL))
+    psi = MPS.from_product_state(model.lat.mps_sites(), VU_XX_INIT,
+                                 bc='infinite')
+    gg.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    with VUMPSProbe(profile_sweep=VU_SWEEPS - 1) as probe:
+        t0 = time.time()
+        eng = TwoSiteVUMPSEngine(psi, model, copy.deepcopy(VU_OPTIONS),
+                                 device='cuda')
+        E, psi_out = eng.run()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    launches = gg.LAUNCHES
+    ss = eng.sweep_stats
+    log(f"[12a] TwoSiteVUMPSEngine on the XX chain {VU_XX_MODEL}, chi_list "
+        f"{VU_CHI_LIST}, {VU_SWEEPS} sweeps: {wall:.2f} s; card {smi}")
+    for k in range(len(ss['E'])):
+        log(f"[12a]   sweep {ss['sweep'][k]}: chi {ss['max_chi'][k]}, E "
+            f"{ss['E'][k]!r} (E + 1/pi {ss['E'][k] - VU_E_EXACT:+.3e}), "
+            f"max_split_err {ss['max_split_err'][k]:.3e}, norm_err "
+            f"{ss['norm_err'][k]:.2e}, {ss['time'][k]:.2f} s")
+    err = E - VU_E_EXACT
+    norm_err = float(np.linalg.norm(eng.psi.norm_test()))
+    E_mpo = float(model.H_MPO.expectation_value(psi_out))
+    E_bond = float(np.mean(psi_out.expectation_value(model.H_bond)))
+    log(f"[12a] E {E!r}, exact -1/pi {VU_E_EXACT!r}: {err:+.3e} (tolerance "
+        f"{VU_E_TOL:.0e}); norm_test of the uniform MPS {norm_err:.2e} "
+        f"(norm_tol {VU_OPTIONS['norm_tol']:.0e}); last max_split_err "
+        f"{ss['max_split_err'][-1]:.3e} (option {VU_SPLIT_TOL:.0e}); the "
+        f"returned MPS: MPO energy {E_mpo!r} ({E_mpo - E:+.2e}), bond "
+        f"energies {E_bond!r} ({E_bond - E:+.2e}), chi {psi_out.chi}, "
+        f"norm_test {float(np.max(psi_out.norm_test())):.2e}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    check(abs(err) <= VU_E_TOL, "12a: E is not -1/pi within its tolerance")
+    check(norm_err <= VU_OPTIONS['norm_tol'], "12a: norm_test above norm_tol")
+    check(ss['max_split_err'][-1] <= VU_SPLIT_TOL,
+          "12a: the last max_split_err is above its option")
+    # the returned MPS (AR and the singular values of C, re-gauged) is the
+    # uniform state up to its split error: its energy differs from E at
+    # second order in it; its MPO and bond energies are one number
+    check(abs(E_mpo - E_bond) <= 1e-10, "12a: the MPO and bond energies "
+          "of the returned state disagree")
+    check(abs(E_mpo - E) <= ss['max_split_err'][-1] ** 2,
+          "12a: the returned state's energy is not E within the split "
+          "error squared")
+    stats = eng.eig_stats
+    vumps_eig_summary('12a', stats)
+    check_vumps_route('12a', stats)
+    check_vumps_launches('12a', probe, stats, launches, {0: 2, 2: 4})
+    per_sweep = eng.psi.L
+    check(len(eng.update_timing) == VU_SWEEPS * per_sweep,
+          "12a: updates timed twice or missed")
+    starts = sorted(VU_CHI_LIST) + [VU_SWEEPS]
+    for sw0, sw1 in zip(starts, starts[1:]):
+        log(f"[12a] time split at chi={VU_CHI_LIST[sw0]} (sweeps "
+            f"{sw0}-{sw1 - 1}):")
+        vumps_timing('12a', eng.update_timing[sw0 * per_sweep:
+                                              sw1 * per_sweep])
+    busy, _, kernel_us, rows = device_time(probe.prof)
+    log(f"[12a] profiled sweep {VU_SWEEPS - 1} (chi={VU_CHI}): "
+        f"{probe.prof_s:.2f} s, device busy {busy / 1e6:.3f} s, idle "
+        f"{100 * (1 - busy / 1e6 / probe.prof_s):.1f}%, the kernel "
+        f"{kernel_us / 1e6:.3f} s")
+    for name, us, n in rows[:4]:
+        log(f"[12a]   {us / 1e6:8.4f} s {n:6d} x  {name[:80]}")
+
+    # the port's iDMRG at the same chi_max
+    psi_d = MPS.from_product_state(model.lat.mps_sites(), VU_XX_INIT,
+                                   bc='infinite')
+    t0 = time.time()
+    info = dmrg.run(psi_d, model, copy.deepcopy(VU_DMRG_OPTIONS),
+                    device='cuda')
+    E_d = float(info['E'])
+    ds = info['sweep_statistics']
+    log(f"[12a] iDMRG sweeps " + ', '.join(
+        f"{ds['sweep'][k]}: E + 1/pi {ds['E'][k] - VU_E_EXACT:+.3e} chi "
+        f"{ds['max_chi'][k]} norm_err {ds['norm_err'][k]:.1e}"
+        for k in range(len(ds['E']))))
+    log(f"[12a] iDMRG (dmrg.run {VU_DMRG_OPTIONS}): {time.time() - t0:.2f} s, "
+        f"E {E_d!r} (E + 1/pi {E_d - VU_E_EXACT:+.3e}), chi {psi_d.chi}; "
+        f"VUMPS - iDMRG {E - E_d:+.3e} (at most {VU_IDMRG_MARGIN:.0e})")
+    check(E <= E_d + VU_IDMRG_MARGIN, "12a: VUMPS is above iDMRG at the "
+          "same chi_max")
+
+    # the last update's three problems, card against host
+    names = ['zero-site C1', 'zero-site C2', 'two-site AC']
+    check(len(probe.last_update) == 3, "12a: the last update did not "
+          "solve three problems")
+    for (eff, guess), name in zip(probe.last_update, names):
+        vumps_route_check('12a', eff, guess, name)
+    # the kernel on the last update's zero- and two-site matvec
+    zmv = vumps_kernel('12a', *probe.last[0], VU_ZERO_SITE_STEPS)
+    tmv = vumps_kernel('12a', *probe.last[2], MATVEC_STEPS)
+    return probe.launches[0], probe.launches[2], zmv, tmv
+
+
+def phase_vumps_hofstadter(smi, psi7, model7, e7):
+    """12b: single-site VUMPS on phase 7's chi=128 Hofstadter state against
+    phase 7's iDMRG energy per site; the kernel on a zero- and a one-site
+    complex128 matvec at chi=128.  Returns the launches by kind and the
+    two matvecs' measurements."""
+    from tenpy_tpu_torch.algorithms.vumps import SingleSiteVUMPSEngine
+    gg.LAUNCHES = 0
+    with VUMPSProbe() as probe:
+        t0 = time.time()
+        eng = SingleSiteVUMPSEngine(psi7.copy(), model7,
+                                    copy.deepcopy(VU_HOF_OPTIONS),
+                                    device='cuda')
+        init_s = time.time() - t0
+        E, psi_out = eng.run()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    launches = gg.LAUNCHES
+    ss = eng.sweep_stats
+    L = eng.psi.L
+    log(f"[12b] SingleSiteVUMPSEngine on phase 7's state (L={L}, chi "
+        f"{eng.psi.chi[0]}, {eng.psi.dtype}), {VU_HOF_SWEEPS} sweeps: "
+        f"{wall:.2f} s (engine init {init_s:.2f} s); card {smi}")
+    for k in range(len(ss['E'])):
+        log(f"[12b]   sweep {ss['sweep'][k]}: E {ss['E'][k]!r} (- phase 7 "
+            f"{ss['E'][k] - e7:+.3e}), max_split_err "
+            f"{ss['max_split_err'][k]:.3e}, {ss['time'][k]:.2f} s")
+    norm_err = float(np.linalg.norm(eng.psi.norm_test()))
+    splits = ss['max_split_err']
+    log(f"[12b] E {E!r}, phase 7's iDMRG energy per site {e7!r}: "
+        f"{E - e7:+.3e} (at most {VU_IDMRG_MARGIN:.0e}, within "
+        f"{VU_HOF_E_TOL:.0e}); norm_test {norm_err:.2e}; split errors "
+        f"{[f'{s:.2e}' for s in splits]}; returned MPS {psi_out.dtype}, chi "
+        f"{psi_out.chi[0]}")
+    check(E <= e7 + VU_IDMRG_MARGIN, "12b: VUMPS is above phase 7's iDMRG")
+    check(abs(E - e7) <= VU_HOF_E_TOL, "12b: VUMPS far from phase 7's iDMRG")
+    check(norm_err <= VU_HOF_OPTIONS['norm_tol'], "12b: norm_test above "
+          "norm_tol")
+    check(all(b <= a for a, b in zip(splits, splits[1:])),
+          "12b: the split error grew")
+    check(psi_out.dtype == torch.complex128, "12b: the state is not "
+          "complex128")
+    stats = eng.eig_stats
+    vumps_eig_summary('12b', stats)
+    check_vumps_route('12b', stats)
+    check_vumps_launches('12b', probe, stats, launches, {0: 2, 1: 3})
+    vumps_timing('12b', eng.update_timing)
+    zmv = vumps_kernel('12b', *probe.last[0], VU_ZERO_SITE_STEPS)
+    omv = vumps_kernel('12b', *probe.last[1], TE_ONE_SITE_STEPS)
+    return probe.launches[0], probe.launches[1], zmv, omv
+
+
+def phase_vumps_yaml(smi):
+    """12c: minimal_DMRG.yml as two-site VUMPS on the infinite Heisenberg
+    chain through console_main: the saved energy against the exact one,
+    the measurements of the converged state."""
+    import shutil
+    import tempfile
+    import warnings
+    from tenpy_tpu_torch.tools import io as tio
+    try:
+        import yaml  # noqa: F401
+    except ImportError:
+        raise RuntimeError("phase 12c runs console_main: PyYAML is missing")
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_vumps_', dir=os.path.join(
+        ROOT, 'build') if os.path.isdir(os.path.join(ROOT, 'build'))
+        else None)
+    fn = os.path.join(tmp, 'vumps.pkl')
+    warnings.filterwarnings('ignore', message='unused options')
+    gg.LAUNCHES = 0
+    try:
+        with VUMPSProbe() as probe:
+            t0 = time.time()
+            check(tenpy_tpu_torch.console_main(sim_argv(
+                SIM_MINIMAL_YML, VU_YAML_OVERRIDES + [
+                    f'log_params={SIM_LOG!r}', f'output_filename={fn}']))
+                == 0, "console_main failed on minimal_DMRG.yml as VUMPS")
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+    finally:
+        warnings.filterwarnings('default', message='unused options')
+    launches = gg.LAUNCHES
+    res = tio.load(fn)
+    E = float(res['energy'])
+    meas = res['measurements']
+    E_meas = float(np.real(meas['energy_MPO'][-1]))
+    chi = int(meas['max_chi'][-1])
+    eng = probe.engines[-1]
+    log(f"[12c] minimal_DMRG.yml as {type(eng).__name__} "
+        f"({VU_YAML_OVERRIDES}): {wall:.2f} s; saved E {E!r}, exact "
+        f"{VU_HEIS_EXACT!r}: {E - VU_HEIS_EXACT:+.3e} (tolerance "
+        f"{VU_YAML_E_TOL:.0e}); measured (final) energy_MPO {E_meas!r} "
+        f"({E_meas - E:+.2e}), max_chi {chi}; saved psi "
+        f"{type(res['psi']).__name__} chi {res['psi'].chi}")
+    check(abs(E - VU_HEIS_EXACT) <= VU_YAML_E_TOL,
+          "12c: the saved energy is not the Heisenberg chain's")
+    check(abs(E_meas - E) <= 1e-10 and chi == VU_YAML_CHI,
+          "12c: the measurements are not of the converged state")
+    stats = eng.eig_stats
+    vumps_eig_summary('12c', stats)
+    check_vumps_launches('12c', probe, stats, launches, {0: 2, 2: 4})
+    vumps_timing('12c', eng.update_timing)
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_vumps(smi, hof_state):
+    """Phase 12: 12a, 12b, 12c on VU_HOST_THREADS host threads (restored
+    after); returns the launches and matvec measurements of the four VUMPS
+    kernel entries."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(VU_HOST_THREADS)
+    log(f"[12] host threads {VU_HOST_THREADS} (the process's default "
+        f"{threads})")
+    try:
+        t0 = time.time()
+        z_n, t_n, zmv, tmv = phase_vumps_xx(smi)
+        t1 = time.time()
+        zc_n, o_n, zcmv, omv = phase_vumps_hofstadter(smi, *hof_state)
+        t2 = time.time()
+        phase_vumps_yaml(smi)
+    finally:
+        torch.set_num_threads(threads)
+    log(f"[12] phase wall: 12a {t1 - t0:.1f} s, 12b {t2 - t1:.1f} s, 12c "
+        f"{time.time() - t2:.1f} s")
+    return (z_n, zmv), (t_n, tmv), (zc_n, zcmv), (o_n, omv)
+
+
 def main():
     t_start = time.time()
     smi = phase_device()
@@ -2512,29 +3027,48 @@ def main():
           if k.startswith('chi256.')}
     if json.loads(str(wb['options'])) != OPTIONS:
         raise RuntimeError("write-back reference options differ")
+    walls = [('1-3', time.time() - t_start)]
+
+    def lap(name):
+        walls.append((name, time.time() - t_start - sum(t for _, t in walls)))
+
     eng = phase_setup(flat)
     sites = list(eng.psi.sites)
     check_setup(eng, state)
     mv = phase_matvec(eng)
     launches = phase_main(eng, ref)
     phase_write_back(eng, sites, wb)
+    lap('4-5')
     phase_ramp()
-    z_launches, zmv = phase_hofstadter(hof)
+    lap('6')
+    z_launches, zmv, hof_state = phase_hofstadter(hof)
+    lap('7')
     psi_gs = phase_tebd_ground_state()
     tebd_eng, t_launches, _ = phase_tebd_quench(psi_gs, smi)
     phase_tebd_jax_case()
     tmv = phase_tebd_kernel(tebd_eng)
+    lap('8')
     h_launches, hmv = phase_host_dmrg(smi)
+    lap('9')
     s_launches, smv = phase_simulation(smi)
+    lap('10')
     e2_launches, e1_launches, e2mv, e1mv = phase_time_evolution(smi)
-    log(f"[12] kernel max_abs_err: synthetic f64 "
+    lap('11')
+    vu = phase_vumps(smi, hof_state)
+    lap('12')
+    log("[13] wall by phase: " + ', '.join(f"[{name}] {t:.1f} s"
+                                           for name, t in walls))
+    log(f"[13] kernel max_abs_err: synthetic f64 "
         f"{max_abs_synth[torch.float64]:.2e}, complex128 "
         f"{max_abs_synth[torch.complex128]:.2e}; main-path shapes f64 "
         f"{mv['max_abs']:.2e}, complex128 {zmv['max_abs']:.2e}, TEBD "
         f"complex128 {tmv['max_abs']:.2e}, host DMRG f64 "
         f"{hmv['max_abs']:.2e}, simulation f64 {smv['max_abs']:.2e}, TDVP "
         f"complex128 two-site {e2mv['max_abs']:.2e}, one-site "
-        f"{e1mv['max_abs']:.2e}")
+        f"{e1mv['max_abs']:.2e}; VUMPS f64 zero-site "
+        f"{vu[0][1]['max_abs']:.2e}, two-site {vu[1][1]['max_abs']:.2e}, "
+        f"complex128 zero-site {vu[2][1]['max_abs']:.2e}, one-site "
+        f"{vu[3][1]['max_abs']:.2e}")
 
     def entry(name, n, m):
         return {'name': name, 'route': 'cuda',
@@ -2549,7 +3083,10 @@ def main():
     # centre of the chi=512 XX chain (host DMRG); per TEBD bond update (3
     # tensordots), complex128 at chi=512 (XXZ quench); per TDVP matvec at
     # the centre of the chi=256 XX chain, complex128: two-site (4
-    # tensordots) and one-site (3)
+    # tensordots) and one-site (3); per VUMPS matvec of the last update,
+    # f64 on the chi=256 XX chain: zero-site (2 tensordots) and two-site
+    # (4), complex128 on the chi=128 Hofstadter cylinder: zero-site and
+    # one-site (3)
     print(json.dumps({'kernels': [
         entry('packed_contract', launches, mv),
         entry('packed_contract_complex128', z_launches, zmv),
@@ -2557,9 +3094,13 @@ def main():
         entry('packed_contract_host_dmrg', h_launches, hmv),
         entry('packed_contract_simulation', s_launches, smv),
         entry('packed_contract_tdvp_two_site', e2_launches, e2mv),
-        entry('packed_contract_tdvp_one_site', e1_launches, e1mv)]}),
+        entry('packed_contract_tdvp_one_site', e1_launches, e1mv),
+        entry('packed_contract_vumps_zero_site', *vu[0]),
+        entry('packed_contract_vumps_two_site', *vu[1]),
+        entry('packed_contract_vumps_zero_site_complex128', *vu[2]),
+        entry('packed_contract_vumps_one_site_complex128', *vu[3])]}),
         flush=True)
-    log(f"[12] chip_smoke wall {time.time() - t_start:.1f} s")
+    log(f"[13] chip_smoke wall {time.time() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -382,47 +382,34 @@ class DMRGEngine(IterativeSweeps):
     # ------------------------------------------------- the packed Lanczos
     def _use_device_lanczos(self):
         """Whether this update's eigensolve runs as the packed Lanczos on
-        ``self.device``.
-
-        ``lanczos_params['device_K']``: 0 disables, > 0 forces (with that
-        many steps at most).  Otherwise: only for a plain :class:`TwoSiteH`
-        (no ``combine``, no ``orthogonal_to``), never with the engine on
-        the CPU, and from ``DEVICE_LANCZOS_THRESHOLD`` up, during a
-        ``chi_list`` ramp too: the threshold is the card's crossover with
-        the first call's packing and plan builds included, so new
-        structures do not change the choice."""
+        ``self.device``: only for a plain :class:`TwoSiteH` (no
+        ``combine``, no ``orthogonal_to``), then by
+        :func:`~tenpy_tpu_torch.algorithms.mps_common.use_device_lanczos`
+        (``lanczos_params['device_K']``: 0 disables, > 0 forces with that
+        many steps at most; else never on the CPU, and from
+        ``DEVICE_LANCZOS_THRESHOLD`` up, during a ``chi_list`` ramp
+        too)."""
         if self.ortho_to_envs:
             return False
         eff = self.eff_H
         if type(eff) is not TwoSiteH or eff.combine:
             return False
-        device_K = self.lanczos_params.silent_get('device_K', None)
-        if device_K == 0:
-            return False
-        if device_K is not None:
-            return True
-        if self.device.type == 'cpu':
-            return False
-        return eff.N >= mps_common.DEVICE_LANCZOS_THRESHOLD
+        return mps_common.use_device_lanczos(self.lanczos_params,
+                                             self.device, eff.N)
 
     def _diag_device_lanczos(self, theta_guess):
         """The packed Lanczos of this update on ``self.device``.
 
-        LP, RP, W0 and W1 are packed once per effective H (kept as
-        ``eff._device_packed``), the guess per call; the Ritz vector comes
+        LP, RP, W0 and W1 are packed once per effective H
+        (:meth:`~tenpy_tpu_torch.algorithms.mps_common.EffectiveH.
+        pack_operands`), the guess per call; the Ritz vector comes
         back to the host in one copy."""
         eff = self.eff_H
         K = self.lanczos_params.get('device_K', None)
         if not K:
             K = self.lanczos_params.get('N_max', 10, int)
         K = int(K)
-        if not hasattr(eff, '_device_packed'):
-            dev = self.device
-            eff._device_packed = (
-                mps_common.pack_virtual(eff.LP, dev),
-                mps_common.pack_virtual(eff.RP, dev),
-                mps_common.pack_W(eff.W0, dev), mps_common.pack_W(eff.W1, dev))
-        LPp, RPp, W0p, W1p = eff._device_packed
+        LPp, RPp, W0p, W1p = eff.pack_operands(self.device)
         theta_p = mps_common.pack_virtual(theta_guess, self.device)
         P_tol = self.lanczos_params.get('P_tol', 1e-14, 'real')
         reortho = bool(self.lanczos_params.get('reortho', False))

@@ -18,11 +18,16 @@ per-block jitted Lanczos; neither is ported, the plain matvec is their
 counterpart.
 
 The device path (``BUCKET_MULTIPLE``, ``_matvec_2site_packed``,
-``_matvec_1site_packed``, ``_lanczos_K_2site_packed_impl`` and its wrapper
-:func:`lanczos_K_2site_packed`, and TDVP's Krylov exponential
+``_matvec_1site_packed``, ``_matvec_0site_packed``, the ground-state
+Lanczos :func:`lanczos_ground_packed` of any packed matvec, with its
+two-site forms ``_lanczos_K_2site_packed_impl`` and
+:func:`lanczos_K_2site_packed` for the DMRG eigensolve, and TDVP's Krylov
+exponential
 :func:`lanczos_evolve_packed`): every two-site matvec is four packed
-tensordots, every one-site matvec three, each one launch of the
-hand-written kernel on a CUDA device.  The
+tensordots, every one-site matvec three, every zero-site (bond matrix)
+matvec two, each one launch of the hand-written kernel on a CUDA device.
+:meth:`EffectiveH.pack_operands` packs an effective H's LP, RP and W once
+for its ``packed_matvec``.  The
 ``lax.scan`` / ``lax.while_loop`` of the JAX version become Python loops
 over device tensors; the K x K tridiagonal eigenproblem runs on a host f64
 copy.  The early-exit loop reads one scalar pair per iteration from the
@@ -63,7 +68,9 @@ logger = logging.getLogger(__name__)
 __all__ = ['BUCKET_MULTIPLE', 'DEVICE_LANCZOS_THRESHOLD',
            'DEVICE_EVOLUTION_THRESHOLD',
            '_matvec_2site_packed', '_matvec_1site_packed',
-           '_lanczos_K_2site_packed_impl', 'lanczos_K_2site_packed',
+           '_matvec_0site_packed', '_lanczos_K_2site_packed_impl',
+           'lanczos_K_2site_packed', 'lanczos_ground_packed',
+           'use_device_lanczos',
            'lanczos_evolve_packed', 'PackedVectorOps', 'pack_virtual',
            'pack_W', 'Sweep', 'IterativeSweeps',
            'EffectiveH', 'OneSiteH', 'TwoSiteH', 'ZeroSiteH', 'Mixer',
@@ -191,6 +198,15 @@ def _matvec_1site_packed(LPp, RPp, W0p, v):
     return x.transpose(['vL', 'p0', 'vR'])
 
 
+def _matvec_0site_packed(LPp, RPp, v):
+    """Zero-site effective-H matvec on packed arrays; the bond matrix has
+    legs ``(vL, vR)``: two packed tensordots."""
+    x = pk.tensordot(LPp, v, axes=(['vR'], ['vL']))
+    x = pk.tensordot(x, RPp, axes=(['wR', 'vR'], ['wL', 'vL']))
+    x = x.replace_labels(['vR*', 'vL*'], ['vL', 'vR'])
+    return x.transpose(['vL', 'vR'])
+
+
 def _combine(vs, c):
     """``sum_j c[j] vs[j]`` for a list of packed vectors and real or
     complex coefficients ``c`` (complex ones make the sum complex)."""
@@ -247,7 +263,38 @@ def lanczos_evolve_packed(matvec, theta0, delta, N_min=2, N_max=20,
 def _lanczos_K_2site_packed_impl(LPp, RPp, W0p, W1p, theta0, K,
                                  P_tol=0., N_min=2, reortho=False,
                                  matvec_mode=None, exact_E=False):
-    """Lanczos + Ritz ground state of the two-site effective H, packed.
+    """Lanczos + Ritz ground state of the two-site effective H, packed:
+    :func:`lanczos_ground_packed` with :func:`_matvec_2site_packed`."""
+    return lanczos_ground_packed(_matvec_2site_packed,
+                                 (LPp, RPp, W0p, W1p), theta0, K, P_tol,
+                                 N_min, reortho, matvec_mode, exact_E)
+
+
+def use_device_lanczos(lanczos_params, device, N):
+    """Whether an eigensolve of an effective H of size ``N`` runs as the
+    packed Lanczos on ``device``: ``lanczos_params['device_K']`` 0
+    disables, > 0 forces; otherwise never on the CPU, and from
+    ``DEVICE_LANCZOS_THRESHOLD`` up (the card's crossover with the first
+    call's packing and plan builds included, so new structures do not
+    change the choice)."""
+    device_K = lanczos_params.silent_get('device_K', None)
+    if device_K == 0:
+        return False
+    if device_K is not None:
+        return True
+    if device.type == 'cpu':
+        return False
+    return N >= DEVICE_LANCZOS_THRESHOLD
+
+
+def lanczos_ground_packed(matvec_packed, operands, theta0, K, P_tol=0.,
+                          N_min=2, reortho=False, matvec_mode=None,
+                          exact_E=False):
+    """Lanczos + Ritz ground state of a packed effective H, whose matvec is
+    ``matvec_packed(*operands, v)`` (:func:`_matvec_2site_packed`,
+    :func:`_matvec_1site_packed` or :func:`_matvec_0site_packed`; VUMPS's
+    eigensolves take an effective H's ``packed_matvec`` and
+    :meth:`EffectiveH.pack_operands`).
 
     With ``P_tol > 0`` (or ``reortho``) the loop takes up to ``K`` steps and
     exits once the ground Ritz value is converged
@@ -269,7 +316,7 @@ def _lanczos_K_2site_packed_impl(LPp, RPp, W0p, W1p, theta0, K,
     there.
     """
     dtype = torch.float64
-    for x in (LPp, RPp, W0p, W1p, theta0):
+    for x in (*operands, theta0):
         dtype = torch.promote_types(dtype, x.dtype)
     if theta0.dtype != dtype:
         theta0 = theta0._like([d.to(dtype) for d in theta0.data])
@@ -281,12 +328,12 @@ def _lanczos_K_2site_packed_impl(LPp, RPp, W0p, W1p, theta0, K,
 
     def matvec(v):
         with pk.matmul_mode(matvec_mode):
-            return _matvec_2site_packed(LPp, RPp, W0p, W1p, v)
+            return matvec_packed(*operands, v)
 
     def final_E(E_T, theta_gs):
         if not (exact_E and matvec_mode is not None):
             return E_T
-        hw = _matvec_2site_packed(LPp, RPp, W0p, W1p, theta_gs)
+        hw = matvec_packed(*operands, theta_gs)
         return float(pk.inner_re(theta_gs, hw))
 
     def normalized(v):
@@ -375,10 +422,15 @@ def lanczos_K_2site_packed(LPp, RPp, W0p, W1p, theta0, K, P_tol=0.,
 # ================================================== effective Hamiltonians
 class EffectiveH(NpcLinearOperator):
     """Base of the effective Hamiltonians of a few sites between their
-    environments: ``length`` sites, vectors with legs ``acts_on``."""
+    environments: ``length`` sites, vectors with legs ``acts_on``.
+
+    ``packed_matvec(*operands, v)`` is the matvec on packed arrays, whose
+    operands :meth:`pack_operands` packs onto a device once per effective
+    H (the plain one, without ``combine``)."""
 
     length = None
     acts_on = None
+    packed_matvec = None
 
     def __init__(self, env, i0, combine=False, move_right=True):
         raise NotImplementedError
@@ -388,6 +440,21 @@ class EffectiveH(NpcLinearOperator):
 
     def to_matrix(self):
         raise NotImplementedError
+
+    def _operands(self):
+        """``(LP, RP)`` and the W tensors, in the order of
+        ``packed_matvec``."""
+        raise NotImplementedError
+
+    def pack_operands(self, device):
+        """The operands of :attr:`packed_matvec` on ``device``: LP and RP
+        padded to ``BUCKET_MULTIPLE`` (:func:`pack_virtual`), each W as it
+        is (:func:`pack_W`); packed at the first call, then kept."""
+        if getattr(self, '_device_packed', None) is None:
+            self._device_packed = tuple(
+                pack_virtual(x, device) if k < 2 else pack_W(x, device)
+                for k, x in enumerate(self._operands()))
+        return self._device_packed
 
 
 class TwoSiteH(EffectiveH):
@@ -400,6 +467,7 @@ class TwoSiteH(EffectiveH):
 
     length = 2
     acts_on = ['vL', 'p0', 'p1', 'vR']
+    packed_matvec = staticmethod(_matvec_2site_packed)
 
     def __init__(self, env, i0, combine=False, move_right=True):
         self.i0 = i0
@@ -417,6 +485,9 @@ class TwoSiteH(EffectiveH):
                   * self.RP.get_leg('vL').ind_len)
         if combine:
             self.combine_Heff(env)
+
+    def _operands(self):
+        return self.LP, self.RP, self.W0, self.W1
 
     def combine_Heff(self, env):
         """Contract ``LHeff`` / ``RHeff`` with combined pipe legs."""
@@ -490,6 +561,7 @@ class OneSiteH(EffectiveH):
 
     length = 1
     acts_on = ['vL', 'p0', 'vR']
+    packed_matvec = staticmethod(_matvec_1site_packed)
 
     def __init__(self, env, i0, combine=False, move_right=True):
         self.i0 = i0
@@ -505,6 +577,9 @@ class OneSiteH(EffectiveH):
                   * self.RP.get_leg('vL').ind_len)
         if combine:
             self.combine_Heff(env)
+
+    def _operands(self):
+        return self.LP, self.RP, self.W0
 
     def combine_Heff(self, env):
         if self.move_right:
@@ -564,6 +639,7 @@ class ZeroSiteH(EffectiveH):
 
     length = 0
     acts_on = ['vL', 'vR']
+    packed_matvec = staticmethod(_matvec_0site_packed)
 
     def __init__(self, env, i0):
         self.i0 = i0
@@ -571,6 +647,9 @@ class ZeroSiteH(EffectiveH):
         self.RP = env.get_RP(i0 - 1)
         self.dtype = npc.result_type(self.LP.dtype, self.RP.dtype)
         self.N = self.LP.get_leg('vR').ind_len * self.RP.get_leg('vL').ind_len
+
+    def _operands(self):
+        return self.LP, self.RP
 
     def matvec(self, theta):
         return _matvec_0site_impl(self.LP, self.RP, theta)

@@ -30,7 +30,7 @@ from .charges import QTYPE, LegCharge, LegPipe
 
 __all__ = ['Array', 'zeros', 'eye_like', 'diag', 'outer', 'inner',
            'tensordot', 'grid_outer', 'norm', 'trace', 'svd', 'qr', 'lq',
-           'eigh', 'expm', 'concatenate',
+           'polar', 'eigh', 'expm', 'concatenate',
            'detect_qtotal', 'conj_label', 'as_dtype', 'result_type']
 
 _NP_TO_TORCH = {np.dtype(np.float64): torch.float64,
@@ -1175,6 +1175,23 @@ def svd(a, compute_uv=True, cutoff=None, qtotal_LR=(None, None),
     VH._set_blocks(np.array([(i, c) for i, c, _ in blocks_vh], QTYPE).reshape(
         len(blocks_vh), 2), [b for _, _, b in blocks_vh])
     return U, S, VH
+
+
+def polar(a, left=False):
+    """Polar decomposition of a 2-leg Array: ``a = W P`` with ``W``
+    isometric and ``P = (a^dagger a)^(1/2)`` (``left``: ``a = P W``, ``P =
+    (a a^dagger)^(1/2)``), both from the blockwise :func:`svd` ``a = U S
+    VH``: ``W = U VH``, ``P = VH^dagger S VH`` (``U S U^dagger``).  ``W``
+    keeps ``a``'s legs, labels and total charge."""
+    U, S, VH = svd(a)
+    W = tensordot(U, VH, axes=[[1], [0]])
+    if left:
+        P = tensordot(U.scale_axis(S, 1), U.conj().itranspose([1, 0]),
+                      axes=[[1], [0]])
+        return W, P
+    P = tensordot(VH.conj().itranspose([1, 0]).iscale_axis(S, 1), VH,
+                  axes=[[1], [0]])
+    return W, P
 
 
 def _matrix_block_components(a):

@@ -685,7 +685,10 @@ class MPOTransferMatrix:
         self.IdR = H.get_IdR(-1)
         if self.IdL is None or self.IdR is None:
             raise ValueError("MPO needs IdL/IdR structure")
-        S = np.asarray(psi.get_SL(0))
+        S = psi.get_SL(0)
+        S_is_matrix = isinstance(S, npc.Array)   # a UniformMPS's C
+        if not S_is_matrix:
+            S = np.asarray(S)
         form = 'A' if transpose else 'B'
         self._M = [psi.get_B(i, form) for i in range(L)]
         self._W = [H.get_W(i) for i in range(L)]
@@ -694,7 +697,11 @@ class MPOTransferMatrix:
             wR = H.get_W(L - 1).get_leg('wR')
             w_leg = wR.conj()
             v_leg = psi.get_B(psi.L - 1, 'B').get_leg('vR')
-            rho = npc.diag(S ** 2, v_leg, labels=['vR', 'vR*'])
+            if S_is_matrix:
+                rho = npc.tensordot(S, S.conj(), axes=[['vL'], ['vL*']])
+                rho.iset_leg_labels(['vR', 'vR*'])
+            else:
+                rho = npc.diag(S ** 2, v_leg, labels=['vR', 'vR*'])
             eye = npc.diag(1., v_leg.conj(), dtype=dtype,
                            labels=['vL', 'vL*'])
             labels, proj_labels, rho_w = (['vL', 'wL', 'vL*'],
@@ -704,7 +711,11 @@ class MPOTransferMatrix:
             wL = H.get_W(0).get_leg('wL')
             w_leg = wL.conj()
             v_leg = psi.get_B(0, 'A').get_leg('vL')
-            rho = npc.diag(S ** 2, v_leg.conj(), labels=['vL*', 'vL'])
+            if S_is_matrix:
+                rho = npc.tensordot(S.conj(), S, axes=[['vR*'], ['vR']])
+                rho.iset_leg_labels(['vL*', 'vL'])
+            else:
+                rho = npc.diag(S ** 2, v_leg.conj(), labels=['vL*', 'vL'])
             eye = npc.diag(1., v_leg, dtype=dtype, labels=['vR*', 'vR'])
             labels, proj_labels, rho_w = (['vR*', 'wR', 'vR'],
                                           ['vL*', 'wL', 'vL'], wL)
@@ -861,12 +872,21 @@ class MPOTransferMatrix:
                          'age_LP': 0, 'age_RP': 0}
         if not calc_E:
             return init_env_data
-        SL = np.asarray(psi.get_SL(0))
-        LP = envs[1].copy(deep=False).iscale_axis(SL, 'vR')
+        return init_env_data, Es, _E0(envs[1], psi.get_SL(0), envs[0])
+
+
+def _E0(LP, SL, RP):
+    """``<LP|S S^dagger|RP>`` across bond 0: ``SL`` the Schmidt values or
+    a bond matrix (a UniformMPS's C)."""
+    if isinstance(SL, npc.Array):
+        LP = npc.tensordot(LP, SL, axes=[['vR'], ['vL']])
+        LP = npc.tensordot(LP, SL.conj(), axes=[['vR*'], ['vL*']])
+    else:
+        SL = np.asarray(SL)
+        LP = LP.copy(deep=False).iscale_axis(SL, 'vR')
         LP = LP.iscale_axis(SL, 'vR*')
-        E0 = npc.tensordot(LP, envs[0],
-                           axes=[['vR', 'wR', 'vR*'], ['vL', 'wL', 'vL*']])
-        return init_env_data, Es, complex(E0)
+    return complex(npc.tensordot(LP, RP, axes=[['vR', 'wR', 'vR*'],
+                                               ['vL', 'wL', 'vL*']]))
 
 
 def _project_onto_w_index(a, label, idx):

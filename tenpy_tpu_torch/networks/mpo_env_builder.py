@@ -26,6 +26,7 @@ import numpy as np
 from ..linalg import np_conserved as npc
 from ..linalg.krylov_based import GMRES
 from ..linalg.sparse import NpcLinearOperator
+from .mpo import _E0
 
 logger = logging.getLogger(__name__)
 
@@ -206,7 +207,11 @@ class MPOEnvironmentBuilder:
         the sites carry charge but the cell does not, the tensors agree
         densely and only their inner legs' charges differ.  The
         environments and energies agree in both cases
-        (``tests/test_torch_mpo_env.py``)."""
+        (``tests/test_torch_mpo_env.py``).  A bond matrix S (a
+        UniformMPS's C) needs the forms stored: re-orthonormalizing would
+        rotate the cell's boundary basis.  A UniformMPS has forms of None,
+        so the builder raises and ``find_init_LP_RP`` takes Arnoldi, as in
+        ``tenpy_tpu``."""
         psi = self.ket
         L = self.L
         target = psi._valid_forms[form]
@@ -320,12 +325,7 @@ class MPOEnvironmentBuilder:
             return init_env_data
         E0 = None
         if which == 'both':
-            SL = np.asarray(self.ket.get_SL(0))
-            LPs = envs['LP'].copy(deep=False).iscale_axis(SL, 'vR')
-            LPs = LPs.iscale_axis(SL, 'vR*')
-            E0 = complex(npc.tensordot(LPs, envs['RP'],
-                                       axes=[['vR', 'wR', 'vR*'],
-                                             ['vL', 'wL', 'vL*']]))
+            E0 = _E0(envs['LP'], self.ket.get_SL(0), envs['RP'])
         return init_env_data, [Es.get('RP'), Es.get('LP')], E0
 
     def _build_one(self, name, gmres_options):
@@ -352,7 +352,15 @@ class MPOEnvironmentBuilder:
         self._Mcs = [M.conj() for M in self._Ms]
         self._Ids = [npc.diag(1., ket.sites[i].leg, labels=['p', 'p*'])
                      for i in range(L)]
-        rho = npc.diag(np.asarray(S) ** 2, c0.legs[1].conj(), labels=labels)
+        if isinstance(S, npc.Array):        # a UniformMPS's C
+            if name == 'LP':
+                rho = npc.tensordot(S, S.conj(), axes=[['vR'], ['vR*']])
+            else:
+                rho = npc.tensordot(S.conj(), S, axes=[['vL*'], ['vL']])
+            rho.iset_leg_labels(labels)
+        else:
+            rho = npc.diag(np.asarray(S) ** 2, c0.legs[1].conj(),
+                           labels=labels)
         grid = self._fresh_grid(name)
         env_parts = []
         eps = None

@@ -11,8 +11,6 @@ from __future__ import annotations
 
 import logging
 
-import numpy as np
-
 logger = logging.getLogger(__name__)
 
 __all__ = ['measurement_index', 'bond_dimension', 'bond_energies',
@@ -41,9 +39,11 @@ def m_bond_energies(results, psi, model, simulation, key='bond_energies'):
 
 
 def m_energy_MPO(results, psi, model, simulation, key='energy_MPO'):
-    from ..networks.mpo import MPOEnvironment
-    env = MPOEnvironment(psi, model.H_MPO, psi)
-    results[key] = np.real_if_close(env.full_contraction(0))
+    """``model.H_MPO.expectation_value(psi)``, as TeNPy: the full
+    contraction for finite bc, the energy per site for infinite bc.
+    ``tenpy_tpu`` contracts an environment with trivial boundaries for
+    both, which for infinite bc is not the energy."""
+    results[key] = model.H_MPO.expectation_value(psi)
 
 
 def m_entropy(results, psi, model, simulation, key='entropy'):

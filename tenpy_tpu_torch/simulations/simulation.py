@@ -385,7 +385,12 @@ class Simulation:
 
 class GroundStateSearch(Simulation):
     """A ground-state search (DMRG by default); ``results['energy']`` is
-    the engine's energy, and the MPO energy is measured."""
+    the engine's energy, and the MPO energy is measured.
+
+    The state the engine returns becomes ``self.psi``, as in TeNPy: a
+    VUMPS engine returns a new MPS, so the measurements and the saved
+    ``psi`` are of the converged state.  ``tenpy_tpu`` drops it and
+    measures the initial state there."""
 
     default_algorithm = 'TwoSiteDMRGEngine'
     default_measurements = Simulation.default_measurements + [
@@ -393,8 +398,9 @@ class GroundStateSearch(Simulation):
     ]
 
     def run_algorithm(self):
-        E, _ = self.engine.run()
+        E, psi = self.engine.run()
         self.results['energy'] = E
+        self.psi = psi
 
 
 class RealTimeEvolution(Simulation):

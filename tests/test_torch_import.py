@@ -33,6 +33,7 @@ MODULES = ['tenpy_tpu_torch', 'tenpy_tpu_torch.__main__',
            'tenpy_tpu_torch.networks.charge_gauge',
            'tenpy_tpu_torch.networks.terms',
            'tenpy_tpu_torch.networks.mps',
+           'tenpy_tpu_torch.networks.uniform_mps',
            'tenpy_tpu_torch.networks.mpo',
            'tenpy_tpu_torch.networks.mpo_env_builder',
            'tenpy_tpu_torch.networks.exchange',
@@ -52,6 +53,7 @@ MODULES = ['tenpy_tpu_torch', 'tenpy_tpu_torch.__main__',
            'tenpy_tpu_torch.algorithms.tdvp',
            'tenpy_tpu_torch.algorithms.mpo_evolution',
            'tenpy_tpu_torch.algorithms.exact_diag',
+           'tenpy_tpu_torch.algorithms.vumps',
            'tenpy_tpu_torch.simulations',
            'tenpy_tpu_torch.simulations.measurement',
            'tenpy_tpu_torch.simulations.post_processing',

@@ -35,6 +35,8 @@ chi=256 Hubbard-cylinder file and the ramp references::
         tests/benchmark_data/simulation_reference.npz
     python tests/torch_exchange.py --write-time-evolution \
         tests/benchmark_data/time_evolution_reference.npz
+    python tests/torch_exchange.py --write-vumps \
+        tests/benchmark_data/vumps_reference.npz
 """
 
 import argparse
@@ -1691,6 +1693,272 @@ def time_evolution_reference():
 
 
 
+# ------------------------------------------------------------------ VUMPS
+# the cases of tests/test_vumps.py, an Sz-conserving XX chain, a complex
+# Hofstadter cylinder, npc.polar and the environments of a bond matrix C
+VUMPS_REF = os.path.join(_ROOT, 'tests', 'benchmark_data',
+                         'vumps_reference.npz')
+VUMPS_CASES = ('polar', 'roundtrip', 'single', 'two', 'single_L1',
+               'mixer_L2_SE', 'mixer_L3_SE', 'mixer_L3_DMM', 'xx_sz',
+               'hofstadter', 'envs', 'yaml')
+# minimal_DMRG.yml as a VUMPS run: the infinite Heisenberg chain (L=2)
+VUMPS_YAML = ['model_params.L=2', 'model_params.bc_MPS=infinite',
+              'algorithm_class=TwoSiteVUMPSEngine',
+              'algorithm_params.trunc_params.chi_max=16',
+              'algorithm_params.trunc_params.svd_min=1.e-10',
+              'algorithm_params.mixer=SubspaceExpansion',
+              'algorithm_params.max_sweeps=12',
+              'algorithm_params.check_overlap=False']
+VUMPS_XX = {'L': 2, 'Jxx': 1., 'Jz': 0., 'hz': 0., 'bc_MPS': 'infinite',
+            'conserve': 'Sz'}
+VUMPS_HOF = {'lattice': 'Square', 'Lx': 1, 'Ly': 3, 'bc_y': 'cylinder',
+             'bc_MPS': 'infinite', 'phi': (1, 3), 'gauge': 'landau_y',
+             'conserve': 'N', 'mu': 0., 'v': 0.}
+
+
+class _VU:
+    """The modules of one package that the VUMPS cases use."""
+
+    def __init__(self, package):
+        if package == 'jax':
+            from tenpy_tpu.algorithms import dmrg, vumps
+            from tenpy_tpu.linalg import charges, np_conserved as npc
+            from tenpy_tpu.models import tf_ising, xxz_chain, hofstadter
+            from tenpy_tpu.networks import mpo, mps, uniform_mps, \
+                mpo_env_builder
+            self.kw = {}
+        else:
+            from tenpy_tpu_torch.algorithms import dmrg, vumps
+            from tenpy_tpu_torch.linalg import charges, np_conserved as npc
+            from tenpy_tpu_torch.models import tf_ising, xxz_chain, \
+                hofstadter
+            from tenpy_tpu_torch.networks import mpo, mps, uniform_mps, \
+                mpo_env_builder
+            self.kw = {'device': 'cpu'}
+        self.dmrg, self.vumps, self.charges, self.npc = dmrg, vumps, \
+            charges, npc
+        self.tf_ising, self.xxz_chain, self.hofstadter = tf_ising, \
+            xxz_chain, hofstadter
+        self.mpo, self.mps, self.uniform_mps = mpo, mps, uniform_mps
+        self.builder = mpo_env_builder.MPOEnvironmentBuilder
+
+
+def vumps_polar_input(package):
+    """A seeded charge-conserving 2-leg Array (U(1), real and complex
+    blocks of 2x3, 3x3 and 3x2, all of full rank) in ``package``."""
+    vu = _VU(package)
+    chinfo = vu.charges.ChargeInfo([1], ['N'])
+    q0 = np.array([[0], [0], [1], [1], [1], [2], [2], [2]])
+    q1 = np.array([[0], [0], [0], [1], [1], [1], [2], [2]])
+    leg0 = vu.charges.LegCharge.from_qflat(chinfo, q0, +1)
+    leg1 = vu.charges.LegCharge.from_qflat(chinfo, q1, -1)
+    rng = np.random.default_rng(7)
+    mask = q0[:, 0][:, None] == q1[:, 0][None, :]
+    re = rng.standard_normal(mask.shape) * mask
+    cx = re + 1j * rng.standard_normal(mask.shape) * mask
+    return [vu.npc.Array.from_ndarray(a, [leg0, leg1], labels=['a', 'b'])
+            for a in (re, cx)]
+
+
+def _vumps_run(vu, eng_cls, psi, m, opts):
+    eng = getattr(vu.vumps, eng_cls)(psi, m, opts, **vu.kw)
+    E, psi_out = eng.run()
+    return eng, float(np.real(E)), psi_out
+
+
+def vumps_case(package, case, inputs=None):
+    """One of :data:`VUMPS_CASES` in ``package`` ('jax' or 'torch'); a
+    flat dict of its values under ``<case>.``.  ``inputs``: tenpy_tpu's
+    flat reference, whose start states the port reads (tenpy_tpu makes
+    them)."""
+    import warnings
+    warnings.simplefilter('ignore')
+    vu = _VU(package)
+    out = {}
+
+    def start(key, sites, make):
+        """tenpy_tpu's start state ``key``: made here, or read."""
+        if inputs is None:
+            psi = make()
+            out.update(state_flat(f'{case}.{key}', psi))
+            return psi
+        return load_state(inputs, f'{case}.{key}', sites)
+
+    def result(eng, E, psi, m, op):
+        out[f'{case}.E'] = np.asarray(E)
+        out[f'{case}.S'] = np.asarray(psi.entanglement_entropy())
+        out[f'{case}.op'] = np.asarray(psi.expectation_value(op))
+        out[f'{case}.norm_err'] = np.asarray(np.max(psi.norm_test()))
+        out[f'{case}.chi'] = np.asarray(psi.chi)
+        out[f'{case}.sweeps'] = np.asarray(eng.sweeps)
+        out.update(state_flat(f'{case}.psi', psi))
+
+    def tfi(L, g):
+        return vu.tf_ising.TFIChain({'L': L, 'J': 1., 'g': g,
+                                     'bc_MPS': 'infinite', 'conserve': None})
+
+    def dmrg_state(m, init, chi, sweeps):
+        def make():
+            psi = vu.mps.MPS.from_product_state(m.lat.mps_sites(), init,
+                                                bc='infinite')
+            vu.dmrg.run(psi, m, {'trunc_params': {'chi_max': chi,
+                                                  'svd_min': 1e-10},
+                                 'max_sweeps': sweeps, 'mixer': True},
+                        **vu.kw)
+            return psi
+        return start('psi0', m.lat.mps_sites(), make)
+
+    if case == 'polar':
+        for name, a in zip(('real', 'complex'), vumps_polar_input(package)):
+            for left in (False, True):
+                W, P = vu.npc.polar(a, left=left)
+                tag = f'{case}.{name}.{"left" if left else "right"}'
+                out[tag + '.W'] = np.asarray(W.to_ndarray())
+                out[tag + '.P'] = np.asarray(P.to_ndarray())
+    elif case == 'roundtrip':
+        m = tfi(2, 1.5)
+        psi = dmrg_state(m, ['up', 'up'], 12, 10)
+        u = vu.uniform_mps.UniformMPS.from_MPS(psi)
+        out[f'{case}.validity'] = np.asarray(np.max(u.test_validity()))
+        out[f'{case}.norm_err'] = np.asarray(np.linalg.norm(u.norm_test()))
+        out[f'{case}.sz_mps'] = np.asarray(psi.expectation_value('Sigmaz'))
+        out[f'{case}.sz_u'] = np.asarray(u.expectation_value('Sigmaz'))
+        out[f'{case}.S_u'] = np.asarray(u.entanglement_entropy())
+        psi2 = u.to_MPS(check_overlap=False)
+        out[f'{case}.sz_back'] = np.asarray(psi2.expectation_value('Sigmaz'))
+        out[f'{case}.S_back'] = np.asarray(psi2.entanglement_entropy())
+    elif case == 'single':
+        m = tfi(2, 1.5)
+        psi = dmrg_state(m, ['up', 'up'], 12, 8)
+        eng, E, psi = _vumps_run(vu, 'SingleSiteVUMPSEngine', psi, m, {
+            'max_sweeps': 30, 'max_E_err': 1e-12, 'max_split_err': 1e-9,
+            'check_overlap': False})
+        result(eng, E, psi, m, 'Sigmaz')
+    elif case == 'two':
+        m = tfi(2, 1.2)
+        psi = vu.mps.MPS.from_product_state(m.lat.mps_sites(), ['up', 'up'],
+                                            bc='infinite')
+        eng, E, psi = _vumps_run(vu, 'TwoSiteVUMPSEngine', psi, m, {
+            'max_sweeps': 40, 'max_E_err': 1e-12, 'max_split_err': 1e-8,
+            'check_overlap': False,
+            'trunc_params': {'chi_max': 24, 'svd_min': 1e-10}})
+        result(eng, E, psi, m, 'Sigmaz')
+    elif case == 'single_L1':
+        m = tfi(1, 1.5)
+        psi = start('psi0', m.lat.mps_sites(),
+                    lambda: vu.mps.MPS.from_desired_bond_dimension(
+                        m.lat.mps_sites(), 16, bc='infinite', seed=5))
+        eng, E, psi = _vumps_run(vu, 'SingleSiteVUMPSEngine', psi, m, {
+            'max_sweeps': 60, 'max_E_err': 1e-12, 'max_split_err': 1e-8,
+            'check_overlap': False})
+        result(eng, E, psi, m, 'Sigmaz')
+        out[f'{case}.E_bond'] = np.asarray(np.mean(
+            psi.expectation_value(m.H_bond)))
+        out[f'{case}.E_mpo'] = np.asarray(float(np.real(
+            m.H_MPO.expectation_value(psi))))
+    elif case.startswith('mixer_'):
+        L = int(case[len('mixer_L')])
+        mixer = 'SubspaceExpansion' if case.endswith('SE') \
+            else 'DensityMatrixMixer'
+        m = tfi(L, 1.2)
+        psi = vu.mps.MPS.from_product_state(m.lat.mps_sites(), ['up'] * L,
+                                            bc='infinite')
+        eng, E, psi = _vumps_run(vu, 'TwoSiteVUMPSEngine', psi, m, {
+            'max_sweeps': 50, 'min_sweeps': 10, 'max_E_err': 1e-12,
+            'max_split_err': 1e-8, 'check_overlap': False, 'mixer': mixer,
+            'mixer_params': {'amplitude': 1e-5, 'disable_after': 5},
+            'chi_list': {0: 10, 5: 24}, 'trunc_params': {'svd_min': 1e-10}})
+        result(eng, E, psi, m, 'Sigmaz')
+        out[f'{case}.E_bond'] = np.asarray(np.mean(
+            psi.expectation_value(m.H_bond)))
+    elif case == 'xx_sz':
+        m = vu.xxz_chain.XXZChain(dict(VUMPS_XX))
+        psi = vu.mps.MPS.from_product_state(m.lat.mps_sites(),
+                                            ['up', 'down'], bc='infinite')
+        eng, E, psi = _vumps_run(vu, 'TwoSiteVUMPSEngine', psi, m, {
+            'max_sweeps': 10, 'min_sweeps': 8, 'max_E_err': 1e-12,
+            'max_split_err': 1e-8, 'check_overlap': False,
+            'mixer': 'SubspaceExpansion',
+            'mixer_params': {'amplitude': 1e-5, 'disable_after': 6},
+            'chi_list': {0: 8, 3: 16, 6: 24},
+            'trunc_params': {'svd_min': 1e-10}})
+        result(eng, E, psi, m, 'Sz')
+    elif case == 'hofstadter':
+        m = vu.hofstadter.HofstadterFermions(dict(VUMPS_HOF))
+        psi = vu.mps.MPS.from_product_state(m.lat.mps_sites(),
+                                            ['full', 'empty', 'empty'],
+                                            bc='infinite')
+        eng, E, psi = _vumps_run(vu, 'TwoSiteVUMPSEngine', psi, m, {
+            'max_sweeps': 6, 'min_sweeps': 6, 'max_E_err': 1e-12,
+            'max_split_err': 1e-8, 'check_overlap': False,
+            'mixer': 'SubspaceExpansion',
+            'mixer_params': {'amplitude': 1e-5, 'disable_after': 4},
+            'chi_list': {0: 8, 2: 16}, 'trunc_params': {'svd_min': 1e-10}})
+        result(eng, E, psi, m, 'N')
+        out[f'{case}.complex'] = np.asarray(psi.dtype.is_complex
+                                            if package == 'torch' else
+                                            np.iscomplexobj(np.zeros(
+                                                (), psi.dtype)))
+    elif case == 'envs':
+        m = vu.xxz_chain.XXZChain(dict(VUMPS_XX))
+        psi = dmrg_state(m, ['up', 'down'], 16, 10)
+        u = vu.uniform_mps.UniformMPS.from_MPS(psi)
+        for i in range(u.L):
+            u.set_C(i, u.get_C(i))      # get_SL now returns the matrix C
+        data, Es, E0 = vu.mpo.MPOTransferMatrix.find_init_LP_RP(
+            m.H_MPO, u, calc_E=True, method='arnoldi')
+        out[f'{case}.tm.LP'] = np.asarray(
+            data['init_LP'].transpose(['vR*', 'wR', 'vR']).to_ndarray())
+        out[f'{case}.tm.RP'] = np.asarray(
+            data['init_RP'].transpose(['vL', 'wL', 'vL*']).to_ndarray())
+        out[f'{case}.tm.Es'] = np.real(np.asarray(Es, complex))
+        out[f'{case}.tm.E0'] = np.asarray(complex(E0))
+        # the builder needs its forms stored: AL for LP, AR for RP
+        for name, form, get in (('LP', 'A', u.get_AL), ('RP', 'B', u.get_AR)):
+            Bs = [get(i, copy=True) for i in range(u.L)]
+            SVs = [np.ones(B.get_leg('vL').ind_len) for B in Bs] + \
+                [np.ones(Bs[0].get_leg('vL').ind_len)]
+            psi_f = vu.mps.MPS(u.sites, Bs, SVs, bc='infinite', form=form)
+            psi_f._S = [u.get_C(i) for i in range(u.L)] + [u.get_C(0)]
+            env_data, Es_b, _ = vu.builder(m.H_MPO, psi_f) \
+                .init_LP_RP_iterative(which=name, calc_E=True)
+            labels = ['vR*', 'wR', 'vR'] if name == 'LP' else \
+                ['vL', 'wL', 'vL*']
+            out[f'{case}.builder.{name}'] = np.asarray(
+                env_data['init_' + name].transpose(labels).to_ndarray())
+            out[f'{case}.builder.E_{name}'] = np.asarray(float(np.real(
+                Es_b[1 if name == 'LP' else 0])))
+    elif case == 'yaml':
+        import tempfile
+        _, console_main, io, kw = _sim_api(package)
+        argv = [os.path.join(_ROOT, 'examples', 'yaml', 'minimal_DMRG.yml')]
+        with tempfile.TemporaryDirectory() as tmpdir:
+            fn = os.path.join(tmpdir, 'vumps.pkl')
+            for o in VUMPS_YAML + [f'log_params={SIM_LOG!r}',
+                                   f'output_filename={fn}'] + \
+                    [f'{k}={v}' for k, v in kw.items()]:
+                argv += ['-o', o]
+            assert console_main(argv) == 0
+            res = io.load(fn)
+        out.update(_sim_result(case, res))
+        out[f'{case}.chi'] = np.asarray(res['psi'].chi)
+    else:
+        raise ValueError(case)
+    return out
+
+
+def vumps_reference():
+    """tenpy_tpu's runs of every case of :data:`VUMPS_CASES`."""
+    flat = {}
+    for case in VUMPS_CASES:
+        t0 = time.time()
+        res = vumps_case('jax', case)
+        flat.update(res)
+        print(f"{case}: {time.time() - t0:.1f} s, {len(res)} values",
+              flush=True)
+    return flat
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--write',
@@ -1715,6 +1983,8 @@ def main(argv=None):
                     help='output .npz path (simulation references)')
     ap.add_argument('--write-time-evolution',
                     help='output .npz path (time-evolution references)')
+    ap.add_argument('--write-vumps',
+                    help='output .npz path (VUMPS references)')
     ap.add_argument('--cases', nargs='+',
                     help='write-back or Hofstadter cases to (re)compute')
     args = ap.parse_args(argv)
@@ -1737,7 +2007,8 @@ def main(argv=None):
                        (args.write_ramp_drift, ramp_drift_reference),
                        (args.write_simulation, simulation_reference),
                        (args.write_time_evolution,
-                        time_evolution_reference)):
+                        time_evolution_reference),
+                       (args.write_vumps, vumps_reference)):
         if path:
             exchange.save_flat(path, make())
             print(f"wrote {path} ({os.path.getsize(path) / 1e6:.3f} MB)",
