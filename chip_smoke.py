@@ -132,10 +132,30 @@ Phases (any failure exits nonzero):
    state.  Then the kernel against its plain version on the zero- and
    two-site (f64, chi=256) and zero- and one-site (complex128, chi=128)
    matvecs of the last updates, timed;
+13. TeNPy's finite-temperature purification (``PurificationTEBD(psi,
+   model, options, device='cuda')``; the engine's own
+   ``DEVICE_SPLIT_THRESHOLD`` sends a bond update to the card: the gate
+   ``U_p (x) 1_q`` on the (p, q) pipes as one packed tensordot, one launch
+   of the kernel, and the batched split with the host's cut).  13a: the
+   open XX chain (L=32, Sz) from the infinite-temperature state in
+   imaginary-time stages to the beta where the central bonds hold chi=256,
+   E(beta) held to the Trotterized free-fermion energy within the
+   truncation's tolerance (the untrotterized one beside it),
+   ``norm_test``, every update from the threshold up on the card, kernel
+   launches equal to the card updates, the card's update of a saturated
+   bond against the host's on the same theta (S and ``A S B``); 13b: the
+   canonical ensemble at Sz=0 with conserved ancilla charges (doubled
+   U(1)), L=12, every update on the card, held to exact diagonalization
+   in the sector; 13c: one saturated update by part, the median of a few
+   ``update_imag`` steps, one profiled step (idle share), peak memory,
+   the card's update against the host's by N (the crossover) and the host
+   SVD against the batched split; then the kernel against its plain
+   version on the saturated bond's gate, timed;
 then a JSON line on the kernels (the f64 mode, the complex128 mode, the
 complex128 mode on the TEBD shapes, the f64 mode on the host DMRG's and
 on the simulation's shapes, the complex128 mode on TDVP's two- and
-one-site matvecs, and VUMPS's four matvecs) and, last, ``{"ok": true,
+one-site matvecs, VUMPS's four matvecs and the purification gate) and,
+last, ``{"ok": true,
 "device": ...}``.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.
@@ -1387,14 +1407,17 @@ def phase_tebd_quench(psi, smi):
 
 def device_time(prof):
     """Device busy time (us, overlaps merged) of a profile, the time of the
-    SVD's and of the packed kernel's launches, and the kernels by time."""
+    SVD's and of the packed kernel's launches, and the kernels by time;
+    read from the profiler's raw Kineto events, without building its event
+    tree (which took a minute for the 400,000 device events of one
+    purification step on the card)."""
     dev, cnt, spans = {}, {}, []
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            dev[e.name] = (dev.get(e.name, 0.) + e.time_range.end
-                           - e.time_range.start)
-            cnt[e.name] = cnt.get(e.name, 0) + 1
-            spans.append((e.time_range.start, e.time_range.end))
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            a, b = e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3
+            dev[e.name()] = dev.get(e.name(), 0.) + b - a
+            cnt[e.name()] = cnt.get(e.name(), 0) + 1
+            spans.append((a, b))
     busy, end = 0., None
     for a, b in sorted(spans):
         if end is None or a > end:
@@ -3003,6 +3026,523 @@ def phase_vumps(smi, hof_state):
     return (z_n, zmv), (t_n, tmv), (zc_n, zcmv), (o_n, omv)
 
 
+# finite-temperature purification (phase 13): PurificationTEBD with
+# device='cuda'.  13a: the open XX chain (Jz=0: free fermions, Sz
+# conserved) from the infinite-T state, imaginary time in stages of
+# PU_STAGES by the engine's own DEVICE_SPLIT_THRESHOLD rule, then the last
+# PU_CARD_BETA with every update forced onto the card (device_threshold=0),
+# to the beta where the central bonds hold chi=256 (above svd_min); 13b:
+# the canonical ensemble at Sz=0 with conserved ancilla charges (the
+# doubled U(1)xU(1)), every update on the card, against exact
+# diagonalization in the sector; 13c: the time split of one saturated
+# update, steps by either route, the crossover by N, the profiled step
+PU_MODEL = {'L': 32, 'Jxx': 1., 'Jz': 0., 'hz': 0., 'bc_MPS': 'finite'}
+PU_OPTIONS = {'trunc_params': {'chi_max': 256, 'svd_min': 1e-10},
+              'dt': 0.05, 'order': 2}
+PU_CHI = 256
+# the beta increments of 13a's run_imaginary stages by the engine's rule and
+# the last one on the card (one step of dt); their sum is the beta at which
+# the central bonds of the L=32 chain reach chi=256 in the CPU rehearsal
+# (tests/rehearse_purification_phase.py: 240 at beta 9, 256 at 10)
+PU_STAGES = (4., 2., 2., 1., 0.9)
+PU_CARD_BETA = 0.1
+# |E - E_trotter| <= PU_E_ABS + PU_E_FACTOR |E| sqrt(sum eps): the error of
+# a state cut to weight eps is sqrt(eps) in its amplitude and in E to first
+# order; the factor is ten times the largest ratio of the rehearsals
+PU_E_ABS, PU_E_FACTOR = 1e-12, 10.
+# PurificationMPS.norm_test measures the isometry error of every site's A
+# and B forms, one of them converted by Schmidt values down to svd_min
+# (1e-10): roundoff times up to 1 / svd_min (the rehearsal: 1.1e-10)
+PU_NORM_TOL = 1e-8
+PU_ROUTE_TOL = 1e-12
+PU_CANON_MODEL = dict(PU_MODEL, L=12)
+PU_CANON_BETA = 2.
+# the canonical run against the Trotterized sector ED (truncation only, as
+# in 13a) and against the untrotterized one: the Trotter error of dt=0.05,
+# which the rehearsal measures, times ten
+PU_CANON_TROTTER_TOL = 1e-4
+PU_CROSS_BONDS = (1, 2, 3, 4, 5, 6, 8, 16)
+PU_CROSS_REPEATS = 2
+PU_HOST_THREADS = 1
+PU_TIMED_STEPS = 2
+PU_GATE_STEPS = ['U.theta over (p0*,p1*)']
+
+
+def xx_purification_energies(L, beta, dt, Jxx=1.):
+    """``(E_trotter, E_exact)`` of the open XX chain's purification at
+    inverse temperature ``beta`` (grand canonical): free fermions, each
+    bond gate ``exp(-dt/2 H_b)`` is Gaussian with the single-particle
+    propagator ``exp(-dt/2 h_b)``; ``update_imag``'s step is the sweep of
+    the bonds there and back, so ``rho = Gamma(t t^T)`` with ``t`` the
+    product of the propagators and ``<c^dagger c> = G (1 + G)^-1``,
+    ``G = t t^T``.  Untrotterized: ``sum_k eps_k / (exp(beta eps_k) + 1)``,
+    ``eps_k = Jxx cos(k pi / (L + 1))``."""
+    h = np.diag(np.full(L - 1, Jxx / 2.), 1)
+    h = h + h.T
+    eps = np.linalg.eigvalsh(h)
+    E_exact = float(np.sum(eps / (np.exp(beta * eps) + 1.)))
+    c, s = np.cosh(0.25 * dt * Jxx), np.sinh(0.25 * dt * Jxx)
+    step = np.eye(L)
+    for b in list(range(L - 1)) + list(range(L - 2, -1, -1)):
+        g = np.eye(L)
+        g[b, b] = g[b + 1, b + 1] = c
+        g[b, b + 1] = g[b + 1, b] = -s
+        step = g @ step
+    t = np.linalg.matrix_power(step, int(round(beta / 2. / dt)))
+    G = t @ t.T
+    return float(np.sum(h * (G @ np.linalg.inv(np.eye(L) + G)))), E_exact
+
+
+def xx_sector_energies(L, beta, dt, Jxx=1.):
+    """``(E_trotter, E_exact)`` of the open XX chain in the Sz=0 sector
+    (the canonical ensemble), by exact diagonalization in the sector: the
+    bond gates as matrices there, applied in ``update_imag``'s order."""
+    import itertools
+    import scipy.linalg
+    states = [s for s in itertools.product((0, 1), repeat=L)
+              if sum(s) == L // 2]
+    index = {s: k for k, s in enumerate(states)}
+    Hb = []
+    for b in range(L - 1):
+        m = np.zeros((len(states), len(states)))
+        for s, k in index.items():
+            if s[b] != s[b + 1]:
+                f = list(s)
+                f[b], f[b + 1] = f[b + 1], f[b]
+                m[index[tuple(f)], k] = Jxx / 2.
+        Hb.append(m)
+    H = sum(Hb)
+    w = np.linalg.eigvalsh(H)
+    z = np.exp(-beta * (w - w[0]))
+    E_exact = float(np.sum(w * z) / np.sum(z))
+    step = np.eye(len(states))
+    for b in list(range(L - 1)) + list(range(L - 2, -1, -1)):
+        step = scipy.linalg.expm(-0.5 * dt * Hb[b]) @ step
+    T = np.linalg.matrix_power(step, int(round(beta / 2. / dt)))
+    rho = T @ T.T
+    return float(np.trace(rho @ H) / np.trace(rho)), E_exact
+
+
+class PurificationProbe:
+    """Within ``with``: the kernel launches counted around each card update
+    of :class:`PurificationTEBD` by its route (restored on exit)."""
+
+    def __init__(self):
+        self.launches = {'device': 0, 'device_split': 0}
+        self.updates = {'device': 0, 'device_split': 0}
+        self._orig = None
+
+    def __enter__(self):
+        from tenpy_tpu_torch.algorithms.purification import PurificationTEBD
+        self._cls = PurificationTEBD
+        self._orig = orig = PurificationTEBD._update_device
+        probe = self
+
+        def run(eng, i, U_bond, route):
+            n0 = gg.LAUNCHES
+            out = orig(eng, i, U_bond, route)
+            probe.launches[route] += gg.LAUNCHES - n0
+            probe.updates[route] += 1
+            return out
+
+        PurificationTEBD._update_device = run
+        return self
+
+    def __exit__(self, *exc):
+        self._cls._update_device = self._orig
+
+
+def pu_energy(eng):
+    return float(np.sum(eng.bond_energies())) / float(np.real(
+        eng.psi.overlap(eng.psi)))
+
+
+def pu_route_summary(tag, stats):
+    """Per route: updates, their N range and seconds."""
+    for route in ('device', 'device_split', 'host'):
+        sel = [s for s in stats if s[2] == route]
+        if sel:
+            Ns = [s[1] for s in sel]
+            sec = sum(s[3] for s in sel)
+            log(f"[{tag}]   {route}: {len(sel)} updates, N {min(Ns)}-"
+                f"{max(Ns)}, {sec:.2f} s ({1e3 * sec / len(sel):.2f} ms "
+                f"each)")
+
+
+def check_pu_launches(tag, probe, stats, launches):
+    """One launch per 'device' update, none per 'device_split' one, and
+    none outside the card's updates."""
+    n_dev = sum(1 for s in stats if s[2] == 'device')
+    log(f"[{tag}] kernel launches {launches}: {probe.launches['device']} "
+        f"around {probe.updates['device']} 'device' updates (stats "
+        f"{n_dev}), {probe.launches['device_split']} around "
+        f"{probe.updates['device_split']} 'device_split' updates")
+    check(probe.launches['device'] == probe.updates['device'] == n_dev,
+          f"{tag}: kernel launches differ from the card's updates")
+    check(probe.launches['device_split'] == 0,
+          f"{tag}: a 'device_split' update launched the kernel")
+    check(launches == probe.launches['device'],
+          f"{tag}: kernel launches outside the card's updates")
+
+
+def pu_pair_theta(A, S, B):
+    """``A S B`` of an update's split, legs ``vL p0 q0 p1 q1 vR``."""
+    A = A.replace_labels(['p', 'q'], ['p0', 'q0'])
+    B = B.replace_labels(['p', 'q'], ['p1', 'q1'])
+    return npc.tensordot(A.scale_axis(S, 'vR'), B,
+                         axes=[['vR'], ['vL']]).itranspose(
+        ['vL', 'p0', 'q0', 'p1', 'q1', 'vR'])
+
+
+def pu_route_check(tag, eng, i):
+    """Bond ``i``'s update by the card and by the host on the same theta:
+    sorted S and ``A S B`` (relative) to PU_ROUTE_TOL, never A or B entry
+    by entry."""
+    U = eng._U[0][i]
+    eng._update_index = eng._find_update_index(i, U)
+    A_d, S_d, B_d, err_d, ren_d = eng._update_device(i, U, 'device')
+    A_h, S_h, B_h, err_h, ren_h = eng._update_host(i, U)
+    check(len(S_d) == len(S_h), f"{tag}: the card kept {len(S_d)} Schmidt "
+          f"values, the host {len(S_h)}")
+    dS = float(np.max(np.abs(np.sort(S_d) - np.sort(S_h))))
+    th_d, th_h = pu_pair_theta(A_d, S_d, B_d), pu_pair_theta(A_h, S_h, B_h)
+    rel = float(np.linalg.norm((th_d.to_numpy() - th_h.to_numpy()).ravel())
+                / np.linalg.norm(th_h.to_numpy().ravel()))
+    log(f"[{tag}] bond {i} (chi {len(S_h)}, N {eng.theta_size(i)}), card "
+        f"against host on the same theta: S {dS:.2e}, A S B {rel:.2e} "
+        f"(relative), err {err_d.eps:.3e} / {err_h.eps:.3e}, renorm "
+        f"{abs(ren_d / ren_h - 1.):.1e} apart (tolerance {PU_ROUTE_TOL:.0e})")
+    check(dS <= PU_ROUTE_TOL and rel <= PU_ROUTE_TOL,
+          f"{tag}: the card's update is not the host's")
+
+
+def phase_purification_xx(smi):
+    """13a: the XX chain's purification to the beta of chi=256 on the
+    card, held to the Trotterized free-fermion energy; routes, launches,
+    the card's update against the host's on a saturated bond, the kernel
+    on its gate.  Returns the engine, the launches and the gate's
+    measurement."""
+    from tenpy_tpu_torch.algorithms.purification import PurificationTEBD
+    from tenpy_tpu_torch.networks.purification_mps import PurificationMPS
+    model = XXZChain(dict(PU_MODEL))
+    L = PU_MODEL['L']
+    psi = PurificationMPS.from_infiniteT(model.lat.mps_sites())
+    eng = PurificationTEBD(psi, model, copy.deepcopy(PU_OPTIONS),
+                           device='cuda')
+    dt = PU_OPTIONS['dt']
+    gg.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    beta = 0.
+    t0 = time.time()
+    with PurificationProbe() as probe:
+        for k, dbeta in enumerate(PU_STAGES + (PU_CARD_BETA,)):
+            if k == len(PU_STAGES):
+                n_rule = len(eng.update_stats)
+                eng.options['device_threshold'] = 0
+            ts = time.time()
+            n0 = len(eng.update_stats)
+            eng.run_imaginary(dbeta)
+            torch.cuda.synchronize()
+            beta += dbeta
+            st = eng.update_stats[n0:]
+            log(f"[13a] beta {beta:.1f}: {time.time() - ts:.2f} s, "
+                f"{len(st)} updates ({sum(s[2] == 'device' for s in st)} on "
+                f"the card), chi max {max(psi.chi)}, centre "
+                f"{psi.chi[L // 2 - 1]}, sum eps {eng.trunc_err.eps:.3e}")
+    del eng.options['device_threshold']
+    wall = time.time() - t0
+    launches = gg.LAUNCHES
+    E = pu_energy(eng)
+    E_trot, E_exact = xx_purification_energies(L, beta, dt)
+    eps = eng.trunc_err.eps
+    tol = PU_E_ABS + PU_E_FACTOR * abs(E) * np.sqrt(eps)
+    norm_err = float(np.max(psi.norm_test()))
+    log(f"[13a] PurificationTEBD on the XX chain {PU_MODEL} from the "
+        f"infinite-T state, {PU_OPTIONS}, to beta={beta}: {wall:.2f} s; "
+        f"card {smi}")
+    log(f"[13a] E(beta) {E!r}, Trotterized free fermions {E_trot!r}: "
+        f"{E - E_trot:+.3e} (tolerance {tol:.2e} from sum eps {eps:.3e}); "
+        f"untrotterized {E_exact!r}: {E - E_exact:+.3e}; norm_test "
+        f"{norm_err:.2e}; chi {psi.chi}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    check(abs(E - E_trot) <= tol, "13a: E(beta) is not the Trotterized "
+          "free-fermion energy within its tolerance")
+    check(norm_err <= PU_NORM_TOL, "13a: norm_test above its tolerance")
+    check(max(psi.chi) == PU_CHI, f"13a: the central bonds do not hold "
+          f"chi={PU_CHI}")
+    stats = eng.update_stats
+    log(f"[13a] by the engine's rule (beta 0-{sum(PU_STAGES):.1f}):")
+    pu_route_summary('13a', stats[:n_rule])
+    log(f"[13a] forced onto the card (the last {PU_CARD_BETA}):")
+    pu_route_summary('13a', stats[n_rule:])
+    thr = mc.DEVICE_SPLIT_THRESHOLD
+    wrong = [s for s in stats[:n_rule] if s[2] != (
+        'device' if thr is not None and s[1] >= thr else 'host')]
+    log(f"[13a] DEVICE_SPLIT_THRESHOLD {thr}: {len(wrong)} updates off "
+        f"its route; {len(stats) - n_rule} forced updates")
+    check(not wrong, "13a: an update took the wrong route")
+    check(stats[n_rule:] and all(s[2] == 'device' for s in stats[n_rule:]),
+          "13a: a forced update ran on the host")
+    check_pu_launches('13a', probe, stats, launches)
+    # a saturated bond: the card's update against the host's
+    centre = L // 2
+    check(len(psi.get_SL(centre)) == PU_CHI, "13a: the centre bond is not "
+          "saturated")
+    pu_route_check('13a', eng, centre)
+    # the kernel on the centre's gate
+    theta = eng.pipe_theta(psi.get_theta(centre - 1, 2))
+    theta_p = eng.pack_theta(theta)
+    U = eng._U[0][centre]
+    eng._update_index = eng._find_update_index(centre, U)
+    G = eng.packed_gate(theta.get_leg('p0'), theta.get_leg('p1'), U)
+    _, calls = recorded_calls(lambda: eng.apply_gate(G, theta_p))
+    check(len(calls) == 1, "13a: the gate is not one tensordot")
+    gate = measure_contractions(calls, PU_GATE_STEPS, '13a', what='gate')
+    return eng, launches, gate
+
+
+def phase_purification_canonical(smi):
+    """13b: the canonical ensemble at Sz=0 with conserved ancilla charges
+    on the card, against exact diagonalization in the sector."""
+    from tenpy_tpu_torch.algorithms.purification import PurificationTEBD
+    from tenpy_tpu_torch.networks.purification_mps import PurificationMPS, \
+        convert_model_purification_canonical_conserve_ancilla_charge as conv
+    model = XXZChain(dict(PU_CANON_MODEL))
+    L = PU_CANON_MODEL['L']
+    psi = PurificationMPS.from_infiniteT_canonical(
+        model.lat.mps_sites(), [0], conserve_ancilla_charge=True)
+    eng = PurificationTEBD(psi, conv(model), dict(
+        copy.deepcopy(PU_OPTIONS), device_threshold=0), device='cuda')
+    gg.LAUNCHES = 0
+    t0 = time.time()
+    with PurificationProbe() as probe:
+        eng.run_imaginary(PU_CANON_BETA)
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = gg.LAUNCHES
+    E = pu_energy(eng)
+    t1 = time.time()
+    E_trot, E_exact = xx_sector_energies(L, PU_CANON_BETA, PU_OPTIONS['dt'])
+    eps = eng.trunc_err.eps
+    tol = PU_E_ABS + PU_E_FACTOR * abs(E) * np.sqrt(eps)
+    chinfo = psi.sites[0].leg.chinfo
+    log(f"[13b] the canonical ensemble (Sz=0, {chinfo.names}) of the XX "
+        f"chain L={L}, every update on the card, to beta={PU_CANON_BETA}: "
+        f"{wall:.2f} s; chi {psi.chi}; sector ED ({time.time() - t1:.1f} s)")
+    log(f"[13b] E {E!r}, Trotterized sector ED {E_trot!r}: {E - E_trot:+.3e} "
+        f"(tolerance {tol:.2e}); untrotterized {E_exact!r}: "
+        f"{E - E_exact:+.3e} (Trotter error, at most "
+        f"{PU_CANON_TROTTER_TOL:.0e}); Sz "
+        f"{float(np.sum(psi.expectation_value('Sz'))):+.1e}")
+    check(chinfo.qnumber == 2, "13b: the charges are not doubled")
+    check(abs(E - E_trot) <= tol, "13b: E is not the sector ED's")
+    check(abs(E - E_exact) <= PU_CANON_TROTTER_TOL,
+          "13b: E is not the sector's thermal energy within the Trotter "
+          "error")
+    stats = eng.update_stats
+    pu_route_summary('13b', stats)
+    check(all(s[2] == 'device' for s in stats), "13b: an update ran on "
+          "the host")
+    check_pu_launches('13b', probe, stats, launches)
+    return launches
+
+
+def pu_split_plan(eng, C, multiple):
+    """The layout and plan of the card's split of packed ``C``, its
+    sectors and groups rounded to ``multiple``."""
+    q0 = np.zeros(C.legs[0].chinfo.qnumber, np.int64)
+    bond = ps.bond_layout(C.legs, C.qtotal, q0, multiple=multiple,
+                          full_rank=True)
+    return bond, ps.split_plan(C, bond, q0, group_multiple=multiple)
+
+
+def pu_time_parts(eng, i):
+    """One update of bond ``i`` on the card, part by part (host seconds,
+    each part synchronised): host theta, gate build, pack, kernel, layout
+    and plan, batched SVD, unpack, host store."""
+    from tenpy_tpu_torch.algorithms.purification import PACK_MULTIPLE
+    psi = eng.psi
+    U = eng._U[0][i]
+    parts = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        parts[name] = time.perf_counter() - t
+        return out
+
+    theta = timed('host theta', lambda: eng.pipe_theta(
+        psi.get_theta(i - 1, 2)))
+    eng._update_index = eng._find_update_index(i, U)
+    eng._gates = {}
+    G = timed('gate build', lambda: eng.packed_gate(
+        theta.get_leg('p0'), theta.get_leg('p1'), U))
+    theta_p = timed('pack', lambda: eng.pack_theta(theta))
+    C = timed('kernel', lambda: eng.apply_gate(G, theta_p))
+    chi_max, svd_min, trunc_cut = eng.split_params()
+    bond, plan = timed('layout and plan',
+                       lambda: pu_split_plan(eng, C, PACK_MULTIPLE))
+    out = timed('batched SVD', lambda: ps.split_truncate(
+        C, plan, chi_max, svd_min, trunc_cut=trunc_cut))
+    A, S, B, err, ren = timed('unpack', lambda: eng.unpack_split(
+        out[0], out[1], out[2], out[3], out[4], bond, theta))
+    p2 = psi.copy()
+
+    def store():
+        p2.norm *= ren
+        p2.set_SR(i - 1, S)
+        p2.set_B(i - 1, A, form='A')
+        p2.set_B(i, B, form='B')
+
+    timed('host store', store)
+    return parts
+
+
+def pu_steps(eng, threshold, n):
+    """``n`` update_imag steps with ``device_threshold=threshold``: their
+    seconds and updates."""
+    eng.options['device_threshold'] = threshold
+    steps = []
+    for _ in range(n):
+        n0 = len(eng.update_stats)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.update_imag(1)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0, eng.update_stats[n0:]))
+    del eng.options['device_threshold']
+    return steps
+
+
+def phase_purification_timing(eng, smi):
+    """13c on 13a's saturated state: one update by part, the median of a
+    few update_imag steps by either route, one profiled card step (idle
+    share), the crossover of the card's and the host's update by N, the
+    host SVD against the batched split (unpadded and padded) on the
+    saturated bond."""
+    from tenpy_tpu_torch.algorithms.purification import PACK_MULTIPLE
+    from tenpy_tpu_torch.linalg.truncation import svd_theta
+    psi = eng.psi
+    L = psi.L
+    centre = L // 2
+    reps = [pu_time_parts(eng, centre) for _ in range(3)]
+    tot = [sum(r.values()) for r in reps]
+    log(f"[13c] one card update of the centre bond (N "
+        f"{eng.theta_size(centre)}), by part (median of 3, ms): " + ', '.join(
+            f"{k} {1e3 * statistics.median(r[k] for r in reps):.2f}"
+            for k in reps[0]) + f"; total {1e3 * statistics.median(tot):.2f}")
+    torch.cuda.reset_peak_memory_stats()
+    for name, thr, n in (('host', None, 1), ('card', 0, PU_TIMED_STEPS)):
+        steps = pu_steps(eng, thr, n)
+        up = steps[0][1]
+        log(f"[13c] update_imag step at chi={max(psi.chi)} on the {name}'s "
+            f"route: median {statistics.median(s for s, _ in steps):.3f} s "
+            f"of {[round(s, 3) for s, _ in steps]} s ({len(up)} updates, "
+            f"{sum(u[2] == 'device' for u in up)} on the card; the updates "
+            f"{sum(u[3] for u in up):.3f} s, the rest the final canonical "
+            f"form)")
+    log(f"[13c] peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+        f"GiB")
+    eng.options['device_threshold'] = 0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        eng.update_imag(1)
+        torch.cuda.synchronize()
+        prof_s = time.time() - t0
+    del eng.options['device_threshold']
+    t0 = time.time()
+    busy, svd_us, kernel_us, rows = device_time(prof)
+    log(f"[13c] profiled card step {prof_s:.2f} s: device busy "
+        f"{busy / 1e6:.3f} s, idle {100 * (1 - busy / 1e6 / prof_s):.1f}%; "
+        f"SVD {svd_us / 1e6:.3f} s, the kernel {kernel_us / 1e6:.4f} s "
+        f"(the trace read in {time.time() - t0:.1f} s)")
+    for name, us, n in rows[:5]:
+        log(f"[13c]   {us / 1e6:8.4f} s {n:6d} x  {name[:80]}")
+    # the crossover: card and host on the same theta by N
+    rows = []
+    for b in PU_CROSS_BONDS:
+        U = eng._U[0][b]
+        eng._update_index = eng._find_update_index(b, U)
+        N = eng.theta_size(b)
+        t = {'host': [], 'cold': [], 'warm': []}
+        for _ in range(PU_CROSS_REPEATS):
+            forget_packed_plans()
+            ps._SPLIT_PLAN_CACHE.clear()
+            eng._gates = {}
+            for kind in ('cold', 'warm'):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng._update_device(b, U, 'device')
+                t[kind].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            eng._update_host(b, U)
+            t['host'].append(time.perf_counter() - t0)
+        med = {k: statistics.median(v) for k, v in t.items()}
+        rows.append((N, med, max(c / h for c, h in zip(t['cold'],
+                                                       t['host'])),
+                     max(w / h for w, h in zip(t['warm'], t['host']))))
+        log(f"[13c] bond {b}: N {N}: host {1e3 * med['host']:.2f} ms, card "
+            f"cold {1e3 * med['cold']:.2f} ms, warm {1e3 * med['warm']:.2f} "
+            f"ms; card/host worst cold {rows[-1][2]:.2f}, warm "
+            f"{rows[-1][3]:.2f}")
+    wins = sorted(N for N, _, c, _ in rows if c < 1.)
+    log(f"[13c] crossover: the card's update (its plans built anew) wins in "
+        f"every run at N = {wins}; with its plans cached at N = "
+        f"{sorted(N for N, _, _, w in rows if w < 1.)}; "
+        f"DEVICE_SPLIT_THRESHOLD = {mc.DEVICE_SPLIT_THRESHOLD}")
+    # the host SVD against the batched split on the saturated bond
+    i = centre
+    U = eng._U[0][i]
+    eng._update_index = eng._find_update_index(i, U)
+    th = eng._gate_theta(i, U).combine_legs(
+        [['vL', 'p0', 'q0'], ['p1', 'q1', 'vR']], qconj=[+1, -1])
+    t_host = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        svd_theta(th, eng.trunc_params, inner_labels=['vR', 'vL'])
+        t_host.append(time.perf_counter() - t0)
+    theta = eng.pipe_theta(psi.get_theta(i - 1, 2))
+    G = eng.packed_gate(theta.get_leg('p0'), theta.get_leg('p1'), U)
+    chi_max, svd_min, trunc_cut = eng.split_params()
+    res = []
+    for m in (PACK_MULTIPLE, mc.BUCKET_MULTIPLE):
+        C = eng.apply_gate(G, pk.pack(theta, multiple=m,
+                                      pad_labels=('vL', 'vR'),
+                                      device=eng.device))
+        _, plan = pu_split_plan(eng, C, m)
+        ms = cuda_ms(lambda: ps.split_truncate(
+            C, plan, chi_max, svd_min, trunc_cut=trunc_cut), reps=5)
+        res.append(f"sectors rounded to {m}: {ms:.2f} ms on "
+                   f"{[(g.N, g.R, g.C) for g in plan.groups]}")
+    log(f"[13c] the centre bond's split: host svd_theta "
+        f"{1e3 * statistics.median(t_host):.2f} ms; the batched split on the "
+        f"card, " + '; '.join(res))
+
+
+def phase_purification(smi):
+    """Phase 13: 13a, 13b, 13c on PU_HOST_THREADS host threads (restored
+    after); returns 13a's gate launches and the gate's measurement."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(PU_HOST_THREADS)
+    log(f"[13] host threads {PU_HOST_THREADS} (the process's default "
+        f"{threads})")
+    try:
+        t0 = time.time()
+        eng, launches, gate = phase_purification_xx(smi)
+        t1 = time.time()
+        phase_purification_canonical(smi)
+        t2 = time.time()
+        phase_purification_timing(eng, smi)
+    finally:
+        torch.set_num_threads(threads)
+    log(f"[13] phase wall: 13a {t1 - t0:.1f} s, 13b {t2 - t1:.1f} s, 13c "
+        f"{time.time() - t2:.1f} s")
+    return launches, gate
+
+
 def main():
     t_start = time.time()
     smi = phase_device()
@@ -3056,9 +3596,11 @@ def main():
     lap('11')
     vu = phase_vumps(smi, hof_state)
     lap('12')
-    log("[13] wall by phase: " + ', '.join(f"[{name}] {t:.1f} s"
+    p_launches, pmv = phase_purification(smi)
+    lap('13')
+    log("[14] wall by phase: " + ', '.join(f"[{name}] {t:.1f} s"
                                            for name, t in walls))
-    log(f"[13] kernel max_abs_err: synthetic f64 "
+    log(f"[14] kernel max_abs_err: synthetic f64 "
         f"{max_abs_synth[torch.float64]:.2e}, complex128 "
         f"{max_abs_synth[torch.complex128]:.2e}; main-path shapes f64 "
         f"{mv['max_abs']:.2e}, complex128 {zmv['max_abs']:.2e}, TEBD "
@@ -3068,7 +3610,8 @@ def main():
         f"{e1mv['max_abs']:.2e}; VUMPS f64 zero-site "
         f"{vu[0][1]['max_abs']:.2e}, two-site {vu[1][1]['max_abs']:.2e}, "
         f"complex128 zero-site {vu[2][1]['max_abs']:.2e}, one-site "
-        f"{vu[3][1]['max_abs']:.2e}")
+        f"{vu[3][1]['max_abs']:.2e}; purification gate f64 "
+        f"{pmv['max_abs']:.2e}")
 
     def entry(name, n, m):
         return {'name': name, 'route': 'cuda',
@@ -3086,7 +3629,8 @@ def main():
     # tensordots) and one-site (3); per VUMPS matvec of the last update,
     # f64 on the chi=256 XX chain: zero-site (2 tensordots) and two-site
     # (4), complex128 on the chi=128 Hofstadter cylinder: zero-site and
-    # one-site (3)
+    # one-site (3); per purification gate (1 tensordot), f64 on the
+    # saturated chi=256 bond of the XX chain's purification
     print(json.dumps({'kernels': [
         entry('packed_contract', launches, mv),
         entry('packed_contract_complex128', z_launches, zmv),
@@ -3098,9 +3642,10 @@ def main():
         entry('packed_contract_vumps_zero_site', *vu[0]),
         entry('packed_contract_vumps_two_site', *vu[1]),
         entry('packed_contract_vumps_zero_site_complex128', *vu[2]),
-        entry('packed_contract_vumps_one_site_complex128', *vu[3])]}),
+        entry('packed_contract_vumps_one_site_complex128', *vu[3]),
+        entry('packed_contract_purification_gate', p_launches, pmv)]}),
         flush=True)
-    log(f"[13] chip_smoke wall {time.time() - t_start:.1f} s")
+    log(f"[14] chip_smoke wall {time.time() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -66,7 +66,7 @@ from ..tools.params import asConfig
 logger = logging.getLogger(__name__)
 
 __all__ = ['BUCKET_MULTIPLE', 'DEVICE_LANCZOS_THRESHOLD',
-           'DEVICE_EVOLUTION_THRESHOLD',
+           'DEVICE_EVOLUTION_THRESHOLD', 'DEVICE_SPLIT_THRESHOLD',
            '_matvec_2site_packed', '_matvec_1site_packed',
            '_matvec_0site_packed', '_lanczos_K_2site_packed_impl',
            'lanczos_K_2site_packed', 'lanczos_ground_packed',
@@ -107,6 +107,17 @@ DEVICE_LANCZOS_THRESHOLD = 256
 # evolutions of the L=32 chain run on the card: at 256 the chain's ends
 # keep 12.9% of them on the host.
 DEVICE_EVOLUTION_THRESHOLD = 64
+# The number of entries N of a purification bond update's theta (vL p0 q0
+# p1 q1 vR) from which PurificationTEBD sends the gate contraction and the
+# truncated split to the card by default; None: no update.  chip_smoke.py
+# phase 13c times the card's update against the host's on the same theta
+# of the L=32 XX chain at beta=10, chi up to 256, on an H100 80GB HBM3 at
+# 700 W (PERF.md): the card lost at every N from 256 to 1,048,576 (1.09-5.3
+# times the host's time, its plans cached or built anew), bound by
+# cuSOLVER's batched Jacobi SVD (130 ms of a 160 ms update at chi=256,
+# against 23-27 ms for the host's whole SVD).  So no update goes to the
+# card unless device_threshold asks for it.
+DEVICE_SPLIT_THRESHOLD = None
 
 _VIRT = ('vL', 'vR', 'vL*', 'vR*')
 

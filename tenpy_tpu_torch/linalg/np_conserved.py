@@ -30,7 +30,7 @@ from .charges import QTYPE, LegCharge, LegPipe
 
 __all__ = ['Array', 'zeros', 'eye_like', 'diag', 'outer', 'inner',
            'tensordot', 'grid_outer', 'norm', 'trace', 'svd', 'qr', 'lq',
-           'polar', 'eigh', 'expm', 'concatenate',
+           'polar', 'eigh', 'eigvalsh', 'expm', 'concatenate',
            'detect_qtotal', 'conj_label', 'as_dtype', 'result_type']
 
 _NP_TO_TORCH = {np.dtype(np.float64): torch.float64,
@@ -962,18 +962,32 @@ def norm(a):
 
 
 def trace(a, leg1=0, leg2=1):
-    """The full trace of a 2-leg Array over its contractible legs ``leg1``
-    and ``leg2`` (a 0-dim tensor); ``tenpy_tpu``'s partial trace of more
-    legs is not ported."""
+    """The trace over the contractible legs ``leg1`` and ``leg2``: of a
+    2-leg Array a 0-dim tensor; of more legs the partial trace, an Array
+    of the remaining legs (their labels and order kept, the same
+    ``qtotal``)."""
     i1, i2 = a.get_leg_index(leg1), a.get_leg_index(leg2)
-    if a.rank != 2:
-        raise NotImplementedError("trace of more than two legs")
     a.legs[i1].test_contractible(a.legs[i2])
-    total = torch.zeros((), dtype=a.dtype)
+    keep = [i for i in range(a.rank) if i not in (i1, i2)]
+    if not keep:
+        total = torch.zeros((), dtype=a.dtype)
+        for row, block in zip(a._qdata, a._data):
+            if row[i1] == row[i2]:
+                total = total + torch.trace(block)
+        return total
+    res = Array([a.legs[i] for i in keep], a.dtype, a.qtotal,
+                [a._labels[i] for i in keep])
+    acc = {}
     for row, block in zip(a._qdata, a._data):
-        if row[i1] == row[i2]:
-            total = total + torch.trace(block)
-    return total
+        if row[i1] != row[i2]:
+            continue
+        out_row = tuple(int(row[i]) for i in keep)
+        tr = torch.diagonal(block, dim1=i1, dim2=i2).sum(-1)
+        acc[out_row] = tr if out_row not in acc else acc[out_row] + tr
+    rows = sorted(acc)
+    res._set_blocks(np.array(rows, QTYPE).reshape(len(rows), len(keep)),
+                    [acc[r] for r in rows])
+    return res
 
 
 # ----------------------------------------------------------- combine / split
@@ -1266,6 +1280,25 @@ def eigh(a, UPLO='L', sort=None):
         W[leg.get_slice(int(row[0]))] = w
         V._data[v_rows[(int(row[0]), int(row[0]))]] = v
     return W, V
+
+
+def eigvalsh(a, UPLO='L', sort=None):
+    """The eigenvalues of a hermitian square 2-leg Array of zero charge, a
+    numpy vector along leg 0 (zeros in sectors without a stored block),
+    ascending per sector or in the order ``sort`` (as :func:`eigh`)."""
+    if a.rank != 2:
+        raise ValueError("need 2-leg array")
+    a.legs[0].test_contractible(a.legs[1])
+    if any(q != 0 for q in a.qtotal):
+        raise ValueError("eigvalsh requires qtotal=0")
+    leg = a.legs[0]
+    W = np.zeros(leg.ind_len)
+    for row, block in zip(a._qdata, a._data):
+        w = torch.linalg.eigvalsh(block).numpy()
+        if sort is not None:
+            w = w[_eig_sort_perm(w, sort)]
+        W[leg.get_slice(int(row[0]))] = w
+    return W
 
 
 def _eig_sort_perm(w, sort):

@@ -47,12 +47,16 @@ def _group_pairs(legs, qconjs, qtotal_part, chinfo):
 
 
 def bond_layout(theta_legs, qtotal_theta, qtotal_A, cap_hint=None,
-                chi_cap=None, multiple=64, total_cap=None, cap_floor=None):
+                chi_cap=None, multiple=64, total_cap=None, cap_floor=None,
+                full_rank=False):
     """Fixed-capacity bond leg for the split of a two-site theta.
 
     ``theta_legs``: the padded (vL, p0, p1, vR) legs; ``cap_hint``/
     ``cap_floor``: per-charge desired / minimal capacity; ``chi_cap`` bounds
-    one sector; ``total_cap`` budgets the capacity above the floors.
+    one sector; ``total_cap`` budgets the capacity above the floors.  With
+    ``full_rank`` every sector gets the (bucketed) capacity of its full
+    rank instead, so that only the cut of :func:`split_truncate` limits
+    the kept values, as in the host's SVD.
     Returns the bond LegCharge with qconj=+1 (A's bond leg is its conj).
     """
     chinfo = theta_legs[0].chinfo
@@ -89,7 +93,8 @@ def bond_layout(theta_legs, qtotal_theta, qtotal_A, cap_hint=None,
                     bucket_size(lim, multiple))
                 for h, f, lim in zip(hints, floors, limits)]
 
-    sizes = alloc(1.)
+    sizes = [bucket_size(lim, multiple) for lim in limits] if full_rank \
+        else alloc(1.)
     if total_cap is not None and sum(sizes) > total_cap:
         # the floor mass is mandatory; the budget bounds the headroom above
         # it, shared out in proportion to the hints by bisection
@@ -361,8 +366,41 @@ def _build_split_plan(theta_p, bond, qtotal_A, group_multiple):
 
 
 # -------------------------------------------------------------- the split
+def _host_cut_masks(Ss, tot, chi_max, svd_min, trunc_cut):
+    """The kept values of the host's ``truncate`` on the singular values
+    ``Ss`` (per group, unnormalized; ``tot`` their total weight): the
+    largest number ``k`` admitted by ``chi_max``, ``svd_min`` (relative)
+    and ``trunc_cut`` (the discarded weight stays at most ``trunc_cut**2``),
+    a constraint that admits no ``k`` dropped, at least one value, and the
+    ``k`` largest values kept by rank (one of exactly equal values at the
+    cut, not both).  No host synchronisation."""
+    if trunc_cut >= 1.:
+        raise ValueError("trunc_cut >= 1.")
+    sizes = [S.numel() for S in Ss]
+    allS = torch.cat([S.reshape(-1) for S in Ss])
+    n = allS.shape[0]
+    order = torch.argsort(allS, descending=True, stable=True)
+    desc = allS[order]
+    k = torch.full((), n, dtype=torch.int64, device=allS.device)
+    if chi_max is not None and chi_max > 0:
+        k = torch.clamp(k, max=int(chi_max))
+    counts = []
+    if svd_min is not None:
+        counts.append((desc >= svd_min * torch.sqrt(tot)).sum())
+    tail = torch.flip(torch.cumsum(torch.flip(desc.square(), [0]), 0), [0])
+    counts.append((tail > trunc_cut * trunc_cut * tot).sum())
+    for c in counts:
+        k = torch.where(c > 0, torch.minimum(k, c), k)
+    k = torch.clamp(k, min=1)
+    keep = torch.empty(n, dtype=torch.bool, device=allS.device)
+    keep[order] = torch.arange(n, device=allS.device) < k
+    keep &= allS > 0
+    return [m.reshape(S.shape) for m, S in zip(torch.split(keep, sizes),
+                                                Ss)]
+
+
 def split_truncate(theta_p, plan, chi_max, svd_min=1e-14, backend=None,
-                   expand=False, expand_rtol=1e-6):
+                   expand=False, expand_rtol=1e-6, trunc_cut=None):
     """Decompose + truncate a packed theta (static shapes).
 
     Parameters
@@ -378,6 +416,13 @@ def split_truncate(theta_p, plan, chi_max, svd_min=1e-14, backend=None,
         singular value exceeds ``expand_rtol * |theta|``, while S stays zero
         below the truncation threshold, so the state is unchanged but the
         environments couple to the spare capacity.
+    trunc_cut : float or None -- with a value, the cut is the host
+        ``truncate``'s (``chi_max``, ``svd_min`` and ``trunc_cut``, by
+        rank; :func:`_host_cut_masks`; 0 for none) and ``err`` its
+        discarded weight, as the host computes them; with None, every
+        value from the ``chi_max``-th largest and from ``max(svd_min,
+        1e-14) |theta|`` up is kept and ``err`` is ``1 - kept / |theta|^2``,
+        which also counts weight outside the capacity layout.
 
     Returns
     -------
@@ -413,15 +458,23 @@ def split_truncate(theta_p, plan, chi_max, svd_min=1e-14, backend=None,
     # the split and must show up in err/renorm
     tot = pk.norm_sq(theta_p)
     nrm = torch.sqrt(tot)
-    k = min(int(chi_max), allS.shape[0])
-    thr_chi = torch.topk(allS, k).values[-1]
-    # floor at 1e-14: values below f64 roundoff of the dominant Schmidt value
-    # are numerically meaningless
-    thr = torch.maximum(thr_chi, max(svd_min, 1e-14) * nrm)
-    masks = [(S >= thr) & (S > 0) for S in Ss]
+    if trunc_cut is None:
+        k = min(int(chi_max), allS.shape[0])
+        thr_chi = torch.topk(allS, k).values[-1]
+        # floor at 1e-14: values below f64 roundoff of the dominant Schmidt
+        # value are numerically meaningless
+        thr = torch.maximum(thr_chi, max(svd_min, 1e-14) * nrm)
+        masks = [(S >= thr) & (S > 0) for S in Ss]
+    else:
+        masks = _host_cut_masks(Ss, tot, chi_max, svd_min, trunc_cut)
     kept = sum((S.square() * m).sum() for S, m in zip(Ss, masks))
     n_kept = sum(m.sum() for m in masks)
-    err = torch.clamp(1. - kept / tot, min=0.)
+    if trunc_cut is None:
+        err = torch.clamp(1. - kept / tot, min=0.)
+    else:
+        # the host's err: the discarded singular values' weight, free of the
+        # roundoff of 1 - kept / tot
+        err = sum((S.square() * ~m).sum() for S, m in zip(Ss, masks)) / tot
     renorm = torch.sqrt(kept)
     col_masks = ([m | (S > expand_rtol * nrm) for S, m in zip(Ss, masks)]
                  if expand else masks)

@@ -567,20 +567,30 @@ class MPOEnvironment(BaseEnvironment):
             RP = self._contract_RP(j, RP)
         return RP
 
+    def _extra_p(self):
+        """The state's physical legs besides the MPO's ``p`` (``q`` of a
+        purification): the MPO acts on them as the identity, so they
+        contract bra with ket."""
+        return [l for l in getattr(self.ket, '_p_label', ['p']) if l != 'p']
+
     def _contract_LP(self, i, LP):
+        extra = self._extra_p()
         LP = npc.tensordot(LP, self.ket.get_B(i, 'A'), axes=[['vR'], ['vL']])
         LP = npc.tensordot(self.H.get_W(i), LP,
                            axes=[['wL', 'p*'], ['wR', 'p']])
         LP = npc.tensordot(self.bra.get_B(i, 'A').conj(), LP,
-                           axes=[['vL*', 'p*'], ['vR*', 'p']])
+                           axes=[['vL*', 'p*'] + [l + '*' for l in extra],
+                                 ['vR*', 'p'] + extra])
         return LP.itranspose(['vR*', 'wR', 'vR'])
 
     def _contract_RP(self, i, RP):
+        extra = self._extra_p()
         RP = npc.tensordot(self.ket.get_B(i, 'B'), RP, axes=[['vR'], ['vL']])
         RP = npc.tensordot(RP, self.H.get_W(i),
                            axes=[['p', 'wL'], ['p*', 'wR']])
         RP = npc.tensordot(RP, self.bra.get_B(i, 'B').conj(),
-                           axes=[['p', 'vL*'], ['p*', 'vR*']])
+                           axes=[['p', 'vL*'] + extra,
+                                 ['p*', 'vR*'] + [l + '*' for l in extra]])
         return RP.itranspose(['vL*', 'wL', 'vL'])
 
     def full_contraction(self, i0):

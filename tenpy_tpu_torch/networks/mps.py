@@ -609,6 +609,83 @@ class MPS:
                                                     else ib % self.L]) ** 2,
                                  n) for ib in bonds])
 
+    def entanglement_entropy_segment(self, segment, n=1):
+        """The entropy of the reduced density matrix of the sites
+        ``segment`` (from the theta spanning them; exponential in its
+        length)."""
+        segment = sorted(segment)
+        i0 = segment[0]
+        nsites = segment[-1] - i0 + 1
+        theta = self.get_theta(i0, nsites)
+        keep = [f'p{k - i0}' for k in segment]
+        trace_out = [f'p{k}' for k in range(nsites)
+                     if k + i0 not in segment]
+        rho = npc.tensordot(theta, theta.conj(),
+                            axes=[['vL', 'vR'] + trace_out,
+                                  ['vL*', 'vR*'] + [t + '*'
+                                                    for t in trace_out]])
+        rho = rho.combine_legs([keep, [k + '*' for k in keep]],
+                               qconj=[+1, -1])
+        return entropy(npc.eigvalsh(rho), n)
+
+    def entanglement_entropy_segment_1site(self, n=1):
+        """The entropy of each single site's reduced density matrix."""
+        res = []
+        for i in range(self.L):
+            theta = self.get_theta(i, 1)
+            rho = npc.tensordot(theta, theta.conj(),
+                                axes=[['vL', 'vR'], ['vL*', 'vR*']])
+            res.append(entropy(npc.eigvalsh(rho), n))
+        return np.array(res)
+
+    def mutinf_two_site(self, max_range=None, n=1):
+        """The mutual information ``S(i) + S(j) - S(i, j)`` of every pair
+        ``i < j`` at most ``max_range`` apart: ``(coords, mutinf)``."""
+        if max_range is None:
+            max_range = self.L
+        S_i = self.entanglement_entropy_segment_1site(n)
+        coords, mutinf = [], []
+        for i in range(self.L):
+            jmax = i + max_range + 1
+            if self.finite:
+                jmax = min(jmax, self.L)
+            for j in range(i + 1, jmax):
+                S_ij = self.entanglement_entropy_segment([i, j], n)
+                mutinf.append(S_i[i] + S_i[j % self.L] - S_ij)
+                coords.append((i, j))
+        return np.array(coords), np.array(mutinf)
+
+    def get_rho_segment(self, segment):
+        """The reduced density matrix of the sites ``segment`` (labels
+        ``p0, p0*, ...`` in the segment's order); exponential in its
+        length."""
+        segment = np.sort(np.asarray(segment, int))
+        if len(segment) > 20:
+            raise ValueError("segment too large: exponentially expensive")
+        if np.all(segment[1:] == segment[:-1] + 1):
+            theta = self.get_theta(int(segment[0]),
+                                   int(segment[-1] - segment[0] + 1))
+            return npc.tensordot(theta, theta.conj(),
+                                 axes=[['vL', 'vR'], ['vL*', 'vR*']])
+        rho = self.get_theta(int(segment[0]), 1)
+        rho = npc.tensordot(rho, rho.conj(), axes=[['vL'], ['vL*']])
+        k = 1
+        for i in range(int(segment[0]) + 1, int(segment[-1])):
+            B = self.get_B(i, 'B')
+            if i == segment[k]:
+                B = B.replace_label('p', f'p{k}')
+                k += 1
+                rho = npc.tensordot(rho, B, axes=[['vR'], ['vL']])
+                rho = npc.tensordot(rho, B.conj(), axes=[['vR*'], ['vL*']])
+            else:
+                rho = npc.tensordot(rho, B, axes=[['vR'], ['vL']])
+                rho = npc.tensordot(rho, B.conj(),
+                                    axes=[['vR*', 'p'], ['vL*', 'p*']])
+        B = self.get_B(int(segment[-1]), 'B').replace_label('p', f'p{k}')
+        rho = npc.tensordot(rho, B, axes=[['vR'], ['vL']])
+        return npc.tensordot(rho, B.conj(),
+                             axes=[['vR*', 'vR'], ['vL*', 'vR*']])
+
     def expectation_value(self, ops, sites=None):
         """``<psi|op_i|psi>`` per site ``i`` of ``sites`` (default all);
         ``ops`` is an operator (or name), or a list cycling over the
@@ -1288,7 +1365,9 @@ class BaseEnvironment:
 class MPSEnvironment(BaseEnvironment):
     """Partial contractions of ``<bra|ket>`` with no operator between:
     ``LP[i]`` (legs ``vR*, vR``) from the A forms, ``RP[i]`` (legs ``vL,
-    vL*``) from the B forms, starting from the identity."""
+    vL*``) from the B forms, starting from the identity; every physical
+    leg of the state (``p``, and ``q`` of a purification) is contracted
+    bra with ket."""
 
     def init_LP(self, i, start_env_sites=0):
         i0 = i - start_env_sites
@@ -1307,14 +1386,18 @@ class MPSEnvironment(BaseEnvironment):
         return RP
 
     def _contract_LP(self, i, LP):
+        p = list(getattr(self.ket, '_p_label', ['p']))
         LP = npc.tensordot(LP, self.ket.get_B(i, 'A'), axes=[['vR'], ['vL']])
         return npc.tensordot(self.bra.get_B(i, 'A').conj(), LP,
-                             axes=[['vL*', 'p*'], ['vR*', 'p']])
+                             axes=[['vL*'] + [l + '*' for l in p],
+                                   ['vR*'] + p])
 
     def _contract_RP(self, i, RP):
+        p = list(getattr(self.ket, '_p_label', ['p']))
         RP = npc.tensordot(self.ket.get_B(i, 'B'), RP, axes=[['vR'], ['vL']])
         return npc.tensordot(RP, self.bra.get_B(i, 'B').conj(),
-                             axes=[['p', 'vL*'], ['p*', 'vR*']])
+                             axes=[p + ['vL*'], [l + '*' for l in p]
+                                   + ['vR*']])
 
     def full_contraction(self, i0):
         """``<bra|ket>`` (times both norms), split at bond ``i0``: for

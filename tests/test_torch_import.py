@@ -34,6 +34,7 @@ MODULES = ['tenpy_tpu_torch', 'tenpy_tpu_torch.__main__',
            'tenpy_tpu_torch.networks.terms',
            'tenpy_tpu_torch.networks.mps',
            'tenpy_tpu_torch.networks.uniform_mps',
+           'tenpy_tpu_torch.networks.purification_mps',
            'tenpy_tpu_torch.networks.mpo',
            'tenpy_tpu_torch.networks.mpo_env_builder',
            'tenpy_tpu_torch.networks.exchange',
@@ -54,6 +55,8 @@ MODULES = ['tenpy_tpu_torch', 'tenpy_tpu_torch.__main__',
            'tenpy_tpu_torch.algorithms.mpo_evolution',
            'tenpy_tpu_torch.algorithms.exact_diag',
            'tenpy_tpu_torch.algorithms.vumps',
+           'tenpy_tpu_torch.algorithms.disentangler',
+           'tenpy_tpu_torch.algorithms.purification',
            'tenpy_tpu_torch.simulations',
            'tenpy_tpu_torch.simulations.measurement',
            'tenpy_tpu_torch.simulations.post_processing',

@@ -180,10 +180,44 @@ def _case_norm(rng):
            jnpc.norm(ja * 2.5 - ja.conj().conj()))
 
 
+def _case_trace(rng):
+    """The partial trace of a 4-leg Array over two pairs in turn, and the
+    full trace of a 2-leg one."""
+    (jv, v), (jp, p) = _leg(rng, 4, 1), _leg(rng, 3, 1)
+    ja, a = _random(rng, [jv, jp, jp.conj(), jv.conj()],
+                    ['a', 'p', 'p*', 'a*'])
+    res, jres = npc.trace(a, 'p', 'p*'), jnpc.trace(ja, 'p', 'p*')
+    _same_struct(res, jres)
+    _close(res, jres)
+    _close(npc.trace(res, 'a*', 'a'), jnpc.trace(jres, 'a*', 'a'))
+    res, jres = npc.trace(a, 0, 3), jnpc.trace(ja, 0, 3)
+    _same_struct(res, jres)
+    _close(res, jres)
+
+
+def _case_eigvalsh(rng):
+    """Eigenvalues of a hermitian (real and complex) charge-0 Array with a
+    sector without a stored block, ascending and sorted."""
+    (jv, v) = _leg(rng, 5, 1)
+    for cplx in (False, True):
+        ja, a = _random(rng, [jv, jv.conj()], ['a', 'a*'], qtotal=[0, 0])
+        if cplx:
+            jb, b = _random(rng, [jv, jv.conj()], ['a', 'a*'],
+                            qtotal=[0, 0])
+            ja, a = ja + jb * 1j, a + b * 1j
+        jh = ja + ja.conj().transpose([1, 0]).iset_leg_labels(['a', 'a*'])
+        h = a + a.conj().transpose([1, 0]).iset_leg_labels(['a', 'a*'])
+        h._data, h._qdata = h._data[1:], h._qdata[1:]
+        jh._data, jh._qdata = jh._data[1:], jh._qdata[1:]
+        for sort in (None, '>', '<'):
+            _close(npc.eigvalsh(h, sort=sort), jnpc.eigvalsh(jh, sort=sort))
+
+
 CASES = {'tensordot': _case_tensordot, 'inner': _case_inner,
          'outer': _case_outer, 'grid_outer': _case_grid_outer,
          'qr': _case_qr, 'lq': _case_lq, 'add_leg': _case_add_leg,
-         'iproject': _case_iproject, 'norm': _case_norm}
+         'iproject': _case_iproject, 'norm': _case_norm,
+         'trace': _case_trace, 'eigvalsh': _case_eigvalsh}
 
 
 @pytest.mark.parametrize('name', sorted(CASES))

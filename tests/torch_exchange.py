@@ -37,6 +37,8 @@ chi=256 Hubbard-cylinder file and the ramp references::
         tests/benchmark_data/time_evolution_reference.npz
     python tests/torch_exchange.py --write-vumps \
         tests/benchmark_data/vumps_reference.npz
+    python tests/torch_exchange.py --write-purification \
+        tests/benchmark_data/purification_reference.npz
 """
 
 import argparse
@@ -1359,9 +1361,9 @@ class BondModel:
         self.lat.bc_MPS = bc
 
 
-def bond_model(te, kind, L, bc='finite'):
+def bond_model(te, kind, L, bc='finite', g=1.5):
     """tests/test_tebd.py's ``xxz_bond_model`` (Jz=1, Sz) or
-    ``tfi_bond_model`` (J=1, g=1.5, parity) in ``te``'s package."""
+    ``tfi_bond_model`` (J=1, field ``g``, parity) in ``te``'s package."""
     site, terms, mpo = te.site, te.terms, te.mpo
     n_b = L - 1 if bc == 'finite' else L
     if kind == 'xxz':
@@ -1377,7 +1379,7 @@ def bond_model(te, kind, L, bc='finite'):
         sites = [site.SpinHalfSite('parity')] * L
         ot, ct = terms.OnsiteTerms(L), terms.CouplingTerms(L)
         for i in range(L):
-            ot.add_onsite_term(-1.5, i, 'Sigmaz')
+            ot.add_onsite_term(-g, i, 'Sigmaz')
         for i in range(n_b):
             ct.add_coupling_term(-1., i, i + 1, 'Sigmax', 'Sigmax')
         H_bond = ot.add_to_nn_bond_Arrays(ct.to_nn_bond_Arrays(sites), sites,
@@ -1959,6 +1961,206 @@ def vumps_reference():
     return flat
 
 
+# ============================================================ purification
+# tests/test_torch_purification.py runs the port on the cases of
+# tests/test_purification.py (and PurificationApplyMPO and
+# from_density_matrix, which it does not test) and holds it to tenpy_tpu's
+# runs in tests/benchmark_data/purification_reference.npz
+# (--write-purification): energies, expectation values, entropies, mutual
+# information and overlaps, never tensors.
+PU_REF = os.path.join(_ROOT, 'tests', 'benchmark_data',
+                      'purification_reference.npz')
+PU_TRUNC = {'chi_max': 64, 'svd_min': 1e-13}
+PU_XXZ13 = {'L': 4, 'Jxx': 1., 'Jz': 1.3, 'hz': 0., 'bc_MPS': 'finite'}
+PU_TFI = {'L': 4, 'J': 1., 'g': 1.2, 'bc_MPS': 'finite', 'conserve': None}
+PU_CASES = ('infiniteT', 'thermal_0.5', 'thermal_2.0', 'tebd2', 'renyi',
+            'graddesc', 'canonical', 'canonical_ancilla',
+            'tebd_canonical_ancilla', 'segment', 'second_order', 'apply_mpo',
+            'density_matrix')
+
+
+class _PU(_TE):
+    """The modules of one package that the purification cases use."""
+
+    def __init__(self, package):
+        super().__init__(package)
+        if package == 'jax':
+            from tenpy_tpu.algorithms import purification
+            from tenpy_tpu.linalg import np_conserved as npc
+            from tenpy_tpu.networks import purification_mps
+            from tenpy_tpu.models.model import NearestNeighborModel
+            self.nn = NearestNeighborModel.from_MPOModel
+        else:
+            from tenpy_tpu_torch.algorithms import purification
+            from tenpy_tpu_torch.linalg import np_conserved as npc
+            from tenpy_tpu_torch.networks import purification_mps
+            self.nn = lambda m: m     # the port's chains have H_bond
+        self.purification, self.pmps, self.npc = purification, \
+            purification_mps, npc
+        self.PMPS = purification_mps.PurificationMPS
+
+
+def _pu_energy(eng, psi):
+    return np.asarray(np.sum(eng.bond_energies())
+                      / float(np.real(psi.overlap(psi))))
+
+
+def _pu_run(pu, cls, psi, model, beta, **opts):
+    eng = getattr(pu.purification, cls)(psi, model, dict(
+        {'trunc_params': dict(PU_TRUNC), 'dt': 0.025, 'order': 2}, **opts),
+        **pu.kw)
+    eng.run_imaginary(beta)
+    return eng
+
+
+def _pu_corr(psi, i, j):
+    return np.asarray(complex(psi.correlation_function(
+        'Sz', 'Sz', sites1=[i], sites2=[j]).ravel()[0]))
+
+
+def purification_case(package, case):
+    """One of :data:`PU_CASES` in ``package`` ('jax' or 'torch'); a flat
+    dict of its values under ``<case>.``."""
+    import warnings
+    warnings.simplefilter('ignore')
+    pu = _PU(package)
+    out = {}
+    spin = pu.site.SpinHalfSite('Sz')
+    if case == 'infiniteT':
+        psi = pu.PMPS.from_infiniteT([spin] * 4)
+        out['Sz'] = np.asarray(psi.expectation_value('Sz'))
+        out['overlap'] = np.asarray(complex(psi.overlap(psi)))
+        out['norm_test'] = np.asarray(psi.norm_test())
+    elif case.startswith('thermal') or case == 'tebd2':
+        beta = float(case.split('_')[1]) if '_' in case else 1.
+        model = bond_model(pu, 'xxz', 4)
+        psi = pu.PMPS.from_infiniteT(model.lat.mps_sites())
+        eng = _pu_run(pu, 'PurificationTEBD2' if case == 'tebd2'
+                      else 'PurificationTEBD', psi, model, beta, dt=0.025)
+        out['E'] = _pu_energy(eng, psi)
+        out['E_bonds'] = np.asarray(eng.bond_energies())
+        out['S'] = np.asarray(psi.entanglement_entropy())
+    elif case == 'renyi':
+        model = bond_model(pu, 'tfi', 4, g=1.2)
+        for tag, extra in (('plain', {}), ('dis', {'disentangle': 'renyi'})):
+            psi = pu.PMPS.from_infiniteT(model.lat.mps_sites())
+            eng = _pu_run(pu, 'PurificationTEBD', psi, model, 1.,
+                          dt=0.05, **extra)
+            out[f'E_{tag}'] = _pu_energy(eng, psi)
+            out[f'S_{tag}'] = np.asarray(psi.entanglement_entropy())
+    elif case == 'graddesc':
+        m = pu.nn(pu.TFIChain(dict(PU_TFI)))
+        for tag, extra in (('dis', {'disentangle': 'graddesc'}),
+                           ('plain', {})):
+            psi = pu.PMPS.from_infiniteT(m.lat.mps_sites())
+            eng = _pu_run(pu, 'PurificationTEBD', psi, m, 0.5, dt=0.05,
+                          **extra)
+            out[f'E_{tag}'] = _pu_energy(eng, psi)
+            out[f'S_{tag}'] = np.asarray(psi.entanglement_entropy())
+    elif case == 'canonical':
+        psi = pu.PMPS.from_infiniteT_canonical([spin] * 4, [0])
+        out['Sz'] = np.asarray(psi.expectation_value('Sz'))
+        for i, j in ((0, 1), (0, 3), (1, 2)):
+            out[f'corr{i}{j}'] = _pu_corr(psi, i, j)
+        psi2 = pu.PMPS.from_infiniteT_canonical([spin] * 4, [2])
+        out['Sz2'] = np.asarray(psi2.expectation_value('Sz'))
+    elif case == 'canonical_ancilla':
+        psi1 = pu.PMPS.from_infiniteT_canonical([spin] * 4, [0])
+        psi2 = pu.PMPS.from_infiniteT_canonical(
+            [spin] * 4, [0], conserve_ancilla_charge=True)
+        out['qnumber'] = np.asarray(psi2.sites[0].leg.chinfo.qnumber)
+        out['names'] = np.asarray(list(psi2.sites[0].leg.chinfo.names))
+        for tag, psi in (('1', psi1), ('2', psi2)):
+            out['Sz' + tag] = np.asarray(psi.expectation_value('Sz'))
+            out['S' + tag] = np.asarray(psi.entanglement_entropy())
+            for i, j in ((0, 1), (0, 3)):
+                out[f'corr{i}{j}_{tag}'] = _pu_corr(psi, i, j)
+    elif case == 'tebd_canonical_ancilla':
+        m = pu.nn(pu.XXZChain(dict(PU_XXZ13)))
+        conv = pu.pmps.\
+            convert_model_purification_canonical_conserve_ancilla_charge
+        psi = pu.PMPS.from_infiniteT_canonical(
+            m.lat.mps_sites(), [0], conserve_ancilla_charge=True)
+        eng = _pu_run(pu, 'PurificationTEBD', psi, conv(m), 1.)
+        out['E'] = _pu_energy(eng, psi)
+        out['S'] = np.asarray(psi.entanglement_entropy())
+        out['qnumber'] = np.asarray(psi.sites[0].leg.chinfo.qnumber)
+    elif case == 'segment':
+        psi = pu.PMPS.from_infiniteT([spin] * 4)
+        for legs in ('p', 'q', 'pq'):
+            out['S_' + legs] = np.asarray(psi.entanglement_entropy_segment(
+                [0, 1], n=1, legs=legs))
+        out['S_nc'] = np.asarray(psi.entanglement_entropy_segment(
+            [0, 2], n=1, legs='p'))
+        # a thermal state, where none of them is trivial
+        model = bond_model(pu, 'xxz', 4)
+        psi = pu.PMPS.from_infiniteT(model.lat.mps_sites())
+        _pu_run(pu, 'PurificationTEBD', psi, model, 1.)
+        for legs in ('p', 'q', 'pq'):
+            out['Sb_' + legs] = np.asarray(psi.entanglement_entropy_segment(
+                [0, 2], n=2 if legs == 'q' else 1, legs=legs))
+            coords, mutinf = psi.mutinf_two_site(legs=legs)
+            out['mutinf_' + legs] = np.asarray(mutinf)
+            out['coords_' + legs] = np.asarray(coords)
+    elif case == 'second_order':
+        m = pu.nn(pu.XXZChain(dict(PU_XXZ13)))
+        for k, dt in enumerate((0.05, 0.025)):
+            psi = pu.PMPS.from_infiniteT_canonical(m.lat.mps_sites(), [0])
+            eng = _pu_run(pu, 'PurificationTEBD', psi, m, 1., dt=dt)
+            out[f'E{k}'] = _pu_energy(eng, psi)
+    elif case == 'apply_mpo':
+        # exp(-beta H / 2) as 10 applications of the MPO exp(-0.05 H)
+        m = pu.XXZChain(dict(PU_XXZ13))
+        psi = pu.PMPS.from_infiniteT(m.lat.mps_sites())
+        U = m.H_MPO.make_U_II(0.05)
+        for _ in range(10):
+            pu.purification.PurificationApplyMPO(psi, U, {
+                'trunc_params': dict(PU_TRUNC), 'N_sweeps': 2}).run()
+        out['E'] = np.asarray(float(np.real(
+            m.H_MPO.expectation_value(psi)))
+            / float(np.real(psi.overlap(psi))))
+        out['S'] = np.asarray(psi.entanglement_entropy())
+    elif case == 'density_matrix':
+        # exp(-H) / Z of the XXZ chain (L=3) in the product basis
+        m = pu.XXZChain(dict(PU_XXZ13, L=3))
+        sites = m.lat.mps_sites()
+        sp, sm, sz = (np.asarray(sites[0].get_op(o).to_ndarray())
+                      for o in ('Sp', 'Sm', 'Sz'))
+        one = np.eye(2)
+        H = np.zeros((8, 8))
+        for a, b, c in ((sp, sm, 0.5), (sm, sp, 0.5), (sz, sz, 1.3)):
+            H += c * (np.kron(np.kron(a, b), one) + np.kron(one,
+                                                            np.kron(a, b)))
+        w, v = np.linalg.eigh(H)
+        rho = (v * np.exp(-w)) @ v.T.conj()
+        rho /= np.trace(rho)
+        out['E_exact'] = np.asarray(float(np.trace(rho @ H)))
+        leg = sites[0].leg
+        rho_npc = pu.npc.Array.from_ndarray(
+            rho.reshape([2] * 6), [leg] * 3 + [leg.conj()] * 3,
+            labels=['p0', 'p1', 'p2', 'p0*', 'p1*', 'p2*'])
+        psi = pu.PMPS.from_density_matrix(sites, rho_npc)
+        out['E'] = np.asarray(float(np.real(
+            m.H_MPO.expectation_value(psi)))
+            / float(np.real(psi.overlap(psi))))
+        out['S'] = np.asarray(psi.entanglement_entropy())
+    else:
+        raise ValueError(case)
+    return {f'{case}.{k}': v for k, v in out.items()}
+
+
+def purification_reference():
+    """tenpy_tpu's runs of every case of :data:`PU_CASES`."""
+    flat = {}
+    for case in PU_CASES:
+        t0 = time.time()
+        res = purification_case('jax', case)
+        flat.update(res)
+        print(f"{case}: {time.time() - t0:.1f} s, {len(res)} values",
+              flush=True)
+    return flat
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--write',
@@ -1985,6 +2187,8 @@ def main(argv=None):
                     help='output .npz path (time-evolution references)')
     ap.add_argument('--write-vumps',
                     help='output .npz path (VUMPS references)')
+    ap.add_argument('--write-purification',
+                    help='output .npz path (purification references)')
     ap.add_argument('--cases', nargs='+',
                     help='write-back or Hofstadter cases to (re)compute')
     args = ap.parse_args(argv)
@@ -2008,7 +2212,8 @@ def main(argv=None):
                        (args.write_simulation, simulation_reference),
                        (args.write_time_evolution,
                         time_evolution_reference),
-                       (args.write_vumps, vumps_reference)):
+                       (args.write_vumps, vumps_reference),
+                       (args.write_purification, purification_reference)):
         if path:
             exchange.save_flat(path, make())
             print(f"wrote {path} ({os.path.getsize(path) / 1e6:.3f} MB)",
