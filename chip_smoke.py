@@ -151,11 +151,31 @@ Phases (any failure exits nonzero):
    the card's update against the host's by N (the crossover) and the host
    SVD against the batched split; then the kernel against its plain
    version on the saturated bond's gate, timed;
+14. TeNPy's plane-wave excitations (``PlaneWaveExcitationEngine(u, model,
+   options, device='cuda')``; a solve's matvecs on the card, every
+   tensordot one kernel launch, the Krylov vectors lists of packed X).
+   14a: the S=1 Heisenberg chain (L=2, Sz) by two-site VUMPS stages at chi
+   32, 64 and 128 and single-site sweeps at chi=128, all on the card; its
+   magnon (``qtotal_change=[2]``) at pi/2 and pi, the gap at pi held to
+   0.41047925 (1e-4) and the dispersion's minimum at pi, every solve on
+   the card, launches equal to the tensordots run (matvecs and the
+   guess's zero-site eigensolves), ``energy(p, X)`` against the Lanczos
+   energy (1e-10), the card's matvec against the host's on the final X
+   (1e-12); 14b: the TFI chain through ``PlaneWaveExcitations`` on the
+   card at three momenta against the exact dispersion (1e-8), JAX's chi=24
+   charged-magnon state (``tests/benchmark_data/excitation_reference.npz``)
+   and its gap (1e-10), the GMRES sums against the explicit ones (1e-10);
+   14c: one matvec by part with either sum method, launches and host
+   reads per matvec, one profiled solve (idle share), the card's matvec
+   against the host's by N (the crossover that sets
+   ``DEVICE_EXCITATION_THRESHOLD``), and the kernel against its plain
+   version on one transfer-matrix step of the right sum at chi=128,
+   timed;
 then a JSON line on the kernels (the f64 mode, the complex128 mode, the
 complex128 mode on the TEBD shapes, the f64 mode on the host DMRG's and
 on the simulation's shapes, the complex128 mode on TDVP's two- and
-one-site matvecs, VUMPS's four matvecs and the purification gate) and,
-last, ``{"ok": true,
+one-site matvecs, VUMPS's four matvecs, the purification gate and the
+plane-wave transfer step) and, last, ``{"ok": true,
 "device": ...}``.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.
@@ -3543,6 +3563,454 @@ def phase_purification(smi):
     return launches, gate
 
 
+# TeNPy's plane-wave excitations (phase 14): the S=1 Heisenberg chain (L=2,
+# Sz conserved) by the port's VUMPS on the card, two-site stages at chi 32,
+# 64 and 128 (svd_min 1e-12, the subspace-expansion mixer), then
+# single-site VUMPS sweeps at chi=128; its magnon (qtotal_change=[2],
+# Sz=+1) by PlaneWaveExcitationEngine on the card.  The Haldane gap at pi:
+# 0.41047925 (DMRG, Nakano and Terai 2009; White and Huse 1993 give
+# 0.41050(2))
+EX_MODEL = {'S': 1, 'L': 2, 'Jx': 1., 'Jy': 1., 'Jz': 1.,
+            'bc_MPS': 'infinite', 'conserve': 'Sz'}
+EX_INIT = ['1.0', '-1.0']
+EX_CHIS = (32, 64, 128)
+EX_CHI = EX_CHIS[-1]
+# sweeps per VUMPS stage (cuts from 4 and 6: the gap at chi=128 came out
+# 1.9e-9 from the reference after 4 and 6 two-site sweeps per stage and
+# after 3, measured on one H100)
+EX_TWO_SITE_SWEEPS = 2
+EX_SINGLE_SWEEPS = 3
+EX_GAP, EX_GAP_TOL = 0.41047925, 1e-4
+# 14a's momenta: two, a cut from five (0 to pi): in a two-site cell p + pi
+# is the same momentum as p (the phase per cell is exp(2ip)), and -p is
+# degenerate with p by reflection, so pi/2..pi holds every distinct energy;
+# a card solve at chi=128 took 39-61 s (35-40 Lanczos steps at 0.74-1.43 s
+# per matvec, measured on one H100)
+EX_MOMENTA = [np.pi / 2, np.pi]
+# the TFI dispersion at three momenta, a cut from five: 0..pi/2 holds every
+# distinct energy of the two-site cell, as above
+EX_TFI_MOMENTA = list(np.linspace(0., np.pi / 2, 3))
+EX_CHARGE = [2]
+EX_LANCZOS = {'N_max': 60}
+# 14a's solves stop once the Ritz pair's squared residual is below 1e-10
+# rather than the default 1e-14 (a cut of Krylov depth: the energy error is
+# about the squared residual over the sector's gap, far inside the gap's
+# 1e-4; the Ritz value and the Rayleigh quotient of its vector stay equal
+# at any depth)
+EX_MAGNON_LANCZOS = dict(EX_LANCZOS, P_tol=1e-10)
+# 14a's explicit sums stop at 1e-11 rather than the default 1e-10: the
+# truncated series make the effective H hermitian only to sum_tol, and the
+# Ritz value and the Rayleigh quotient of its vector differ by about that
+# much (1.6e-10 at 1e-10 on the chi=48 state of the CPU rehearsal, 3.7e-13
+# at 1e-12 on JAX's chi=24 state).  The GMRES sums (14b, 14c) are exact to
+# their residual and need 4x fewer transfer-matrix applications, but their
+# Gram-Schmidt reads a scalar per step: a card matvec took 0.94 s with them
+# against 0.74 s with the explicit ones at chi=128 (measured on one H100)
+EX_MAGNON_SUMS = {'sum_method': 'explicit', 'sum_tol': 1e-11}
+EX_GMRES = {'sum_method': 'GMRES', 'GMRES_params': {'N_max': 30,
+                                                   'res': 1e-12}}
+# host threads of the phase (restored after): its host work is many small
+# block operations, faster on one thread (phases 12 and 13)
+EX_HOST_THREADS = 1
+# engine.energy(p, X) against the Lanczos energy; the card's matvec against
+# the host's on the final X; the TFI dispersion; JAX's gap on the card; the
+# GMRES sums against the explicit ones
+EX_ENERGY_TOL, EX_MATVEC_TOL, EX_TFI_TOL = 1e-10, 1e-12, 1e-8
+EX_JAX_TOL, EX_SUM_TOL = 1e-10, 1e-10
+EX_TFI_G = 1.5
+EX_TFI_MODEL = {'L': 2, 'J': 1., 'g': EX_TFI_G, 'bc_MPS': 'infinite',
+                'conserve': None}
+EX_REF = os.path.join(ROOT, 'tests', 'benchmark_data',
+                      'excitation_reference.npz')
+EX_TRANSFER_STEPS = ['ARc.R over vR*/vL*', 'W.R over (wR,p)',
+                     'AL.R over (vR,p)']
+EX_HOST_MATVEC_NOTE_S = 30.
+# 14c's profiled solve: Lanczos capped at this many steps
+EX_PROFILE_STEPS = 2
+
+
+def ex_vumps_options(chi, single=False):
+    if single:
+        return {'max_sweeps': EX_SINGLE_SWEEPS, 'min_sweeps': 2,
+                'max_E_err': 1e-13, 'max_split_err': 1e-9,
+                'check_overlap': False, 'norm_tol': 1e-10}
+    return {'trunc_params': {'chi_max': chi, 'svd_min': 1e-12},
+            'max_sweeps': EX_TWO_SITE_SWEEPS,
+            'min_sweeps': EX_TWO_SITE_SWEEPS, 'mixer': 'SubspaceExpansion',
+            'mixer_params': {'amplitude': 1e-5, 'disable_after': 2},
+            'max_E_err': 1e-12, 'max_split_err': 1e-2,
+            'check_overlap': False, 'norm_tol': 1e-10}
+
+
+def ex_rel(a, b):
+    """``|a - b| / |b|`` of two X lists (host Arrays)."""
+    num = sum(float(npc.norm(x - y)) ** 2 for x, y in zip(a, b)) ** .5
+    return num / sum(float(npc.norm(y)) ** 2 for y in b) ** .5
+
+
+def ex_ground_states(smi):
+    """14a's ground states: two-site VUMPS stages at EX_CHIS, each from
+    the last one's state, then single-site VUMPS at EX_CHI; returns the
+    model and the uniform states by chi."""
+    from tenpy_tpu_torch.algorithms.vumps import SingleSiteVUMPSEngine, \
+        TwoSiteVUMPSEngine
+    model = SpinChain(dict(EX_MODEL))
+    psi = MPS.from_product_state(model.lat.mps_sites(), EX_INIT,
+                                 bc='infinite')
+    states = {}
+    for chi in EX_CHIS + ('single',):
+        t0 = time.time()
+        if chi == 'single':
+            eng = SingleSiteVUMPSEngine(psi, model,
+                                        ex_vumps_options(EX_CHI, True),
+                                        device='cuda')
+        else:
+            eng = TwoSiteVUMPSEngine(psi, model, ex_vumps_options(chi),
+                                     device='cuda')
+        E, psi = eng.run()
+        ss = eng.sweep_stats
+        n_card = sum(1 for s in eng.eig_stats if s[2] == 'device')
+        log(f"[14a] {type(eng).__name__} (chi_max "
+            f"{EX_CHI if chi == 'single' else chi}): {time.time() - t0:.2f}"
+            f" s, {len(ss['E'])} sweeps, E {E!r}, chi {eng.psi.chi}, "
+            f"max_split_err {ss['max_split_err'][-1]:.2e}, eigensolves on "
+            f"the card {n_card} of {len(eng.eig_stats)}")
+        states[EX_CHI if chi == 'single' else chi] = eng.psi
+    return model, states
+
+
+def ex_engine(u, model, options=None, device='cuda'):
+    opts = {'lanczos_params': dict(EX_LANCZOS)}
+    opts.update(options or {})
+    from tenpy_tpu_torch.algorithms.plane_wave_excitation import \
+        PlaneWaveExcitationEngine
+    return PlaneWaveExcitationEngine(u, model, opts, device=device)
+
+
+def ex_matvecs(eng, p, X):
+    """The effective H on ``X`` (host Arrays) by the card's route and the
+    host's: ``(card, host, card seconds, host seconds, card's first call
+    seconds)``; the card's seconds are those of its second call (its
+    plans cached), the first call's builds them."""
+    T = eng.tensors('device')
+    Hc = eng._effective_H(p, T)
+    Xp = T.vector(X)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Hc.matvec(Xp)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    card = T.to_host(Hc.matvec(T.vector(X)), X)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = eng._effective_H(p, eng.tensors('host')).matvec(X)
+    return card, host, card_s, time.perf_counter() - t0, first_s
+
+
+def phase_excitations_magnon(smi, model, u):
+    """14a: the magnon dispersion of the chi=128 state on the card at
+    EX_MOMENTA: the gap at pi against the Haldane gap, the
+    minimum at pi, every solve on the card, launches equal to the
+    tensordots run, ``energy`` against the Lanczos energy, the card's
+    matvec against the host's on the final X.  Returns the engine, the
+    final X, the launches and the host matvec's seconds."""
+    eng = ex_engine(u, model, dict(EX_MAGNON_SUMS,
+                                   lanczos_params=dict(EX_MAGNON_LANCZOS)))
+    gg.LAUNCHES = 0                    # count the main path's launches only
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    gaps, per_run, X_pi, E_pi = [], [], None, None
+    for p in EX_MOMENTA:
+        n0 = gg.LAUNCHES
+        Es, psis, N = eng.run(p, qtotal_change=EX_CHARGE)
+        per_run.append(gg.LAUNCHES - n0)
+        gaps.append(float(np.real(Es[0])))
+        X_pi, E_pi = psis[0]._X, gaps[-1]
+        if p == EX_MOMENTA[0]:
+            torch.cuda.synchronize()
+            log(f"[14a]   first solve {time.time() - t0:.2f} s (packing "
+                f"included)")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = gg.LAUNCHES
+    stats = eng.excitation_stats
+    matvec_launches = sum(st['tensordots'] for st in stats)
+    log(f"[14a] PlaneWaveExcitationEngine on the chi={EX_CHI} state "
+        f"(chi {u.chi}), qtotal_change={EX_CHARGE}, {len(EX_MOMENTA)} "
+        f"momenta: {wall:.2f} s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; card {smi}")
+    for p, E, st, n in zip(EX_MOMENTA, gaps, stats, per_run):
+        its = np.asarray(st['sum_iterations'])
+        log(f"[14a]   p={p:.4f}: E {E!r}, N {st['N']}, {st['route']}, "
+            f"{st['steps']} Lanczos steps, {st['matvecs']} matvecs, sum "
+            f"terms per matvec right {its[:, 0].mean():.1f} left "
+            f"{its[:, 1].mean():.1f}, {st['host_reads']} host reads, "
+            f"{st['tensordots']} tensordots + {st['guess_tensordots']} in "
+            f"the guess, {n} launches, {st['seconds']:.2f} s")
+    gap = gaps[-1]
+    log(f"[14a] gap at pi {gap!r}: {gap - EX_GAP:+.3e} from {EX_GAP} "
+        f"(tolerance {EX_GAP_TOL:.0e}); dispersion "
+        f"{[round(g, 6) for g in gaps]}")
+    check(abs(gap - EX_GAP) <= EX_GAP_TOL, "14a: the gap at pi is not the "
+          "Haldane gap")
+    check(gap <= min(gaps) + 1e-12, "14a: the dispersion's minimum is not "
+          "at pi")
+    check(all(st['route'] == 'device' for st in stats),
+          "14a: a solve did not take the card's route")
+    check(all(n == st['tensordots'] + st['guess_tensordots']
+              for n, st in zip(per_run, stats)) and launches == sum(per_run),
+          "14a: kernel launches differ from the tensordots run")
+    log(f"[14a] launches {launches}: {matvec_launches} in the solves' "
+        f"matvecs (the plane-wave entry's count), "
+        f"{launches - matvec_launches} in the guesses' zero-site eigensolves")
+    E_x = eng.energy(np.pi, X_pi)
+    log(f"[14a] energy(pi, X) {E_x!r} against the Lanczos energy: "
+        f"{E_x - E_pi:+.2e} (tolerance {EX_ENERGY_TOL:.0e})")
+    check(abs(E_x - E_pi) <= EX_ENERGY_TOL, "14a: energy(p, X) differs "
+          "from the Lanczos energy")
+    card, host, card_s, host_s, _ = ex_matvecs(eng, np.pi, X_pi)
+    rel = ex_rel(card, host)
+    log(f"[14a] matvec on the final X at pi, card against host: rel_err "
+        f"{rel:.2e} (tolerance {EX_MATVEC_TOL:.0e}); card {1e3 * card_s:.1f}"
+        f" ms, host {host_s:.2f} s"
+        + (" (past 30 s: timed once)" if host_s > EX_HOST_MATVEC_NOTE_S
+           else ""))
+    check(rel <= EX_MATVEC_TOL, "14a: the card's matvec differs from the "
+          "host's")
+    for x in card:
+        check(all(bool(torch.isfinite(b).all()) for b in x._data),
+              "14a: non-finite matvec output")
+    return eng, X_pi, matvec_launches, host_s
+
+
+def phase_excitations_exact(smi):
+    """14b: the TFI dispersion through PlaneWaveExcitations on the card
+    against the exact one; JAX's charged-magnon gap on the card from
+    JAX's uniform state; the GMRES sums against the explicit ones.
+    Returns the TFI state's engine."""
+    from tenpy_tpu_torch.algorithms.vumps import SingleSiteVUMPSEngine
+    from tenpy_tpu_torch.models.tf_ising import TFIChain
+    from tenpy_tpu_torch.simulations.ground_state_search import \
+        PlaneWaveExcitations
+    m = TFIChain(dict(EX_TFI_MODEL))
+    psi = MPS.from_product_state(m.lat.mps_sites(), ['up', 'up'],
+                                 bc='infinite')
+    dmrg.run(psi, m, {'trunc_params': {'chi_max': 12, 'svd_min': 1e-10},
+                      'max_sweeps': 10, 'mixer': True}, device='cuda')
+    eng_v = SingleSiteVUMPSEngine(psi, m, {
+        'max_sweeps': 30, 'max_E_err': 1e-13, 'max_split_err': 1e-9,
+        'check_overlap': False}, device='cuda')
+    eng_v.run()
+    t0 = time.time()
+    sim = PlaneWaveExcitations(
+        {'model_class': 'TFIChain', 'model_params': dict(EX_TFI_MODEL),
+         'algorithm_params': {'lanczos_params': {'N_max': 40},
+                              'device_threshold': 0},
+         'momenta': EX_TFI_MOMENTA, 'save_psi': False,
+         'output_filename': None,
+         'log_params': SIM_LOG}, ground_state_data=eng_v.psi, device='cuda')
+    with sim:
+        res = sim.run()
+    eps = lambda k: 2 * np.sqrt(1 + EX_TFI_G ** 2  # noqa: E731
+                                - 2 * EX_TFI_G * np.cos(k))
+    errs = [Es[0] - min(eps(p), eps(p + np.pi))
+            for p, Es in zip(res['momenta'], res['excitation_energies'])]
+    routes = [st['route'] for st in sim.engine.excitation_stats]
+    log(f"[14b] TFI (g={EX_TFI_G}, chi {eng_v.psi.chi}) through "
+        f"PlaneWaveExcitations on the card: {time.time() - t0:.2f} s, "
+        f"routes {routes}, E - exact {[f'{e:+.1e}' for e in errs]} "
+        f"(tolerance {EX_TFI_TOL:.0e})")
+    check(all(r == 'device' for r in routes), "14b: a TFI solve did not "
+          "take the card's route")
+    check(max(abs(e) for e in errs) <= EX_TFI_TOL, "14b: the TFI "
+          "dispersion is not exact")
+    # JAX's chi=24 charged-magnon state and gap
+    ref = exchange.load_flat(EX_REF)
+    m1 = SpinChain(dict(EX_MODEL))
+    sub = {k: v for k, v in ref.items() if k.startswith('haldane.u.')}
+    u = exchange.load_uniform(ref, 'haldane.u', m1.lat.mps_sites())
+    t0 = time.time()
+    eng = ex_engine(u, m1, {'device_threshold': 0})
+    Es, _, N = eng.run(np.pi, qtotal_change=EX_CHARGE)
+    gap, gap_ref = float(np.real(Es[0])), float(ref['haldane.gap'])
+    log(f"[14b] JAX's chi={int(ref['haldane.chi'][0])} state ({len(sub)} "
+        f"arrays): gap on the card {gap!r}, JAX's {gap_ref!r}: "
+        f"{gap - gap_ref:+.2e} (tolerance {EX_JAX_TOL:.0e}); {N} Lanczos "
+        f"steps (JAX {int(ref['haldane.N'])}), {time.time() - t0:.2f} s")
+    check(eng.excitation_stats[-1]['route'] == 'device',
+          "14b: JAX's case did not take the card's route")
+    check(abs(gap - gap_ref) <= EX_JAX_TOL, "14b: the card's gap differs "
+          "from JAX's")
+    # the GMRES sums against the explicit ones of the simulation's run
+    k = 2
+    e = ex_engine(eng_v.psi, m, dict(EX_GMRES, device_threshold=0))
+    E_g = float(np.real(e.run(EX_TFI_MOMENTA[k])[0][0]))
+    E_x = res['excitation_energies'][k][0]
+    its = np.asarray(e.excitation_stats[-1]['sum_iterations'])
+    its_x = np.asarray(sim.engine.excitation_stats[k]['sum_iterations'])
+    log(f"[14b] TFI at p={EX_TFI_MOMENTA[k]:.4f}: GMRES sums ({EX_GMRES}) E "
+        f"{E_g!r}, explicit (sum_tol 1e-10) {E_x!r}: {E_g - E_x:+.2e} "
+        f"(tolerance {EX_SUM_TOL:.0e}); per matvec {its[:, 0].mean():.1f} "
+        f"right and {its[:, 1].mean():.1f} left GMRES matvecs against "
+        f"{its_x[:, 0].mean():.1f} and {its_x[:, 1].mean():.1f} explicit "
+        f"terms; host reads per solve {e.excitation_stats[-1]['host_reads']} "
+        f"against {sim.engine.excitation_stats[k]['host_reads']}")
+    check(abs(E_g - E_x) <= EX_SUM_TOL, "14b: the GMRES sums differ from "
+          "the explicit ones")
+    return eng_v.psi, m
+
+
+def ex_matvec_parts(eng, T, p, Xp, reps):
+    """One card matvec of ``eng`` by part (``time_matvec`` on, which waits
+    for the card after each part), the median of ``reps``: seconds,
+    launches, tensordots and host reads."""
+    from tenpy_tpu_torch.linalg import krylov_based
+    Hc = eng._effective_H(p, T)
+    parts = []
+    eng.time_matvec = True
+    try:
+        for _ in range(reps):
+            eng.matvec_timing.clear()
+            n0, r0 = gg.LAUNCHES, krylov_based.PACKED_READS
+            c0 = T.ops.n_contract
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            Hc.matvec(Xp)
+            torch.cuda.synchronize()
+            parts.append(dict(eng.matvec_timing,
+                              total=time.perf_counter() - t0,
+                              launches=gg.LAUNCHES - n0,
+                              reads=krylov_based.PACKED_READS - r0,
+                              tensordots=T.ops.n_contract - c0))
+    finally:
+        eng.time_matvec = False
+    return {k: statistics.median(p_[k] for p_ in parts) for k in parts[0]}
+
+
+def phase_excitations_timing(smi, eng, X, model, states, tfi, host_128):
+    """14c on 14a's engine at pi: one card matvec by part with the
+    explicit and with the GMRES sums, its launches and host reads; one
+    profiled solve (idle share); the card's matvec against the host's by
+    N, with the engine's default (explicit) sums: the VUMPS stages, 14b's
+    TFI state, and 14a's state (its host matvec timed in 14a, at
+    sum_tol 1e-11); the kernel on one transfer-matrix step of the right
+    sum at chi=128.  Returns the kernel's measurement."""
+    from tenpy_tpu_torch.algorithms.plane_wave_excitation import \
+        _right_env
+    T = eng.tensors('device')
+    Xp = T.vector(X)
+    st = eng.excitation_stats[-1]
+    by_method = {}
+    for method, opts, reps in (('explicit', EX_MAGNON_SUMS, 3),
+                               ('GMRES', EX_GMRES, 1)):
+        eng.options.update(opts)
+        med = by_method[method] = ex_matvec_parts(eng, T, np.pi, Xp, reps)
+        log(f"[14c] one card matvec at pi with the {method} sums (chi="
+            f"{EX_CHI}, N {st['N']}), "
+            f"{'median of 3' if reps == 3 else 'once'}: "
+            f"{1e3 * med['total']:.1f} "
+            f"ms: B build {1e3 * med['B']:.2f}, aligned "
+            f"{1e3 * med['aligned']:.2f}, right sum "
+            f"{1e3 * med['right_sum']:.1f}, left sum "
+            f"{1e3 * med['left_sum']:.1f}, unaligned "
+            f"{1e3 * med['unaligned']:.2f} ms; {int(med['launches'])} "
+            f"launches ({int(med['tensordots'])} tensordots, "
+            f"{1e3 * med['total'] / med['tensordots']:.3f} ms each), "
+            f"{int(med['reads'])} host reads")
+        check(med['launches'] == med['tensordots'], "14c: launches per "
+              "matvec differ from its tensordots")
+    eng.options.update(EX_MAGNON_SUMS)
+    # one profiled solve, its Lanczos capped
+    eng.options['lanczos_params'] = dict(EX_MAGNON_LANCZOS,
+                                         N_max=EX_PROFILE_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        eng.run(np.pi, qtotal_change=EX_CHARGE)
+        torch.cuda.synchronize()
+        prof_s = time.time() - t0
+    eng.options['lanczos_params'] = dict(EX_MAGNON_LANCZOS)
+    t0 = time.time()
+    busy, _, kernel_us, rows = device_time(prof)
+    log(f"[14c] profiled solve at pi ({EX_PROFILE_STEPS} Lanczos steps, "
+        f"explicit sums): {prof_s:.2f} s, device busy {busy / 1e6:.3f} s, "
+        f"idle {100 * (1 - busy / 1e6 / prof_s):.1f}%, the kernel "
+        f"{kernel_us / 1e6:.3f} s (the trace read in {time.time() - t0:.1f} "
+        f"s); peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+        f"GiB")
+    for name, us, n in rows[:4]:
+        log(f"[14c]   {us / 1e6:8.4f} s {n:6d} x  {name[:80]}")
+    # the crossover by N, the engine's default (explicit) sums
+    cases = [(f'S=1 chi={chi}', states[chi], model, EX_CHARGE)
+             for chi in EX_CHIS[:-1]] + [('TFI chi=%d' % max(tfi[0].chi),
+                                          tfi[0], tfi[1], None)]
+    rows = []
+    for name, u, m, charge in cases:
+        e = ex_engine(u, m)
+        X0 = e.initial_guess(charge)
+        N = sum(int(b.numel()) for x in X0 for b in x._data)
+        t0 = time.perf_counter()
+        e.tensors('device')
+        pack_s = time.perf_counter() - t0
+        card, host, card_s, h_s, first_s = ex_matvecs(e, np.pi, X0)
+        rows.append((N, card_s, h_s))
+        log(f"[14c] {name}: N {N}: card matvec {1e3 * card_s:.1f} ms (its "
+            f"packing {1e3 * pack_s:.1f} ms once; its first call, plans "
+            f"built, {1e3 * first_s:.1f} ms: card/host "
+            f"{first_s / h_s:.3f}), host {1e3 * h_s:.1f} ms: card/host "
+            f"{card_s / h_s:.3f}; rel_err {ex_rel(card, host):.1e}")
+    card_128 = by_method['explicit']['total']
+    rows.append((st['N'], card_128, host_128))
+    log(f"[14c] S=1 chi={EX_CHI}: N {st['N']}: card matvec "
+        f"{1e3 * card_128:.1f} ms, host {1e3 * host_128:.1f} ms: card/host "
+        f"{card_128 / host_128:.3f}"
+        + (" (host past 30 s: timed once)"
+           if host_128 > EX_HOST_MATVEC_NOTE_S else ""))
+    wins = sorted(N for N, c, h in rows if c < h)
+    log(f"[14c] crossover: the card's matvec wins at N = {wins} of "
+        f"{sorted(r[0] for r in rows)}; DEVICE_EXCITATION_THRESHOLD = "
+        f"{mc.DEVICE_EXCITATION_THRESHOLD}")
+    # the kernel on one transfer-matrix step of the right sum: site 1 on
+    # the term of site 0's B, whose legs sit on the bond right of site 1
+    Bs = T.Bs(Xp)
+    R = _right_env(T.ops, [Bs[0]], [T.ARc[0]], T.RP[0], [T.W[0]])
+    _, calls = recorded_calls(lambda: _right_env(
+        T.ops, [T.AL[1]], [T.ARc[1]], R, [T.W[1]]))
+    check(len(calls) == 3, "14c: the transfer step is not 3 tensordots")
+    log(f"[14c] one transfer-matrix step of the right sum (site 1, "
+        f"chi={EX_CHI}), {calls[0][3]}:")
+    return measure_contractions(calls, EX_TRANSFER_STEPS, '14c',
+                                'transfer step')
+
+
+def phase_excitations(smi):
+    """Phase 14: 14a, 14b, 14c on EX_HOST_THREADS host threads (restored
+    after); returns 14a's launches and the transfer step's
+    measurement."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(EX_HOST_THREADS)
+    log(f"[14] host threads {EX_HOST_THREADS} (the process's default "
+        f"{threads})")
+    try:
+        t0 = time.time()
+        model, states = ex_ground_states(smi)
+        t1 = time.time()
+        eng, X, launches, host_s = phase_excitations_magnon(
+            smi, model, states[EX_CHI])
+        t2 = time.time()
+        tfi = phase_excitations_exact(smi)
+        t3 = time.time()
+        tmv = phase_excitations_timing(smi, eng, X, model, states, tfi,
+                                       host_s)
+    finally:
+        torch.set_num_threads(threads)
+    log(f"[14] phase wall: VUMPS {t1 - t0:.1f} s, 14a {t2 - t1:.1f} s, 14b "
+        f"{t3 - t2:.1f} s, 14c {time.time() - t3:.1f} s")
+    return launches, tmv
+
+
 def main():
     t_start = time.time()
     smi = phase_device()
@@ -3598,9 +4066,11 @@ def main():
     lap('12')
     p_launches, pmv = phase_purification(smi)
     lap('13')
-    log("[14] wall by phase: " + ', '.join(f"[{name}] {t:.1f} s"
+    x_launches, xmv = phase_excitations(smi)
+    lap('14')
+    log("[15] wall by phase: " + ', '.join(f"[{name}] {t:.1f} s"
                                            for name, t in walls))
-    log(f"[14] kernel max_abs_err: synthetic f64 "
+    log(f"[15] kernel max_abs_err: synthetic f64 "
         f"{max_abs_synth[torch.float64]:.2e}, complex128 "
         f"{max_abs_synth[torch.complex128]:.2e}; main-path shapes f64 "
         f"{mv['max_abs']:.2e}, complex128 {zmv['max_abs']:.2e}, TEBD "
@@ -3611,7 +4081,8 @@ def main():
         f"{vu[0][1]['max_abs']:.2e}, two-site {vu[1][1]['max_abs']:.2e}, "
         f"complex128 zero-site {vu[2][1]['max_abs']:.2e}, one-site "
         f"{vu[3][1]['max_abs']:.2e}; purification gate f64 "
-        f"{pmv['max_abs']:.2e}")
+        f"{pmv['max_abs']:.2e}; plane-wave transfer step complex128 "
+        f"{xmv['max_abs']:.2e}")
 
     def entry(name, n, m):
         return {'name': name, 'route': 'cuda',
@@ -3630,7 +4101,9 @@ def main():
     # f64 on the chi=256 XX chain: zero-site (2 tensordots) and two-site
     # (4), complex128 on the chi=128 Hofstadter cylinder: zero-site and
     # one-site (3); per purification gate (1 tensordot), f64 on the
-    # saturated chi=256 bond of the XX chain's purification
+    # saturated chi=256 bond of the XX chain's purification; per
+    # transfer-matrix step of a plane-wave excitation's right sum (3
+    # tensordots), complex128 on the chi=128 S=1 chain
     print(json.dumps({'kernels': [
         entry('packed_contract', launches, mv),
         entry('packed_contract_complex128', z_launches, zmv),
@@ -3643,9 +4116,10 @@ def main():
         entry('packed_contract_vumps_two_site', *vu[1]),
         entry('packed_contract_vumps_zero_site_complex128', *vu[2]),
         entry('packed_contract_vumps_one_site_complex128', *vu[3]),
-        entry('packed_contract_purification_gate', p_launches, pmv)]}),
+        entry('packed_contract_purification_gate', p_launches, pmv),
+        entry('packed_contract_plane_wave_transfer', x_launches, xmv)]}),
         flush=True)
-    log(f"[14] chip_smoke wall {time.time() - t_start:.1f} s")
+    log(f"[15] chip_smoke wall {time.time() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -67,6 +67,7 @@ logger = logging.getLogger(__name__)
 
 __all__ = ['BUCKET_MULTIPLE', 'DEVICE_LANCZOS_THRESHOLD',
            'DEVICE_EVOLUTION_THRESHOLD', 'DEVICE_SPLIT_THRESHOLD',
+           'DEVICE_EXCITATION_THRESHOLD',
            '_matvec_2site_packed', '_matvec_1site_packed',
            '_matvec_0site_packed', '_lanczos_K_2site_packed_impl',
            'lanczos_K_2site_packed', 'lanczos_ground_packed',
@@ -118,6 +119,24 @@ DEVICE_EVOLUTION_THRESHOLD = 64
 # against 23-27 ms for the host's whole SVD).  So no update goes to the
 # card unless device_threshold asks for it.
 DEVICE_SPLIT_THRESHOLD = None
+# The number of entries N of a plane-wave excitation's X tensors (summed over
+# the unit cell) from which PlaneWaveExcitationEngine sends a solve to the
+# card by default.  chip_smoke.py phase 14c times one matvec of the card's
+# route (its plans cached, and its first call, which builds them) against
+# the host's on the same X, with the explicit sums, on an H100 80GB HBM3 at
+# 700 W (PERF.md): the S=1 chain's VUMPS states at chi 32, 64 and 128 (N =
+# 551-708, 2824, 10676-10792) and the TFI chain at chi 11 (N = 242), in
+# six runs.  The card won every run at N=551-708 (0.35-0.67 the host's
+# time) and N=10676-10792 (0.28-0.70), five of six at N=2824 (0.64-0.97)
+# and lost the sixth by 2.6% (1.026), and lost every run at N=242
+# (1.25-1.68).  So 708, not 10676 (from which the card won every run, the
+# rule DEVICE_LANCZOS_THRESHOLD was read by): between them the card never
+# lost by more than 3%, while the host's own time there varied 2x from
+# run to run.  The first call's plan builds (0.88-1.22 the host's time at
+# N=2824, 0.45-0.46 at 551) are paid once in a solve of 20-60 matvecs.
+# Both routes are host-bound, the card's at 0.8-1.4 ms of host time per
+# tensordot.
+DEVICE_EXCITATION_THRESHOLD = 708
 
 _VIRT = ('vL', 'vR', 'vL*', 'vR*')
 
@@ -658,6 +677,18 @@ class ZeroSiteH(EffectiveH):
         self.RP = env.get_RP(i0 - 1)
         self.dtype = npc.result_type(self.LP.dtype, self.RP.dtype)
         self.N = self.LP.get_leg('vR').ind_len * self.RP.get_leg('vL').ind_len
+
+    @classmethod
+    def from_LP_RP(cls, LP, RP, i0=0):
+        """The zero-site H between a given ``LP`` and ``RP`` (no
+        environment)."""
+        self = cls.__new__(cls)
+        self.i0 = i0
+        self.LP = LP
+        self.RP = RP
+        self.dtype = npc.result_type(LP.dtype, RP.dtype)
+        self.N = LP.get_leg('vR').ind_len * RP.get_leg('vL').ind_len
+        return self
 
     def _operands(self):
         return self.LP, self.RP

@@ -108,7 +108,7 @@ class LegCharge:
     """Charge structure of one tensor leg: contiguous sectors with charges."""
 
     __slots__ = ('chinfo', 'slices', 'charges', 'qconj', 'sorted', 'bunched',
-                 '_hash')
+                 '_key', '_hash')
 
     def __init__(self, chinfo, slices, charges, qconj=1):
         self.chinfo = chinfo
@@ -123,8 +123,10 @@ class LegCharge:
             raise ValueError("slices must be 1-D")
         self.sorted = bool(self._compute_sorted())
         self.bunched = bool(self._compute_bunched())
-        self._hash = hash((self.chinfo, self.slices.tobytes(),
-                           self.charges.tobytes(), self.qconj))
+        # slices and charges are read-only: their bytes (one dtype, the
+        # charges' width fixed by chinfo) decide equality
+        self._key = (self.slices.tobytes(), self.charges.tobytes())
+        self._hash = hash((self.chinfo, self._key, self.qconj))
 
     # ------------------------------------------------------------ constructors
     @classmethod
@@ -259,9 +261,9 @@ class LegCharge:
                              f"{other.ind_len}")
         if self.qconj != -other.qconj:
             raise ValueError("same qconj on contracted legs")
-        if not np.array_equal(self.slices, other.slices):
+        if self._key[0] != other._key[0]:
             raise ValueError("different sector boundaries")
-        if not np.array_equal(self.charges, other.charges):
+        if self._key[1] != other._key[1]:
             raise ValueError("different charges")
 
     def test_equal(self, other):
@@ -282,9 +284,15 @@ class LegCharge:
         if not isinstance(other, LegCharge):
             return NotImplemented
         return (self.qconj == other.qconj and self.chinfo == other.chinfo
-                and self.slices.shape == other.slices.shape
-                and np.array_equal(self.slices, other.slices)
-                and np.array_equal(self.charges, other.charges))
+                and self._key == other._key)
+
+    def __setstate__(self, state):
+        # a pickle of any version: the saved slots, the key and the hash
+        # (salted per process) made anew
+        for name, value in state[1].items():
+            object.__setattr__(self, name, value)
+        self._key = (self.slices.tobytes(), self.charges.tobytes())
+        self._hash = hash((self.chinfo, self._key, self.qconj))
 
     def __hash__(self):
         return self._hash

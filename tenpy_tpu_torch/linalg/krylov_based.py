@@ -4,23 +4,31 @@ exponentials.
 Port of ``KrylovBased``, ``LanczosGroundState``, ``LanczosEvolution``,
 ``GMRES``, ``Arnoldi``, ``ArnoldiEvolution``, ``lanczos_arpack``,
 ``gram_schmidt`` and the vector helpers of
-``tenpy_tpu/linalg/krylov_based.py``.  The Krylov vectors are host
-:class:`~.np_conserved.Array` s; the small tridiagonal
-and Hessenberg problems run in numpy.  Lanczos is the host eigensolver of
-the DMRG engines (:mod:`~tenpy_tpu_torch.algorithms.dmrg`),
-``LanczosEvolution`` the host local evolution of TDVP
-(:mod:`~tenpy_tpu_torch.algorithms.tdvp`; its loop, :func:`lanczos_evolve`,
-also runs the packed evolution on the card, ``lanczos_evolve_packed`` in
-:mod:`~tenpy_tpu_torch.algorithms.mps_common`), GMRES builds the
-environments of an infinite MPS, Arnoldi finds transfer-matrix fixed
-points.
+``tenpy_tpu/linalg/krylov_based.py``.  A Krylov vector is a host
+:class:`~.np_conserved.Array`, a :class:`~.packed.PackedArray` (on the
+card, where each norm and inner product is one host read), or a list of
+either, a direct sum (the plane-wave excitations' X tensors, one per site
+of the unit cell); ``LanczosGroundState``, ``Arnoldi`` and ``GMRES`` take
+all of them through the helpers ``_v_norm``, ``_v_inner``, ``_v_scale``
+and ``_v_axpy``, which keep a single Array's arithmetic as it was.  The
+small tridiagonal and Hessenberg problems run in numpy.  Lanczos is the
+host eigensolver of the DMRG engines
+(:mod:`~tenpy_tpu_torch.algorithms.dmrg`), ``LanczosEvolution`` the host
+local evolution of TDVP (:mod:`~tenpy_tpu_torch.algorithms.tdvp`; its
+loop, :func:`lanczos_evolve`, also runs the packed evolution on the card,
+``lanczos_evolve_packed`` in :mod:`~tenpy_tpu_torch.algorithms.
+mps_common`), GMRES builds the environments of an infinite MPS and sums
+the plane-wave excitations' geometric series, Arnoldi finds
+transfer-matrix fixed points.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from . import np_conserved as npc
+from . import packed as pk
 from ..tools.misc import argsort
 from ..tools.params import asConfig
 
@@ -29,21 +37,74 @@ __all__ = ['KrylovBased', 'LanczosGroundState', 'LanczosEvolution',
            'ArnoldiEvolution', 'lanczos_arpack', 'gram_schmidt']
 
 
+# host reads of a packed vector's norm or inner product so far (each one
+# waits for the card); the plane-wave excitation engine reports them per
+# solve
+PACKED_READS = 0
+
+
+def _v_copy(v):
+    """A Krylov vector as it is (a PackedArray is never changed in place),
+    or a shallow copy of an Array, or a list of them."""
+    if isinstance(v, list):
+        return [_v_copy(x) for x in v]
+    return v if isinstance(v, pk.PackedArray) else v.copy(deep=False)
+
+
+def _packed_list(v):
+    return isinstance(v, list) and all(isinstance(x, pk.PackedArray)
+                                       for x in v)
+
+
+def _read(x, as_type):
+    """A packed vector's 0-dim device scalar on the host (counted)."""
+    global PACKED_READS
+    PACKED_READS += 1
+    return as_type(x)
+
+
 def _v_norm(v):
+    if _packed_list(v):     # one host read for the whole direct sum
+        return _read(torch.sqrt(sum(pk.norm_sq(x) for x in v)), float)
+    if isinstance(v, list):
+        return float(np.linalg.norm([float(npc.norm(x)) for x in v]))
+    if isinstance(v, pk.PackedArray):
+        return _read(pk.norm(v), float)
     return float(npc.norm(v))
 
 
 def _v_inner(v, w):
-    """``<v|w>`` with conjugation of ``v``."""
+    """``<v|w>`` with conjugation of ``v``; a list is a direct sum."""
+    if _packed_list(v):     # one host read for the whole direct sum
+        return _read(sum(pk.vdot(a, b) for a, b in zip(v, w)), complex)
+    if isinstance(v, list):
+        return sum(complex(npc.inner(a.conj(), b, axes='range'))
+                   for a, b in zip(v, w))
+    if isinstance(v, pk.PackedArray):
+        return _read(pk.vdot(v, w), complex)
     return complex(npc.inner(v.conj(), w, axes='range'))
 
 
+def _host_scalar(a):
+    """A numpy scalar as a python number (a PackedArray's buckets are
+    multiplied by it on the right)."""
+    return a.item() if isinstance(a, np.generic) else a
+
+
 def _v_scale(v, a):
+    if isinstance(v, list):
+        return [_v_scale(x, a) for x in v]
+    if isinstance(v, pk.PackedArray):
+        return v * _host_scalar(a)
     return v * a
 
 
 def _v_axpy(a, x, y):
-    """``y + a * x`` (a new Array)."""
+    """``y + a * x`` (a new vector)."""
+    if isinstance(y, list):
+        return [_v_axpy(a, xi, yi) for xi, yi in zip(x, y)]
+    if isinstance(y, pk.PackedArray):
+        return y + x * _host_scalar(a)
     return y + a * x
 
 
@@ -71,7 +132,7 @@ class KrylovBased:
 
     def __init__(self, H, psi0, options):
         self.H = H
-        self.psi0 = psi0.copy(deep=False)
+        self.psi0 = _v_copy(psi0)
         self.options = options = asConfig(options, self.__class__.__name__)
         self.N_min = options.get('N_min', 2, int)
         self.N_max = options.get('N_max', 20, int)

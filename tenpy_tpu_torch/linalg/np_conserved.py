@@ -3,13 +3,13 @@ r"""Charge-conserving block-sparse host tensors: :class:`Array` and friends.
 Port of the part of ``tenpy_tpu/linalg/np_conserved.py`` that the host side
 of the sweep engine runs: site operators, MPO construction, MPS tensors,
 environments and their initialisation, the write-back's canonical form
-and measurements (``svd``, ``qr``/``lq``, ``eigh``), and the host DMRG
-engines (``concatenate`` for the subspace expansion, ``eigh`` with a sort
-order for the density-matrix mixer, ``gauge_total_charge``, combining legs
-into given pipes).  An :class:`Array`
-holds its charge structure (legs, ``qtotal``, labels, the block rows
-``_qdata``) in numpy and one CPU ``torch`` tensor per stored charge block
-in ``_data``.
+and measurements (``svd``, ``qr``/``lq``, ``eigh``), the plane-wave
+excitations' complement of an isometry (``orthogonal_columns``), and the
+host DMRG engines (``concatenate`` for the subspace expansion, ``eigh``
+with a sort order for the density-matrix mixer, ``gauge_total_charge``,
+combining legs into given pipes).  An :class:`Array` holds its charge
+structure (legs, ``qtotal``, labels, the block rows ``_qdata``) in numpy
+and one CPU ``torch`` tensor per stored charge block in ``_data``.
 It is also what :func:`~tenpy_tpu_torch.linalg.packed.pack` takes and
 :func:`~tenpy_tpu_torch.linalg.packed.unpack` returns.
 
@@ -30,7 +30,8 @@ from .charges import QTYPE, LegCharge, LegPipe
 
 __all__ = ['Array', 'zeros', 'eye_like', 'diag', 'outer', 'inner',
            'tensordot', 'grid_outer', 'norm', 'trace', 'svd', 'qr', 'lq',
-           'polar', 'eigh', 'eigvalsh', 'expm', 'concatenate',
+           'orthogonal_columns', 'polar', 'eigh', 'eigvalsh', 'expm',
+           'concatenate',
            'detect_qtotal', 'conj_label', 'as_dtype', 'result_type']
 
 _NP_TO_TORCH = {np.dtype(np.float64): torch.float64,
@@ -1382,3 +1383,45 @@ def lq(a, inner_labels=(None, None), pos_diag_L=False, qtotal_L=None,
                     np.array(a.qtotal, QTYPE) - np.array(qtotal_L, QTYPE)),
                 inner_qconj=-inner_qconj)
     return rt.transpose([1, 0]), qt.transpose([1, 0])
+
+
+def orthogonal_columns(a, new_label=None):
+    """Columns spanning the orthogonal complement of the (isometric)
+    columns of a 2-leg ``a``: per sector of leg 0, the last columns of the
+    complete QR of its block (of its blocks side by side), or the identity
+    where ``a`` holds no block.  The new leg 1 has the charges that make
+    the result's total charge ``a.qtotal``; sectors ``a`` fills completely
+    are left out."""
+    if a.rank != 2:
+        raise ValueError("need 2-leg array")
+    chinfo = a.chinfo
+    leg0 = a.legs[0]
+    by_row = defaultdict(list)
+    for row, block in zip(a._qdata, a._data):
+        by_row[int(row[0])].append(block)
+    rows, blocks, charges, sizes = [], [], [], []
+    for qi in range(leg0.block_number):
+        m = int(leg0.slices[qi + 1] - leg0.slices[qi])
+        if qi in by_row:
+            blk = torch.cat(by_row[qi], dim=1)
+            n = blk.shape[1]
+            if n >= m:
+                continue
+            q_full, _ = torch.linalg.qr(blk, mode='complete')
+            comp = q_full[:, n:]
+        else:
+            comp = torch.eye(m, dtype=a.dtype)
+        rows.append(qi)
+        blocks.append(comp.contiguous())
+        q_row = leg0.charges[qi] * leg0.qconj
+        charges.append(chinfo.make_valid(q_row - np.array(a.qtotal, QTYPE)))
+        sizes.append(comp.shape[1])
+    leg_new = LegCharge(chinfo, np.concatenate([[0], np.cumsum(sizes)]),
+                        np.array(charges, QTYPE).reshape(len(charges),
+                                                         chinfo.qnumber),
+                        +1).conj()
+    res = Array([leg0, leg_new], a.dtype, a.qtotal,
+                [a._labels[0], new_label])
+    res._set_blocks(np.array([(r, i) for i, r in enumerate(rows)],
+                             QTYPE).reshape(len(rows), 2), blocks)
+    return res

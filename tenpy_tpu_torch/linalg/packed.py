@@ -35,8 +35,8 @@ from .grouped_gemm import build_tables, packed_contract, shape_class
 from .np_conserved import Array, conj_label
 from .padding import pad_leg
 
-__all__ = ['PackedArray', 'pack', 'unpack', 'tensordot', 'inner', 'inner_re',
-           'norm', 'norm_sq', 'complete_structure', 'matmul_mode',
+__all__ = ['PackedArray', 'pack', 'unpack', 'tensordot', 'inner', 'vdot',
+           'inner_re', 'norm', 'norm_sq', 'complete_structure', 'matmul_mode',
            'FlopRecorder', 'flop_record', 'checked_device']
 
 _TORCH_DTYPE = {np.dtype(np.float64): torch.float64,
@@ -583,13 +583,19 @@ def inner(a, b):
     return _dot(a, b)
 
 
-def inner_re(a, b):
-    """``Re <a|b> = Re sum(conj(a) * b)`` (real 0-dim tensor); ``a`` is
-    conjugated here, so it is passed unconjugated."""
+def vdot(a, b):
+    """``<a|b> = sum(conj(a) * b)`` (0-dim tensor, complex for complex
+    data); ``a`` is conjugated here, so it is passed unconjugated."""
     for la, lb in zip(a.legs, b.legs):
         la.conj().test_contractible(lb)
     _check_layout(a, b)
-    return _dot(a, b, conj_a=True).real
+    return _dot(a, b, conj_a=True)
+
+
+def inner_re(a, b):
+    """``Re <a|b> = Re sum(conj(a) * b)`` (real 0-dim tensor); ``a`` is
+    conjugated here, so it is passed unconjugated."""
+    return vdot(a, b).real
 
 
 def norm_sq(a):

@@ -2,19 +2,27 @@
 to scipy.
 
 Port of ``NpcLinearOperator``, ``NpcLinearOperatorWrapper``,
-``OrthogonalNpcLinearOperator``, ``FlatLinearOperator`` and
-``FlatHermitianOperator`` from
+``SumNpcLinearOperator``, ``ShiftNpcLinearOperator``,
+``BoostNpcLinearOperator``, ``OrthogonalNpcLinearOperator``,
+``FlatLinearOperator`` and ``FlatHermitianOperator`` from
 ``tenpy_tpu/linalg/sparse.py``.  ``FlatLinearOperator`` maps the vectors of
 one charge sector of a leg to flat numpy vectors, so that ARPACK
 (``scipy.sparse.linalg.eigs``/``eigsh``) can run on an Array operator; the
 environments' Arnoldi route (:meth:`~tenpy_tpu_torch.networks.mpo.
 MPOTransferMatrix.dominant_eigenvector`) and the DMRG engines' ``arpack``
-and ``ED_block`` eigensolvers take it.  ``OrthogonalNpcLinearOperator``
-projects lower states out of an effective Hamiltonian (DMRG's
-``orthogonal_to``).
+and ``ED_block`` eigensolvers take it.  The wrappers compose operators
+on the Krylov vectors of :mod:`.krylov_based` (an Array, a
+:class:`~.packed.PackedArray`, or a list of either, a direct sum):
+``Sum`` adds two operators (the plane-wave excitations' aligned and
+unaligned parts), ``Shift`` adds a multiple of the identity, ``Boost``
+raises the energy of given states (the excitations' ``orthogonal_to``),
+and ``Orthogonal`` projects lower states out of an effective Hamiltonian
+(DMRG's ``orthogonal_to``).
 """
 
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import scipy.sparse.linalg
@@ -24,8 +32,9 @@ from .charges import QTYPE
 from ..tools.misc import argsort
 
 __all__ = ['NpcLinearOperator', 'NpcLinearOperatorWrapper',
-           'OrthogonalNpcLinearOperator', 'FlatLinearOperator',
-           'FlatHermitianOperator']
+           'SumNpcLinearOperator', 'ShiftNpcLinearOperator',
+           'BoostNpcLinearOperator', 'OrthogonalNpcLinearOperator',
+           'FlatLinearOperator', 'FlatHermitianOperator']
 
 
 class NpcLinearOperator:
@@ -42,6 +51,10 @@ class NpcLinearOperator:
         """The operator as a 2-leg Array (small operators only)."""
         raise NotImplementedError
 
+    def adjoint(self):
+        """The hermitian conjugate operator."""
+        raise NotImplementedError("adjoint not defined for this operator")
+
 
 class NpcLinearOperatorWrapper:
     """Base of the wrappers: everything not overridden is
@@ -53,19 +66,96 @@ class NpcLinearOperatorWrapper:
     def __getattr__(self, name):
         return getattr(self.orig_operator, name)
 
+    def unwrapped(self):
+        """The innermost operator below every wrapper."""
+        parent = self.orig_operator
+        while isinstance(parent, NpcLinearOperatorWrapper):
+            parent = parent.orig_operator
+        return parent
 
-class OrthogonalNpcLinearOperator(NpcLinearOperatorWrapper):
+
+class SumNpcLinearOperator(NpcLinearOperatorWrapper):
+    """``(A + B) v``: ``orig_operator`` A and ``other_operator`` B."""
+
+    def __init__(self, orig_operator, other_operator):
+        super().__init__(orig_operator)
+        self.other_operator = other_operator
+
+    def matvec(self, vec):
+        from .krylov_based import _v_axpy
+        return _v_axpy(1., self.other_operator.matvec(vec),
+                       self.orig_operator.matvec(vec))
+
+    def to_matrix(self):
+        return self.orig_operator.to_matrix() + self.other_operator.to_matrix()
+
+    def adjoint(self):
+        return SumNpcLinearOperator(self.orig_operator.adjoint(),
+                                    self.other_operator.adjoint())
+
+
+class ShiftNpcLinearOperator(NpcLinearOperatorWrapper):
+    """``(A + shift) v``, e.g. to make an operator definite."""
+
+    def __init__(self, orig_operator, shift):
+        if shift == 0.:
+            warnings.warn("shift=0: no-op wrapper", stacklevel=2)
+        super().__init__(orig_operator)
+        self.shift = shift
+
+    def matvec(self, vec):
+        from .krylov_based import _v_axpy
+        return _v_axpy(self.shift, vec, self.orig_operator.matvec(vec))
+
+    def to_matrix(self):
+        mat = self.orig_operator.to_matrix()
+        return mat + self.shift * npc.eye_like(mat)
+
+    def adjoint(self):
+        return ShiftNpcLinearOperator(self.orig_operator.adjoint(),
+                                      np.conj(self.shift))
+
+
+class BoostNpcLinearOperator(NpcLinearOperatorWrapper):
+    """``(A + sum_i E_i |o_i><o_i|) v``: the states ``ortho_vecs`` raised
+    by the ``penalties`` (excited states above lower ones)."""
+
+    def __init__(self, orig_operator, penalties, ortho_vecs):
+        super().__init__(orig_operator)
+        self.penalties = list(penalties)
+        self.ortho_vecs = list(ortho_vecs)
+
+    def matvec(self, vec):
+        from .krylov_based import _v_axpy, _v_inner
+        res = self.orig_operator.matvec(vec)
+        for E, o in zip(self.penalties, self.ortho_vecs):
+            res = _v_axpy(E * _v_inner(o, vec), o, res)
+        return res
+
+    def to_matrix(self):
+        mat = self.orig_operator.to_matrix()
+        for E, o in zip(self.penalties, self.ortho_vecs):
+            mat = mat + E * npc.outer(o, o.conj())
+        return mat
+
+    def adjoint(self):
+        return BoostNpcLinearOperator(self.orig_operator.adjoint(),
+                                      [np.conj(E) for E in self.penalties],
+                                      self.ortho_vecs)
+
+
+class OrthogonalNpcLinearOperator(BoostNpcLinearOperator):
     """``P A P`` with ``P`` the projector out of the given (normalized)
     states: excited states orthogonal to lower ones."""
 
     def __init__(self, orig_operator, ortho_vecs):
-        super().__init__(orig_operator)
-        self.ortho_vecs = list(ortho_vecs)
+        BoostNpcLinearOperator.__init__(self, orig_operator, [], ortho_vecs)
 
     def _project(self, vec):
         from .krylov_based import _v_axpy, _v_inner
         for o in self.ortho_vecs:
-            if not np.array_equal(o.qtotal, vec.qtotal):
+            if not isinstance(vec, list) and \
+                    not np.array_equal(o.qtotal, vec.qtotal):
                 continue    # another charge sector: <o|vec> = 0
             vec = _v_axpy(-_v_inner(o, vec), o, vec)
         return vec
@@ -82,6 +172,10 @@ class OrthogonalNpcLinearOperator(NpcLinearOperatorWrapper):
             P = P - npc.outer(oc, oc.conj())
         return npc.tensordot(P, npc.tensordot(mat, P, axes=[[1], [0]]),
                              axes=[[1], [0]])
+
+    def adjoint(self):
+        return OrthogonalNpcLinearOperator(self.orig_operator.adjoint(),
+                                           self.ortho_vecs)
 
 
 class FlatLinearOperator(scipy.sparse.linalg.LinearOperator):

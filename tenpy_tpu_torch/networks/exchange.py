@@ -14,6 +14,10 @@ initialisation), as values to hold the port's own setup against:
 * ``LP0``: the left environment of site 0, legs ``(vR*, wR, vR)``;
 * ``RP[i]``: the right environment of site ``i``, legs ``(wL, vL, vL*)``.
 
+A uniform MPS (VUMPS's AL, AR, AC and C per site, and its singular values
+where it stores them) goes under a prefix of its own
+(:func:`uniform_to_flat`, :func:`load_uniform`).
+
 Each block-sparse array is stored as its legs (slices, charges, qconj),
 total charge, labels, charge-sector rows (``qdata``) and the concatenated
 blocks; everything goes into one ``np.savez_compressed`` file that loads
@@ -32,7 +36,8 @@ from .charge_gauge import apply_bond_charge_shift, scale_psi_charges
 from .mps import MPS
 
 __all__ = ['ExchangeState', 'flatten_array', 'unflatten_array',
-           'state_to_flat', 'save_flat', 'load', 'load_flat', 'load_mps']
+           'state_to_flat', 'save_flat', 'load', 'load_flat', 'load_mps',
+           'uniform_to_flat', 'load_uniform']
 
 
 def flatten_array(prefix, a):
@@ -205,3 +210,38 @@ def load_mps(path_or_flat, sites):
                                           st.gauge['o']])
         scale_psi_charges(psi, st.gauge['k'], div=True, sites=False)
     return psi
+
+
+def uniform_to_flat(prefix, u):
+    """A uniform MPS (the port's or any with ``get_AL``, ``get_AR``,
+    ``get_AC``, ``get_C``, ``_S`` and ``diagonal_gauge``) as flat arrays
+    under ``prefix``."""
+    flat = {f'{prefix}.L': np.asarray(u.L),
+            f'{prefix}.diagonal_gauge': np.asarray(bool(u.diagonal_gauge))}
+    for i in range(u.L):
+        for name, get in (('AL', u.get_AL), ('AR', u.get_AR),
+                          ('AC', u.get_AC), ('C', u.get_C)):
+            flat.update(flatten_array(f'{prefix}.{name}.{i}', get(i)))
+        if u._S[i] is not None:
+            flat[f'{prefix}.S.{i}'] = np.asarray(u._S[i], np.float64)
+    return flat
+
+
+def load_uniform(flat, prefix, sites):
+    """The uniform MPS :func:`uniform_to_flat` stored under ``prefix``, as
+    the port's :class:`~tenpy_tpu_torch.networks.uniform_mps.UniformMPS`
+    on ``sites``."""
+    from .uniform_mps import UniformMPS
+    chinfo = sites[0].leg.chinfo
+    L = int(flat[f'{prefix}.L'])
+    arrays = {name: [unflatten_array(f'{prefix}.{name}.{i}', flat, chinfo)
+                     for i in range(L)]
+              for name in ('AL', 'AR', 'AC', 'C')}
+    u = UniformMPS(sites, arrays['AL'], arrays['AR'], arrays['AC'],
+                   arrays['C'])
+    for i in range(L):
+        if f'{prefix}.S.{i}' in flat:
+            u._S[i] = np.asarray(flat[f'{prefix}.S.{i}'])
+    u._S[L] = u._S[0]
+    u.diagonal_gauge = bool(flat[f'{prefix}.diagonal_gauge'])
+    return u

@@ -35,6 +35,7 @@ MODULES = ['tenpy_tpu_torch', 'tenpy_tpu_torch.__main__',
            'tenpy_tpu_torch.networks.mps',
            'tenpy_tpu_torch.networks.uniform_mps',
            'tenpy_tpu_torch.networks.purification_mps',
+           'tenpy_tpu_torch.networks.momentum_mps',
            'tenpy_tpu_torch.networks.mpo',
            'tenpy_tpu_torch.networks.mpo_env_builder',
            'tenpy_tpu_torch.networks.exchange',
@@ -57,11 +58,13 @@ MODULES = ['tenpy_tpu_torch', 'tenpy_tpu_torch.__main__',
            'tenpy_tpu_torch.algorithms.vumps',
            'tenpy_tpu_torch.algorithms.disentangler',
            'tenpy_tpu_torch.algorithms.purification',
+           'tenpy_tpu_torch.algorithms.plane_wave_excitation',
            'tenpy_tpu_torch.simulations',
            'tenpy_tpu_torch.simulations.measurement',
            'tenpy_tpu_torch.simulations.post_processing',
            'tenpy_tpu_torch.simulations.simulation',
            'tenpy_tpu_torch.simulations.time_evolution',
+           'tenpy_tpu_torch.simulations.ground_state_search',
            'chip_smoke', 'profile_torch_sweep']
 
 

@@ -33,6 +33,8 @@ chi=256 Hubbard-cylinder file and the ramp references::
         tests/benchmark_data/ramp_drift_reference.npz
     python tests/torch_exchange.py --write-simulation \
         tests/benchmark_data/simulation_reference.npz
+    python tests/torch_exchange.py --write-excitations \
+        tests/benchmark_data/excitation_reference.npz
     python tests/torch_exchange.py --write-time-evolution \
         tests/benchmark_data/time_evolution_reference.npz
     python tests/torch_exchange.py --write-vumps \
@@ -2160,6 +2162,344 @@ def purification_reference():
               flush=True)
     return flat
 
+# ============================================================ excitations
+# tests/test_torch_excitations.py runs the port on the cases of
+# tests/test_plane_wave_excitation.py and tests/test_excitation_simulations.py
+# (and the sparse wrappers and direct-sum Krylov vectors on small operators)
+# from the states tenpy_tpu made, and holds it to tenpy_tpu's runs in
+# tests/benchmark_data/excitation_reference.npz (--write-excitations):
+# energies, gaps and gauge-invariant checks, never tensors.  chip_smoke.py
+# phase 14b holds the card to the charged-magnon case (the chi=24 uniform
+# state of the S=1 chain).
+EX_REF = os.path.join(_ROOT, 'tests', 'benchmark_data',
+                      'excitation_reference.npz')
+EX_CASES = ('construct_orthogonal', 'tfi', 'multi', 'haldane',
+            'sim_orthogonal', 'sim_builder', 'sim_plane_wave', 'operators')
+EX_G = 1.5
+EX_MOMENTA = (0., np.pi / 2)
+EX_TFI_INF = {'L': 2, 'J': 1., 'g': EX_G, 'bc_MPS': 'infinite',
+              'conserve': None}
+EX_SPIN1 = {'S': 1, 'L': 2, 'Jx': 1., 'Jy': 1., 'Jz': 1.,
+            'bc_MPS': 'infinite', 'conserve': 'Sz'}
+EX_VUMPS_TFI = {'max_sweeps': 30, 'max_E_err': 1e-13, 'max_split_err': 1e-9,
+                'check_overlap': False}
+EX_VUMPS_SPIN1 = {'max_sweeps': 40, 'max_E_err': 1e-12,
+                  'max_split_err': 1e-7, 'check_overlap': False}
+# the direct-sum Krylov runs: 8 steps in a space of 10 dimensions
+EX_KRYLOV = {'N_max': 8, 'N_min': 8, 'P_tol': 0.}
+EX_GMRES = {'N_max': 8, 'res': 1e-13}
+
+
+class _EX(_VU):
+    """The modules of one package that the excitation cases use."""
+
+    def __init__(self, package):
+        super().__init__(package)
+        if package == 'jax':
+            from tenpy_tpu.algorithms import plane_wave_excitation, exact_diag
+            from tenpy_tpu.linalg import krylov_based, sparse
+            from tenpy_tpu.models import spins
+            from tenpy_tpu.simulations import ground_state_search
+        else:
+            from tenpy_tpu_torch.algorithms import plane_wave_excitation, \
+                exact_diag
+            from tenpy_tpu_torch.linalg import krylov_based, sparse
+            from tenpy_tpu_torch.models import spins
+            from tenpy_tpu_torch.simulations import ground_state_search
+        self.pwe, self.exact_diag = plane_wave_excitation, exact_diag
+        self.krylov, self.sparse = krylov_based, sparse
+        self.SpinChain = spins.SpinChain
+        self.gss = ground_state_search
+
+    def ed_spectrum(self, H):
+        ed = self.exact_diag.ExactDiag.from_H_mpo(H)
+        ed.build_full_H_from_mpo()
+        return np.linalg.eigvalsh(np.asarray(ed.full_H.to_ndarray()))
+
+
+def uniform_flat(prefix, u):
+    """A UniformMPS of either package under ``prefix``
+    (:func:`tenpy_tpu_torch.networks.exchange.uniform_to_flat`)."""
+    return exchange.uniform_to_flat(prefix, u)
+
+
+def load_uniform(flat, prefix, sites):
+    """The state :func:`uniform_flat` stored under ``prefix`` as the
+    port's UniformMPS on ``sites``."""
+    return exchange.load_uniform(flat, prefix, sites)
+
+
+def ex_operator_input(package):
+    """Seeded small operators and vectors in ``package``: a U(1) leg of
+    sectors 2, 5, 2; hermitian ``H1``, ``H2`` and a coupling ``C``
+    (complex, charge-conserving), vectors ``v``, ``w``, ``o`` in the
+    middle sector (``o`` normalized)."""
+    ex = _EX(package)
+    chinfo = ex.charges.ChargeInfo([1], ['N'])
+    q = np.array([0, 0, 1, 1, 1, 1, 1, 2, 2])
+    leg = ex.charges.LegCharge.from_qflat(chinfo, q.reshape(-1, 1), +1)
+    mask = q[:, None] == q[None, :]
+    rng = np.random.default_rng(11)
+    n = len(q)
+
+    def cplx(shape):
+        return rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+
+    def herm():
+        a = cplx((n, n)) * mask
+        return a + a.conj().T
+
+    mats = {'H1': herm(), 'H2': herm(), 'C': cplx((n, n)) * mask}
+    vecs = {k: cplx(n) * (q == 1) for k in ('v', 'w', 'o')}
+    vecs['o'] = vecs['o'] / np.linalg.norm(vecs['o'])
+    res = {k: ex.npc.Array.from_ndarray(a, [leg, leg.conj()],
+                                        labels=['p', 'p*'])
+           for k, a in mats.items()}
+    res.update({k: ex.npc.Array.from_ndarray(a, [leg], qtotal=[1],
+                                             labels=['p'])
+                for k, a in vecs.items()})
+    return res
+
+
+def ex_operators(package, arrays):
+    """``NpcLinearOperator`` s of ``package`` on the arrays of
+    :func:`ex_operator_input`: ``op(M)`` applies a matrix, ``block`` the
+    hermitian direct-sum operator ``[[H1, C], [C^dagger, H2]]`` on
+    two-vector lists."""
+    ex = _EX(package)
+    npc = ex.npc
+
+    class Mat(ex.sparse.NpcLinearOperator):
+        def __init__(self, M):
+            self.M = M
+
+        def matvec(self, v):
+            return npc.tensordot(self.M, v, axes=[['p*'], ['p']])
+
+        def adjoint(self):
+            return Mat(self.M.conj().itranspose(['p', 'p*']))
+
+    Ch = arrays['C'].conj().itranspose(['p', 'p*'])
+
+    class Block(ex.sparse.NpcLinearOperator):
+        def matvec(self, v):
+            a, b = v
+            return [Mat(arrays['H1']).matvec(a) + Mat(arrays['C']).matvec(b),
+                    Mat(Ch).matvec(a) + Mat(arrays['H2']).matvec(b)]
+
+    return Mat, Block()
+
+
+def _dense(v):
+    if isinstance(v, list):
+        return np.concatenate([_dense(x) for x in v])
+    return np.asarray(v.to_ndarray())
+
+
+def excitation_case(package, case, inputs=None):
+    """One of :data:`EX_CASES` in ``package`` ('jax' or 'torch'); a flat
+    dict of its values under ``<case>.``.  ``inputs``: tenpy_tpu's flat
+    reference, whose start states the port reads (tenpy_tpu makes
+    them)."""
+    import warnings
+    warnings.simplefilter('ignore')
+    ex = _EX(package)
+    out = {}
+    kw = ex.kw
+
+    def tfi(L=2, bc='infinite'):
+        return ex.tf_ising.TFIChain({'L': L, 'J': 1., 'g': EX_G,
+                                     'bc_MPS': bc, 'conserve': None})
+
+    def dmrg_state(key, m, init, bc, opts):
+        """tenpy_tpu's ground state ``key`` by dmrg.run: made here, or
+        read; returns ``(psi, E)``."""
+        if inputs is not None:
+            return (load_state(inputs, f'{case}.{key}', m.lat.mps_sites()),
+                    float(inputs[f'{case}.{key}_E']))
+        psi = ex.mps.MPS.from_product_state(m.lat.mps_sites(), init, bc=bc)
+        info = ex.dmrg.run(psi, m, opts, **kw)
+        out.update(state_flat(f'{case}.{key}', psi))
+        out[f'{case}.{key}_E'] = np.asarray(float(info['E']))
+        return psi, float(info['E'])
+
+    def uniform(key, m, make):
+        """tenpy_tpu's uniform state ``key``: made here, or read."""
+        if inputs is not None:
+            return load_uniform(inputs, f'{case}.{key}', m.lat.mps_sites())
+        u = make()
+        out.update(uniform_flat(f'{case}.{key}', u))
+        return u
+
+    def vumps_state(m, init, chi, sweeps, vumps_opts):
+        def make():
+            psi = ex.mps.MPS.from_product_state(m.lat.mps_sites(), init,
+                                                bc='infinite')
+            ex.dmrg.run(psi, m, {'trunc_params': {'chi_max': chi,
+                                                  'svd_min': 1e-10},
+                                 'max_sweeps': sweeps, 'mixer': True}, **kw)
+            eng = ex.vumps.SingleSiteVUMPSEngine(psi, m, dict(vumps_opts),
+                                                 **kw)
+            eng.run()
+            return eng.psi
+        return make
+
+    if case == 'construct_orthogonal':
+        m = tfi()
+        psi, _ = dmrg_state('psi0', m, ['up', 'up'], 'infinite', {
+            'trunc_params': {'chi_max': 8, 'svd_min': 1e-10},
+            'max_sweeps': 8, 'mixer': True})
+        AL = psi.get_B(0, 'A')
+        VL = ex.pwe.construct_orthogonal(AL)
+        ov = ex.npc.tensordot(VL.conj(), AL, axes=[['vL*', 'p*'],
+                                                   ['vL', 'p']])
+        idty = ex.npc.tensordot(VL.conj(), VL, axes=[['vL*', 'p*'],
+                                                     ['vL', 'p']])
+        out[f'{case}.ov'] = np.asarray(float(ex.npc.norm(ov)))
+        out[f'{case}.idty'] = np.asarray(float(ex.npc.norm(
+            idty - ex.npc.eye_like(idty, 0))))
+        out[f'{case}.n_complement'] = np.asarray(VL.get_leg('vR').ind_len)
+    elif case == 'tfi':
+        m = tfi()
+        u = uniform('u', m, vumps_state(m, ['up', 'up'], 12, 10,
+                                        EX_VUMPS_TFI))
+        pwe = ex.pwe.PlaneWaveExcitationEngine(
+            u, m, {'lanczos_params': {'N_max': 40}}, **kw)
+        for k, p in enumerate(EX_MOMENTA):
+            Es, psis, N = pwe.run(p)
+            out[f'{case}.E{k}'] = np.asarray(float(np.real(Es[0])))
+            out[f'{case}.L{k}'] = np.asarray(psis[0].L)
+        out[f'{case}.lambda_C1'] = np.asarray(pwe.lambda_C1)
+        out[f'{case}.energy_density'] = np.asarray(pwe.energy_density)
+    elif case == 'multi':
+        m = tfi()
+
+        def make():
+            psi = ex.mps.MPS.from_product_state(m.lat.mps_sites(),
+                                                ['up', 'up'], bc='infinite')
+            ex.dmrg.run(psi, m, {'trunc_params': {'chi_max': 16,
+                                                  'svd_min': 1e-12},
+                                 'max_sweeps': 40, 'mixer': True}, **kw)
+            psi.canonical_form()
+            return ex.uniform_mps.UniformMPS.from_MPS(psi)
+        u = uniform('u', m, make)
+        for k, p in enumerate(EX_MOMENTA):
+            e1 = ex.pwe.PlaneWaveExcitationEngine(
+                u, m, {'lanczos_params': {'N_max': 40}}, **kw)
+            out[f'{case}.E1_{k}'] = np.asarray(float(np.real(
+                e1.run(p)[0][0])))
+            for size in (1, 2):
+                ms = ex.pwe.MultiSitePlaneWaveExcitationEngine(
+                    u, m, {'excitation_size': size,
+                           'lanczos_params': {'N_max': 40}})
+                Es, psis, N = ms.run(p)
+                out[f'{case}.Ems{size}_{k}'] = np.asarray(float(np.real(
+                    Es[0])))
+                out[f'{case}.n_sites{size}_{k}'] = np.asarray(
+                    psis[0].n_sites)
+    elif case == 'haldane':
+        m = ex.SpinChain(dict(EX_SPIN1))
+        u = uniform('u', m, vumps_state(m, ['1.0', '-1.0'], 24, 14,
+                                        EX_VUMPS_SPIN1))
+        pwe = ex.pwe.PlaneWaveExcitationEngine(
+            u, m, {'lanczos_params': {'N_max': 60}}, **kw)
+        Es, psis, N = pwe.run(np.pi, qtotal_change=[2])
+        out[f'{case}.gap'] = np.asarray(float(np.real(Es[0])))
+        out[f'{case}.N'] = np.asarray(N)
+        out[f'{case}.chi'] = np.asarray(u.chi)
+    elif case in ('sim_orthogonal', 'sim_builder'):
+        L = 8 if case == 'sim_orthogonal' else 6
+        chi = 32 if L == 8 else 16
+        m = tfi(L, 'finite')
+        psi, E = dmrg_state('psi0', m, ['up'] * L, 'finite', {
+            'trunc_params': {'chi_max': chi, 'svd_min': 1e-12},
+            'max_sweeps': 15 if L == 8 else 10})
+        w = ex.ed_spectrum(m.H_MPO)
+        opts = {'model_class': 'TFIChain',
+                'model_params': {'L': L, 'J': 1., 'g': EX_G,
+                                 'bc_MPS': 'finite', 'conserve': None},
+                'algorithm_class': 'TwoSiteDMRGEngine',
+                'algorithm_params': {'trunc_params': {'chi_max': chi,
+                                                      'svd_min': 1e-12},
+                                     'max_sweeps': 20 if L == 8 else 15,
+                                     'min_sweeps': 6 if L == 8 else 4},
+                'N_excitations': 2 if L == 8 else 1, 'save_psi': False,
+                'output_filename': None, 'ground_state_energy': E}
+        if L == 6:
+            opts['initial_state_params'] = {
+                'randomize_params': {'N_steps': 3},
+                'use_highest_excitation': False}
+        sim = ex.gss.OrthogonalExcitations(opts, ground_state_data=psi,
+                                           **kw)
+        with sim:
+            res = sim.run()
+        out[f'{case}.gaps'] = np.asarray(res['excitation_energies'])
+        out[f'{case}.ed_gaps'] = np.asarray(w[1:3] - w[0])
+        if L == 6:
+            sim.options['initial_state_params'] = {}
+            builder = ex.gss.ExcitationInitialState(
+                sim, {'use_highest_excitation': False,
+                      'randomize_params': {'N_steps': 1}})
+            out[f'{case}.overlap'] = np.asarray(abs(complex(
+                builder.run().overlap(sim.ground_state))))
+    elif case == 'sim_plane_wave':
+        m = tfi()
+        u = uniform('u', m, vumps_state(m, ['up', 'up'], 12, 10,
+                                        EX_VUMPS_TFI))
+        sim = ex.gss.PlaneWaveExcitations(
+            {'model_class': 'TFIChain', 'model_params': dict(EX_TFI_INF),
+             'algorithm_params': {'lanczos_params': {'N_max': 40}},
+             'momenta': list(EX_MOMENTA), 'save_psi': False,
+             'output_filename': None}, ground_state_data=u, **kw)
+        with sim:
+            res = sim.run()
+        out[f'{case}.momenta'] = np.asarray(res['momenta'])
+        out[f'{case}.energies'] = np.asarray(res['excitation_energies'])
+    elif case == 'operators':
+        arrays = ex_operator_input(package)
+        Mat, block = ex_operators(package, arrays)
+        sp, kr = ex.sparse, ex.krylov
+        H1, H2, v, w, o = (arrays[k] for k in ('H1', 'H2', 'v', 'w', 'o'))
+        results = {
+            'sum': sp.SumNpcLinearOperator(Mat(H1), Mat(H2)).matvec(v),
+            'shift': sp.ShiftNpcLinearOperator(Mat(H1), 0.7).matvec(v),
+            'boost': sp.BoostNpcLinearOperator(Mat(H1), [2.5], [o]
+                                               ).matvec(v),
+            'ortho': sp.OrthogonalNpcLinearOperator(Mat(H1), [o]).matvec(v),
+            'sum_adj': sp.SumNpcLinearOperator(Mat(H1), Mat(arrays['C'])
+                                               ).adjoint().matvec(v),
+            'shift_adj': sp.ShiftNpcLinearOperator(Mat(arrays['C']), 0.3j
+                                                   ).adjoint().matvec(v),
+            'boost_list': sp.BoostNpcLinearOperator(block, [1.5], [[o, w]]
+                                                    ).matvec([v, w])}
+        for k, r in results.items():
+            out[f'{case}.{k}'] = _dense(r)
+        E0, psi0, N = kr.LanczosGroundState(block, [v, w],
+                                            dict(EX_KRYLOV)).run()
+        out[f'{case}.lanczos_E'] = np.asarray(E0)
+        out[f'{case}.lanczos_psi'] = _dense(psi0)
+        evals, _, _ = kr.Arnoldi(block, [v, w], dict(
+            EX_KRYLOV, which='SR', num_ev=2)).run()
+        out[f'{case}.arnoldi_E'] = np.asarray(evals)
+        x, res = kr.GMRES(sp.ShiftNpcLinearOperator(block, 9.),
+                          [v * 0., w * 0.], [v, w], dict(EX_GMRES)).run()
+        out[f'{case}.gmres_x'] = _dense(x)
+    else:
+        raise ValueError(case)
+    return out
+
+
+def excitation_reference():
+    """tenpy_tpu's runs of every case of :data:`EX_CASES`."""
+    flat = {}
+    for case in EX_CASES:
+        t0 = time.time()
+        res = excitation_case('jax', case)
+        flat.update(res)
+        print(f"{case}: {time.time() - t0:.1f} s, {len(res)} values",
+              flush=True)
+    return flat
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2189,6 +2529,8 @@ def main(argv=None):
                     help='output .npz path (VUMPS references)')
     ap.add_argument('--write-purification',
                     help='output .npz path (purification references)')
+    ap.add_argument('--write-excitations',
+                    help='output .npz path (excitation references)')
     ap.add_argument('--cases', nargs='+',
                     help='write-back or Hofstadter cases to (re)compute')
     args = ap.parse_args(argv)
@@ -2213,7 +2555,8 @@ def main(argv=None):
                        (args.write_time_evolution,
                         time_evolution_reference),
                        (args.write_vumps, vumps_reference),
-                       (args.write_purification, purification_reference)):
+                       (args.write_purification, purification_reference),
+                       (args.write_excitations, excitation_reference)):
         if path:
             exchange.save_flat(path, make())
             print(f"wrote {path} ({os.path.getsize(path) / 1e6:.3f} MB)",
