@@ -171,21 +171,55 @@ Phases (any failure exits nonzero):
    ``DEVICE_EXCITATION_THRESHOLD``), and the kernel against its plain
    version on one transfer-matrix step of the right sum at chi=128,
    timed;
+15. segment boundary conditions (``OrthogonalExcitations`` of an infinite
+   ground state and ``TopologicalExcitations``, ``device='cuda'``; no
+   ``device_K``: the DMRG engine's own threshold sends every two-site
+   update from N=256 up to the packed Lanczos on the card, the
+   orthogonalized ones projected there, ``P H P v`` per matvec).  15a:
+   phase 14's chi=128 S=1 state (``to_MPS()``) cut to a segment of 16
+   unit cells in its fixed-point environments, ``Sp`` at the centre
+   site, two excitations in the Delta Sz = +1 sector at chi_max 128, the
+   second projected against the first (eight sweeps each): the first gap
+   above the Haldane gap and below it plus twice the box estimate, E2 >=
+   E1 - 1e-8,
+   |<psi2|psi1>| < 1e-6, both states of charge +2, every update from
+   N=256 up on the card (the projected ones counted apart), launches 4
+   per Lanczos step; at the centre the card's projected eigensolve
+   against the host's on the same effective H (E 1e-10 relative, Ritz
+   vectors 1 - 1e-8, their overlaps with the projected vectors equal),
+   both routes timed; the kernel against its plain version on the
+   centre's matvec, timed; 15b: the two broken ground states of the
+   ferromagnetic TFI chain (g=0.7) by ``dmrg.run`` from the +-x product
+   states, glued by ``TopologicalExcitations`` on 16 unit cells and
+   relaxed on the card: the kink above 2(J - g) and within the box
+   estimate, the glued state a valid segment; both routes of a projected
+   update (the glued state against the kink) timed at a bond of N in
+   256-1024;
 then a JSON line on the kernels (the f64 mode, the complex128 mode, the
 complex128 mode on the TEBD shapes, the f64 mode on the host DMRG's and
 on the simulation's shapes, the complex128 mode on TDVP's two- and
-one-site matvecs, VUMPS's four matvecs, the purification gate and the
-plane-wave transfer step) and, last, ``{"ok": true,
-"device": ...}``.
+one-site matvecs, VUMPS's four matvecs, the purification gate, the
+plane-wave transfer step and the projected segment matvec) and, last,
+``{"ok": true, "device": ...}``.
 
-Run from the root of a checkout: ``python3 chip_smoke.py``.
+The phases run in three processes on the one card: this one runs 1-9 and
+12b, worker B 10, 13, 12a and 12c, worker C 11, 14 and 15 (``WORKERS``);
+a worker's failure fails the smoke, and the workers end with it.
+
+Run from the root of a checkout: ``python3 chip_smoke.py``; one worker's
+phases alone: ``python3 chip_smoke.py --worker C out.json``.
 """
 
+import contextlib
 import copy
+import fcntl
 import json
 import os
+import shutil
 import statistics
 import subprocess
+import sys
+import tempfile
 import time
 
 import numpy as np
@@ -428,19 +462,49 @@ def cuda_ms(fn, reps=20):
     events).  A spin on the card queued ahead of the first event keeps it
     busy while the host enqueues ``fn``'s launches, so the events bracket
     device time and not the host's launch overhead (a function that
-    synchronises with the host inside is timed with its host time)."""
-    fn()
-    times = []
-    for _ in range(reps):
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SPIN_CYCLES)
-        t0.record()
+    synchronises with the host inside is timed with its host time).  The
+    smoke's processes take turns here (``timing_lock``)."""
+    with timing_lock():
         fn()
-        t1.record()
-        torch.cuda.synchronize()
-        times.append(t0.elapsed_time(t1))
+        times = []
+        for _ in range(reps):
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SPIN_CYCLES)
+            t0.record()
+            fn()
+            t1.record()
+            torch.cuda.synchronize()
+            times.append(t0.elapsed_time(t1))
     return statistics.median(times)
+
+
+@contextlib.contextmanager
+def timing_lock():
+    """Hold the lock file that the smoke's processes share (``SMOKE_LOCK``
+    in the environment), so that no two of them time the card at once."""
+    path = os.environ.get('SMOKE_LOCK')
+    if path is None:
+        yield
+        return
+    with open(path, 'a') as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+@contextlib.contextmanager
+def host_threads(n, tag):
+    """Run the block on ``n`` torch host threads, restored after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(n)
+    log(f"[{tag}] host threads {n} (the process's default {threads})")
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
 
 
 def rel_err(x, ref):
@@ -3024,26 +3088,28 @@ def phase_vumps_yaml(smi):
     shutil.rmtree(tmp, ignore_errors=True)
 
 
-def phase_vumps(smi, hof_state):
-    """Phase 12: 12a, 12b, 12c on VU_HOST_THREADS host threads (restored
-    after); returns the launches and matvec measurements of the four VUMPS
-    kernel entries."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(VU_HOST_THREADS)
-    log(f"[12] host threads {VU_HOST_THREADS} (the process's default "
-        f"{threads})")
-    try:
+def phase_vumps_real(smi):
+    """Phase 12a and 12c on VU_HOST_THREADS host threads; returns the
+    launches and matvec measurements of the two f64 VUMPS kernel
+    entries."""
+    with host_threads(VU_HOST_THREADS, 12):
         t0 = time.time()
         z_n, t_n, zmv, tmv = phase_vumps_xx(smi)
         t1 = time.time()
-        zc_n, o_n, zcmv, omv = phase_vumps_hofstadter(smi, *hof_state)
-        t2 = time.time()
         phase_vumps_yaml(smi)
-    finally:
-        torch.set_num_threads(threads)
-    log(f"[12] phase wall: 12a {t1 - t0:.1f} s, 12b {t2 - t1:.1f} s, 12c "
-        f"{time.time() - t2:.1f} s")
-    return (z_n, zmv), (t_n, tmv), (zc_n, zcmv), (o_n, omv)
+    log(f"[12] phase wall: 12a {t1 - t0:.1f} s, 12c {time.time() - t1:.1f} s")
+    return (z_n, zmv), (t_n, tmv)
+
+
+def phase_vumps_complex(smi, hof_state):
+    """Phase 12b on VU_HOST_THREADS host threads, from phase 7's state;
+    returns the launches and matvec measurements of the two complex128
+    VUMPS kernel entries."""
+    with host_threads(VU_HOST_THREADS, '12b'):
+        t0 = time.time()
+        zc_n, o_n, zcmv, omv = phase_vumps_hofstadter(smi, *hof_state)
+    log(f"[12] phase wall: 12b {time.time() - t0:.1f} s")
+    return (zc_n, zcmv), (o_n, omv)
 
 
 # finite-temperature purification (phase 13): PurificationTEBD with
@@ -3545,19 +3611,13 @@ def phase_purification_timing(eng, smi):
 def phase_purification(smi):
     """Phase 13: 13a, 13b, 13c on PU_HOST_THREADS host threads (restored
     after); returns 13a's gate launches and the gate's measurement."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(PU_HOST_THREADS)
-    log(f"[13] host threads {PU_HOST_THREADS} (the process's default "
-        f"{threads})")
-    try:
+    with host_threads(PU_HOST_THREADS, 13):
         t0 = time.time()
         eng, launches, gate = phase_purification_xx(smi)
         t1 = time.time()
         phase_purification_canonical(smi)
         t2 = time.time()
         phase_purification_timing(eng, smi)
-    finally:
-        torch.set_num_threads(threads)
     log(f"[13] phase wall: 13a {t1 - t0:.1f} s, 13b {t2 - t1:.1f} s, 13c "
         f"{time.time() - t2:.1f} s")
     return launches, gate
@@ -3987,13 +4047,9 @@ def phase_excitations_timing(smi, eng, X, model, states, tfi, host_128):
 
 def phase_excitations(smi):
     """Phase 14: 14a, 14b, 14c on EX_HOST_THREADS host threads (restored
-    after); returns 14a's launches and the transfer step's
-    measurement."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(EX_HOST_THREADS)
-    log(f"[14] host threads {EX_HOST_THREADS} (the process's default "
-        f"{threads})")
-    try:
+    after); returns 14a's launches, the transfer step's measurement, the
+    model and the chi=128 uniform state."""
+    with host_threads(EX_HOST_THREADS, 14):
         t0 = time.time()
         model, states = ex_ground_states(smi)
         t1 = time.time()
@@ -4004,17 +4060,661 @@ def phase_excitations(smi):
         t3 = time.time()
         tmv = phase_excitations_timing(smi, eng, X, model, states, tfi,
                                        host_s)
-    finally:
-        torch.set_num_threads(threads)
     log(f"[14] phase wall: VUMPS {t1 - t0:.1f} s, 14a {t2 - t1:.1f} s, 14b "
         f"{t3 - t2:.1f} s, 14c {time.time() - t3:.1f} s")
-    return launches, tmv
+    return launches, tmv, model, states[EX_CHI]
+
+
+# segment boundary conditions (phase 15).  15a: phase 14's chi=128 S=1 state
+# (to_MPS) on a segment of SG_ENLARGE unit cells (32 sites), Sp at the
+# centre site, two excitations in the Delta Sz = +1 sector (the second from
+# the ground state again, so that it is projected against the first);
+# 15b: the ferromagnetic TFI chain's kink between its two broken ground
+# states.  DMRG: two-site, no mixer, no device_K (the engine's threshold).
+# 16 cells; eight sweeps per 15a excitation (alone on the card the first
+# one converged in 7, 44-55 s; PERF.md), always eight, so that the second
+# excitation's last sweep, the profiled one, is sweep 8
+SG_ENLARGE = 16
+SG_OP_SITE = SG_ENLARGE          # the centre site of 2 * SG_ENLARGE
+SG_DMRG = {'trunc_params': {'chi_max': 128, 'svd_min': 1e-10},
+           'max_sweeps': 8, 'min_sweeps': 8, 'mixer': False}
+# the box estimate of 15a: the magnon dispersion sqrt(gap^2 + v^2 dk^2)
+# near its minimum (phase 14's gap EX_GAP; v = 2.49, White and Huse 1993)
+# with hard walls at the segment's ends, dk = pi / (2 SG_ENLARGE + 1)
+SG_V = 2.49
+SG_E_ORDER_TOL, SG_OVERLAP_TOL = 1e-8, 1e-6
+SG_NORM_TOL = 1e-10
+# the centre's check: both routes to convergence (P_tol 1e-14, at most
+# SG_CHECK_K steps) from one perturbed guess; with 20 fixed steps each, the
+# unconverged Ritz values of the two routes parted by 9.2e-9 (relative) on
+# the card, as in phase 9 two unconverged Lanczos runs part by roundoff
+SG_CHECK_K, SG_CHECK_NOISE, SG_CHECK_SEED = 60, 1e-2, 15
+SG_CHECK_E_TOL, SG_CHECK_OV_TOL = 1e-10, 1e-8
+SG_CROSS_K = 10
+SG_CROSS_N = (256, 1024)
+SG_HOST_THREADS = 1
+# 15b: J=1, g=0.7; the kink dispersion 2 sqrt(J^2 + g^2 - 2 J g cos k) has
+# its minimum 2 (J - g) = 0.6 at k=0 and curvature J g / (J - g); the same
+# hard-wall box
+SG_TFI = {'L': 2, 'J': 1., 'g': 0.7, 'bc_MPS': 'infinite', 'conserve': None}
+SG_TFI_GS = {'trunc_params': {'chi_max': 64, 'svd_min': 1e-10},
+             'max_sweeps': 30}
+SG_KINK = 2. * (1. - 0.7)
+
+
+def sg_boxes():
+    """The box estimates of 15a (magnon) and 15b (kink) on the segment of
+    SG_ENLARGE two-site cells."""
+    dk = np.pi / (2 * SG_ENLARGE + 1)
+    return (float(np.sqrt(EX_GAP ** 2 + (SG_V * dk) ** 2) - EX_GAP),
+            0.7 / 0.3 * dk ** 2)
+SG_TOPO_DMRG = {'trunc_params': {'chi_max': 64, 'svd_min': 1e-10},
+                'max_sweeps': 8, 'min_sweeps': 4, 'mixer': False}
+
+
+class SegmentProbe:
+    """Within ``with``: every two-site DMRG update's N and route (card or
+    host, projected or not) and, around each card Lanczos, its steps,
+    launches and whether a vector was projected out."""
+
+    def __init__(self):
+        self.updates = []     # (N, on the card)
+        self.card = []        # (projected, steps, launches)
+        self._orig = None
+
+    def __enter__(self):
+        probe = self
+        Eng = dmrg.DMRGEngine
+        orig_diag, orig_dev = Eng.diag, Eng._diag_device_lanczos
+
+        def diag(self, theta):
+            eff, _ = self._base_eff_H()
+            probe.updates.append((eff.N, bool(self._use_device_lanczos())))
+            return orig_diag(self, theta)
+
+        def dev(self, theta):
+            st = self.device_lanczos_stats
+            n0, p0 = gg.LAUNCHES, st['projected']
+            out = orig_dev(self, theta)
+            probe.card.append((st['projected'] > p0, int(out[2]),
+                               gg.LAUNCHES - n0))
+            return out
+
+        self._orig = (orig_diag, orig_dev)
+        Eng.diag, Eng._diag_device_lanczos = diag, dev
+        return self
+
+    def __exit__(self, *exc):
+        dmrg.DMRGEngine.diag, dmrg.DMRGEngine._diag_device_lanczos = \
+            self._orig
+
+    def check(self, tag, projected_expected=True):
+        big = [(N, card) for N, card in self.updates
+               if N >= mc.DEVICE_LANCZOS_THRESHOLD]
+        proj = [c for c in self.card if c[0]]
+        plain = [c for c in self.card if not c[0]]
+        steps = sum(c[1] for c in self.card)
+        launches = sum(c[2] for c in self.card)
+        log(f"[{tag}] two-site updates {len(self.updates)}, "
+            f"{len(big)} with N >= {mc.DEVICE_LANCZOS_THRESHOLD}, "
+            f"{sum(1 for _, c in big if c)} of them on the card: "
+            f"{len(proj)} projected ({sum(c[1] for c in proj)} Lanczos "
+            f"steps, {sum(c[2] for c in proj)} launches), {len(plain)} "
+            f"unprojected ({sum(c[1] for c in plain)} steps, "
+            f"{sum(c[2] for c in plain)} launches); N from "
+            f"{min(N for N, _ in self.updates)} to "
+            f"{max(N for N, _ in self.updates)}")
+        check(big and all(card for _, card in big),
+              f"{tag}: an update from N={mc.DEVICE_LANCZOS_THRESHOLD} up "
+              "did not run on the card")
+        check(len(self.card) == len(big), f"{tag}: card solves differ "
+              "from the updates sent there")
+        check(all(n == 4 * k for _, k, n in self.card)
+              and launches == 4 * steps, f"{tag}: launches are not 4 per "
+              "card Lanczos step")
+        if projected_expected:
+            check(len(proj) > 0, f"{tag}: no projected update ran on the "
+                  "card")
+        return sum(c[2] for c in proj)
+
+
+class sg_lanczos:
+    """Within ``with``: ``eng.lanczos_params`` with ``opts`` set, as they
+    were after."""
+
+    def __init__(self, eng, **opts):
+        self.lp, self.opts = eng.lanczos_params, opts
+
+    def __enter__(self):
+        self.saved = {k: self.lp[k] for k in self.opts if k in self.lp}
+        for k, v in self.opts.items():
+            self.lp[k] = v
+        return self
+
+    def __exit__(self, *exc):
+        for k in self.opts:
+            if k in self.saved:
+                self.lp[k] = self.saved[k]
+            else:
+                del self.lp[k]
+
+
+def sg_route_check(tag, eng, i0, noise_seed):
+    """The card's and the host's Lanczos on the effective H of ``eng``'s
+    update at ``i0`` (projected by its ``orthogonal_to``), each to
+    convergence (P_tol 1e-14, at most SG_CHECK_K steps) from one perturbed
+    guess; returns the effective H and the guess."""
+    eng.i0, eng.move_right = i0, True
+    theta = eng.prepare_update_local()
+    eff = eng.eff_H
+    rng = np.random.default_rng(noise_seed)
+    noise = npc.Array.from_ndarray(rng.standard_normal(theta.shape),
+                                   theta.legs, qtotal=theta.qtotal,
+                                   labels=theta.get_leg_labels(),
+                                   warn_wrong_sector=False)
+    guess = theta + noise * (SG_CHECK_NOISE * npc.norm(theta)
+                             / npc.norm(noise))
+    with sg_lanczos(eng, P_tol=1e-14, device_K=SG_CHECK_K):
+        t0 = time.time()
+        E_dev, th_dev, N_dev, _ = eng._diag_device_lanczos(guess)
+        dev_s = time.time() - t0
+    t0 = time.time()
+    E_host, th_host, N_host = LanczosGroundState(
+        eff, guess, {'N_max': SG_CHECK_K, 'P_tol': 1e-14}).run()
+    host_s = time.time() - t0
+    ov = abs(complex(npc.inner(th_dev.conj(), th_host, axes='range')))
+    e_rel = abs(E_dev - E_host) / abs(E_host)
+    vecs = getattr(eff, 'ortho_vecs', [])
+    ovs = []
+    for o in vecs:
+        if not np.array_equal(o.qtotal, theta.qtotal):
+            continue
+        on = o / npc.norm(o)
+        ovs.append([abs(complex(npc.inner(on.conj(), th, axes='range')))
+                    for th in (th_dev, th_host)] + [float(npc.norm(o))])
+    N = eng._base_eff_H()[0].N
+    log(f"[{tag}] projected update at bond {i0 + 1} (N={N},"
+        f" {len(vecs)} vectors, {len(ovs)} in its sector; guess perturbed "
+        f"by {SG_CHECK_NOISE:g}): card {E_dev:.14f} in {N_dev} steps "
+        f"({dev_s:.2f} s), host {E_host:.14f} in {N_host} steps "
+        f"({host_s:.2f} s): rel {e_rel:.2e}, 1 - |<card|host>| {1 - ov:.2e}; "
+        f"|<o/|o||theta>| card, host (|o|): "
+        + ', '.join(f"{a:.3e}, {b:.3e} ({n:.4f})" for a, b, n in ovs))
+    check(e_rel <= SG_CHECK_E_TOL and 1. - ov <= SG_CHECK_OV_TOL,
+          f"{tag}: the card's projected Lanczos disagrees with the host's")
+    check(len(ovs) > 0, f"{tag}: no projected vector in the update's sector")
+    check(all(abs(a - b) <= SG_CHECK_OV_TOL for a, b, _ in ovs),
+          f"{tag}: the routes' Ritz vectors overlap the projected vectors "
+          "differently")
+    return eff, guess
+
+
+def sg_cross(tag, eng, i0):
+    """Both routes of ``eng``'s (projected) update at ``i0``, SG_CROSS_K
+    fixed Lanczos steps each: host, card's first call (packing and plans)
+    and second; returns the card/host ratio of the second."""
+    eng.i0, eng.move_right = i0, True
+    th = eng.prepare_update_local()
+    t0 = time.time()
+    LanczosGroundState(eng.eff_H, th, {'N_min': SG_CROSS_K,
+                                       'N_max': SG_CROSS_K, 'P_tol': 0.,
+                                       'cutoff': 0.}).run()
+    h_ms = 1e3 * (time.time() - t0)
+    with sg_lanczos(eng, P_tol=0., device_K=SG_CROSS_K):
+        t0 = time.time()
+        eng._diag_device_lanczos(th)
+        cold_ms = 1e3 * (time.time() - t0)
+        t0 = time.time()
+        eng._diag_device_lanczos(th)
+        warm_ms = 1e3 * (time.time() - t0)
+    log(f"[{tag}] both routes at bond {i0 + 1}, N={eng._base_eff_H()[0].N}"
+        f" ({SG_CROSS_K} Lanczos steps): host {h_ms:.2f} ms, card "
+        f"{cold_ms:.2f} ms (first call), {warm_ms:.2f} ms (second): "
+        f"card/host {warm_ms / h_ms:.3f}")
+    return warm_ms / h_ms
+
+
+def phase_segment_orthogonal(smi, model, u):
+    """15a: OrthogonalExcitations of the chi=128 S=1 state on a segment on
+    the card; returns the projected eigensolves' launches and the kernel's
+    measurement on the centre's matvec."""
+    from tenpy_tpu_torch.simulations.ground_state_search import \
+        OrthogonalExcitations
+    t0 = time.time()
+    psi = u.to_MPS()
+    norm0 = float(np.max(psi.norm_test()))
+    if norm0 > SG_NORM_TOL:
+        psi.canonical_form()
+    norm1 = float(np.max(psi.norm_test()))
+    log(f"[15a] phase 14's chi={EX_CHI} state to_MPS: chi {psi.chi}, "
+        f"norm_test {norm0:.2e}" + (f", after canonical_form {norm1:.2e}"
+                                    if norm0 > SG_NORM_TOL else "")
+        + f" ({time.time() - t0:.2f} s)")
+    check(norm1 <= SG_NORM_TOL, "15a: the infinite state is not canonical")
+    opts = {'model_class': 'SpinChain', 'model_params': dict(EX_MODEL),
+            'segment_enlarge': SG_ENLARGE, 'N_excitations': 2,
+            'apply_local_op': {'i': SG_OP_SITE, 'op': 'Sp'},
+            'initial_state_params': {'use_highest_excitation': False},
+            'algorithm_params': copy.deepcopy(SG_DMRG), 'save_psi': False,
+            'output_filename': None, 'log_params': SIM_LOG}
+    gg.LAUNCHES = 0                    # count phase 15a's launches only
+    torch.cuda.reset_peak_memory_stats()
+    sweeps = []
+    orig_run = dmrg.DMRGEngine.run
+
+    def run(self):
+        t1 = time.time()
+        out = orig_run(self)
+        sweeps.append((time.time() - t1, self.sweeps,
+                       dict(self.device_lanczos_stats)))
+        return out
+
+    # the second excitation's last sweep (projected updates) is profiled
+    prof_box = {}
+
+    def sweep(self, optimize=True):
+        if not (optimize and len(sweeps) == 1 and 'prof' not in prof_box
+                and self.sweeps == SG_DMRG['max_sweeps'] - 1):
+            return mc.Sweep.sweep(self, optimize)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t1 = time.time()
+            out = mc.Sweep.sweep(self, optimize)
+            torch.cuda.synchronize()
+            prof_box['s'] = time.time() - t1
+        prof_box['prof'] = prof
+        return out
+
+    dmrg.DMRGEngine.run = run
+    dmrg.DMRGEngine.sweep = sweep
+    n_td, restore = counted_contract()
+    try:
+        with SegmentProbe() as probe, HostDMRGProbe(n_td) as parts:
+            t0 = time.time()
+            sim = OrthogonalExcitations(opts, ground_state_data=psi,
+                                        device='cuda')
+            with sim:
+                res = sim.run()
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+    finally:
+        dmrg.DMRGEngine.run = orig_run
+        del dmrg.DMRGEngine.sweep
+        restore()
+    gaps = [float(g) for g in res['excitation_energies']]
+    gs = sim.ground_state
+    dq = [np.asarray(x.get_total_charge()) - np.asarray(gs.get_total_charge())
+          for x in sim.excitations]
+    ex1, ex2 = sim.excitations
+    ov = abs(complex(ex2.overlap(ex1)))
+    norms = [abs(complex(x.overlap(x))) for x in sim.excitations]
+    log(f"[15a] OrthogonalExcitations on {gs.L} sites (enlarge "
+        f"{SG_ENLARGE}, Sp at site {SG_OP_SITE}, {SG_DMRG}): {wall:.2f} s; "
+        f"energy density {res['ground_state_energy_density']!r}; peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; card "
+        f"{smi}")
+    for k, (sec, n_sw, st) in enumerate(sweeps):
+        log(f"[15a]   excitation {k + 1}: {sec:.2f} s, {n_sw} sweeps "
+            f"({sec / max(n_sw, 1):.2f} s each), card solves {st['plain']} "
+            f"unprojected ({st['plain_steps']} steps) and {st['projected']} "
+            f"projected ({st['projected_steps']} steps)")
+    box = sg_boxes()[0]
+    hi = EX_GAP + 2 * box
+    log(f"[15a] gaps {gaps!r}: the first {gaps[0] - EX_GAP:+.4e} from "
+        f"{EX_GAP} (within ({EX_GAP}, {hi:.6f}): the box estimate "
+        f"{box:.6f}); E2 - E1 {gaps[1] - gaps[0]:+.3e}; |<psi2|psi1>| "
+        f"{ov:.2e}; norms {norms}; charges {[q.tolist() for q in dq]}")
+    check(EX_GAP < gaps[0] < hi, "15a: the first gap is outside the "
+          "Haldane gap's box")
+    check(gaps[1] >= gaps[0] - SG_E_ORDER_TOL, "15a: E2 < E1")
+    check(ov < SG_OVERLAP_TOL, "15a: the two excitations are not "
+          "orthogonal")
+    check(all(int(q[0]) == EX_CHARGE[0] for q in dq), "15a: an excitation "
+          "is not in the Delta Sz = +1 sector")
+    check(all(np.isfinite(g) for g in gaps), "15a: non-finite gap")
+    launches = probe.check('15a')
+    n_up = len(probe.updates)
+    per = {key: 1e3 * sum(t for _, t in parts.parts[key]) / n_up
+           for key in HostDMRGProbe.PARTS if parts.parts[key]}
+    log(f"[15a] per update ({n_up} updates, "
+        f"{sum(sec for sec, _, _ in sweeps):.2f} s in the two runs): "
+        + ', '.join(f"{key} {ms:.2f} ms" for key, ms in per.items()))
+    check('prof' in prof_box, "15a: the second excitation's last sweep was "
+          "not profiled")
+    t0 = time.time()
+    busy, _, kernel_us, rows = device_time(prof_box['prof'])
+    log(f"[15a] the second excitation's last sweep, profiled: "
+        f"{prof_box['s']:.2f} s, device busy {busy / 1e6:.3f} s, idle "
+        f"{100 * (1 - busy / 1e6 / prof_box['s']):.1f}%; the kernel "
+        f"{kernel_us / 1e6:.3f} s (the trace read in {time.time() - t0:.1f} "
+        f"s)")
+    for name, us, n in rows[:4]:
+        log(f"[15a]   {us / 1e6:8.4f} s {n:6d} x  {name[:80]}")
+
+    # the centre update of the second excitation (projected against the
+    # first), card against host, and both routes timed
+    eng = sim.engine
+    i0 = gs.L // 2 - 1
+    eff, guess = sg_route_check('15a', eng, i0, SG_CHECK_SEED)
+    sg_cross('15a', eng, i0)
+    # the kernel on the centre's matvec
+    LPp, RPp, W0p, W1p = eff.orig_operator.pack_operands(eng.device)
+    theta_p = mc.pack_virtual(guess, eng.device)
+    _, calls = recorded_calls(lambda: _matvec_2site_packed(
+        LPp, RPp, W0p, W1p, theta_p))
+    check(len(calls) == 4, "15a: the centre matvec is not four tensordots")
+    tot = measure_contractions(calls, MATVEC_STEPS, '15a')
+    return launches, tot
+
+
+def phase_segment_topological(smi):
+    """15b: the TFI kink between the two broken ground states, glued and
+    relaxed on the card; then both routes of a projected update at a bond
+    of N in SG_CROSS_N."""
+    from tenpy_tpu_torch.models.tf_ising import TFIChain
+    from tenpy_tpu_torch.simulations.ground_state_search import \
+        TopologicalExcitations
+    m = TFIChain(dict(SG_TFI))
+    s2 = 1. / np.sqrt(2.)
+    gs = []
+    t0 = time.time()
+    for vec in ([s2, s2], [s2, -s2]):
+        psi = MPS.from_product_state(m.lat.mps_sites(), [np.array(vec)] * 2,
+                                     bc='infinite')
+        # no mixer: it mixes the broken sectors back into a cat state
+        info = dmrg.run(psi, m, copy.deepcopy(SG_TFI_GS), device='cuda')
+        gs.append(psi)
+        log(f"[15b] broken ground state from {vec}: E {info['E']!r}, chi "
+            f"{psi.chi}, <Sigmax> "
+            f"{float(np.real(psi.expectation_value('Sigmax')[0])):+.6f}")
+    mx = [float(np.real(p.expectation_value('Sigmax')[0])) for p in gs]
+    check(mx[0] > 0.5 and abs(mx[0] + mx[1]) < 1e-6, "15b: the two ground "
+          "states are not the two broken ones")
+    gs_s = time.time() - t0
+    opts = {'model_class': 'TFIChain', 'model_params': dict(SG_TFI),
+            'segment_enlarge': SG_ENLARGE, 'N_excitations': 1,
+            'algorithm_params': copy.deepcopy(SG_TOPO_DMRG),
+            'save_psi': False, 'output_filename': None,
+            'log_params': SIM_LOG}
+    with SegmentProbe() as probe:
+        t0 = time.time()
+        sim = TopologicalExcitations(opts, gs_data_alpha=gs[0],
+                                     gs_data_beta=gs[1], device='cuda')
+        with sim:
+            res = sim.run()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    E = float(res['excitation_energies'][0])
+    glued = sim.ground_state
+    box = sg_boxes()[1]
+    hi = SG_KINK + 2 * box
+    norm = abs(complex(glued.overlap(glued)))
+    log(f"[15b] ground states {gs_s:.2f} s; TopologicalExcitations on "
+        f"{glued.L} sites: {wall:.2f} s, {sim.engine.sweeps} sweeps; kink "
+        f"{E!r}: {E - SG_KINK:+.4e} from 2(J - g) = {SG_KINK} (within "
+        f"({SG_KINK - 1e-6}, {hi:.6f}): the box estimate "
+        f"{box:.6f}); reference energy "
+        f"{res['ground_state_energy']!r}; glued state bc {glued.bc}, chi "
+        f"{max(glued.chi)}, <glued|glued> {norm:.12f}")
+    check(SG_KINK - 1e-6 < E < hi, "15b: the kink energy is outside its box")
+    check(glued.bc == 'segment' and glued.L == 2 * SG_ENLARGE
+          and abs(norm - 1.) < 1e-10, "15b: the glued state is not a valid "
+          "segment")
+    for i in range(glued.L - 1):
+        glued.get_B(i).get_leg('vR').test_contractible(
+            glued.get_B(i + 1).get_leg('vL'))
+    probe.check('15b', projected_expected=False)
+    # both routes of a projected update at a bond of small N: the glued
+    # state (the ground states' chi on every bond) projected against the
+    # relaxed kink (on the relaxed kink itself N is 1,600 at the ends and
+    # up to 16,384 inside)
+    kink = sim.excitations[0]
+    eng = dmrg.TwoSiteDMRGEngine(
+        glued.copy(), sim.model, copy.deepcopy(SG_TOPO_DMRG),
+        orthogonal_to=[kink],
+        resume_data={'init_env_data': dict(sim.init_env_data)},
+        device='cuda')
+    Ns = []
+    for i in range(glued.L - 1):
+        eng.i0, eng.move_right = i, True
+        eng.make_eff_H()
+        Ns.append(eng._base_eff_H()[0].N)
+    inside = [i for i, N in enumerate(Ns)
+              if SG_CROSS_N[0] <= N <= SG_CROSS_N[1]]
+    i_small = inside[len(inside) // 2] if inside else int(np.argmin(
+        [N if N >= SG_CROSS_N[0] else np.inf for N in Ns]))
+    log(f"[15b] N by bond {Ns}: timed at bond {i_small + 1}"
+        + ("" if inside else f" (no bond has N in {SG_CROSS_N})"))
+    sg_cross('15b', eng, i_small)
+
+
+def phase_segment(smi, model, u):
+    """Phase 15: 15a and 15b on SG_HOST_THREADS host threads (restored
+    after); returns 15a's projected launches and its kernel
+    measurement."""
+    with host_threads(SG_HOST_THREADS, 15):
+        t0 = time.time()
+        launches, tot = phase_segment_orthogonal(smi, model, u)
+        t1 = time.time()
+        phase_segment_topological(smi)
+    log(f"[15] phase wall: 15a {t1 - t0:.1f} s, 15b {time.time() - t1:.1f} s")
+    return launches, tot
+
+
+# The phases run in three processes on the one card.  They are host-bound
+# (the card idle 96-99% of phases 9-15, PERF.md section 5), so groups that
+# share no state run side by side: this process runs 1-9 and 12b (which
+# starts from phase 7's state), worker B runs 10, 13, 12a and 12c, worker C
+# 11, 14 and 15.  Each process counts its own launches around its own
+# paths; kernel timings take turns (timing_lock).  The host's cores are
+# shared out among the three as torch threads (a phase that pins its own
+# count still does).
+def run_worker_b(smi):
+    """Phases 10, 13, 12a and 12c; their kernel entries and walls."""
+    kernels, walls, t = {}, [], time.time()
+    kernels['packed_contract_simulation'] = phase_simulation(smi)
+    walls.append(('10', time.time() - t))
+    t = time.time()
+    kernels['packed_contract_purification_gate'] = phase_purification(smi)
+    walls.append(('13', time.time() - t))
+    t = time.time()
+    (kernels['packed_contract_vumps_zero_site'],
+     kernels['packed_contract_vumps_two_site']) = phase_vumps_real(smi)
+    walls.append(('12a,12c', time.time() - t))
+    return kernels, walls
+
+
+def run_worker_c(smi):
+    """Phases 11, 14 and 15; their kernel entries and walls."""
+    kernels, walls, t = {}, [], time.time()
+    e2_n, e1_n, e2mv, e1mv = phase_time_evolution(smi)
+    kernels['packed_contract_tdvp_two_site'] = e2_n, e2mv
+    kernels['packed_contract_tdvp_one_site'] = e1_n, e1mv
+    walls.append(('11', time.time() - t))
+    t = time.time()
+    x_n, xmv, model, u = phase_excitations(smi)
+    kernels['packed_contract_plane_wave_transfer'] = x_n, xmv
+    walls.append(('14', time.time() - t))
+    t = time.time()
+    kernels['packed_contract_segment_orthogonal'] = phase_segment(smi, model,
+                                                                  u)
+    walls.append(('15', time.time() - t))
+    return kernels, walls
+
+
+WORKERS = {'B': run_worker_b, 'C': run_worker_c}
+# torch host threads per process, as shares of the host's cores
+THREAD_SHARE = {'main': 2, 'B': 4, 'C': 4}
+# the workers must have finished this long after the smoke's start
+WORKER_DEADLINE_S = 1150.
+MEASURED = ('max_abs', 'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
+
+
+def share_threads(name):
+    return max(1, (os.cpu_count() or 1) // THREAD_SHARE[name])
+
+
+def worker_main(name, out):
+    """Run worker ``name``'s phases and write their kernel entries and
+    walls to ``out`` as JSON.  Alone, ``python3 chip_smoke.py --worker C
+    out.json`` runs phases 11, 14 and 15 (B: 10, 13, 12a and 12c)."""
+    exit_with_parent()
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available")
+    torch.set_num_threads(share_threads(name))
+    smi = os.environ.get('SMOKE_SMI') or phase_device()
+    kernels, walls = WORKERS[name](smi)
+    with open(out, 'w') as f:
+        json.dump({'walls': walls, 'kernels': {
+            k: [int(n), {key: m[key] if m[key] is None
+                         or isinstance(m[key], str) else float(m[key])
+                         for key in MEASURED}]
+            for k, (n, m) in kernels.items()}}, f)
+
+
+def exit_with_parent():
+    """End this worker once the process that started it is gone."""
+    import threading
+    parent = int(os.environ.get('SMOKE_PARENT', os.getppid()))
+
+    def watch():
+        while os.getppid() == parent:
+            time.sleep(1.)
+        os._exit(1)
+
+    threading.Thread(target=watch, daemon=True).start()
+
+
+@contextlib.contextmanager
+def workers(smi, tmp):
+    """Start the worker processes; kill any still running on the way out."""
+    procs = {}
+    try:
+        for name in WORKERS:
+            n = str(share_threads(name))
+            env = dict(os.environ, SMOKE_SMI=smi,
+                       SMOKE_PARENT=str(os.getpid()), OMP_NUM_THREADS=n,
+                       MKL_NUM_THREADS=n, OPENBLAS_NUM_THREADS=n)
+            procs[name] = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), '--worker', name,
+                 os.path.join(tmp, f'{name}.json')],
+                env=env)
+        yield procs
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+
+
+def check_workers(procs):
+    """Fail as soon as a worker has failed."""
+    for name, p in procs.items():
+        rc = p.poll()
+        check(rc is None or rc == 0, f"worker {name} failed (exit code {rc})")
+
+
+def join_workers(procs, tmp, t_start):
+    """Wait for the workers; their kernel entries and walls."""
+    kernels, walls = {}, []
+    for name, p in procs.items():
+        try:
+            rc = p.wait(timeout=max(
+                1., WORKER_DEADLINE_S - (time.time() - t_start)))
+        except subprocess.TimeoutExpired:
+            raise RuntimeError(f"worker {name} still running "
+                               f"{WORKER_DEADLINE_S:.0f} s after the start")
+        check(rc == 0, f"worker {name} failed (exit code {rc})")
+        with open(os.path.join(tmp, f'{name}.json')) as f:
+            res = json.load(f)
+        kernels.update({k: tuple(v) for k, v in res['kernels'].items()})
+        walls += [(f'{w} ({name})', t) for w, t in res['walls']]
+    return kernels, walls
 
 
 def main():
     t_start = time.time()
     smi = phase_device()
     phase_build()
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_')
+    os.environ['SMOKE_LOCK'] = os.path.join(tmp, 'timing.lock')
+    try:
+        with workers(smi, tmp) as procs:
+            torch.set_num_threads(share_threads('main'))
+            log(f"[2] workers {', '.join(WORKERS)} started; torch host "
+                f"threads per process: " + ', '.join(
+                    f"{name} {share_threads(name)}" for name in THREAD_SHARE))
+            kernels, max_abs_synth, walls = main_phases(smi, procs, t_start)
+            t = time.time()
+            worker_kernels, worker_walls = join_workers(procs, tmp, t_start)
+            log(f"[16] waited {time.time() - t:.1f} s for the workers")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    kernels.update(worker_kernels)
+    log("[16] wall by phase: " + ', '.join(
+        f"[{name}] {t:.1f} s" for name, t in walls + worker_walls))
+    m = {k: v[1]['max_abs'] for k, v in kernels.items()}
+    p = 'packed_contract_'
+    log(f"[16] kernel max_abs_err: synthetic f64 "
+        f"{max_abs_synth[torch.float64]:.2e}, complex128 "
+        f"{max_abs_synth[torch.complex128]:.2e}; main-path shapes f64 "
+        f"{m['packed_contract']:.2e}, complex128 {m[p + 'complex128']:.2e}, "
+        f"TEBD complex128 {m[p + 'complex128_tebd']:.2e}, host DMRG f64 "
+        f"{m[p + 'host_dmrg']:.2e}, simulation f64 {m[p + 'simulation']:.2e}"
+        f", TDVP complex128 two-site {m[p + 'tdvp_two_site']:.2e}, one-site "
+        f"{m[p + 'tdvp_one_site']:.2e}; VUMPS f64 zero-site "
+        f"{m[p + 'vumps_zero_site']:.2e}, two-site "
+        f"{m[p + 'vumps_two_site']:.2e}, complex128 zero-site "
+        f"{m[p + 'vumps_zero_site_complex128']:.2e}, one-site "
+        f"{m[p + 'vumps_one_site_complex128']:.2e}; purification gate f64 "
+        f"{m[p + 'purification_gate']:.2e}; plane-wave transfer step "
+        f"complex128 {m[p + 'plane_wave_transfer']:.2e}; projected segment "
+        f"matvec f64 {m[p + 'segment_orthogonal']:.2e}")
+
+    def entry(name):
+        n, m = kernels[name]
+        return {'name': name, 'route': 'cuda',
+                'source': 'tenpy_tpu_torch/csrc/packed_contract.cu',
+                'replaces': 'tenpy_tpu/linalg/pallas_gemm.py:124',
+                'launches': n, 'max_abs_err': m['max_abs'], 'ms': m['ms'],
+                'plain_ms': m['plain_ms'], 'bound_ms': m['bound_ms'],
+                'bound_by': m['bound_by'], 'library_ms': m['library_ms']}
+
+    # times, bound and library time: per matvec (4 tensordots), f64 at
+    # chi=256 (Hubbard), complex128 at chi=128 (Hofstadter), f64 at the
+    # centre of the chi=512 XX chain (host DMRG); per TEBD bond update (3
+    # tensordots), complex128 at chi=512 (XXZ quench); per TDVP matvec at
+    # the centre of the chi=256 XX chain, complex128: two-site (4
+    # tensordots) and one-site (3); per VUMPS matvec of the last update,
+    # f64 on the chi=256 XX chain: zero-site (2 tensordots) and two-site
+    # (4), complex128 on the chi=128 Hofstadter cylinder: zero-site and
+    # one-site (3); per purification gate (1 tensordot), f64 on the
+    # saturated chi=256 bond of the XX chain's purification; per
+    # transfer-matrix step of a plane-wave excitation's right sum (3
+    # tensordots), complex128 on the chi=128 S=1 chain; per matvec of a
+    # projected segment update (4 tensordots), f64 at the centre of the
+    # S=1 chain's chi=128 segment
+    names = ['packed_contract', 'complex128', 'complex128_tebd', 'host_dmrg',
+             'simulation', 'tdvp_two_site', 'tdvp_one_site',
+             'vumps_zero_site', 'vumps_two_site',
+             'vumps_zero_site_complex128', 'vumps_one_site_complex128',
+             'purification_gate', 'plane_wave_transfer', 'segment_orthogonal']
+    names = names[:1] + [p + n for n in names[1:]]
+    check(sorted(names) == sorted(kernels), "the kernel entries differ from "
+          "the phases' measurements")
+    print(json.dumps({'kernels': [entry(name) for name in names]}),
+          flush=True)
+    log(f"[16] chip_smoke wall {time.time() - t_start:.1f} s")
+    print(smi, flush=True)
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}), flush=True)
+
+
+def main_phases(smi, procs, t_start):
+    """Phases 3-9 and 12b in this process, the workers checked between
+    phases; their kernel entries, the synthetic shapes' errors and the
+    walls."""
     max_abs_synth = phase_kernel()
     hof = {k[len('chi128.'):]: v
            for k, v in exchange.load_flat(HOF_REF).items()
@@ -4039,92 +4739,38 @@ def main():
 
     def lap(name):
         walls.append((name, time.time() - t_start - sum(t for _, t in walls)))
+        check_workers(procs)
 
+    k = {}
     eng = phase_setup(flat)
     sites = list(eng.psi.sites)
     check_setup(eng, state)
     mv = phase_matvec(eng)
-    launches = phase_main(eng, ref)
+    k['packed_contract'] = phase_main(eng, ref), mv
     phase_write_back(eng, sites, wb)
     lap('4-5')
     phase_ramp()
     lap('6')
     z_launches, zmv, hof_state = phase_hofstadter(hof)
+    k['packed_contract_complex128'] = z_launches, zmv
     lap('7')
     psi_gs = phase_tebd_ground_state()
     tebd_eng, t_launches, _ = phase_tebd_quench(psi_gs, smi)
     phase_tebd_jax_case()
-    tmv = phase_tebd_kernel(tebd_eng)
+    k['packed_contract_complex128_tebd'] = (t_launches,
+                                            phase_tebd_kernel(tebd_eng))
     lap('8')
-    h_launches, hmv = phase_host_dmrg(smi)
+    k['packed_contract_host_dmrg'] = phase_host_dmrg(smi)
     lap('9')
-    s_launches, smv = phase_simulation(smi)
-    lap('10')
-    e2_launches, e1_launches, e2mv, e1mv = phase_time_evolution(smi)
-    lap('11')
-    vu = phase_vumps(smi, hof_state)
-    lap('12')
-    p_launches, pmv = phase_purification(smi)
-    lap('13')
-    x_launches, xmv = phase_excitations(smi)
-    lap('14')
-    log("[15] wall by phase: " + ', '.join(f"[{name}] {t:.1f} s"
-                                           for name, t in walls))
-    log(f"[15] kernel max_abs_err: synthetic f64 "
-        f"{max_abs_synth[torch.float64]:.2e}, complex128 "
-        f"{max_abs_synth[torch.complex128]:.2e}; main-path shapes f64 "
-        f"{mv['max_abs']:.2e}, complex128 {zmv['max_abs']:.2e}, TEBD "
-        f"complex128 {tmv['max_abs']:.2e}, host DMRG f64 "
-        f"{hmv['max_abs']:.2e}, simulation f64 {smv['max_abs']:.2e}, TDVP "
-        f"complex128 two-site {e2mv['max_abs']:.2e}, one-site "
-        f"{e1mv['max_abs']:.2e}; VUMPS f64 zero-site "
-        f"{vu[0][1]['max_abs']:.2e}, two-site {vu[1][1]['max_abs']:.2e}, "
-        f"complex128 zero-site {vu[2][1]['max_abs']:.2e}, one-site "
-        f"{vu[3][1]['max_abs']:.2e}; purification gate f64 "
-        f"{pmv['max_abs']:.2e}; plane-wave transfer step complex128 "
-        f"{xmv['max_abs']:.2e}")
-
-    def entry(name, n, m):
-        return {'name': name, 'route': 'cuda',
-                'source': 'tenpy_tpu_torch/csrc/packed_contract.cu',
-                'replaces': 'tenpy_tpu/linalg/pallas_gemm.py:124',
-                'launches': n, 'max_abs_err': m['max_abs'], 'ms': m['ms'],
-                'plain_ms': m['plain_ms'], 'bound_ms': m['bound_ms'],
-                'bound_by': m['bound_by'], 'library_ms': m['library_ms']}
-
-    # times, bound and library time: per matvec (4 tensordots), f64 at
-    # chi=256 (Hubbard), complex128 at chi=128 (Hofstadter), f64 at the
-    # centre of the chi=512 XX chain (host DMRG); per TEBD bond update (3
-    # tensordots), complex128 at chi=512 (XXZ quench); per TDVP matvec at
-    # the centre of the chi=256 XX chain, complex128: two-site (4
-    # tensordots) and one-site (3); per VUMPS matvec of the last update,
-    # f64 on the chi=256 XX chain: zero-site (2 tensordots) and two-site
-    # (4), complex128 on the chi=128 Hofstadter cylinder: zero-site and
-    # one-site (3); per purification gate (1 tensordot), f64 on the
-    # saturated chi=256 bond of the XX chain's purification; per
-    # transfer-matrix step of a plane-wave excitation's right sum (3
-    # tensordots), complex128 on the chi=128 S=1 chain
-    print(json.dumps({'kernels': [
-        entry('packed_contract', launches, mv),
-        entry('packed_contract_complex128', z_launches, zmv),
-        entry('packed_contract_complex128_tebd', t_launches, tmv),
-        entry('packed_contract_host_dmrg', h_launches, hmv),
-        entry('packed_contract_simulation', s_launches, smv),
-        entry('packed_contract_tdvp_two_site', e2_launches, e2mv),
-        entry('packed_contract_tdvp_one_site', e1_launches, e1mv),
-        entry('packed_contract_vumps_zero_site', *vu[0]),
-        entry('packed_contract_vumps_two_site', *vu[1]),
-        entry('packed_contract_vumps_zero_site_complex128', *vu[2]),
-        entry('packed_contract_vumps_one_site_complex128', *vu[3]),
-        entry('packed_contract_purification_gate', p_launches, pmv),
-        entry('packed_contract_plane_wave_transfer', x_launches, xmv)]}),
-        flush=True)
-    log(f"[15] chip_smoke wall {time.time() - t_start:.1f} s")
-    print(smi, flush=True)
-    print(json.dumps({'ok': True, 'device': {
-        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
-        'count': torch.cuda.device_count()}}), flush=True)
+    (k['packed_contract_vumps_zero_site_complex128'],
+     k['packed_contract_vumps_one_site_complex128']) = phase_vumps_complex(
+        smi, hof_state)
+    lap('12b')
+    return k, max_abs_synth, walls
 
 
 if __name__ == '__main__':
-    main()
+    if sys.argv[1:2] == ['--worker']:
+        worker_main(*sys.argv[2:4])
+    else:
+        main()

@@ -38,7 +38,8 @@ from .mps_common import (IterativeSweeps, TwoSiteH, OneSiteH, EffectiveH,
 from ..linalg import np_conserved as npc
 from ..linalg import packed as pk
 from ..linalg.krylov_based import LanczosGroundState, lanczos_arpack
-from ..linalg.sparse import FlatHermitianOperator
+from ..linalg.sparse import (FlatHermitianOperator,
+                             OrthogonalNpcLinearOperator)
 from ..linalg.truncation import svd_theta
 from ..tools.params import asConfig
 from ..tools.process import memory_usage
@@ -98,6 +99,9 @@ class DMRGEngine(IterativeSweeps):
         super().reset_stats(resume_data)
         self.E_trunc_list = []
         self._meas_E_trunc = False
+        self.device_lanczos_stats = {'plain': 0, 'plain_steps': 0,
+                                     'projected': 0, 'projected_steps': 0,
+                                     'N': []}
         self.update_stats = {'i0': [], 'age': [], 'E_total': [],
                              'E_trunc': [], 'N_lanczos': [], 'time': [],
                              'err': [], 'ov_change': []}
@@ -380,18 +384,24 @@ class DMRGEngine(IterativeSweeps):
         return E0, theta, N, ov_change
 
     # ------------------------------------------------- the packed Lanczos
+    def _base_eff_H(self):
+        """``(eff_H, ortho_vecs)``: the effective H under the projection of
+        ``orthogonal_to`` (if any) and the projected vectors."""
+        eff = self.eff_H
+        if isinstance(eff, OrthogonalNpcLinearOperator):
+            return eff.orig_operator, eff.ortho_vecs
+        return eff, []
+
     def _use_device_lanczos(self):
         """Whether this update's eigensolve runs as the packed Lanczos on
         ``self.device``: only for a plain :class:`TwoSiteH` (no
-        ``combine``, no ``orthogonal_to``), then by
+        ``combine``), projected by ``orthogonal_to`` or not, then by
         :func:`~tenpy_tpu_torch.algorithms.mps_common.use_device_lanczos`
         (``lanczos_params['device_K']``: 0 disables, > 0 forces with that
         many steps at most; else never on the CPU, and from
         ``DEVICE_LANCZOS_THRESHOLD`` up, during a ``chi_list`` ramp
         too)."""
-        if self.ortho_to_envs:
-            return False
-        eff = self.eff_H
+        eff, _ = self._base_eff_H()
         if type(eff) is not TwoSiteH or eff.combine:
             return False
         return mps_common.use_device_lanczos(self.lanczos_params,
@@ -402,19 +412,31 @@ class DMRGEngine(IterativeSweeps):
 
         LP, RP, W0 and W1 are packed once per effective H
         (:meth:`~tenpy_tpu_torch.algorithms.mps_common.EffectiveH.
-        pack_operands`), the guess per call; the Ritz vector comes
-        back to the host in one copy."""
-        eff = self.eff_H
+        pack_operands`), the guess per call, and the projected vectors of
+        ``orthogonal_to`` once per effective H in the guess's layout
+        (:func:`~tenpy_tpu_torch.algorithms.mps_common.pack_ortho`); the
+        Ritz vector comes back to the host in one copy.
+        ``self.device_lanczos_stats`` counts the solves and their Lanczos
+        steps, those with a vector projected out apart, and lists their
+        N."""
+        eff, ortho_vecs = self._base_eff_H()
         K = self.lanczos_params.get('device_K', None)
         if not K:
             K = self.lanczos_params.get('N_max', 10, int)
         K = int(K)
         LPp, RPp, W0p, W1p = eff.pack_operands(self.device)
         theta_p = mps_common.pack_virtual(theta_guess, self.device)
+        ortho = mps_common.pack_ortho(ortho_vecs, theta_p, self.device)
         P_tol = self.lanczos_params.get('P_tol', 1e-14, 'real')
         reortho = bool(self.lanczos_params.get('reortho', False))
         E0, th, K, _ = mps_common.lanczos_K_2site_packed(
-            LPp, RPp, W0p, W1p, theta_p, K, float(P_tol), 2, reortho)
+            LPp, RPp, W0p, W1p, theta_p, K, float(P_tol), 2, reortho,
+            ortho=ortho)
+        st = self.device_lanczos_stats
+        kind = 'projected' if ortho else 'plain'
+        st[kind] += 1
+        st[kind + '_steps'] += K
+        st['N'].append(eff.N)
         theta = pk.unpack(_to_host(th),
                           orig_legs=[theta_guess.get_leg(l)
                                      for l in th.get_leg_labels()])

@@ -292,12 +292,14 @@ def lanczos_evolve_packed(matvec, theta0, delta, N_min=2, N_max=20,
 
 def _lanczos_K_2site_packed_impl(LPp, RPp, W0p, W1p, theta0, K,
                                  P_tol=0., N_min=2, reortho=False,
-                                 matvec_mode=None, exact_E=False):
+                                 matvec_mode=None, exact_E=False,
+                                 ortho=None):
     """Lanczos + Ritz ground state of the two-site effective H, packed:
     :func:`lanczos_ground_packed` with :func:`_matvec_2site_packed`."""
     return lanczos_ground_packed(_matvec_2site_packed,
                                  (LPp, RPp, W0p, W1p), theta0, K, P_tol,
-                                 N_min, reortho, matvec_mode, exact_E)
+                                 N_min, reortho, matvec_mode, exact_E,
+                                 ortho)
 
 
 def use_device_lanczos(lanczos_params, device, N):
@@ -317,9 +319,19 @@ def use_device_lanczos(lanczos_params, device, N):
     return N >= DEVICE_LANCZOS_THRESHOLD
 
 
+def project_out_packed(v, ortho):
+    """``v`` with each packed vector ``o`` of ``ortho`` projected out in
+    turn, ``v - o <o|v>``, as the host's
+    :class:`~tenpy_tpu_torch.linalg.sparse.OrthogonalNpcLinearOperator`
+    does; the coefficients stay on the device."""
+    for o in ortho:
+        v = v - o * pk.vdot(o, v)
+    return v
+
+
 def lanczos_ground_packed(matvec_packed, operands, theta0, K, P_tol=0.,
                           N_min=2, reortho=False, matvec_mode=None,
-                          exact_E=False):
+                          exact_E=False, ortho=None):
     """Lanczos + Ritz ground state of a packed effective H, whose matvec is
     ``matvec_packed(*operands, v)`` (:func:`_matvec_2site_packed`,
     :func:`_matvec_1site_packed` or :func:`_matvec_0site_packed`; VUMPS's
@@ -336,6 +348,13 @@ def lanczos_ground_packed(matvec_packed, operands, theta0, K, P_tol=0.,
     ``exact_E`` the returned E0 is then the f64 Rayleigh quotient of the
     Ritz vector (one extra f64 matvec).
 
+    ``ortho``: packed vectors in the layout of ``theta0`` (states of
+    ``orthogonal_to``, packed by :func:`pack_ortho`): every matvec is
+    then ``P H P v`` with ``P`` the projection of
+    :func:`project_out_packed`, the recursion of the host's
+    ``LanczosGroundState`` with ``orthogonal_to`` (the guess is not
+    projected, as there).
+
     Returns ``(E0, theta_gs, N_used, resid)``: floats ``E0`` and ``resid``
     (the residual bound ``|beta_N <e_N, gs>|``), the normalized packed Ritz
     vector and the iteration count as an int.
@@ -345,25 +364,31 @@ def lanczos_ground_packed(matvec_packed, operands, theta0, K, P_tol=0.,
     as in ``tenpy_tpu``.  ``reortho`` with complex vectors raises, as
     there.
     """
+    ortho = list(ortho or ())
     dtype = torch.float64
-    for x in (*operands, theta0):
+    for x in (*operands, theta0, *ortho):
         dtype = torch.promote_types(dtype, x.dtype)
     if theta0.dtype != dtype:
         theta0 = theta0._like([d.to(dtype) for d in theta0.data])
+    ortho = [o if o.dtype == dtype else o._like([d.to(dtype) for d in o.data])
+             for o in ortho]
     if reortho and dtype.is_complex:
         raise NotImplementedError("reortho with complex Krylov vectors "
                                   "(complex Gram-Schmidt coefficients) is "
                                   "not ported; run without reortho")
     v0 = theta0 * (1. / pk.norm(theta0))
 
-    def matvec(v):
-        with pk.matmul_mode(matvec_mode):
-            return matvec_packed(*operands, v)
+    def matvec(v, mode=matvec_mode):
+        if ortho:
+            v = project_out_packed(v, ortho)
+        with pk.matmul_mode(mode):
+            hw = matvec_packed(*operands, v)
+        return project_out_packed(hw, ortho) if ortho else hw
 
     def final_E(E_T, theta_gs):
         if not (exact_E and matvec_mode is not None):
             return E_T
-        hw = matvec_packed(*operands, theta_gs)
+        hw = matvec(theta_gs, None)
         return float(pk.inner_re(theta_gs, hw))
 
     def normalized(v):
@@ -440,13 +465,37 @@ def lanczos_ground_packed(matvec_packed, operands, theta0, K, P_tol=0.,
 
 def lanczos_K_2site_packed(LPp, RPp, W0p, W1p, theta0, K, P_tol=0.,
                            N_min=2, reortho=False, matvec_mode=None,
-                           exact_E=False):
+                           exact_E=False, ortho=None):
     """The packed two-site Lanczos: :func:`_lanczos_K_2site_packed_impl`
     (``tenpy_tpu`` compiles it once per ``K`` and options; here it is a
     plain call)."""
     return _lanczos_K_2site_packed_impl(LPp, RPp, W0p, W1p, theta0, K,
                                         P_tol, N_min, reortho, matvec_mode,
-                                        exact_E)
+                                        exact_E, ortho)
+
+
+def pack_ortho(vecs, like, device):
+    """The vectors of an orthogonalized effective H
+    (:class:`~tenpy_tpu_torch.linalg.sparse.OrthogonalNpcLinearOperator`'s
+    ``ortho_vecs``) packed for :func:`lanczos_ground_packed`: each by
+    :func:`pack_virtual`, which gives the layout of the packed guess
+    ``like`` to a vector with its legs and charge; a vector of another
+    charge sector is orthogonal to every vector of the solve and is
+    skipped, as the host's projection skips it.  Any other layout
+    raises."""
+    out = []
+    for o in vecs:
+        if not np.array_equal(np.asarray(o.qtotal).ravel(),
+                              np.asarray(like.qtotal).ravel()):
+            continue
+        if list(o.get_leg_labels()) != like.get_leg_labels():
+            o = o.copy(deep=False).itranspose(like.get_leg_labels())
+        op = pack_virtual(o, device)
+        if not op._same_struct(like):
+            raise ValueError("a state of orthogonal_to does not pack into "
+                             "the layout of the update's theta")
+        out.append(op)
+    return out
 
 
 # ================================================== effective Hamiltonians

@@ -14,6 +14,7 @@ conventions:
 
 from __future__ import annotations
 
+import copy
 import itertools
 
 import numpy as np
@@ -170,6 +171,52 @@ class Lattice:
                 shape.append(La)
                 shift.append(0)
         return tuple(shape), np.array(shift, int)
+
+    def enlarge_mps_unit_cell(self, factor=2):
+        """A copy of the lattice (of the same class) with ``factor`` times
+        as many unit cells along axis 0, each repeat of the MPS order
+        shifted by whole lattice lengths; infinite bc only."""
+        if self.bc_MPS != 'infinite':
+            raise ValueError("enlarge_mps_unit_cell needs bc_MPS='infinite'")
+        factor = int(factor)
+        cp = copy.copy(self)
+        cp.Ls = (self.Ls[0] * factor,) + self.Ls[1:]
+        cp.shape = cp.Ls + (self.Lu,)
+        cp.N_cells = self.N_cells * factor
+        cp.N_sites = self.N_sites * factor
+        shift = np.zeros(self.dim + 1, int)
+        shift[0] = self.Ls[0]
+        cp.order = np.concatenate([self._order + k * shift
+                                   for k in range(factor)])
+        return cp
+
+    def extract_segment(self, first=0, last=None, enlarge=None):
+        """A copy for the segment ``[first, last]`` of an infinite MPS:
+        ``enlarge`` unit cells, or ``first=0`` and ``last = n N_sites -
+        1``; bc_MPS ``'segment'`` and ``segment_first_last`` set.  A
+        segment that is not a whole number of unit cells raises."""
+        L = self.N_sites
+        if enlarge is not None:
+            if self.bc_MPS != 'infinite':
+                raise ValueError("enlarge only possible for infinite MPS")
+            if last is not None or first != 0:
+                raise ValueError("specify either first+last or enlarge")
+            assert enlarge > 0
+            last = enlarge * L - 1
+        elif last is None:
+            last = L - 1
+            enlarge = 1
+        else:
+            enlarge = last // L + 1
+        if first != 0 or (last + 1) % L != 0:
+            raise NotImplementedError("a segment of a partial unit cell "
+                                      "(an irregular lattice) is not "
+                                      "ported")
+        cp = self.enlarge_mps_unit_cell(enlarge) if enlarge > 1 \
+            else copy.copy(self)
+        cp.bc_MPS = 'segment'
+        cp.segment_first_last = (first, last)
+        return cp
 
     def __repr__(self):
         return (f"{self.__class__.__name__}({list(self.Ls)}, "

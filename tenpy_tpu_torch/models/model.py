@@ -42,6 +42,14 @@ class Model:
         options['time'] = new_time
         return self.__class__(options)
 
+    def extract_segment(self, first=0, last=None, enlarge=None):
+        """A shallow copy on the segment of
+        :meth:`~tenpy_tpu_torch.models.lattice.Lattice.extract_segment`
+        (subclasses cut their Hamiltonian to it)."""
+        cp = self.copy()
+        cp.lat = self.lat.extract_segment(first, last, enlarge)
+        return cp
+
 
 class NearestNeighborModel(Model):
     """Model with ``H_bond``: ``H_bond[i]`` acts on sites ``(i-1, i)``."""
@@ -49,6 +57,13 @@ class NearestNeighborModel(Model):
     def __init__(self, lattice, H_bond):
         Model.__init__(self, lattice)
         self.H_bond = list(H_bond)
+
+    def extract_segment(self, first=0, last=None, enlarge=None):
+        cp = super().extract_segment(first, last, enlarge)
+        first, last = cp.lat.segment_first_last
+        L = len(self.H_bond)
+        cp.H_bond = [self.H_bond[i % L] for i in range(first, last + 1)]
+        return cp
 
     def bond_energies(self, psi):
         """``<psi|H_bond[i]|psi>`` per bond (the L-1 inner bonds for
@@ -76,6 +91,12 @@ class MPOModel(Model):
     def __init__(self, lattice, H_MPO):
         Model.__init__(self, lattice)
         self.H_MPO = H_MPO
+
+    def extract_segment(self, first=0, last=None, enlarge=None):
+        cp = super().extract_segment(first, last, enlarge)
+        first, last = cp.lat.segment_first_last
+        cp.H_MPO = self.H_MPO.extract_segment(first, last)
+        return cp
 
 
 class CouplingModel(Model):

@@ -124,6 +124,20 @@ class MPO:
         return [W.get_leg('wL').ind_len for W in self._W] + \
             [self._W[-1].get_leg('wR').ind_len]
 
+    def extract_segment(self, first, last):
+        """A copy on the sites ``[first, last]`` (indices of the infinite
+        MPO, taken modulo its length) with bc ``'segment'``; the last
+        IdL/IdR entry is that of the bond right of ``last``."""
+        L = self.L
+        sites = [self.sites[i % L] for i in range(first, last + 1)]
+        Ws = [self.get_W(i, copy=True) for i in range(first, last + 1)]
+        IdL = [self.IdL[i % L] for i in range(first, last + 1)]
+        IdL.append(self.IdL[last % L + 1])
+        IdR = [self.IdR[i % L] for i in range(first, last + 1)]
+        IdR.append(self.IdR[last % L + 1])
+        return self.__class__(sites, Ws, 'segment', IdL, IdR, self.max_range,
+                              self.explicit_plus_hc)
+
     def test_sanity(self):
         assert len(self._W) == self.L
         for i in range(self.L):

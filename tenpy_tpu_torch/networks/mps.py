@@ -84,6 +84,7 @@ class MPS:
         if bc not in self._valid_bc:
             raise ValueError(f"invalid bc {bc!r}")
         self.norm = norm
+        self.segment_boundaries = (None, None)
         self._B = [B.astype(self.dtype) for B in Bs]
         self._S = [np.asarray(S) for S in SVs]
         self.test_sanity()
@@ -134,6 +135,7 @@ class MPS:
         res.form = list(self.form)
         res.bc = self.bc
         res.norm = self.norm
+        res.segment_boundaries = self.segment_boundaries
         res._B = [B.copy(deep=False) for B in self._B]
         res._S = list(self._S)
         return res
@@ -157,7 +159,8 @@ class MPS:
         hdf5_saver.save([None if f is None else list(f) for f in self.form],
                         subpath + 'canonical_form')
         hdf5_saver.save(self.chinfo, subpath + 'chinfo')
-        hdf5_saver.save((None, None), subpath + 'segment_boundaries')
+        hdf5_saver.save(self.segment_boundaries,
+                        subpath + 'segment_boundaries')
         h5gr.attrs['norm'] = self.norm
         h5gr.attrs['grouped'] = 1
         h5gr.attrs['transfermatrix_keep'] = 1
@@ -175,6 +178,10 @@ class MPS:
         obj.form = [None if f is None else tuple(f) for f in
                     hdf5_loader.load(subpath + 'canonical_form')]
         obj.chinfo = hdf5_loader.load(subpath + 'chinfo')
+        sb = hdf5_loader.load(subpath + 'segment_boundaries') \
+            if 'segment_boundaries' in h5gr else None
+        obj.segment_boundaries = tuple(sb) if sb is not None \
+            else (None, None)
         obj.norm = float(hdf5_loader.get_attr(h5gr, 'norm'))
         grouped = int(h5gr.attrs.get('grouped', 1))
         if grouped != 1:
@@ -880,14 +887,31 @@ class MPS:
             Ms.append(M)
         return Ms
 
-    def canonical_form_finite(self, renormalize=True, cutoff=0.):
+    def canonical_form_finite(self, renormalize=True, cutoff=0.,
+                              envs_to_update=None):
         """QR sweep left to right, then SVD sweep right to left; every
-        tensor ends in B form.  ``bc='segment'`` is not ported."""
-        if self.bc != 'finite':
-            raise NotImplementedError("canonical_form_finite: segment bc is "
-                                      "not ported")
+        tensor ends in B form.
+
+        On a segment (bc ``'segment'``) the state carries the boundary
+        Schmidt values of its infinite surroundings, and the sweeps rotate
+        its two boundary bases: the rotations ``(U_L, V_R)`` are returned,
+        composed into :attr:`segment_boundaries` (from the original
+        embedding's Schmidt states to the new ones), and applied to the
+        start environments of every environment in ``envs_to_update``, so
+        that the embedding stays what it was."""
         L = self.L
+        if self.bc not in ('finite', 'segment'):
+            raise ValueError("canonical_form_finite needs finite or "
+                             "segment bc")
+        seg = self.bc == 'segment'
+        cut = cutoff if cutoff else None
+        if seg:
+            for i, S in ((0, self.get_SL(0)), (L, self.get_SR(L - 1))):
+                S = np.asarray(S)
+                self._S[i] = S / np.linalg.norm(S)
         Ms = self._stripped_tensors()
+        if seg:     # the segment's wave function holds the left weights
+            Ms[0] = Ms[0].scale_axis(np.asarray(self.get_SL(0)), 'vL')
         R = None
         for i in range(L):
             M = Ms[i]
@@ -899,10 +923,21 @@ class MPS:
         norm_fact = npc.norm(R)
         self.norm = 1. if renormalize else self.norm * norm_fact
         M = npc.tensordot(Ms[L - 1], R / norm_fact, axes=[['vR'], ['vL']])
-        self.set_SR(L - 1, np.ones(M.get_leg('vR').ind_len))
+        V_R = None
+        if seg:     # the new right weights and the right basis rotation
+            U, S, V_R = npc.svd(M.combine_legs([['vL', 'p']]), cutoff=cut,
+                                qtotal_LR=[M.qtotal, None],
+                                inner_labels=['vR', 'vL'])
+            S = S / np.linalg.norm(S)
+            self.set_SR(L - 1, S)
+            M = U.iscale_axis(S, 'vR').split_legs([0])
+        else:
+            self.set_SR(L - 1, np.ones(M.get_leg('vR').ind_len))
         for i in range(L - 1, 0, -1):
             U, S, VH = npc.svd(M.combine_legs([['p', 'vR']], qconj=[-1]),
-                               cutoff=cutoff if cutoff else None,
+                               cutoff=cut,
+                               qtotal_LR=[None, M.qtotal] if seg
+                               else (None, None),
                                inner_labels=['vR', 'vL'])
             S = S / np.linalg.norm(S)
             self._B[i] = VH.split_legs([1])
@@ -910,6 +945,23 @@ class MPS:
             self.set_SL(i, S)
             M = npc.tensordot(Ms[i - 1], U.iscale_axis(S, 'vR'),
                               axes=[['vR'], ['vL']])
+        if seg:     # split off the left rotation: M = U_L S_0 B_0
+            U_L, S0, VH = npc.svd(M.combine_legs([['p', 'vR']], qconj=[-1]),
+                                  cutoff=cut, qtotal_LR=[None, M.qtotal],
+                                  inner_labels=['vR', 'vL'])
+            self.set_SL(0, S0 / np.linalg.norm(S0))
+            self._B[0] = VH.split_legs([1])
+            self.form[0] = self._valid_forms['B']
+            for env in envs_to_update or ():
+                env._update_gauge_boundaries(self, U_L, V_R)
+            old_UL, old_VR = self.segment_boundaries
+            if old_UL is not None:
+                U_L_total = npc.tensordot(old_UL, U_L, axes=[['vR'], ['vL']])
+                V_R_total = npc.tensordot(V_R, old_VR, axes=[['vR'], ['vL']])
+                self.segment_boundaries = (U_L_total, V_R_total)
+            else:
+                self.segment_boundaries = (U_L, V_R)
+            return U_L, V_R
         # M is site 0 in 'Th' form, with S_0 = 1 for finite bc
         self._B[0] = M.copy(deep=False).iscale_axis(
             self._scale_S(self.get_SL(0), -1.), 'vL')
@@ -1184,6 +1236,69 @@ class MPS:
             self.canonical_form(renormalize=True)
         return self
 
+    # ------------------------------------------------------ charges, segments
+    def probability_per_charge(self, bond=0):
+        """``[(charge, probability), ...]``: the weight of each charge
+        sector of the Schmidt states on ``bond`` (a finite state's bond
+        ``L`` is the right end)."""
+        if self.finite and bond == self.L:
+            leg = self.get_B(self.L - 1, None).get_leg('vR').conj()
+        else:
+            leg = self.get_B(bond % self.L, None).get_leg('vL')
+        S2 = np.asarray(self._S[bond % (self.L + 1) if self.finite
+                                else bond % self.L]) ** 2
+        res = []
+        for qi in range(leg.block_number):
+            sl = leg.get_slice(qi)
+            q = self.chinfo.make_valid(leg.charges[qi] * leg.qconj)
+            res.append((q, float(np.sum(S2[sl]))))
+        return res
+
+    def average_charge(self, bond=0):
+        """The mean charge of the Schmidt states on ``bond``."""
+        probs = self.probability_per_charge(bond)
+        if not probs:
+            return np.zeros(self.chinfo.qnumber)
+        return sum(np.asarray(q, float) * p for q, p in probs)
+
+    def charge_variance(self, bond=0):
+        """``<Q^2> - <Q>^2`` of the Schmidt states' charge on ``bond``,
+        per charge."""
+        probs = self.probability_per_charge(bond)
+        if not probs:
+            return np.zeros(self.chinfo.qnumber)
+        mean = self.average_charge(bond)
+        return sum(np.asarray(q, float) ** 2 * p for q, p in probs) \
+            - mean ** 2
+
+    def get_total_charge(self, only_physical_legs=False):
+        """The sum of the tensors' total charges; with
+        ``only_physical_legs`` (finite or segment bc) less the charges of
+        the two outer virtual legs' first sectors, which gives the
+        physical charge of a state that keeps some of it on a boundary
+        leg."""
+        q = np.zeros(self.chinfo.qnumber, np.int64)
+        for B in self._B:
+            q += np.asarray(B.qtotal, np.int64)
+        if only_physical_legs:
+            if not self.finite:
+                raise ValueError("only_physical_legs is not defined for "
+                                 "infinite bc")
+            for leg in (self._B[0].get_leg('vL'),
+                        self._B[-1].get_leg('vR')):
+                q -= np.asarray(leg.to_qflat()[0], np.int64) * leg.qconj
+        return self.chinfo.make_valid(q)
+
+    def extract_segment(self, first, last):
+        """The sites ``[first, last]`` (of an infinite state, indices
+        taken modulo ``L``) as a segment MPS in B form, with the Schmidt
+        values of its two outer bonds."""
+        sites = [self.get_site(i) for i in range(first, last + 1)]
+        Bs = [self.get_B(i, 'B', copy=True) for i in range(first, last + 1)]
+        SVs = [np.asarray(self.get_SL(i)) for i in range(first, last + 1)]
+        SVs.append(np.asarray(self.get_SR(last)))
+        return MPS(sites, Bs, SVs, bc='segment', form='B', norm=self.norm)
+
 
 class BaseEnvironment:
     """Partial contractions ``LP[i]`` / ``RP[i]`` of ``<bra|ket>``, kept
@@ -1402,10 +1517,19 @@ class MPSEnvironment(BaseEnvironment):
     def full_contraction(self, i0):
         """``<bra|ket>`` (times both norms), split at bond ``i0``: for
         ``i0 == 0`` (or ``L - 1`` for finite bc) the whole chain contracted
-        into ``LP`` and traced, else ``LP[i0]`` and ``RP[i0-1]`` with the
-        Schmidt values of bond ``i0`` between them."""
+        into ``LP`` and traced (for a segment weighted by the right
+        boundary's Schmidt values, which ``tenpy_tpu`` leaves out), else
+        ``LP[i0]`` and ``RP[i0-1]`` with the Schmidt values of bond ``i0``
+        between them."""
         if i0 == 0 or (self.ket.finite and i0 + 1 == self.L):
             LP = self._contract_LP(self.L - 1, self.get_LP(self.L - 1))
+            if self.ket.bc == 'segment':
+                # the A forms end in the right boundary's Schmidt basis,
+                # whose weights the trace has to carry
+                L = self.L - 1
+                LP = LP.scale_axis(np.conj(np.asarray(self.bra.get_SR(L))),
+                                   'vR*')
+                LP = LP.iscale_axis(np.asarray(self.ket.get_SR(L)), 'vR')
             contr = npc.trace(LP, 'vR*', 'vR')
         else:
             LP = self.get_LP(i0).scale_axis(

@@ -85,7 +85,8 @@ def main(chi=None, hof_chi=128, packed=False):
     t0 = time.time()
     hof_state = hofstadter_state(hof_chi)
     t1 = time.time()
-    cs.phase_vumps('CPU rehearsal', hof_state)
+    cs.phase_vumps_real('CPU rehearsal')
+    cs.phase_vumps_complex('CPU rehearsal', hof_state)
     print(f"rehearsal {time.time() - t1:.1f} s (and {t1 - t0:.1f} s for the "
           f"Hofstadter state); failed checks: {failed}", flush=True)
 

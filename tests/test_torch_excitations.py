@@ -246,17 +246,27 @@ def test_orthogonal_excitations_vs_jax(case, ref):
 
 
 def test_orthogonal_excitations_infinite_raises():
-    """An infinite ground state needs segment bc, which is not ported."""
+    """An infinite ground state no longer raises: it gives a segment of
+    ``segment_enlarge`` unit cells in the infinite state's fixed-point
+    environments, whose energy density is the transfer matrix's (the
+    excitation runs themselves: tests/test_torch_segment.py)."""
+    from tenpy_tpu_torch.networks.mpo import MPOTransferMatrix
     m = tfi_inf()
     psi = MPS.from_product_state(m.lat.mps_sites(), ['up', 'up'],
                                  bc='infinite')
     sim = OrthogonalExcitations(
         {'model_class': 'TFIChain', 'model_params': dict(tx.EX_TFI_INF),
-         'save_psi': False, 'output_filename': None},
+         'segment_enlarge': 3, 'save_psi': False, 'output_filename': None},
         ground_state_data=psi, device='cpu')
     sim.init_model()
-    with pytest.raises(NotImplementedError, match='segment'):
-        sim.init_state()
+    sim.init_state()
+    assert sim.model.lat.bc_MPS == 'segment' and sim.model.H_MPO.L == 6
+    assert sim.ground_state.bc == 'segment' and sim.ground_state.L == 6
+    assert sim.psi.bc == 'segment'
+    assert set(sim.init_env_data) >= {'init_LP', 'init_RP'}
+    _, Es, _ = MPOTransferMatrix.find_init_LP_RP(m.H_MPO, psi, calc_E=True)
+    assert abs(sim.results['ground_state_energy_density']
+               - float(np.real(Es[0]))) < 1e-12
 
 
 def test_plane_wave_excitations_driver_vs_jax(ref):

@@ -90,3 +90,27 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == 'ok'
+
+
+def test_segment_names_exported():
+    """The segment simulations are exported (a parameter file's
+    ``simulation_class`` finds them by name) and the segment methods
+    exist on the lattice, model, MPO and MPS."""
+    from tenpy_tpu_torch.models.lattice import Lattice
+    from tenpy_tpu_torch.models.model import (Model, MPOModel,
+                                              NearestNeighborModel)
+    from tenpy_tpu_torch.networks.mpo import MPO
+    from tenpy_tpu_torch.networks.mps import MPS
+    from tenpy_tpu_torch.simulations import ground_state_search as gss
+    from tenpy_tpu_torch.simulations.simulation import Simulation
+    from tenpy_tpu_torch.tools.misc import find_subclass
+    for name in ('OrthogonalExcitations', 'TopologicalExcitations',
+                 'ExcitationInitialState'):
+        assert name in gss.__all__
+    assert find_subclass(Simulation, 'TopologicalExcitations') is \
+        gss.TopologicalExcitations
+    for cls in (Lattice, Model, MPOModel, NearestNeighborModel, MPO, MPS):
+        assert callable(getattr(cls, 'extract_segment'))
+    for meth in ('probability_per_charge', 'average_charge',
+                 'charge_variance', 'get_total_charge'):
+        assert callable(getattr(MPS, meth))

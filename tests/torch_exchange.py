@@ -41,6 +41,8 @@ chi=256 Hubbard-cylinder file and the ramp references::
         tests/benchmark_data/vumps_reference.npz
     python tests/torch_exchange.py --write-purification \
         tests/benchmark_data/purification_reference.npz
+    python tests/torch_exchange.py --write-segment \
+        tests/benchmark_data/segment_reference.npz
 """
 
 import argparse
@@ -2209,6 +2211,7 @@ class _EX(_VU):
         self.pwe, self.exact_diag = plane_wave_excitation, exact_diag
         self.krylov, self.sparse = krylov_based, sparse
         self.SpinChain = spins.SpinChain
+        self.spins = spins
         self.gss = ground_state_search
 
     def ed_spectrum(self, H):
@@ -2501,6 +2504,292 @@ def excitation_reference():
     return flat
 
 
+# ================================================================ segments
+# tests/test_torch_segment.py runs the port on the cases of
+# tests/test_segment.py and tests/test_topological_excitations.py (cut to
+# small sizes) from the infinite ground states tenpy_tpu made, and holds it
+# to tenpy_tpu's runs in tests/benchmark_data/segment_reference.npz
+# (--write-segment): the extracted lattice, model, MPO and MPS, the
+# segment canonical form, segment DMRG, OrthogonalExcitations of an
+# infinite ground state, TopologicalExcitations and the charge statistics.
+SEG_REF = os.path.join(_ROOT, 'tests', 'benchmark_data',
+                       'segment_reference.npz')
+SEG_CASES = ('extract', 'canon', 'fixed', 'ortho_tfi', 'spin1', 'stats',
+             'topo_tfi', 'topo_xxz_avg', 'topo_xxz_mp')
+SEG_TFI = {'L': 2, 'J': 1., 'g': 1.5, 'bc_MPS': 'infinite', 'conserve': None}
+SEG_SPIN1 = dict(EX_SPIN1)
+SEG_SQUARE = {'lattice': 'Square', 'Lx': 1, 'Ly': 2, 'S': 0.5,
+              'bc_MPS': 'infinite', 'Jx': 1., 'Jy': 1., 'Jz': 1.}
+SEG_TOPO_TFI = {'L': 2, 'J': 1., 'g': 0.4, 'bc_MPS': 'infinite',
+                'conserve': None}
+SEG_TOPO_XXZ = {'L': 2, 'Jxx': 1., 'Jz': 3., 'hz': 0., 'bc_MPS': 'infinite'}
+SEG_ENLARGE = 4
+SEG_SPIN1_CHI = 16
+SEG_SPIN1_ENLARGE = 3
+SEG_OP_SITE = 4
+# the two-site DMRG of every segment run (no mixer, as the JAX tests)
+SEG_DMRG = {'trunc_params': {'chi_max': 24, 'svd_min': 1e-10},
+            'max_sweeps': 6, 'min_sweeps': 3, 'mixer': False}
+
+
+def segment_inputs(package='jax'):
+    """The infinite ground states of the segment cases, made by
+    ``package``'s DMRG and canonicalized: ``tfi`` (g=1.5, chi 24),
+    ``spin1`` (the S=1 Heisenberg chain, chi 24), ``topo_tfi.gs0/1`` (the
+    two broken states of the g=0.4 chain, chi 16) and ``topo_xxz.gs0/1``
+    (the two Neel states of the Jz=3 XXZ chain, chi 16).  Returns the
+    flat dict of the states and the states themselves."""
+    ex = _EX(package)
+    kw = ex.kw
+    flat, states = {}, {}
+
+    def finish(key, psi):
+        psi.canonical_form()
+        flat.update(state_flat(key, psi))
+        states[key] = psi
+
+    m = ex.tf_ising.TFIChain(dict(SEG_TFI))
+    psi = ex.mps.MPS.from_product_state(m.lat.mps_sites(), ['up', 'up'],
+                                        bc='infinite')
+    ex.dmrg.run(psi, m, {'trunc_params': {'chi_max': 24, 'svd_min': 1e-12},
+                         'max_sweeps': 40, 'mixer': True}, **kw)
+    finish('tfi', psi)
+    m = ex.SpinChain(dict(SEG_SPIN1))
+    # the Haldane state by iDMRG from the Neel state, then single-site VUMPS
+    # (the chi=24 iDMRG alone stalls at -1.39961 per site from the Neel
+    # state; from Sz=0 on every site it reaches -1.40138 in a state whose
+    # segment holds a Delta Sz=1 state 7e-4 below its ground state)
+    psi = ex.mps.MPS.from_product_state(m.lat.mps_sites(), ['1.0', '-1.0'],
+                                        bc='infinite')
+    ex.dmrg.run(psi, m, {'trunc_params': {'chi_max': SEG_SPIN1_CHI,
+                                          'svd_min': 1e-10},
+                         'max_sweeps': 14, 'mixer': True}, **kw)
+    eng = ex.vumps.SingleSiteVUMPSEngine(psi, m, dict(EX_VUMPS_SPIN1), **kw)
+    eng.run()
+    finish('spin1', eng.psi.to_MPS())
+    s2 = 1. / np.sqrt(2.)
+    for key, m, inits in (
+            ('topo_tfi', ex.tf_ising.TFIChain(dict(SEG_TOPO_TFI)),
+             ([np.array([s2, s2])] * 2, [np.array([s2, -s2])] * 2)),
+            ('topo_xxz', ex.xxz_chain.XXZChain(dict(SEG_TOPO_XXZ)),
+             (['up', 'down'], ['down', 'up']))):
+        for k, init in enumerate(inits):
+            psi = ex.mps.MPS.from_product_state(m.lat.mps_sites(), init,
+                                                bc='infinite')
+            # no mixer: it mixes the broken sectors back into a cat state
+            ex.dmrg.TwoSiteDMRGEngine(psi, m, {
+                'trunc_params': {'chi_max': 16, 'svd_min': 1e-12},
+                'max_sweeps': 30}, **kw).run()
+            finish(f'{key}.gs{k}', psi)
+    return flat, states
+
+
+def _dense_list(prefix, arrays):
+    return {f'{prefix}.{i}': np.asarray(a.to_ndarray())
+            for i, a in enumerate(arrays)}
+
+
+def _Id(ids):
+    return np.array([-1 if x is None else int(x) for x in ids])
+
+
+def segment_case(package, case, inputs, states=None):
+    """One of :data:`SEG_CASES` in ``package`` ('jax' or 'torch') from the
+    states of :func:`segment_inputs`: the port reads them from the flat
+    dict ``inputs``, tenpy_tpu takes its own ``states``.  A flat dict of
+    the case's values under ``<case>.``."""
+    import warnings
+    warnings.simplefilter('ignore')
+    ex = _EX(package)
+    kw = ex.kw
+    out = {}
+
+    def state(key, m):
+        if states is not None:
+            return states[key].copy()
+        return load_state(inputs, key, m.lat.mps_sites())
+
+    def env_energy(env):
+        return float(np.real(env.full_contraction(1)))
+
+    def sim_opts(model_class, model_params, **extra):
+        opts = {'model_class': model_class,
+                'model_params': dict(model_params),
+                'segment_enlarge': SEG_ENLARGE,
+                'algorithm_params': dict(SEG_DMRG),
+                'save_psi': False, 'output_filename': None}
+        opts.update(extra)
+        return opts
+
+    if case == 'extract':
+        m = ex.tf_ising.TFIChain(dict(SEG_TFI))
+        psi = state('tfi', m)
+        m_seg = m.extract_segment(enlarge=3)
+        out['first_last'] = np.asarray(m_seg.lat.segment_first_last)
+        out['n_sites'] = np.asarray(len(m_seg.lat.mps_sites()))
+        out['order'] = np.asarray(m_seg.lat.order)
+        H = m_seg.H_MPO
+        out['bc'] = np.array([m_seg.lat.bc_MPS, H.bc])
+        out.update(_dense_list('W', H._W))
+        out['IdL'] = _Id(H.IdL)
+        out['IdR'] = _Id(H.IdR)
+        out.update(_dense_list('H_bond', [h for h in m_seg.H_bond
+                                          if h is not None]))
+        m2 = m.extract_segment(0, 5)
+        out['first_last_2'] = np.asarray(m2.lat.segment_first_last)
+        psi_seg = psi.extract_segment(0, 5)
+        out['seg_bc'] = np.array(psi_seg.bc)
+        out['sigmaz'] = np.asarray(psi_seg.expectation_value('Sigmaz'))
+        out['sigmaz_inf'] = np.asarray(psi.expectation_value('Sigmaz'))
+        out['seg_S'] = np.concatenate([np.sort(np.asarray(s)) for s in
+                                       psi_seg._S])
+        sq = ex.spins.SpinModel(dict(SEG_SQUARE))
+        sq_seg = sq.extract_segment(enlarge=2)
+        out['sq_order'] = np.asarray(sq_seg.lat.order)
+        out['sq_Ls'] = np.asarray(sq_seg.lat.Ls)
+        out.update(_dense_list('sq_W', sq_seg.H_MPO._W))
+        out['sq_IdL'] = _Id(sq_seg.H_MPO.IdL)
+        out['sq_IdR'] = _Id(sq_seg.H_MPO.IdR)
+    elif case == 'canon':
+        m = ex.tf_ising.TFIChain(dict(SEG_TFI))
+        psi = state('tfi', m)
+        env_data, Es, _ = ex.mpo.MPOTransferMatrix.find_init_LP_RP(
+            m.H_MPO, psi, calc_E=True)
+        m_seg = m.extract_segment(enlarge=3)
+        first, last = m_seg.lat.segment_first_last
+        for key, eps in (('small', 1e-8), ('big', 0.1)):
+            seg = psi.extract_segment(first, last)
+            env = ex.mpo.MPOEnvironment(seg, m_seg.H_MPO, seg,
+                                        **dict(env_data))
+            out[f'{key}.E_before'] = np.asarray(env_energy(env))
+            B = seg.get_B(2, 'B')
+            X = ex.npc.tensordot(seg.get_site(2).get_op('Sigmax'), B,
+                                 axes=[['p*'], ['p']])
+            X.itranspose(B.get_leg_labels())
+            seg.set_B(2, B + X * eps, form='B')
+            UL, VR = seg.canonical_form_finite(envs_to_update=[env])
+            out[f'{key}.E_after'] = np.asarray(env_energy(env))
+            out[f'{key}.norm_test'] = np.asarray(
+                float(np.max(seg.norm_test())))
+            out[f'{key}.S'] = np.concatenate([np.sort(np.asarray(s))
+                                              for s in seg._S])
+            out[f'{key}.UL_is'] = np.asarray(seg.segment_boundaries[0]
+                                             is UL)
+            out[f'{key}.sigmaz'] = np.asarray(seg.expectation_value('Sigmaz'))
+    elif case == 'fixed':
+        m = ex.tf_ising.TFIChain(dict(SEG_TFI))
+        psi = state('tfi', m)
+        env_data, Es, _ = ex.mpo.MPOTransferMatrix.find_init_LP_RP(
+            m.H_MPO, psi, calc_E=True)
+        m_seg = m.extract_segment(enlarge=3)
+        f, l = m_seg.lat.segment_first_last
+        seg = psi.extract_segment(f, l)
+        out['sigmaz0'] = np.asarray(seg.expectation_value('Sigmaz'))
+        eng = ex.dmrg.TwoSiteDMRGEngine(
+            seg, m_seg, {'trunc_params': {'chi_max': 24, 'svd_min': 1e-12},
+                         'max_sweeps': 4, 'mixer': False},
+            resume_data={'init_env_data': dict(env_data)}, **kw)
+        E, seg = eng.run()
+        out['E'] = np.asarray(float(E))
+        out['sigmaz'] = np.asarray(seg.expectation_value('Sigmaz'))
+    elif case == 'ortho_tfi':
+        m = ex.tf_ising.TFIChain(dict(SEG_TFI))
+        psi = state('tfi', m)
+        sim = ex.gss.OrthogonalExcitations(
+            sim_opts('TFIChain', SEG_TFI, N_excitations=1,
+                     apply_local_op={'i': SEG_OP_SITE, 'op': 'Sigmax'}),
+            ground_state_data=psi, **kw)
+        with sim:
+            res = sim.run()
+        out['gaps'] = np.asarray(res['excitation_energies'])
+        out['e_density'] = np.asarray(res['ground_state_energy_density'])
+        out['E0'] = np.asarray(res['ground_state_energy'])
+    elif case == 'spin1':
+        m = ex.SpinChain(dict(SEG_SPIN1))
+        psi = state('spin1', m)
+        opts = sim_opts('SpinChain', SEG_SPIN1, N_excitations=1,
+                        segment_enlarge=SEG_SPIN1_ENLARGE,
+                        apply_local_op={'i': SEG_SPIN1_ENLARGE, 'op': 'Sp'},
+                        initial_state_params={
+                            'use_highest_excitation': False})
+        opts['algorithm_params'].update(
+            trunc_params={'chi_max': SEG_SPIN1_CHI, 'svd_min': 1e-10},
+            max_sweeps=2, min_sweeps=2)
+        sim = ex.gss.OrthogonalExcitations(opts, ground_state_data=psi,
+                                           **kw)
+        with sim:
+            res = sim.run()
+        gs = sim.ground_state
+        out['gaps'] = np.asarray(res['excitation_energies'])
+        out['e_density'] = np.asarray(res['ground_state_energy_density'])
+        out['dq'] = np.asarray([np.asarray(x.get_total_charge())
+                                - np.asarray(gs.get_total_charge())
+                                for x in sim.excitations])
+        if package == 'torch':   # tenpy_tpu's segment overlap is not one
+            out['overlap'] = np.asarray(abs(complex(
+                sim.excitations[0].overlap(gs))))
+            out['norms'] = np.asarray([abs(complex(x.overlap(x)))
+                                       for x in sim.excitations])
+    elif case == 'stats':
+        m = ex.SpinChain(dict(SEG_SPIN1))
+        psi = state('spin1', m)
+        seg = psi.extract_segment(0, 2 * SEG_SPIN1_ENLARGE - 1)
+        for key, st, bonds in (('inf', psi, (0, 1)),
+                               ('seg', seg, (0, 3, seg.L))):
+            for b in bonds:
+                pq = sorted((tuple(np.asarray(q).ravel()), p)
+                            for q, p in st.probability_per_charge(b))
+                out[f'{key}.{b}.q'] = np.asarray([q for q, _ in pq])
+                out[f'{key}.{b}.p'] = np.asarray([p for _, p in pq])
+                out[f'{key}.{b}.avg'] = np.asarray(st.average_charge(b))
+                out[f'{key}.{b}.var'] = np.asarray(st.charge_variance(b))
+        out['total'] = np.asarray(seg.get_total_charge())
+        out['total_phys'] = np.asarray(seg.get_total_charge(True))
+    elif case.startswith('topo_'):
+        if case == 'topo_tfi':
+            m = ex.tf_ising.TFIChain(dict(SEG_TOPO_TFI))
+            cls, params, key, extra = 'TFIChain', SEG_TOPO_TFI, 'topo_tfi', {}
+        else:
+            m = ex.xxz_chain.XXZChain(dict(SEG_TOPO_XXZ))
+            cls, params, key = 'XXZChain', SEG_TOPO_XXZ, 'topo_xxz'
+            extra = {'join_method': 'average charge' if case.endswith('avg')
+                     else 'most probable charge'}
+        gs = [state(f'{key}.gs{k}', m) for k in (0, 1)]
+        # the second join method only glues (the relaxation is the first's)
+        n_exc = 0 if case == 'topo_xxz_mp' else 1
+        opts = sim_opts(cls, params, N_excitations=n_exc, **extra)
+        opts['algorithm_params']['trunc_params'] = {'chi_max': 16,
+                                                    'svd_min': 1e-10}
+        sim = ex.gss.TopologicalExcitations(opts, gs_data_alpha=gs[0],
+                                            gs_data_beta=gs[1], **kw)
+        with sim:
+            res = sim.run()
+        glued = sim.ground_state
+        out['gaps'] = np.asarray(res['excitation_energies'])
+        out['E_ref'] = np.asarray(res['ground_state_energy'])
+        out['glued_S'] = np.sort(np.asarray(glued.get_SL(glued.L // 2)))
+        out['glued_norm_test'] = np.asarray(float(np.max(
+            glued.norm_test())))
+        out['glued_charge'] = np.asarray(glued.get_total_charge())
+    else:
+        raise ValueError(case)
+    return {f'{case}.{k}': v for k, v in out.items()}
+
+
+def segment_reference():
+    """tenpy_tpu's inputs and runs of every case of :data:`SEG_CASES`."""
+    t0 = time.time()
+    flat, states = segment_inputs('jax')
+    print(f"inputs: {time.time() - t0:.1f} s", flush=True)
+    for case in SEG_CASES:
+        t0 = time.time()
+        res = segment_case('jax', case, flat, states)
+        flat.update(res)
+        print(f"{case}: {time.time() - t0:.1f} s, {len(res)} values",
+              flush=True)
+    return flat
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--write',
@@ -2531,6 +2820,8 @@ def main(argv=None):
                     help='output .npz path (purification references)')
     ap.add_argument('--write-excitations',
                     help='output .npz path (excitation references)')
+    ap.add_argument('--write-segment',
+                    help='output .npz path (segment references)')
     ap.add_argument('--cases', nargs='+',
                     help='write-back or Hofstadter cases to (re)compute')
     args = ap.parse_args(argv)
@@ -2556,7 +2847,8 @@ def main(argv=None):
                         time_evolution_reference),
                        (args.write_vumps, vumps_reference),
                        (args.write_purification, purification_reference),
-                       (args.write_excitations, excitation_reference)):
+                       (args.write_excitations, excitation_reference),
+                       (args.write_segment, segment_reference)):
         if path:
             exchange.save_flat(path, make())
             print(f"wrote {path} ({os.path.getsize(path) / 1e6:.3f} MB)",
