@@ -119,8 +119,10 @@ Phases (any failure exits nonzero):
    ``TwoSiteVUMPSEngine`` on the infinite XX chain (Sz) from the Neel
    state ramped by ``chi_list`` to chi=256 with the subspace-expansion
    mixer, held to -1/pi and to the port's iDMRG at the same chi_max
-   (``dmrg.run``), canonical, split error under its option, the returned
-   state's MPO and bond energies; its last update's zero- and two-site
+   (``dmrg.run``, by the card's route and by the host's on the same
+   input, their final TM energies held to each other to 1e-7),
+   canonical, split error under its option, the returned state's MPO and
+   bond energies; its last update's zero- and two-site
    problems by the card's packed Lanczos against the host
    ``LanczosGroundState`` (E 1e-12, overlap 1 - 1e-10); the last sweep
    profiled (idle share).  12b: ``SingleSiteVUMPSEngine`` on phase 7's
@@ -195,16 +197,32 @@ Phases (any failure exits nonzero):
    estimate, the glued state a valid segment; both routes of a projected
    update (the glued state against the kink) timed at a bond of N in
    256-1024;
+16. the model layer's card path, the Haldane half of config #5:
+   ``FermionicHaldaneModel`` (honeycomb cylinder Lx=1, Ly=3, complex
+   next-nearest-neighbour hopping: a complex128 MPO) from the half-filled
+   product state, whose unit-cell charge (3 on 6 sites) takes the
+   charge-unit rescale; ``device_ramp`` on ``DeviceSweepEngine`` to
+   chi=256 with per-stage times, launches (held to the tensordots run)
+   and energies; its chi=64 stage (first update and energy per site) held
+   to JAX's run of the same stage
+   (``tests/benchmark_data/models_reference.npz``, 1e-10); then sixteen
+   sweeps at chi=256 without the expansion on a ``DeviceSweepEngine`` from
+   the written-back state, the energy per site of the last two 1e-9
+   apart; the written-back state complex128, canonical, N = 3 per cell
+   and 1/2 per site on average, measured, its entanglement spectrum by
+   charge at bond 0 printed; then the complex128 kernel against its plain
+   version, timed, on that engine's chi=256 matvec;
 then a JSON line on the kernels (the f64 mode, the complex128 mode, the
 complex128 mode on the TEBD shapes, the f64 mode on the host DMRG's and
 on the simulation's shapes, the complex128 mode on TDVP's two- and
 one-site matvecs, VUMPS's four matvecs, the purification gate, the
-plane-wave transfer step and the projected segment matvec) and, last,
-``{"ok": true, "device": ...}``.
+plane-wave transfer step, the projected segment matvec and the Haldane
+matvec) and, last, ``{"ok": true, "device": ...}``.
 
-The phases run in three processes on the one card: this one runs 1-9 and
-12b, worker B 10, 13, 12a and 12c, worker C 11, 14 and 15 (``WORKERS``);
-a worker's failure fails the smoke, and the workers end with it.
+The phases run in four processes on the one card: this one runs 1-9 and
+12b, worker B 10 and 13, worker C 11, 14 and 15, worker D 16, 12a and
+12c (``WORKERS``); a worker's failure fails the smoke, and the workers end
+with it.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``; one worker's
 phases alone: ``python3 chip_smoke.py --worker C out.json``.
@@ -241,6 +259,7 @@ from tenpy_tpu_torch.linalg import np_conserved as npc
 from tenpy_tpu_torch.linalg.krylov_based import LanczosGroundState
 from tenpy_tpu_torch.linalg import packed as pk
 from tenpy_tpu_torch.linalg import packed_split as ps
+from tenpy_tpu_torch.models.haldane import FermionicHaldaneModel
 from tenpy_tpu_torch.models.hofstadter import HofstadterFermions
 from tenpy_tpu_torch.models.hubbard import FermiHubbardModel
 from tenpy_tpu_torch.models.spins import SpinChain
@@ -437,7 +456,7 @@ SIM_SEQ_PARAMS = {
                    ['algorithm_params.trunc_params.chi_max']},
 }
 # 10a: the card's run against the CPU run of the same file (svd_min 1e-8
-# in the file, and the two runs' Lanczos stop differently); 10b: the last
+# in the file; the two runs' Lanczos stop by the same rule); 10b: the last
 # stage against free fermions; 10c: the resumed run against the loaded
 # energy, two more sweeps at most
 SIM_CPU_REL = 1e-8
@@ -2665,6 +2684,11 @@ VU_E_EXACT = -1. / np.pi
 # stopping rule (on the energy, not the residual)
 VU_E_TOL = 1e-6
 VU_IDMRG_MARGIN = 1e-10
+# the final TM energy of the card route of dmrg.run against its host route
+# on the same input: both Lanczos stop by the host's rule (9.6e-4 apart on
+# an H100 when the card's stopped on the relative change of the Ritz value
+# after at most 10 steps)
+VU_ROUTE_DMRG_TOL = 1e-7
 VU_ROUTE_K = 40
 VU_ROUTE_E_TOL, VU_ROUTE_OV_TOL = 1e-12, 1e-10
 VU_ZERO_SITE_STEPS = ['LP.C over vR/vL', '.RP over (wR,vR)']
@@ -2954,21 +2978,35 @@ def phase_vumps_xx(smi):
     for name, us, n in rows[:4]:
         log(f"[12a]   {us / 1e6:8.4f} s {n:6d} x  {name[:80]}")
 
-    # the port's iDMRG at the same chi_max
-    psi_d = MPS.from_product_state(model.lat.mps_sites(), VU_XX_INIT,
-                                   bc='infinite')
-    t0 = time.time()
-    info = dmrg.run(psi_d, model, copy.deepcopy(VU_DMRG_OPTIONS),
-                    device='cuda')
-    E_d = float(info['E'])
-    ds = info['sweep_statistics']
-    log(f"[12a] iDMRG sweeps " + ', '.join(
-        f"{ds['sweep'][k]}: E + 1/pi {ds['E'][k] - VU_E_EXACT:+.3e} chi "
-        f"{ds['max_chi'][k]} norm_err {ds['norm_err'][k]:.1e}"
-        for k in range(len(ds['E']))))
-    log(f"[12a] iDMRG (dmrg.run {VU_DMRG_OPTIONS}): {time.time() - t0:.2f} s, "
-        f"E {E_d!r} (E + 1/pi {E_d - VU_E_EXACT:+.3e}), chi {psi_d.chi}; "
+    # the port's iDMRG at the same chi_max, by the card's route (the
+    # engine's rule: the packed Lanczos from N=256 up) and by the host's
+    # (device_K=0) on the same input
+    runs = {}
+    for route, lp in (('card', None), ('host', {'device_K': 0})):
+        psi_d = MPS.from_product_state(model.lat.mps_sites(), VU_XX_INIT,
+                                       bc='infinite')
+        opts = copy.deepcopy(VU_DMRG_OPTIONS)
+        if lp is not None:
+            opts['lanczos_params'] = lp
+        t0 = time.time()
+        info = dmrg.run(psi_d, model, opts, device='cuda')
+        runs[route] = (float(info['E']), info['sweep_statistics'],
+                       psi_d.chi, time.time() - t0)
+    (E_d, ds, chi_d, s_d), (E_h, hs, chi_h, s_h) = runs['card'], runs['host']
+    log(f"[12a] iDMRG (dmrg.run {VU_DMRG_OPTIONS}) sweeps, card route | host "
+        f"route: " + ', '.join(
+            f"{ds['sweep'][k]}: E + 1/pi {ds['E'][k] - VU_E_EXACT:+.6e} chi "
+            f"{ds['max_chi'][k]} | "
+            + (f"{hs['E'][k] - VU_E_EXACT:+.6e} chi {hs['max_chi'][k]}"
+               if k < len(hs['E']) else '-')
+            for k in range(len(ds['E']))))
+    log(f"[12a] iDMRG card route: {s_d:.2f} s, final TM energy {E_d!r} "
+        f"(E + 1/pi {E_d - VU_E_EXACT:+.4e}), chi {chi_d}; host route: "
+        f"{s_h:.2f} s, {E_h!r} ({E_h - VU_E_EXACT:+.4e}), chi {chi_h}; card "
+        f"- host {E_d - E_h:+.3e} (tolerance {VU_ROUTE_DMRG_TOL:.0e}); "
         f"VUMPS - iDMRG {E - E_d:+.3e} (at most {VU_IDMRG_MARGIN:.0e})")
+    check(abs(E_d - E_h) <= VU_ROUTE_DMRG_TOL, "12a: the card route of "
+          "dmrg.run departs from its host route")
     check(E <= E_d + VU_IDMRG_MARGIN, "12a: VUMPS is above iDMRG at the "
           "same chi_max")
 
@@ -4501,26 +4539,223 @@ def phase_segment(smi, model, u):
     return launches, tot
 
 
-# The phases run in three processes on the one card.  They are host-bound
+# phase 16, the Haldane half of config #5 (examples/chern_insulators/
+# haldane.py): the honeycomb cylinder Lx=1, Ly=3 at half filling, ramped
+# to chi=256, the width of the main path's f64 phases.  The first stage
+# goes from the product state straight to chi=64: the cylinder's
+# y-translation symmetry leaves degenerate pairs in the Schmidt spectrum,
+# and behind stages that cut chi at 2, 4, ..., 32 the chi=64 stage moved
+# by 1e-6 (its first update by 1e-4) under a change of t1 by 1e-13 on a
+# CPU, against 1e-13 when it starts from the product state
+HAL_MODEL = {'Lx': 1, 'Ly': 3, 'bc_MPS': 'infinite', 'bc_y': 'cylinder',
+             'conserve': 'N', 't1': -1., 'V': 0., 'mu': 0.}
+HAL_INIT = ['full', 'empty'] * 3
+HAL_OPTIONS = {'chi_max': 256, 'chi_list': [[64, 2], [128, 4], [256, 8]],
+               'svd_min': 1e-10, 'lanczos_K': 10, 'lanczos_K_seam': 60,
+               'backend': 'svd'}
+# JAX's run of the first stage (as its last stage, given settle_sweeps=0
+# so that it runs as the inner stage it is here); written by
+# tests/torch_exchange.py --write-models
+HAL_REF = os.path.join(ROOT, 'tests', 'benchmark_data',
+                       'models_reference.npz')
+HAL_REF_CHI = 64
+HAL_REF_OPTIONS = dict(HAL_OPTIONS, chi_max=HAL_REF_CHI,
+                       chi_list=[[HAL_REF_CHI, 2]], n_sweeps=2,
+                       settle_sweeps=0)
+# the chi=64 stage's first update (relative) and energy per site
+# (absolute) against JAX's (phase 7's HOF_E_TOL)
+HAL_REF_TOL = 1e-10
+# then the chi=256 state relaxes on the main-path engine with the
+# expansion off: the ramp's last stage settles for two sweeps only, and
+# the energy per site (the difference of two sweep energies) converges
+# slowly and not monotonically (on a CPU at chi=32, after stages of 2 and
+# 8 sweeps: 1.7e-6 apart after one sweep, 3.3e-9 after sixteen, the
+# last ones about 0.65x the one before)
+HAL_SETTLE = {'chi_max': 256, 'svd_min': 1e-10, 'lanczos_K': 10,
+              'lanczos_K_seam': 60, 'n_sweeps': 16, 'mixer': False,
+              'backend': 'svd'}
+# the energy per site of the last two of those sweeps: 5.9e-11 apart on
+# an H100 (PERF.md; the ones before 8.8e-11 and 1.7e-10), so 1e-9 in
+# place of the 1e-8 first set
+HAL_E_TOL = 1e-9
+HAL_CELL_N = 3.
+HAL_SPECTRUM_LEVELS = 4
+
+
+def phase_haldane(smi):
+    """16: ``device_ramp`` of the complex Haldane cylinder to chi=256 from
+    the half-filled product state, its chi=64 stage held to JAX's run of
+    the same protocol; then ``HAL_SETTLE``'s sweeps without the expansion
+    on a ``DeviceSweepEngine`` from the written-back state, its energy per
+    site converged, its written-back state checked and measured, the
+    entanglement spectrum by charge printed; then the complex128 kernel on
+    that engine's chi=256 matvec.  Returns the kernel launches of both
+    runs and the matvec's kernel numbers."""
+    t0 = time.time()
+    ref = {k[len('ramp.chi64.'):]: v
+           for k, v in exchange.load_flat(HAL_REF).items()
+           if k.startswith('ramp.chi64.')}
+    check(json.loads(str(ref['options'])) == HAL_REF_OPTIONS
+          and json.loads(str(ref['model'])) == HAL_MODEL,
+          "16: the Haldane reference's options or model differ")
+    model = FermionicHaldaneModel(dict(HAL_MODEL))
+    psi = MPS.from_product_state(model.lat.mps_sites(), HAL_INIT,
+                                 bc='infinite')
+    L = model.lat.N_sites
+    log(f"[16] FermionicHaldaneModel {HAL_MODEL}: L={L}, H_MPO "
+        f"{model.H_MPO.dtype}, MPO bond dims {model.H_MPO.chi}; model and "
+        f"state {time.time() - t0:.3f} s; card {smi}")
+    check(model.H_MPO.dtype == torch.complex128, "16: the MPO is not complex")
+    sites = list(psi.sites)
+    per_sweep, restore = counting()
+    gg.LAUNCHES = 0                    # count the Haldane path's launches
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.time()
+        eng = device_ramp(psi, model, dict(HAL_OPTIONS), device='cuda')
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        ramp_wb = dict(eng.write_back_stats)
+        t0 = time.time()
+        eng_s = DeviceSweepEngine(psi, model, dict(HAL_SETTLE), 'cuda')
+        eng_s.run()
+        torch.cuda.synchronize()
+        settle_wall = time.time() - t0
+    finally:
+        restore()
+    launches = gg.LAUNCHES
+    st, st_s = eng.sweep_stats, eng_s.sweep_stats
+    log(f"[16] charge gauge: unit-cell charge 3 on {L} sites, charge units "
+        f"rescaled by k={[int(k) for k in eng.gauge['k']]} (JAX: "
+        f"{[int(k) for k in ref['gauge_k']]}); layout "
+        f"{eng.bond[0].block_number} sectors, capacity "
+        f"{int(eng.bond[0].slices[-1])}; state {eng.Bp[0].dtype}, W "
+        f"{eng.Wp[1].dtype}")
+    check(np.array_equal(eng.gauge['k'], ref['gauge_k'])
+          and eng.Bp[0].dtype == torch.complex128,
+          "16: the run did not take JAX's rescaled gauge on complex128 "
+          "buffers")
+    check(len(per_sweep) == len(st['E']) + len(st_s['E']),
+          "16: sweeps counted twice or missed")
+    e_site = {}
+    for k, stage in enumerate(eng.stages):
+        sw = range(stage['first_sweep'],
+                   stage['first_sweep'] + stage['n_sweeps'])
+        lau = [per_sweep[i][0] for i in sw]
+        tds = [per_sweep[i][1] for i in sw]
+        E = [st['E'][i] for i in sw]
+        e_site[stage['chi']] = [(b - a) / (2 * L) for a, b in zip(E, E[1:])]
+        log(f"[16] stage {k + 1} chi={stage['chi']}: s/sweep "
+            + ' '.join(f"{st['time'][i]:.2f}" for i in sw)
+            + f", lanczos_iters {[sum(st['lanczos_iters'][i]) for i in sw]}"
+            f", launches {lau} (tensordots {tds}), setup "
+            f"{stage['setup_s']:.3f} s, E "
+            + ' '.join(f'{x:.10f}' for x in E)
+            + ", energy per site " + ' '.join(
+                f'{x:.12f}' for x in e_site[stage['chi']])
+            + f", max_err {max(st['max_err'][i] for i in sw):.2e}")
+        check(all(n == c for n, c in zip(lau, tds)),
+              f"16: stage {k + 1}: kernel launches differ from the "
+              f"tensordots")
+    log(f"[16] device_ramp wall {wall:.2f} s ({sum(st['time']):.2f} s of "
+        f"sweeps), {len(st['E'])} sweeps; kernel launches {launches} in the "
+        f"ramp and the relaxation below (tensordots in their sweeps "
+        f"{sum(c for _, c, _ in per_sweep)}), peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    check(launches > 0, "16: the Haldane path never launched the kernel")
+    check(np.isfinite(st['E']).all() and
+          all(torch.isfinite(S).all() for S in eng.Sp),
+          "16: non-finite energy or Schmidt values")
+
+    # the chi=64 stage against JAX's run of the same stages
+    k64 = [stg['chi'] for stg in eng.stages].index(HAL_REF_CHI)
+    r64 = list(ref['stage_chi']).index(HAL_REF_CHI)
+    first = eng.stages[k64]['first_sweep']
+    check(eng.stages[k64]['n_sweeps'] == 2 and [stg['chi'] for stg in
+                                                eng.stages[:k64 + 1]]
+          == [int(c) for c in ref['stage_chi']]
+          and first == int(ref['stage_first'][r64]),
+          "16: the stages up to chi=64 differ from JAX's")
+    e0 = st['update_E0'][first][0]
+    e0_ref = float(ref['stage_update_E0'][r64][0])
+    rel0 = abs(e0 - e0_ref) / abs(e0_ref)
+    ref_E = ref['sweep_E']
+    d_E = np.abs(np.asarray(st['E'][:len(ref_E)]) - ref_E) / np.abs(ref_E)
+    e64 = e_site[HAL_REF_CHI][-1]
+    e64_ref = float(ref_E[-1] - ref_E[-2]) / (2 * L)
+    log(f"[16] chi={HAL_REF_CHI} stage vs JAX's run: first update E0 "
+        f"{e0:.12f} vs {e0_ref:.12f} (rel {rel0:.2e}); energy per site "
+        f"{e64!r} vs {e64_ref!r} (diff {e64 - e64_ref:+.3e}, tolerance "
+        f"{HAL_REF_TOL:.0e}); sweep energies up to it (rel): "
+        + ' '.join(f'{x:.1e}' for x in d_E))
+    check(rel0 <= HAL_REF_TOL, "16: the chi=64 stage's first update "
+          "disagrees with JAX")
+    check(abs(e64 - e64_ref) <= HAL_REF_TOL, "16: the chi=64 stage's "
+          "energy per site differs from JAX's run of the same protocol")
+
+    log(f"[16] the ramp's write-back: norm_test before "
+        f"{ramp_wb['norm_test_before']:.3e}, after "
+        f"{ramp_wb['norm_test_after']:.3e}")
+    check(ramp_wb['norm_test_after'] <= CELL_TOL,
+          "16: the ramp's written-back state is not canonical")
+    sw = range(len(st['E']), len(per_sweep))
+    E_s = st_s['E']
+    e_last = [(b - a) / (2 * L) for a, b in zip(E_s, E_s[1:])]
+    log(f"[16] chi={HAL_SETTLE['chi_max']} without the expansion "
+        f"({HAL_SETTLE['n_sweeps']} sweeps on a DeviceSweepEngine from the "
+        f"written-back state): {settle_wall:.2f} s, setup "
+        f"{sum(eng_s.setup_seconds.values()):.3f} s, s/sweep "
+        + ' '.join(f"{x:.2f}" for x in st_s['time'])
+        + f", launches {[per_sweep[i][0] for i in sw]} (tensordots "
+        f"{[per_sweep[i][1] for i in sw]}), energy per site "
+        + ' '.join(f'{x:.12f}' for x in e_last)
+        + f", max_err {max(st_s['max_err']):.2e}; the last two "
+        f"{e_last[-1] - e_last[-2]:+.3e} apart (tolerance {HAL_E_TOL:.0e})")
+    check(all(per_sweep[i][0] == per_sweep[i][1] for i in sw),
+          "16: kernel launches differ from the tensordots")
+    check(np.isfinite(E_s).all(), "16: non-finite energy")
+    check(abs(e_last[-1] - e_last[-2]) <= HAL_E_TOL,
+          "16: the energy per site of the last two sweeps differs")
+
+    got = check_written_back(eng_s, sites, 16, cell=(('N', HAL_CELL_N),))
+    psi = eng_s.psi
+    imag = max(float(b.imag.abs().max()) for B in psi._B for b in B._data)
+    n_mean = float(np.mean(got['N']))
+    log(f"[16] written-back state {psi.dtype}, largest imaginary part "
+        f"{imag:.3e}; <N> per site: mean - 1/2 {n_mean - 0.5:+.1e}, "
+        f"largest |N_i - 1/2| {float(np.abs(got['N'] - 0.5).max()):.2e}; "
+        f"TM energy - sweep estimate {got['tm_E'] - e_last[-1]:+.3e}")
+    check(psi.dtype == torch.complex128 and imag > 1e-3,
+          "16: the written-back state is not genuinely complex")
+    check(abs(n_mean - 0.5) <= CELL_TOL, "16: <N> per site is not 1/2")
+    check(abs(got['tm_E'] - e_last[-1]) <= 1e-4,
+          "16: TM energy of the written-back state far from its sweeps'")
+    spec = psi.entanglement_spectrum(by_charge=True)[0]
+    log("[16] entanglement spectrum at bond 0 by charge (-log S^2, lowest "
+        f"{HAL_SPECTRUM_LEVELS}): " + '; '.join(
+            f"N={list(map(int, q))}: "
+            + ' '.join(f'{x:.4f}' for x in np.sort(lev)[:HAL_SPECTRUM_LEVELS])
+            for q, lev in spec))
+    mv = phase_matvec(eng_s, 16, HAL_SETTLE)
+    return launches, mv
+
+
+# The phases run in four processes on the one card.  They are host-bound
 # (the card idle 96-99% of phases 9-15, PERF.md section 5), so groups that
 # share no state run side by side: this process runs 1-9 and 12b (which
-# starts from phase 7's state), worker B runs 10, 13, 12a and 12c, worker C
-# 11, 14 and 15.  Each process counts its own launches around its own
-# paths; kernel timings take turns (timing_lock).  The host's cores are
-# shared out among the three as torch threads (a phase that pins its own
-# count still does).
+# starts from phase 7's state), worker B runs 10 and 13, worker C 11, 14
+# and 15, worker D 16, 12a and 12c.  Each process counts its own launches
+# around its own paths; kernel timings take turns (timing_lock).  The
+# host's cores are shared out among the four as torch threads (a phase
+# that pins its own count still does).
 def run_worker_b(smi):
-    """Phases 10, 13, 12a and 12c; their kernel entries and walls."""
+    """Phases 10 and 13; their kernel entries and walls."""
     kernels, walls, t = {}, [], time.time()
     kernels['packed_contract_simulation'] = phase_simulation(smi)
     walls.append(('10', time.time() - t))
     t = time.time()
     kernels['packed_contract_purification_gate'] = phase_purification(smi)
     walls.append(('13', time.time() - t))
-    t = time.time()
-    (kernels['packed_contract_vumps_zero_site'],
-     kernels['packed_contract_vumps_two_site']) = phase_vumps_real(smi)
-    walls.append(('12a,12c', time.time() - t))
     return kernels, walls
 
 
@@ -4542,9 +4777,21 @@ def run_worker_c(smi):
     return kernels, walls
 
 
-WORKERS = {'B': run_worker_b, 'C': run_worker_c}
+def run_worker_d(smi):
+    """Phases 16, 12a and 12c; their kernel entries and walls."""
+    kernels, walls, t = {}, [], time.time()
+    kernels['packed_contract_haldane'] = phase_haldane(smi)
+    walls.append(('16', time.time() - t))
+    t = time.time()
+    (kernels['packed_contract_vumps_zero_site'],
+     kernels['packed_contract_vumps_two_site']) = phase_vumps_real(smi)
+    walls.append(('12a,12c', time.time() - t))
+    return kernels, walls
+
+
+WORKERS = {'B': run_worker_b, 'C': run_worker_c, 'D': run_worker_d}
 # torch host threads per process, as shares of the host's cores
-THREAD_SHARE = {'main': 2, 'B': 4, 'C': 4}
+THREAD_SHARE = {'main': 2, 'B': 4, 'C': 4, 'D': 4}
 # the workers must have finished this long after the smoke's start
 WORKER_DEADLINE_S = 1150.
 MEASURED = ('max_abs', 'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
@@ -4557,7 +4804,8 @@ def share_threads(name):
 def worker_main(name, out):
     """Run worker ``name``'s phases and write their kernel entries and
     walls to ``out`` as JSON.  Alone, ``python3 chip_smoke.py --worker C
-    out.json`` runs phases 11, 14 and 15 (B: 10, 13, 12a and 12c)."""
+    out.json`` runs phases 11, 14 and 15 (B: 10 and 13; D: 16, 12a and
+    12c)."""
     exit_with_parent()
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available")
@@ -4647,15 +4895,15 @@ def main():
             kernels, max_abs_synth, walls = main_phases(smi, procs, t_start)
             t = time.time()
             worker_kernels, worker_walls = join_workers(procs, tmp, t_start)
-            log(f"[16] waited {time.time() - t:.1f} s for the workers")
+            log(f"[17] waited {time.time() - t:.1f} s for the workers")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     kernels.update(worker_kernels)
-    log("[16] wall by phase: " + ', '.join(
+    log("[17] wall by phase: " + ', '.join(
         f"[{name}] {t:.1f} s" for name, t in walls + worker_walls))
     m = {k: v[1]['max_abs'] for k, v in kernels.items()}
     p = 'packed_contract_'
-    log(f"[16] kernel max_abs_err: synthetic f64 "
+    log(f"[17] kernel max_abs_err: synthetic f64 "
         f"{max_abs_synth[torch.float64]:.2e}, complex128 "
         f"{max_abs_synth[torch.complex128]:.2e}; main-path shapes f64 "
         f"{m['packed_contract']:.2e}, complex128 {m[p + 'complex128']:.2e}, "
@@ -4669,7 +4917,8 @@ def main():
         f"{m[p + 'vumps_one_site_complex128']:.2e}; purification gate f64 "
         f"{m[p + 'purification_gate']:.2e}; plane-wave transfer step "
         f"complex128 {m[p + 'plane_wave_transfer']:.2e}; projected segment "
-        f"matvec f64 {m[p + 'segment_orthogonal']:.2e}")
+        f"matvec f64 {m[p + 'segment_orthogonal']:.2e}; Haldane matvec "
+        f"complex128 {m[p + 'haldane']:.2e}")
 
     def entry(name):
         n, m = kernels[name]
@@ -4693,18 +4942,20 @@ def main():
     # transfer-matrix step of a plane-wave excitation's right sum (3
     # tensordots), complex128 on the chi=128 S=1 chain; per matvec of a
     # projected segment update (4 tensordots), f64 at the centre of the
-    # S=1 chain's chi=128 segment
+    # S=1 chain's chi=128 segment; per matvec (4 tensordots) of the chi=256
+    # Haldane cylinder, complex128
     names = ['packed_contract', 'complex128', 'complex128_tebd', 'host_dmrg',
              'simulation', 'tdvp_two_site', 'tdvp_one_site',
              'vumps_zero_site', 'vumps_two_site',
              'vumps_zero_site_complex128', 'vumps_one_site_complex128',
-             'purification_gate', 'plane_wave_transfer', 'segment_orthogonal']
+             'purification_gate', 'plane_wave_transfer', 'segment_orthogonal',
+             'haldane']
     names = names[:1] + [p + n for n in names[1:]]
     check(sorted(names) == sorted(kernels), "the kernel entries differ from "
           "the phases' measurements")
     print(json.dumps({'kernels': [entry(name) for name in names]}),
           flush=True)
-    log(f"[16] chip_smoke wall {time.time() - t_start:.1f} s")
+    log(f"[17] chip_smoke wall {time.time() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -9,9 +9,9 @@ norm test and the seconds, as one JSON line each.  The cases: on a card
 by the engine's rule (the packed Lanczos from N=256 up), each at 8 and at
 1 torch host threads; on the CPU (``--device cpu``) the host route at 8
 and at 1 thread, and with ``--packed`` the card's route instead (every
-two-site update on the packed Lanczos, ``device_K`` = 10, the card's
-default of at most ``N_max`` = 10 steps, through the kernel's plain
-version), at 8 threads.  A route
+two-site update on the packed Lanczos, ``device_K`` = 20, the card's
+default of at most ``N_max`` = 20 steps, stopping by the host's rule,
+through the kernel's plain version), at 8 threads.  A route
 departs from the other where their sweep energies part on the same
 input::
 
@@ -79,7 +79,7 @@ def main(argv=None):
               flush=True)
         cases = [(0, 8), (None, 8), (0, 1), (None, 1)]
     elif args.packed:
-        cases = [(10, 8)]
+        cases = [(20, 8)]
     else:
         cases = [(None, 8), (None, 1)]
     for device_K, threads in cases:

@@ -418,20 +418,30 @@ class DMRGEngine(IterativeSweeps):
         Ritz vector comes back to the host in one copy.
         ``self.device_lanczos_stats`` counts the solves and their Lanczos
         steps, those with a vector projected out apart, and lists their
-        N."""
+        N.
+
+        The loop stops by the host ``LanczosGroundState``'s rule
+        (``stop='residual'`` with ``lanczos_params``' ``N_min``, ``P_tol``,
+        ``E_tol`` and ``cutoff``), after ``N_max`` steps at most (20, the
+        host's default) or ``device_K`` where that is set.  ``tenpy_tpu``
+        stops here on the relative change of the Ritz value after at most
+        10 steps, which loosens as an iDMRG environment ages and made the
+        two routes part (a departure in TeNPy's favour)."""
         eff, ortho_vecs = self._base_eff_H()
-        K = self.lanczos_params.get('device_K', None)
+        lp = self.lanczos_params
+        K = lp.get('device_K', None)
         if not K:
-            K = self.lanczos_params.get('N_max', 10, int)
+            K = lp.get('N_max', 20, int)
         K = int(K)
         LPp, RPp, W0p, W1p = eff.pack_operands(self.device)
         theta_p = mps_common.pack_virtual(theta_guess, self.device)
         ortho = mps_common.pack_ortho(ortho_vecs, theta_p, self.device)
-        P_tol = self.lanczos_params.get('P_tol', 1e-14, 'real')
-        reortho = bool(self.lanczos_params.get('reortho', False))
         E0, th, K, _ = mps_common.lanczos_K_2site_packed(
-            LPp, RPp, W0p, W1p, theta_p, K, float(P_tol), 2, reortho,
-            ortho=ortho)
+            LPp, RPp, W0p, W1p, theta_p, K,
+            float(lp.get('P_tol', 1e-14, 'real')), lp.get('N_min', 2, int),
+            bool(lp.get('reortho', False)), ortho=ortho, stop='residual',
+            E_tol=float(lp.get('E_tol', np.inf, 'real')),
+            cutoff=float(lp.get('cutoff', 1e-12, 'real')))
         st = self.device_lanczos_stats
         kind = 'projected' if ortho else 'plain'
         st[kind] += 1

@@ -108,6 +108,8 @@ class ExactDiag:
             n = T.shape[1] * T.shape[2]
             T = T.reshape(T.shape[0], n, n)
         dense = T[H.get_IdR(H.L - 1)]
+        if H.explicit_plus_hc:      # the MPO holds half of H + H^dagger
+            dense = dense + dense.conj().T
         perm = self._pipe_order()
         self.full_H = npc.Array.from_ndarray(
             dense[np.ix_(perm, perm)], [self.pipe, self.pipe.conj()],

@@ -293,13 +293,14 @@ def lanczos_evolve_packed(matvec, theta0, delta, N_min=2, N_max=20,
 def _lanczos_K_2site_packed_impl(LPp, RPp, W0p, W1p, theta0, K,
                                  P_tol=0., N_min=2, reortho=False,
                                  matvec_mode=None, exact_E=False,
-                                 ortho=None):
+                                 ortho=None, stop='relative', E_tol=np.inf,
+                                 cutoff=1e-12):
     """Lanczos + Ritz ground state of the two-site effective H, packed:
     :func:`lanczos_ground_packed` with :func:`_matvec_2site_packed`."""
     return lanczos_ground_packed(_matvec_2site_packed,
                                  (LPp, RPp, W0p, W1p), theta0, K, P_tol,
                                  N_min, reortho, matvec_mode, exact_E,
-                                 ortho)
+                                 ortho, stop, E_tol, cutoff)
 
 
 def use_device_lanczos(lanczos_params, device, N):
@@ -331,7 +332,8 @@ def project_out_packed(v, ortho):
 
 def lanczos_ground_packed(matvec_packed, operands, theta0, K, P_tol=0.,
                           N_min=2, reortho=False, matvec_mode=None,
-                          exact_E=False, ortho=None):
+                          exact_E=False, ortho=None, stop='relative',
+                          E_tol=np.inf, cutoff=1e-12):
     """Lanczos + Ritz ground state of a packed effective H, whose matvec is
     ``matvec_packed(*operands, v)`` (:func:`_matvec_2site_packed`,
     :func:`_matvec_1site_packed` or :func:`_matvec_0site_packed`; VUMPS's
@@ -339,11 +341,20 @@ def lanczos_ground_packed(matvec_packed, operands, theta0, K, P_tol=0.,
     :meth:`EffectiveH.pack_operands`).
 
     With ``P_tol > 0`` (or ``reortho``) the loop takes up to ``K`` steps and
-    exits once the ground Ritz value is converged
-    (``|E_i - E_{i-1}| <= P_tol |E_i|`` after at least ``N_min`` steps) or
-    the Krylov space is exhausted; otherwise it takes exactly ``K`` steps
-    and solves the tridiagonal problem once.  ``reortho`` orthogonalizes
-    every new vector against the stored basis.  ``matvec_mode='f32'`` runs
+    exits, after at least ``N_min`` steps, by the rule ``stop`` names, or
+    once the Krylov space is exhausted; otherwise it takes exactly ``K``
+    steps and solves the tridiagonal problem once.  ``stop='relative'``
+    (``tenpy_tpu``'s device rule, which the device sweep engine, VUMPS and
+    TDVP keep) exits once ``|E_i - E_{i-1}| <= P_tol |E_i|``.
+    ``stop='residual'`` is the host
+    :class:`~tenpy_tpu_torch.linalg.krylov_based.LanczosGroundState`'s:
+    exit once the weight ``(beta_n c_n)^2`` of the next Krylov vector in
+    the ground Ritz vector (``c_n`` the last entry of the tridiagonal
+    ground eigenvector) is below ``P_tol``, or ``|E_n - E_{n-1}| < E_tol``,
+    or ``beta_n < cutoff``; unlike the relative rule it does not loosen
+    as the Ritz value grows with an iDMRG environment's age.  ``reortho``
+    orthogonalizes every new vector against the stored basis.
+    ``matvec_mode='f32'`` runs
     the matvecs' GEMMs in float32 while the scalar algebra stays f64; with
     ``exact_E`` the returned E0 is then the f64 Rayleigh quotient of the
     Ritz vector (one extra f64 matvec).
@@ -398,7 +409,11 @@ def lanczos_ground_packed(matvec_packed, operands, theta0, K, P_tol=0.,
     # basis vector is pure noise; stop there (scaled by |alpha| + beta_prev)
     mv_eps = 2e-7 if matvec_mode == 'f32' else 0.
 
-    if not (P_tol and P_tol > 0) and not reortho:
+    if stop not in ('relative', 'residual'):
+        raise ValueError(f"unknown stop rule {stop!r}")
+    residual = stop == 'residual'
+    if not (P_tol and P_tol > 0) and not reortho and \
+            not (residual and np.isfinite(E_tol)):
         # fixed-K path: no host sync inside the loop
         v_prev, v = v0 * 0., v0
         beta_prev = torch.zeros((), dtype=torch.float64, device=v0.device)
@@ -443,15 +458,21 @@ def lanczos_ground_packed(matvec_packed, operands, theta0, K, P_tol=0.,
             hw = hw - _combine(vs, cs)
         beta_t = pk.norm(hw)
         alpha, beta = (float(x) for x in torch.stack([alpha_t, beta_t]).cpu())
-        ok = beta > max(1e-14, 30. * mv_eps * (abs(alpha) + beta_prev))
+        ok = beta > max(cutoff if residual else 1e-14,
+                        30. * mv_eps * (abs(alpha) + beta_prev))
         alphas[i] = alpha
         betas[i] = beta if ok else 0.
         v_prev, v = v, (hw * (1. / beta) if ok else hw * 0.)
         beta_prev = betas[i]
         n = i + 1
-        E, _ = _tridiag_ground(alphas, betas, np.arange(K) < n,
+        E, c = _tridiag_ground(alphas, betas, np.arange(K) < n,
                                np.arange(K - 1) < n - 1)
-        conv = P_tol > 0 and n >= N_min and abs(E - E_prev) <= P_tol * abs(E)
+        if residual:
+            conv = n >= N_min and ((beta * c[n - 1]) ** 2 < P_tol or (
+                E_tol < np.inf and abs(E - E_prev) < E_tol))
+        else:
+            conv = P_tol > 0 and n >= N_min and \
+                abs(E - E_prev) <= P_tol * abs(E)
         E_prev = E
         i = n
         if conv or not ok:
@@ -465,13 +486,14 @@ def lanczos_ground_packed(matvec_packed, operands, theta0, K, P_tol=0.,
 
 def lanczos_K_2site_packed(LPp, RPp, W0p, W1p, theta0, K, P_tol=0.,
                            N_min=2, reortho=False, matvec_mode=None,
-                           exact_E=False, ortho=None):
+                           exact_E=False, ortho=None, stop='relative',
+                           E_tol=np.inf, cutoff=1e-12):
     """The packed two-site Lanczos: :func:`_lanczos_K_2site_packed_impl`
     (``tenpy_tpu`` compiles it once per ``K`` and options; here it is a
     plain call)."""
     return _lanczos_K_2site_packed_impl(LPp, RPp, W0p, W1p, theta0, K,
                                         P_tol, N_min, reortho, matvec_mode,
-                                        exact_E, ortho)
+                                        exact_E, ortho, stop, E_tol, cutoff)
 
 
 def pack_ortho(vecs, like, device):

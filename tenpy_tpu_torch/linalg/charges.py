@@ -438,6 +438,21 @@ class LegPipe(LegCharge):
         row = self.q_map[self._map_dict[tuple(int(c) for c in comb)]]
         return int(row[0]), int(row[1]), int(row[2])
 
+    def map_incoming_flat(self, incoming):
+        """The flat index on the pipe of flat indices ``incoming`` on the
+        constituent legs (C order within a sector combination)."""
+        qis, pos = [], 0
+        for l, i in zip(self.legs, incoming):
+            qi, rem = l.get_qindex(i)
+            qis.append(qi)
+            pos = pos * int(l.sector_sizes()[qi]) + rem
+        start, _, fqi = self.map_comb(qis)
+        return int(self.slices[fqi]) + start + pos
+
+    def to_LegCharge(self):
+        """The pipe as a plain :class:`LegCharge` (same sectors)."""
+        return LegCharge(self.chinfo, self.slices, self.charges, self.qconj)
+
     def __repr__(self):
         return (f"LegPipe(nlegs={self.nlegs}, qconj={self.qconj:+d}, "
                 f"len={self.ind_len}, sectors={self.block_number})")

@@ -1,8 +1,8 @@
-r"""The Hofstadter model of spinless fermions: flux through a square lattice.
+r"""The Hofstadter models: particles on a square lattice in a flux.
 
-Port of ``gauge_hopping`` and ``HofstadterFermions`` from
-``tenpy_tpu/models/hofstadter.py``: the same hopping phases, added in the
-same order, give the same (complex) MPO.
+Port of ``gauge_hopping``, ``HofstadterFermions`` and ``HofstadterBosons``
+from ``tenpy_tpu/models/hofstadter.py``: the same hopping phases, added in
+the same order, give the same (complex) MPO.
 """
 
 from __future__ import annotations
@@ -11,9 +11,9 @@ import numpy as np
 
 from .lattice import Square
 from .model import CouplingMPOModel
-from ..networks.site import FermionSite
+from ..networks.site import BosonSite, FermionSite
 
-__all__ = ['gauge_hopping', 'HofstadterFermions']
+__all__ = ['gauge_hopping', 'HofstadterFermions', 'HofstadterBosons']
 
 
 def gauge_hopping(model_params, Lx, Ly):
@@ -71,3 +71,33 @@ class HofstadterFermions(CouplingMPOModel):
         if np.any(np.asarray(v) != 0.):
             self.add_coupling(v, 0, 'N', 0, 'N', dx_x)
             self.add_coupling(v, 0, 'N', 0, 'N', dx_y)
+
+
+class HofstadterBosons(CouplingMPOModel):
+    r"""Bosons in a magnetic field:
+    ``H = sum (t_{ij} b^dag_i b_j + h.c.) + U/2 sum n(n-1) - mu sum n``.
+
+    Options: ``Nmax`` (3), ``U`` (0.), and those of
+    :class:`HofstadterFermions` but ``v``.
+    """
+
+    default_lattice = Square
+
+    def init_sites(self, model_params):
+        return BosonSite(Nmax=model_params.get('Nmax', 3, int),
+                         conserve=model_params.get('conserve', 'N'))
+
+    def init_terms(self, model_params):
+        Lx, Ly = self.lat.Ls
+        hop_x, hop_y = gauge_hopping(model_params, Lx, Ly)
+        mu = model_params.get('mu', 0., 'real_or_array')
+        U = model_params.get('U', 0., 'real_or_array')
+        self.add_onsite(-np.asarray(mu) - np.asarray(U) / 2., 0, 'N')
+        self.add_onsite(np.asarray(U) / 2., 0, 'NN')
+        dx_x, dx_y = np.array([1, 0]), np.array([0, 1])
+        shape_x, _ = self.lat.coupling_shape(dx_x)
+        shape_y, _ = self.lat.coupling_shape(dx_y)
+        self.add_coupling(hop_x[:shape_x[0], :shape_x[1]], 0, 'Bd', 0, 'B',
+                          dx_x, plus_hc=True)
+        self.add_coupling(hop_y[:shape_y[0], :shape_y[1]], 0, 'Bd', 0, 'B',
+                          dx_y, plus_hc=True)

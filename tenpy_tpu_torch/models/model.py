@@ -2,11 +2,14 @@ r"""Model base classes and the coupling DSL.
 
 Port of ``Model``, ``NearestNeighborModel`` (its ``calc_H_bond``),
 ``MPOModel``, ``CouplingModel`` and ``CouplingMPOModel`` from
-``tenpy_tpu/models/model.py``, for models built from on-site terms and
-two-site couplings.  A model is a lattice plus Hamiltonian terms, compiled
-to an MPO through :class:`~tenpy_tpu_torch.networks.mpo.MPOGraph`.
-Multi-site couplings, exponentially decaying couplings and the external
-flux helpers are not ported.
+``tenpy_tpu/models/model.py``: on-site terms, two-site and multi-site
+couplings, exponentially decaying couplings, local terms given by
+lattice indices, the external-flux phases of coupling strengths,
+``explicit_plus_hc`` and ``sort_mpo_legs``.  A model is a lattice plus
+Hamiltonian terms, compiled to an MPO through
+:class:`~tenpy_tpu_torch.networks.mpo.MPOGraph`.  ``tenpy_tpu``'s
+conversions between ``H_bond`` and ``H_MPO`` (``from_MPOModel``,
+``calc_H_MPO_from_bond``, ``calc_H_bond_from_MPO``) are not ported.
 """
 
 from __future__ import annotations
@@ -15,10 +18,11 @@ import copy
 
 import numpy as np
 
-from .lattice import Lattice, get_lattice, Chain
+from .lattice import Lattice, MultiSpeciesLattice, get_lattice, Chain
 from ..linalg import np_conserved as npc
 from ..networks import mpo
-from ..networks.terms import OnsiteTerms, CouplingTerms, order_combine_term
+from ..networks.terms import (OnsiteTerms, CouplingTerms, MultiCouplingTerms,
+                              ExponentiallyDecayingTerms, order_combine_term)
 from ..tools.misc import to_array
 from ..tools.params import asConfig
 
@@ -100,23 +104,33 @@ class MPOModel(Model):
 
 
 class CouplingModel(Model):
-    """The term DSL: :meth:`add_onsite`, :meth:`add_coupling`."""
+    """The term DSL: :meth:`add_onsite`, :meth:`add_coupling`,
+    :meth:`add_multi_coupling`, :meth:`add_exponentially_decaying_coupling`,
+    :meth:`add_local_term` and their single-term forms."""
 
     def __init__(self, lattice, explicit_plus_hc=False):
         Model.__init__(self, lattice)
         self.explicit_plus_hc = explicit_plus_hc
         self.onsite_terms = {}       # category -> OnsiteTerms
-        self.coupling_terms = {}     # category -> CouplingTerms
+        self.coupling_terms = {}     # category -> (Multi)CouplingTerms
+        self.exp_decaying_terms = ExponentiallyDecayingTerms(
+            lattice.N_sites)
 
     def _get_onsite(self, category):
         if category not in self.onsite_terms:
             self.onsite_terms[category] = OnsiteTerms(self.lat.N_sites)
         return self.onsite_terms[category]
 
-    def _get_coupling(self, category):
-        if category not in self.coupling_terms:
-            self.coupling_terms[category] = CouplingTerms(self.lat.N_sites)
-        return self.coupling_terms[category]
+    def _get_coupling(self, category, multi=False):
+        ct = self.coupling_terms.get(category)
+        if ct is None:
+            cls = MultiCouplingTerms if multi else CouplingTerms
+            ct = self.coupling_terms[category] = cls(self.lat.N_sites)
+        elif multi and not isinstance(ct, MultiCouplingTerms):
+            new = MultiCouplingTerms(self.lat.N_sites)
+            new += ct
+            ct = self.coupling_terms[category] = new
+        return ct
 
     def all_onsite_terms(self):
         total = OnsiteTerms(self.lat.N_sites)
@@ -125,19 +139,27 @@ class CouplingModel(Model):
         return total
 
     def all_coupling_terms(self):
-        total = CouplingTerms(self.lat.N_sites)
+        multi = any(isinstance(ct, MultiCouplingTerms)
+                    for ct in self.coupling_terms.values())
+        total = (MultiCouplingTerms if multi else CouplingTerms)(
+            self.lat.N_sites)
         for ct in self.coupling_terms.values():
             total += ct
         return total
 
+    def _halve_for_hc(self, strength, plus_hc):
+        """With ``explicit_plus_hc`` the MPO adds the h.c. of every term:
+        ``(strength / 2, False)`` for a term without ``plus_hc`` (so that it
+        is not counted twice), ``(strength, False)`` for one with it."""
+        if not self.explicit_plus_hc:
+            return strength, plus_hc
+        return (strength, False) if plus_hc else \
+            (np.asarray(strength) / 2., False)
+
     def add_onsite(self, strength, u, opname, category=None, plus_hc=False):
         r"""Add ``sum_x strength[x] * opname`` on every site of unit-cell
         index ``u``."""
-        if self.explicit_plus_hc:
-            if plus_hc:
-                plus_hc = False   # the MPO adds the h.c. implicitly
-            else:
-                strength = strength / 2.
+        strength, plus_hc = self._halve_for_hc(strength, plus_hc)
         strength = to_array(strength, self.lat.Ls)
         if not np.any(strength != 0.):
             return
@@ -165,11 +187,7 @@ class CouplingModel(Model):
 
         Jordan-Wigner strings are inserted when both operators are
         fermionic; ``plus_hc`` adds the hermitian conjugate couplings."""
-        if self.explicit_plus_hc:
-            if plus_hc:
-                plus_hc = False
-            else:
-                strength = np.asarray(strength) / 2.
+        strength, plus_hc = self._halve_for_hc(strength, plus_hc)
         dx = np.atleast_1d(np.asarray(dx, int))
         if len(dx) < self.lat.dim:
             dx = np.concatenate([dx, np.zeros(self.lat.dim - len(dx), int)])
@@ -203,33 +221,196 @@ class CouplingModel(Model):
             self.add_coupling(np.conj(strength), u2, hc2, u1, hc1, -dx,
                               op_string=op_string, category=category + '_hc')
 
+    def add_onsite_term(self, strength, i, op, category=None,
+                        plus_hc=False):
+        """Add ``strength * op`` on MPS site ``i``."""
+        strength, plus_hc = self._halve_for_hc(strength, plus_hc)
+        ot = self._get_onsite(category or op)
+        ot.add_onsite_term(strength, i, op)
+        if plus_hc:
+            ot.add_onsite_term(np.conj(strength), i,
+                               self.lat.mps_sites()[i].get_hc_op_name(op))
+
+    def add_coupling_term(self, strength, i, j, op_i, op_j, op_string='Id',
+                          category=None, plus_hc=False):
+        """Add ``strength * op_i_i op_string ... op_j_j`` on MPS sites
+        ``i < j`` (no Jordan-Wigner strings inserted)."""
+        strength, plus_hc = self._halve_for_hc(strength, plus_hc)
+        ct = self._get_coupling(category or f"{op_i}_i {op_j}_j")
+        ct.add_coupling_term(strength, i, j, op_i, op_j, op_string)
+        if plus_hc:
+            sites = self.lat.mps_sites()
+            ct.add_coupling_term(
+                np.conj(strength), i, j,
+                sites[i % len(sites)].get_hc_op_name(op_i),
+                sites[j % len(sites)].get_hc_op_name(op_j), op_string)
+
+    def add_multi_coupling(self, strength, ops, category=None,
+                           plus_hc=False):
+        r"""Add ``sum_x strength[x] prod_k op_k`` with ``ops = [(opname,
+        dx, u), ...]``: each operator on unit-cell index ``u`` at offset
+        ``dx``; the Jordan-Wigner strings of fermionic operators are
+        inserted."""
+        strength, plus_hc = self._halve_for_hc(strength, plus_hc)
+        ops = [(op, np.concatenate([
+            np.atleast_1d(np.asarray(dx, int)),
+            np.zeros(self.lat.dim - len(np.atleast_1d(dx)), int)]), u)
+            for op, dx, u in ops]
+        mps_ijkl, lat_idx, coupling_shape = \
+            self.lat.possible_multi_couplings(ops)
+        if min(coupling_shape) == 0:
+            return   # no coupling fits (dx beyond an open boundary)
+        strength = to_array(strength, coupling_shape)
+        category = category or 'multi_' + '_'.join(op for op, _, _ in ops)
+        sites = self.lat.mps_sites()
+        ct = self._get_coupling(category, multi=True)
+        opnames = [op for op, _, _ in ops]
+        for ijkl, lat in zip(mps_ijkl, lat_idx):
+            s = strength[tuple(lat)]
+            if s == 0.:
+                continue
+            term, sign = order_combine_term(
+                list(zip(opnames, (int(x) for x in ijkl))), sites)
+            i0 = term[0][1]
+            if not 0 <= i0 < self.lat.N_sites:
+                shift = (i0 % self.lat.N_sites) - i0
+                term = [(op, x + shift) for op, x in term]
+            if len(term) == 1:
+                self._get_onsite(category).add_onsite_term(
+                    s * sign, term[0][1], term[0][0])
+            elif len(term) == 2:
+                ct.add_coupling_term(*ct.coupling_term_handle_JW(
+                    s * sign, term, sites))
+            else:
+                ct.add_multi_coupling_term(*ct.multi_coupling_term_handle_JW(
+                    s * sign, term, sites))
+        if plus_hc:
+            hc_ops = [(self.lat.unit_cell[u].get_hc_op_name(op), dx, u)
+                      for op, dx, u in reversed(ops)]
+            self.add_multi_coupling(np.conj(strength), hc_ops,
+                                    category=category + '_hc')
+
+    def add_multi_coupling_term(self, strength, ijkl, ops_ijkl,
+                                op_string='Id', category=None,
+                                plus_hc=False):
+        """Add ``strength * prod_k ops_ijkl[k]`` on the ascending MPS sites
+        ``ijkl`` (no Jordan-Wigner strings inserted)."""
+        ct = self._get_coupling(category or 'multi_' + '_'.join(ops_ijkl),
+                                multi=True)
+        ct.add_multi_coupling_term(strength, ijkl, ops_ijkl, op_string)
+        if plus_hc:
+            sites = self.lat.mps_sites()
+            ct.add_multi_coupling_term(
+                np.conj(strength), ijkl,
+                [sites[i % len(sites)].get_hc_op_name(op)
+                 for op, i in zip(ops_ijkl, ijkl)], op_string)
+
+    def add_exponentially_decaying_coupling(self, strength, lambda_, op_i,
+                                            op_j, subsites=None,
+                                            subsites_start=None,
+                                            op_string=None, plus_hc=False):
+        r"""Add ``strength sum_{i<j} lambda_^{j-i} op_i op_j`` over the MPS
+        sites ``subsites`` (``i`` in ``subsites_start``), one MPO bond
+        state per term; fermionic operators get the ``JW`` string."""
+        sites = self.lat.mps_sites()
+        if op_string is None:
+            need_i = sites[0].op_needs_JW(op_i)
+            need_j = sites[0].op_needs_JW(op_j)
+            if need_i and need_j:
+                op_string = 'JW'
+                op_i = sites[0].multiply_op_names([op_i, 'JW'])
+            elif need_i or need_j:
+                raise ValueError("only one op needs JW?")
+            else:
+                op_string = 'Id'
+        edt = self.exp_decaying_terms
+        edt.add_exponentially_decaying_coupling(
+            strength, lambda_, op_i, op_j, subsites, subsites_start,
+            op_string)
+        if plus_hc:
+            edt.add_exponentially_decaying_coupling(
+                np.conj(strength), np.conj(lambda_),
+                sites[0].get_hc_op_name(op_i), sites[0].get_hc_op_name(op_j),
+                subsites, subsites_start, op_string)
+
+    def add_local_term(self, strength, term, category=None, plus_hc=False):
+        """Add one term ``[(op, lat_idx), ...]`` given by lattice
+        indices."""
+        sites = self.lat.mps_sites()
+        term, sign = order_combine_term(
+            [(op, int(self.lat.lat2mps_idx(idx))) for op, idx in term],
+            sites)
+        category = category or 'local'
+        if len(term) == 1:
+            self._get_onsite(category).add_onsite_term(strength * sign,
+                                                       term[0][1], term[0][0])
+        elif len(term) == 2:
+            ct = self._get_coupling(category)
+            ct.add_coupling_term(*ct.coupling_term_handle_JW(
+                strength * sign, term, sites))
+        else:
+            ct = self._get_coupling(category, multi=True)
+            ct.add_multi_coupling_term(*ct.multi_coupling_term_handle_JW(
+                strength * sign, term, sites))
+
+    def coupling_strength_add_ext_flux(self, strength, dx, phase):
+        """The coupling strengths of offset ``dx`` with ``exp(i phase[a])``
+        on the couplings that wrap around the periodic axis ``a >= 1``."""
+        dx = np.asarray(dx, int)
+        coupling_shape, _ = self.lat.coupling_shape(dx)
+        strength = to_array(strength, coupling_shape).astype(complex)
+        for a in range(1, self.lat.dim):
+            if self.lat.bc[a] or phase[a] == 0 or dx[a] == 0:
+                continue
+            La = self.lat.Ls[a]
+            idx = [slice(None)] * len(coupling_shape)
+            idx[a] = slice(La - dx[a], La) if dx[a] > 0 else slice(0, -dx[a])
+            strength[tuple(idx)] = strength[tuple(idx)] * np.exp(1j *
+                                                                 phase[a])
+        return strength
+
     def calc_H_MPO(self, tol_zero=1e-15):
         """Compile all terms to an MPO."""
         ot = self.all_onsite_terms()
         ct = self.all_coupling_terms()
         ot.remove_zeros(tol_zero)
         ct.remove_zeros(tol_zero)
+        terms = [ot, ct]
+        edt = self.exp_decaying_terms
+        if not edt.is_empty:
+            terms.append(edt)
         sites = self.lat.mps_sites()
         bc = 'infinite' if self.lat.bc_MPS == 'infinite' else 'finite'
-        H = mpo.MPOGraph.from_terms([ot, ct], sites, bc).build_MPO()
-        H.max_range = max(ot.max_range(), ct.max_range())
+        H = mpo.MPOGraph.from_terms(terms, sites, bc).build_MPO()
+        H.max_range = max(ot.max_range(), ct.max_range(),
+                          0 if edt.is_empty else edt.max_range())
         H.explicit_plus_hc = self.explicit_plus_hc
         return H
 
     def calc_H_bond(self, tol_zero=1e-15):
         """Bond operators ``H_bond[i]`` on sites ``(i-1, i)`` (nearest
-        neighbour couplings only)."""
-        if self.explicit_plus_hc:
-            raise NotImplementedError("calc_H_bond with explicit_plus_hc is "
-                                      "not ported")
+        neighbour couplings only); with ``explicit_plus_hc`` each bond
+        operator plus its hermitian conjugate."""
         sites = self.lat.mps_sites()
         ct = self.all_coupling_terms()
         ct.remove_zeros(tol_zero)
         ot = self.all_onsite_terms()
         ot.remove_zeros(tol_zero)
-        H_bond = ct.to_nn_bond_Arrays(sites)
-        return ot.add_to_nn_bond_Arrays(H_bond, sites,
-                                        self.lat.bc_MPS == 'finite')
+        if not self.exp_decaying_terms.is_empty:
+            raise ValueError("exp. decaying terms have no bond "
+                             "representation")
+        H_bond = ot.add_to_nn_bond_Arrays(ct.to_nn_bond_Arrays(sites), sites,
+                                          self.lat.bc_MPS == 'finite')
+        if self.explicit_plus_hc:
+            for i, h in enumerate(H_bond):
+                if h is None:
+                    continue
+                hd = h.conj().itranspose(['p0', 'p0*', 'p1', 'p1*'])
+                hd.iset_leg_labels(['p0*', 'p0', 'p1*', 'p1'])
+                hd.itranspose(['p0', 'p0*', 'p1', 'p1*'])
+                hd.legs = h.legs
+                H_bond[i] = h._binary(hd, lambda a, b: a + b)
+        return H_bond
 
 
 class CouplingMPOModel(CouplingModel, MPOModel):
@@ -254,16 +435,21 @@ class CouplingMPOModel(CouplingModel, MPOModel):
         self.init_H_from_terms()
 
     def init_H_from_terms(self):
-        """Compile the terms into ``H_MPO`` (and ``H_bond`` for a
-        :class:`NearestNeighborModel`)."""
+        """Compile the terms into ``H_MPO`` (its virtual legs sorted by
+        charge with the option ``sort_mpo_legs``) and ``H_bond`` for a
+        :class:`NearestNeighborModel`."""
+        H_MPO = self.calc_H_MPO()
         if self.options.get('sort_mpo_legs', False, bool):
-            raise NotImplementedError("sort_mpo_legs is not ported")
-        MPOModel.__init__(self, self.lat, self.calc_H_MPO())
+            H_MPO.sort_legcharges()
+        MPOModel.__init__(self, self.lat, H_MPO)
         if isinstance(self, NearestNeighborModel):
             self.H_bond = self.calc_H_bond()
 
     def init_lattice(self, model_params):
-        """The lattice from the options."""
+        """The lattice from the options.  Where :meth:`init_sites` returns
+        ``(species_sites, species_names)``, a
+        :class:`~tenpy_tpu_torch.models.lattice.MultiSpeciesLattice` of
+        them on the lattice."""
         lat = model_params.get('lattice', self.default_lattice)
         if isinstance(lat, Lattice):
             return lat
@@ -271,6 +457,12 @@ class CouplingMPOModel(CouplingModel, MPOModel):
             lat = get_lattice(lat)
         bc_MPS = model_params.get('bc_MPS', 'finite', str)
         sites = self.init_sites(model_params)
+        species = None
+        if isinstance(sites, tuple) and len(sites) == 2 and \
+                isinstance(sites[1], (list, tuple)) and sites[1] and \
+                all(isinstance(n, str) for n in sites[1]):
+            species = (list(sites[0]), list(sites[1]))
+            sites = species[0][0]
         bc_x = model_params.get('bc_x', 'periodic' if bc_MPS == 'infinite'
                                 else 'open', str)
         dim = getattr(lat, 'dim', 1)
@@ -284,8 +476,11 @@ class CouplingMPOModel(CouplingModel, MPOModel):
             bc = [bc_x, 'periodic' if bc_y == 'cylinder' else 'open']
         else:
             raise ValueError("unsupported lattice dimension")
-        return lat(*args, bc=bc, bc_MPS=bc_MPS,
-                   order=model_params.get('order', 'default', str))
+        lat = lat(*args, bc=bc, bc_MPS=bc_MPS,
+                  order=model_params.get('order', 'default', str))
+        if species is not None:
+            lat = MultiSpeciesLattice(lat, *species)
+        return lat
 
     def init_sites(self, model_params):
         """The local Hilbert space (override in subclasses)."""

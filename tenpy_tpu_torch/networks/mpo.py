@@ -155,6 +155,47 @@ class MPO:
     def __repr__(self):
         return f"<MPO L={self.L} bc={self.bc!r} max_chi={max(self.chi)}>"
 
+    def sort_legcharges(self):
+        """Sort the virtual legs by charge, in place, moving IdL and IdR
+        with them (the option ``sort_mpo_legs`` of a model).  As in
+        ``tenpy_tpu``, a finite MPO's last bond keeps its order."""
+        from ..tools.misc import inverse_permutation
+        L = self.L
+        perms, new_legs = [None] * (L + 1), [None] * (L + 1)
+        for i in range(L):
+            leg = self._W[i].get_leg('wL')
+            if not leg.is_sorted():
+                perm, new_legs[i] = leg.sort(bunch=False)
+                perms[i] = np.asarray(perm)
+        for i in range(L):
+            W = self._W[i]
+            j = (i + 1) % L if self.bc == 'infinite' else i + 1
+            pL, pR = perms[i], (perms[j] if j < L else None)
+            if pL is None and pR is None:
+                continue
+            dense = W.to_numpy()
+            if pL is not None:
+                dense = dense[pL]
+            if pR is not None:
+                dense = dense[:, pR]
+            legL = new_legs[i] if new_legs[i] is not None else W.get_leg('wL')
+            legR = new_legs[j].conj() if j < L and new_legs[j] is not None \
+                else W.get_leg('wR')
+            self._W[i] = npc.Array.from_ndarray(
+                dense, [legL, legR, W.get_leg('p'), W.get_leg('p*')],
+                labels=['wL', 'wR', 'p', 'p*'], warn_wrong_sector=False)
+        for b in range(L + 1):
+            p = perms[b % L] if self.bc == 'infinite' else \
+                (perms[b] if b < L else None)
+            if p is None:
+                continue
+            inv = inverse_permutation(p)
+            if self.IdL[b] is not None:
+                self.IdL[b] = int(inv[self.IdL[b]])
+            if self.IdR[b] is not None:
+                self.IdR[b] = int(inv[self.IdR[b]])
+        return self
+
     def get_W(self, i, copy=False):
         W = self._W[self._to_valid_index(i)]
         return W.copy(deep=False) if copy else W
@@ -437,6 +478,13 @@ class MPOGraph:
         graph.add_missing_IdL_IdR(insert_all_id)
         return graph
 
+    @classmethod
+    def from_term_list(cls, term_list, sites, bc, insert_all_id=True):
+        """The graph of a
+        :class:`~tenpy_tpu_torch.networks.terms.TermList`."""
+        ot, ct = term_list.to_OnsiteTerms_CouplingTerms(sites)
+        return cls.from_terms([ot, ct], sites, bc, insert_all_id)
+
     def _bond(self, b):
         return b if self.bc == 'finite' else b % self.L
 
@@ -467,6 +515,10 @@ class MPOGraph:
             self.add(x, bond_key(x), bond_key(x + 1), op_string, 1.,
                      check_op=check_op, skip_existing=True)
         return bond_key(j)
+
+    def add_string_right_to_left(self, j, i, key, op_string, check_op=True):
+        """:meth:`add_string_left_to_right` from ``i`` to ``j``."""
+        return self.add_string_left_to_right(i, j, key, op_string, check_op)
 
     def add_missing_IdL_IdR(self, insert_all_id=True):
         """IdL/IdR states on all bonds, connected by identity strings."""

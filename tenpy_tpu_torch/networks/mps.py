@@ -616,6 +616,23 @@ class MPS:
                                                     else ib % self.L]) ** 2,
                                  n) for ib in bonds])
 
+    def entanglement_spectrum(self, by_charge=False):
+        """``-2 log(S)`` on each nontrivial bond; ``by_charge``: per bond
+        a list of ``(charge, -log(S^2) of that sector)`` over the charge
+        sectors of the ``vL`` leg of the site right of the bond."""
+        nt = self.nontrivial_bonds
+        if not by_charge:
+            return [-2. * np.log(np.maximum(np.asarray(self._S[ib]), 1e-300))
+                    for ib in range(nt.start, nt.stop)]
+        res = []
+        for ib in range(nt.start, nt.stop):
+            leg = self.get_B(ib % self.L, None).get_leg('vL')
+            S2 = np.asarray(self._S[ib]) ** 2
+            res.append([(leg.charges[qi], -np.log(np.maximum(
+                S2[leg.get_slice(qi)], 1e-300)))
+                for qi in range(leg.block_number)])
+        return res
+
     def entanglement_entropy_segment(self, segment, n=1):
         """The entropy of the reduced density matrix of the sites
         ``segment`` (from the theta spanning them; exponential in its

@@ -1,18 +1,110 @@
 r"""Hamiltonian terms on the way from the model DSL to the MPO.
 
-Port of ``OnsiteTerms``, ``CouplingTerms`` and ``order_combine_term`` from
-``tenpy_tpu/networks/terms.py``.  Couplings are stored with ``i < j``; for
+Port of ``tenpy_tpu/networks/terms.py``: ``TermList``, ``OnsiteTerms``,
+``CouplingTerms``, ``MultiCouplingTerms``, ``ExponentiallyDecayingTerms``
+and ``order_combine_term``.  Couplings are stored with ``i < j``; for
 infinite systems ``j`` may exceed ``L`` (a coupling across the unit-cell
 boundary); fermionic terms carry the Jordan-Wigner strings that
-``Site.op_needs_JW`` asks for.  ``MultiCouplingTerms``, ``TermList`` and
-``ExponentiallyDecayingTerms`` are not ported.
+``Site.op_needs_JW`` asks for.  Each container adds itself to an
+:class:`~tenpy_tpu_torch.networks.mpo.MPOGraph` as in ``tenpy_tpu``, so a
+model's W tensors come out the same.
 """
 
 from __future__ import annotations
 
+import warnings
+
+import numpy as np
+
 from ..linalg import np_conserved as npc
 
-__all__ = ['OnsiteTerms', 'CouplingTerms', 'order_combine_term']
+__all__ = ['TermList', 'OnsiteTerms', 'CouplingTerms', 'MultiCouplingTerms',
+           'ExponentiallyDecayingTerms', 'order_combine_term']
+
+
+class TermList:
+    """Terms, each a list of ``(opname, site_index)``, with prefactors."""
+
+    def __init__(self, terms, strength=1.):
+        self.terms = [list(t) for t in terms]
+        strength = np.asarray(strength)
+        if strength.ndim == 0:
+            strength = np.broadcast_to(strength, (len(self.terms),))
+        self.strength = np.array(strength)
+        if len(self.strength) != len(self.terms):
+            raise ValueError("strength length mismatch")
+
+    @classmethod
+    def from_lattice_locations(cls, lattice, terms, strength=1., shift=None):
+        """Terms given as ``(opname, lattice index)`` on MPS indices."""
+        converted = []
+        for term in terms:
+            new_term = []
+            for op, lat_idx in term:
+                idx = np.array(lat_idx)
+                if shift is not None:
+                    idx = idx + np.array(shift + [0])
+                new_term.append((op, int(lattice.lat2mps_idx(idx))))
+            converted.append(new_term)
+        return cls(converted, strength)
+
+    def to_OnsiteTerms_CouplingTerms(self, sites):
+        """``(OnsiteTerms, CouplingTerms or MultiCouplingTerms)`` of the
+        terms (the Jordan-Wigner strings inserted)."""
+        L = len(sites)
+        ot = OnsiteTerms(L)
+        ct = (MultiCouplingTerms if any(len(t) > 2 for t in self.terms)
+              else CouplingTerms)(L)
+        for term, strength in zip(self.terms, self.strength):
+            term = list(term)
+            if len(term) == 1:
+                op, i = term[0]
+                ot.add_onsite_term(strength, i % L, op)
+            elif len(term) == 2:
+                ct.add_coupling_term(*ct.coupling_term_handle_JW(
+                    strength, term, sites))
+            else:
+                term, sign = order_combine_term(term, sites)
+                ct.add_multi_coupling_term(*ct.multi_coupling_term_handle_JW(
+                    strength * sign, term, sites))
+        return ot, ct
+
+    def order_combine(self, sites):
+        """Sort each term by site (with the fermionic signs) and combine
+        operators on one site, in place."""
+        for idx, term in enumerate(self.terms):
+            self.terms[idx], sign = order_combine_term(term, sites)
+            self.strength[idx] *= sign
+        return self
+
+    def limits(self):
+        return (np.array([min(i for _, i in t) for t in self.terms]),
+                np.array([max(i for _, i in t) for t in self.terms]))
+
+    def shift(self, i0):
+        return TermList([[(op, i + i0) for op, i in t] for t in self.terms],
+                        self.strength)
+
+    def max_range(self):
+        mins, maxs = self.limits()
+        return int(np.max(maxs - mins))
+
+    def __iter__(self):
+        return iter(zip(self.terms, self.strength))
+
+    def __add__(self, other):
+        if isinstance(other, TermList):
+            return TermList(self.terms + other.terms,
+                            np.concatenate([self.strength, other.strength]))
+        return NotImplemented
+
+    def __mul__(self, other):
+        return TermList(self.terms, self.strength * other)
+
+    def __str__(self):
+        return ' +\n'.join(
+            f"{strength:.5f} * " + ' '.join(f"{op}_{i}" for op, i in term)
+            for term, strength in self)
 
 
 def order_combine_term(term, sites):
@@ -104,6 +196,14 @@ class OnsiteTerms:
                 H_bond[b] = Hb if H_bond[b] is None else H_bond[b] + Hb
         return H_bond
 
+    def to_TermList(self):
+        terms, strength = [], []
+        for i, d in enumerate(self.onsite_terms):
+            for op, s in d.items():
+                terms.append([(op, i)])
+                strength.append(s)
+        return TermList(terms, strength)
+
     def __iadd__(self, other):
         if other.L != self.L:
             raise ValueError("different L")
@@ -111,6 +211,12 @@ class OnsiteTerms:
             for op, s in d.items():
                 self.add_onsite_term(s, i, op)
         return self
+
+    def _test_terms(self, sites):
+        for i, d in enumerate(self.onsite_terms):
+            for op in d:
+                if not sites[i].valid_opname(op):
+                    raise ValueError(f"unknown op {op!r} on site {i}")
 
 
 class CouplingTerms:
@@ -127,7 +233,8 @@ class CouplingTerms:
                     for d2 in d1.values() for j in d2), default=0)
 
     def add_coupling_term(self, strength, i, j, op_i, op_j, op_string='Id'):
-        """Add ``strength * op_i_{i} op_string ... op_j_{j}``, ``0 <= i < j``."""
+        """Add ``strength * op_i_{i} op_string ... op_j_{j}``,
+        ``0 <= i < j``."""
         if not 0 <= i < self.L:
             raise ValueError(f"i={i} out of range")
         if not i < j:
@@ -206,12 +313,264 @@ class CouplingTerms:
             if not d1:
                 del self.coupling_terms[i]
 
+    def to_TermList(self):
+        terms, strength = [], []
+        for i in sorted(self.coupling_terms):
+            d1 = self.coupling_terms[i]
+            for op_i, op_string in d1:
+                d2 = d1[(op_i, op_string)]
+                for j in sorted(d2):
+                    for op_j, s in d2[j].items():
+                        terms.append([(op_i, i), (op_j, j)])
+                        strength.append(s)
+        return TermList(terms, strength)
+
     def __iadd__(self, other):
         if other.L != self.L:
             raise ValueError("different L")
+        if isinstance(other, MultiCouplingTerms) and \
+                not isinstance(self, MultiCouplingTerms):
+            raise ValueError("can't add MultiCouplingTerms into "
+                             "CouplingTerms")
         for i, d1 in other.coupling_terms.items():
             for (op_i, op_string), d2 in d1.items():
                 for j, d3 in d2.items():
                     for op_j, s in d3.items():
                         self.add_coupling_term(s, i, j, op_i, op_j, op_string)
         return self
+
+    def _test_terms(self, sites):
+        L = self.L
+        for i, d1 in self.coupling_terms.items():
+            for (op_i, op_string), d2 in d1.items():
+                if not sites[i % L].valid_opname(op_i):
+                    raise ValueError(f"unknown op {op_i!r} on site {i}")
+                for j, d3 in d2.items():
+                    for op_j in d3:
+                        if not sites[j % L].valid_opname(op_j):
+                            raise ValueError(f"unknown op {op_j!r} on site "
+                                             f"{j}")
+
+
+class MultiCouplingTerms(CouplingTerms):
+    """Coupling terms of any number of operators.
+
+    Terms of three or more operators are stored flat, ``multi_terms =
+    [(strength, ijkl, ops, op_strings)]``; :meth:`add_to_graph` keys the
+    MPO states by each term's growing prefix, so terms that share a prefix
+    share its states (as an explicit tree of prefixes would).  Two-operator
+    terms go to the nested dict of :class:`CouplingTerms`.
+    """
+
+    def __init__(self, L):
+        super().__init__(L)
+        self.multi_terms = []
+
+    def max_range(self):
+        return max([super().max_range()]
+                   + [ijkl[-1] - ijkl[0] for _, ijkl, _, _ in
+                      self.multi_terms])
+
+    def add_multi_coupling_term(self, strength, ijkl, ops_ijkl,
+                                op_string='Id'):
+        """Add ``strength * prod_k ops_ijkl[k]_{ijkl[k]}``, ``ijkl``
+        strictly ascending; ``op_string`` one name or one per gap."""
+        if len(ijkl) < 2:
+            raise ValueError("term with fewer than 2 operators: use "
+                             "add_onsite_term")
+        if any(i >= j for i, j in zip(ijkl, ijkl[1:])):
+            raise ValueError("ijkl must be strictly ascending")
+        if not 0 <= ijkl[0] < self.L:
+            raise ValueError("first operator outside unit cell")
+        op_strings = [op_string] * (len(ijkl) - 1) \
+            if isinstance(op_string, str) else list(op_string)
+        if len(ijkl) == 2:
+            self.add_coupling_term(strength, ijkl[0], ijkl[1], ops_ijkl[0],
+                                   ops_ijkl[1], op_strings[0])
+            return
+        self.multi_terms.append((strength, tuple(int(x) for x in ijkl),
+                                 tuple(ops_ijkl), tuple(op_strings)))
+
+    def multi_coupling_term_handle_JW(self, strength, term, sites,
+                                      op_string=None):
+        """The Jordan-Wigner strings of a multi-site term; returns the
+        arguments of :meth:`add_multi_coupling_term`."""
+        L = self.L
+        n = len(term)
+        if n < 2:
+            raise ValueError("got onsite term instead of coupling")
+        if op_string == 'JW':
+            warnings.warn("op_string='JW' is probably not what you want!")
+        ops = [t[0] for t in term]
+        ijkl = [t[1] for t in term]
+        assert all(i < j for i, j in zip(ijkl, ijkl[1:]))
+        needs = [sites[i % L].op_needs_JW(op) for op, i in term]
+        if not any(needs):
+            op_string = 'Id'
+        i0 = ijkl[0]
+        if not 0 <= i0 < L:
+            ijkl = [i + i0 % L - i0 for i in ijkl]
+        if op_string is not None:
+            return strength, ijkl, ops, [op_string] * (n - 1)
+        new_op_str = []
+        JW_right = False
+        for x in range(n):
+            if needs[x]:
+                JW_right = not JW_right
+            if JW_right:
+                new_op_str.append('JW')
+                ops[x] = sites[ijkl[x] % L].multiply_op_names([ops[x], 'JW'])
+            else:
+                new_op_str.append('Id')
+        if JW_right:
+            raise ValueError("odd number of Jordan-Wigner strings")
+        new_op_str.pop()
+        return strength, ijkl, ops, new_op_str
+
+    def add_to_graph(self, graph):
+        super().add_to_graph(graph)
+        for strength, ijkl, ops, op_strings in self.multi_terms:
+            key = ('multi', ijkl[0], ops[0], op_strings[0])
+            graph.add(ijkl[0], 'IdL', key, ops[0], 1., skip_existing=True)
+            for k in range(1, len(ijkl)):
+                key = graph.add_string_left_to_right(ijkl[k - 1], ijkl[k],
+                                                     key, op_strings[k - 1])
+                if k == len(ijkl) - 1:
+                    graph.add(ijkl[k], key, 'IdR', ops[k], strength)
+                else:
+                    new_key = key + (ijkl[k], ops[k], op_strings[k])
+                    graph.add(ijkl[k], key, new_key, ops[k], 1.,
+                              skip_existing=True)
+                    key = new_key
+
+    def remove_zeros(self, tol_zero=1e-15):
+        super().remove_zeros(tol_zero)
+        self.multi_terms = [t for t in self.multi_terms
+                            if abs(t[0]) >= tol_zero]
+
+    def to_TermList(self):
+        tl = super().to_TermList()
+        terms, strength = list(tl.terms), list(tl.strength)
+        for s, ijkl, ops, _ in self.multi_terms:
+            terms.append([(op, i) for op, i in zip(ops, ijkl)])
+            strength.append(s)
+        return TermList(terms, strength)
+
+    def __iadd__(self, other):
+        super().__iadd__(other)
+        if isinstance(other, MultiCouplingTerms):
+            self.multi_terms.extend(other.multi_terms)
+        return self
+
+    def _test_terms(self, sites):
+        super()._test_terms(sites)
+        L = self.L
+        for _, ijkl, ops, _ in self.multi_terms:
+            for op, i in zip(ops, ijkl):
+                if not sites[i % L].valid_opname(op):
+                    raise ValueError(f"unknown op {op!r} on site {i}")
+
+
+class ExponentiallyDecayingTerms:
+    r"""Long-range couplings
+    ``strength * sum_{i<j} lambda^{j-i} A_{subsites[i]} B_{subsites[j]}``,
+    one extra MPO bond state per term."""
+
+    def __init__(self, L):
+        assert L > 0
+        self.L = L
+        self.exp_decaying_terms = []
+
+    @property
+    def is_empty(self):
+        return len(self.exp_decaying_terms) == 0
+
+    def add_exponentially_decaying_coupling(self, strength, lambda_, op_i,
+                                            op_j, subsites=None,
+                                            subsites_start=None,
+                                            op_string='Id'):
+        if subsites is None:
+            subsites = np.arange(self.L)
+        else:
+            subsites = np.asarray(subsites)
+            if len(subsites) > 1 and np.any(subsites[1:] < subsites[:-1]):
+                raise ValueError("subsites must be sorted")
+        subsites_start = subsites if subsites_start is None \
+            else np.asarray(subsites_start)
+        self.exp_decaying_terms.append((strength, lambda_, op_i, op_j,
+                                        subsites, subsites_start, op_string))
+
+    def add_to_graph(self, graph, key='exp-decay'):
+        """One bond state per term carrying the decaying string."""
+        for t_idx, (strength, lambda_, op_i, op_j, subsites, subsites_start,
+                    op_string) in enumerate(self.exp_decaying_terms):
+            label = (key, t_idx)
+            subset = set(int(x) for x in subsites)
+            subset_start = set(int(x) for x in subsites_start)
+            if graph.bc == 'finite':
+                first = int(min(min(subsites), min(subsites_start)))
+                last = int(max(subsites))
+                for x in range(first, last + 1):
+                    if x in subset_start and x < last:
+                        graph.add(x, 'IdL', label, op_i, strength,
+                                  skip_existing=False)
+                    if x > first:
+                        if x in subset:
+                            graph.add(x, label, 'IdR', op_j, lambda_)
+                        if x < last:
+                            graph.add(x, label, label,
+                                      op_string if x in subset else 'Id',
+                                      lambda_ if x in subset else 1.,
+                                      skip_existing=True)
+            else:
+                for x in range(self.L):
+                    if x in subset_start:
+                        graph.add(x, 'IdL', label, op_i, strength,
+                                  skip_existing=False)
+                    if x in subset:
+                        graph.add(x, label, 'IdR', op_j, lambda_)
+                        graph.add(x, label, label, op_string, lambda_,
+                                  skip_existing=True)
+                    else:
+                        graph.add(x, label, label, 'Id', 1.,
+                                  skip_existing=True)
+
+    def to_TermList(self, cutoff=0.01, bc='finite'):
+        """The terms with ``lambda^(j-i) > cutoff`` written out."""
+        terms, strength = [], []
+        L = self.L
+        for (s, lambda_, op_i, op_j, subsites, _,
+             _) in self.exp_decaying_terms:
+            max_d = int(np.ceil(np.log(cutoff) / np.log(abs(lambda_)))) \
+                if abs(lambda_) < 1 else L
+            sub = list(subsites)
+            for a, i in enumerate(sub):
+                for d in range(1, max_d + 1):
+                    if a + d >= len(sub):
+                        if bc == 'finite':
+                            break
+                        j = sub[(a + d) % len(sub)] + L * ((a + d)
+                                                           // len(sub))
+                    else:
+                        j = sub[a + d]
+                    terms.append([(op_i, i), (op_j, j)])
+                    strength.append(s * lambda_ ** d)
+        return TermList(terms, strength)
+
+    def max_range(self):
+        return 0 if self.is_empty else self.L
+
+    def __iadd__(self, other):
+        if other.L != self.L:
+            raise ValueError("different L")
+        self.exp_decaying_terms.extend(other.exp_decaying_terms)
+        return self
+
+    def _test_terms(self, sites):
+        for (_, _, op_i, op_j, subsites, _,
+             _) in self.exp_decaying_terms:
+            for u in subsites:
+                site = sites[u % len(sites)]
+                if not site.valid_opname(op_i) or \
+                        not site.valid_opname(op_j):
+                    raise ValueError(f"unknown ops {op_i!r}/{op_j!r}")

@@ -16,8 +16,10 @@ against ``tenpy_tpu``'s.
 * The device route (the port of ``tests/test_packed.py:187``): on the
   state of that test's run (stored by the exporter), one two-site update
   forced onto the packed Lanczos with ``device='cpu'`` (the plain kernel),
-  against the port's host Lanczos and against ``tenpy_tpu``'s
-  ``_diag_device_lanczos`` on the same effective H;
+  against the port's host Lanczos and against ``tenpy_tpu``'s host
+  ``LanczosGroundState`` on the same effective H (the packed Lanczos of
+  ``dmrg.run`` stops by the host's rule, ``tenpy_tpu``'s device route
+  by another); an infinite ``dmrg.run`` by both routes, sweep by sweep;
   ``_use_device_lanczos`` against tenpy_tpu's rule with the port's own
   threshold; and ``dmrg.run(..., device='cuda')`` without ``device_K``
   routing its updates from the threshold up to the packed Lanczos.
@@ -205,10 +207,12 @@ def test_device_route_vs_host_and_jax(ref):
     run there (the infinite Hubbard chain, U(1)xU(1), chi=32), the next
     update's effective H, solved by the device route on the CPU (the
     packed Lanczos on the plain kernel, ``device_K`` = 30 with
-    ``reortho``), against the port's host ``LanczosGroundState`` (to
-    convergence, without ``reortho``) and
-    against ``tenpy_tpu``'s ``_diag_device_lanczos`` from the same
-    guess."""
+    ``reortho``, stopping by the host's rule), against the port's host
+    ``LanczosGroundState`` (to convergence, without ``reortho``) and
+    against ``tenpy_tpu``'s host ``LanczosGroundState`` with the same
+    options on its own effective H, from the same guess.  (``tenpy_tpu``'s
+    ``_diag_device_lanczos`` stops on the relative change of the Ritz
+    value, which the port's device route no longer does.)"""
     from tenpy_tpu.models.hubbard import FermiHubbardChain as JChain
     from tenpy_tpu_torch.models.hubbard import FermiHubbardChain
     model = FermiHubbardChain(dict(tx.INTEGRATION_MODEL))
@@ -229,11 +233,52 @@ def test_device_route_vs_host_and_jax(ref):
     jax.config.update('jax_enable_x64', True)
     jeng, jtheta = _next_update('jax', jpsi, jmodel)
     assert np.abs(jtheta.to_ndarray() - theta.to_numpy()).max() <= 1e-12
-    E_jax, th_jax, N_jax, _ = jeng._diag_device_lanczos(jtheta)
+    from tenpy_tpu.linalg.krylov_based import LanczosGroundState as JLanczos
+    jopts = dict(tx.INTEGRATION_OPTIONS['lanczos_params'])
+    del jopts['device_K']
+    E_jax, th_jax, N_jax = JLanczos(jeng.eff_H, jtheta, jopts).run()
     assert int(N_jax) == N_dev
     assert abs(E_dev - E_jax) <= 1e-10 * abs(E_jax)
     ov = abs(np.vdot(np.asarray(th_jax.to_ndarray()), th_dev.to_numpy()))
     assert abs(1. - ov) <= 1e-8
+
+
+def test_idmrg_device_route_vs_host_route():
+    """An infinite ``dmrg.run`` at chi 32 on the CPU, once with every
+    two-site eigensolve on the packed Lanczos (forced by ``device_K`` = 20,
+    the plain kernel) and once on the host ``LanczosGroundState``: the
+    packed loop stops by the host's rule (residual weight below ``P_tol``
+    after ``N_min`` steps, at most ``N_max`` = 20), so every sweep's energy
+    agrees to 1e-10 relative and the bond dimensions are equal.
+
+    The case is the spin-1/2 Ising chain in a transverse and a
+    longitudinal field (``Sz Sz`` + 0.6 ``Sx`` + 0.1 ``Sz``, no charge
+    conserved), near the transverse critical point so that chi 32 is
+    reached within two sweeps.  The longitudinal field breaks the Ising
+    symmetry and integrability, so its Schmidt spectrum has no degenerate
+    multiplets and no cut of the truncation is decided by roundoff (the
+    XX chain's free-fermion spectrum has such multiplets)."""
+    from tenpy_tpu_torch.models.spins import SpinChain
+    model = SpinChain({'L': 2, 'S': 0.5, 'Jx': 0., 'Jy': 0., 'Jz': 1.,
+                       'hx': 0.6, 'hz': 0.1, 'conserve': None,
+                       'bc_MPS': 'infinite'})
+    runs = {}
+    for device_K in (0, 20):
+        psi = MPS.from_product_state(model.lat.mps_sites(), ['up', 'down'],
+                                     bc='infinite')
+        opts = {'trunc_params': {'chi_max': 32, 'svd_min': 1e-12},
+                'mixer': False, 'N_sweeps_check': 1, 'min_sweeps': 8,
+                'max_sweeps': 8, 'lanczos_params': {'device_K': device_K}}
+        eng = TwoSiteDMRGEngine(psi, model, opts, device='cpu')
+        eng.run()
+        assert (eng.device_lanczos_stats['plain'] > 0) == (device_K > 0)
+        runs[device_K] = (np.array(eng.sweep_stats['E']),
+                          eng.sweep_stats['max_chi'], psi.chi)
+    (E_h, chi_h, fin_h), (E_d, chi_d, fin_d) = runs[0], runs[20]
+    assert len(E_h) == len(E_d) == 8
+    assert np.all(np.abs(E_d - E_h) <= 1e-10 * np.abs(E_h))
+    assert chi_d == chi_h and fin_d == fin_h
+    assert max(chi_h) == 32
 
 
 def test_device_route_rule(monkeypatch):

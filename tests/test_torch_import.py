@@ -46,6 +46,14 @@ MODULES = ['tenpy_tpu_torch', 'tenpy_tpu_torch.__main__',
            'tenpy_tpu_torch.models.spins',
            'tenpy_tpu_torch.models.tf_ising',
            'tenpy_tpu_torch.models.xxz_chain',
+           'tenpy_tpu_torch.models.haldane',
+           'tenpy_tpu_torch.models.fermions_spinless',
+           'tenpy_tpu_torch.models.spins_nnn',
+           'tenpy_tpu_torch.models.tj_model',
+           'tenpy_tpu_torch.models.clock',
+           'tenpy_tpu_torch.models.pxp',
+           'tenpy_tpu_torch.models.aklt',
+           'tenpy_tpu_torch.models.toric_code',
            'tenpy_tpu_torch.algorithms.algorithm',
            'tenpy_tpu_torch.algorithms.mps_common',
            'tenpy_tpu_torch.algorithms.dmrg',

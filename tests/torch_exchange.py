@@ -43,6 +43,8 @@ chi=256 Hubbard-cylinder file and the ramp references::
         tests/benchmark_data/purification_reference.npz
     python tests/torch_exchange.py --write-segment \
         tests/benchmark_data/segment_reference.npz
+    python tests/torch_exchange.py --write-models \
+        tests/benchmark_data/models_reference.npz
 """
 
 import argparse
@@ -2790,6 +2792,587 @@ def segment_reference():
     return flat
 
 
+# ----------------------------------------------------------- the model layer
+# sites, lattices, terms and models of ``tenpy_tpu`` against the port, on
+# the cases of tests/test_models.py, test_models_2d.py, test_lattice.py,
+# test_site.py and test_terms.py.  Every case is a function of the package
+# ('jax' or 'torch') returning flat values; the writer stores JAX's, the
+# port's test computes its own and compares key by key.
+MODELS_REF = os.path.join(_ROOT, 'tests', 'benchmark_data',
+                          'models_reference.npz')
+
+
+def _pkg(package, name):
+    import importlib
+    root = 'tenpy_tpu' if package == 'jax' else 'tenpy_tpu_torch'
+    return importlib.import_module(f'{root}.{name}')
+
+
+def _arr(a):
+    """A dense numpy copy of an Array of either package."""
+    return np.array(a.to_ndarray())
+
+
+def _js(x):
+    """``x`` as a JSON string array (numpy values made plain)."""
+    def plain(v):
+        if isinstance(v, dict):
+            return {str(k): plain(w) for k, w in v.items()}
+        if isinstance(v, (list, tuple, np.ndarray)):
+            return [plain(w) for w in v]
+        if isinstance(v, (np.integer, np.bool_)):
+            return int(v)
+        if isinstance(v, np.floating):
+            return float(v)
+        return v
+    return np.array(json.dumps(plain(x), sort_keys=True))
+
+
+def site_flat(prefix, site):
+    """A site's leg charges, state labels, operators (dense) and
+    Jordan-Wigner and hermitian-conjugate bookkeeping."""
+    out = {'qflat': site.leg.to_qflat(), 'qconj': np.asarray(site.leg.qconj),
+           'labels': _js(site.state_labels),
+           'opnames': _js(sorted(site.opnames)),
+           'need_JW': _js(sorted(site.need_JW_string)),
+           'hc_ops': _js(site.hc_ops),
+           'JW_parity': _js(site.charge_to_JW_parity)}
+    for name in site.opnames:
+        out['op.' + name] = _arr(site.get_op(name))
+    return {f'{prefix}.{k}': v for k, v in out.items()}
+
+
+def _sites_cases(package):
+    S = _pkg(package, 'networks.site')
+    spin = lambda: S.SpinHalfSite('Sz')   # noqa: E731
+    ferm = lambda: S.FermionSite('N')     # noqa: E731
+    up_dn, _ = S.spin_half_species(S.FermionSite, 'N', 'Sz')
+    b_up, _ = S.spin_half_species(S.BosonSite, 'parity', None, Nmax=2)
+    common = [S.SpinHalfSite('Sz'), S.FermionSite('N')]
+    perms = S.set_common_charges(common, 'independent')
+    kron = S.kron(spin().Sp, spin().Sm)
+    return {
+        'hole': S.SpinHalfHoleSite(),
+        'hole_parity': S.SpinHalfHoleSite('parity', 'parity'),
+        'hole_none': S.SpinHalfHoleSite(None, None),
+        'boson_N': S.BosonSite(3, 'N'),
+        'boson_parity': S.BosonSite(2, 'parity'),
+        'boson_none': S.BosonSite(4, None, filling=0.5),
+        'clock_Z': S.ClockSite(3, 'Z'),
+        'clock_none': S.ClockSite(4, None),
+        'clock_2': S.ClockSite(2, 'Z'),
+        'grouped_fermions': S.GroupedSite([ferm(), ferm()]),
+        'grouped_spins': S.GroupedSite([spin(), spin()], ['a', 'b']),
+        'grouped_independent': S.GroupedSite(
+            [spin(), S.SpinSite(1., 'Sz')], charges='independent'),
+        'grouped_drop': S.GroupedSite([spin(), ferm()], charges='drop'),
+        'grouped_of_three': S.group_sites([spin(), spin(), spin()], n=3)[0],
+        'species_up': up_dn[0], 'species_down': up_dn[1],
+        'species_boson': b_up[0],
+        'common_spin': common[0], 'common_fermion': common[1],
+    }, {'common_perms': _js(perms), 'kron': _arr(kron),
+        'kron_qflat': kron.get_leg('p').to_qflat()}
+
+
+def sites_case(package):
+    """Every new site of :func:`_sites_cases`, ``kron`` and the
+    permutations of ``set_common_charges``."""
+    sites, extra = _sites_cases(package)
+    flat = {f'sites.{k}': v for k, v in extra.items()}
+    for name, site in sites.items():
+        flat.update(site_flat(f'sites.{name}', site))
+    return flat
+
+
+def lattice_flat(prefix, lat, multi=None, find_pairs=False):
+    """A lattice's order, pairs, ``possible_couplings`` of every pair,
+    ``possible_multi_couplings`` of ``multi`` and the geometry."""
+    lat.test_sanity()
+    out = {'order': np.asarray(lat.order), 'N_sites': np.asarray(lat.N_sites),
+           'bc': _js(lat.boundary_conditions), 'basis': lat.basis,
+           'positions': lat.position_vectors,
+           'pairs': _js({k: [(u1, u2, list(np.asarray(dx)))
+                             for u1, u2, dx in v]
+                         for k, v in lat.pairs.items()})}
+    for key, entries in lat.pairs.items():
+        for n, (u1, u2, dx) in enumerate(entries):
+            i, j, lat_idx, shape = lat.possible_couplings(u1, u2, dx)
+            for k, v in (('i', i), ('j', j), ('lat', lat_idx),
+                         ('shape', np.asarray(shape))):
+                out[f'pc.{key}.{n}.{k}'] = np.asarray(v)
+    if multi is not None:
+        ijkl, lat_idx, shape = lat.possible_multi_couplings(multi)
+        out.update({'multi.ijkl': ijkl, 'multi.lat': lat_idx,
+                    'multi.shape': np.asarray(shape)})
+    out['positions_all'] = lat.position(np.asarray(lat.order))
+    out['mps2lat'] = lat.mps2lat_values(np.arange(lat.N_sites))
+    out['mps2lat_u0'] = lat.mps2lat_values(
+        np.arange(len(lat.mps_idx_fix_u(0))), u=0)
+    if find_pairs:
+        out['found'] = _js({k: [(u1, u2, list(dx)) for u1, u2, dx in v]
+                            for k, v in lat.find_coupling_pairs().items()})
+        out['BZ.recip'] = lat.BZ.reciprocal_basis
+        out['BZ.vertices'] = lat.BZ.vertices()
+    return {f'{prefix}.{k}': v for k, v in out.items()}
+
+
+def lattices_case(package):
+    """The new lattices and orders, in the shapes of
+    tests/test_lattice.py, test_models.py and test_models_2d.py."""
+    La = _pkg(package, 'models.lattice')
+    S = _pkg(package, 'networks.site')
+    TC = _pkg(package, 'models.toric_code')
+    s, f = S.SpinHalfSite('Sz'), S.FermionSite('N')
+    m3 = [('A', [0, 0], 0), ('B', [1, 0], 1), ('C', [0, 1], 0)]
+    m1 = [('A', [-1], 0), ('B', [0], 0), ('C', [1], 0)]
+    per, inf = ['periodic', 'periodic'], 'infinite'
+    cases = {
+        'ladder': (La.Ladder(4, s, bc='periodic', bc_MPS=inf), m1, False),
+        'nleg': (La.NLegLadder(3, 3, s), None, False),
+        'triangular': (La.Triangular(3, 3, s, bc='periodic'), m3, True),
+        'triangular_cyl': (La.Triangular(2, 3, s, bc=['open', 'periodic']),
+                           m3, False),
+        'honeycomb': (La.Honeycomb(2, 2, [s, s], bc=per, bc_MPS=inf), m3,
+                      False),
+        'honeycomb_pbc': (La.Honeycomb(3, 3, [s, s], bc='periodic'), None,
+                          True),
+        'honeycomb_cyl3': (La.Honeycomb(1, 3, f, bc=per, bc_MPS=inf), m3,
+                           False),
+        'honeycomb_shift': (La.Honeycomb(2, 3, [s, s], bc=['periodic', -1],
+                                         bc_MPS=inf), m3, False),
+        'honeycomb_grouped': (La.Honeycomb(2, 2, s,
+                                           order=('grouped', [[1], [0]])),
+                              None, False),
+        'kagome': (La.Kagome(3, 3, [s] * 3, bc='periodic'), m3, True),
+        'kagome_cyl': (La.Kagome(1, 2, s, bc=['open', 'periodic']), None,
+                       False),
+        'square_snake': (La.Square(3, 4, s, order='snake',
+                                   bc=['open', 'periodic']), m3, True),
+        'square_fstyle': (La.Square(3, 4, s, order='Fstyle'), None, False),
+        'chain_folded': (La.Chain(6, s, order='folded', bc='periodic'), m1,
+                         False),
+        'trivial': (La.TrivialLattice([s, f, s]), None, False),
+        'multispecies': (La.MultiSpeciesLattice(La.Square(2, 2, f), [f, f],
+                                                ['up', 'down']), None, False),
+        'dual_square': (TC.DualSquare(2, 2, s), None, False),
+    }
+    flat = {}
+    for name, (lat, multi, find) in cases.items():
+        flat.update(lattice_flat(f'lattices.{name}', lat, multi, find))
+    return flat
+
+
+def mpo_flat(prefix, H):
+    """An MPO's W tensors (dense), virtual charges and IdL/IdR."""
+    out = {'L': np.asarray(H.L), 'IdL': _js(H.IdL), 'IdR': _js(H.IdR),
+           'chi': np.asarray(H.chi)}
+    for i in range(H.L):
+        W = H.get_W(i)
+        out[f'W.{i}'] = _arr(W.transpose(['wL', 'wR', 'p', 'p*']))
+        out[f'wL.{i}'] = W.get_leg('wL').to_qflat()
+    return {f'{prefix}.{k}': v for k, v in out.items()}
+
+
+def model_flat(prefix, m):
+    """A model's MPO (:func:`mpo_flat`) and, for a
+    ``NearestNeighborModel``, its bond Hamiltonians (dense)."""
+    flat = mpo_flat(prefix, m.H_MPO)
+    flat[f'{prefix}.max_range'] = np.asarray(m.H_MPO.max_range)
+    for i, h in enumerate(getattr(m, 'H_bond', None) or []):
+        if h is not None:
+            flat[f'{prefix}.H_bond.{i}'] = _arr(h.transpose(
+                ['p0', 'p0*', 'p1', 'p1*']))
+    return flat
+
+
+# (module, class, parameters) of every model held to JAX: the cases of
+# tests/test_models.py:62-75 (MODELS_VS_ED) and :112, of
+# tests/test_models_2d.py and test_models.py:137, and infinite and option
+# variants of the new models
+MODEL_CASES = {
+    'tfi': ('tf_ising', 'TFIChain', {'L': 6, 'J': 1., 'g': 1.3}),
+    'xxz': ('xxz_chain', 'XXZChain', {'L': 6, 'Jxx': 1., 'Jz': 0.7,
+                                      'hz': 0.1}),
+    'spin_half': ('spins', 'SpinChain', {'L': 6, 'S': 0.5, 'Jx': 1.,
+                                         'Jy': 1., 'Jz': 0.3, 'hz': 0.2}),
+    'spin_one': ('spins', 'SpinChain', {'L': 4, 'S': 1., 'Jx': 1., 'Jy': 1.,
+                                        'Jz': 1.}),
+    'nnn2': ('spins_nnn', 'SpinChainNNN2', {'L': 6, 'Jx': 1., 'Jy': 1.,
+                                            'Jz': 0.5, 'Jxp': 0.4,
+                                            'Jyp': 0.4, 'Jzp': 0.2}),
+    'fermion_chain': ('fermions_spinless', 'FermionChain',
+                      {'L': 6, 'J': 1., 'V': 0.5, 'mu': 0.3}),
+    'hubbard_chain': ('hubbard', 'FermiHubbardChain', {'L': 4, 't': 1.,
+                                                       'U': 4., 'mu': 1.}),
+    'bose_hubbard': ('hubbard', 'BoseHubbardChain', {'L': 4, 't': 1.,
+                                                     'U': 2., 'n_max': 2}),
+    'tj': ('tj_model', 'tJChain', {'L': 4, 't': 1., 'J': 0.4}),
+    'clock': ('clock', 'ClockChain', {'L': 4, 'q': 3, 'J': 1., 'g': 0.7}),
+    'pxp': ('pxp', 'PXPChain', {'L': 6, 'Omega': 1.}),
+    'tfi_ladder': ('tf_ising', 'TFIModel', {'lattice': 'Square', 'Lx': 2,
+                                            'Ly': 3, 'J': 1., 'g': 1.2,
+                                            'bc_y': 'ladder'}),
+    'aklt': ('aklt', 'AKLTChain', {'L': 2, 'bc_MPS': 'infinite',
+                                   'conserve': 'Sz'}),
+    'toric': ('toric_code', 'ToricCode', {'Lx': 2, 'Ly': 2,
+                                          'bc_MPS': 'finite',
+                                          'conserve': None}),
+    'toric_inf': ('toric_code', 'ToricCode', {'Lx': 1, 'Ly': 2,
+                                              'bc_MPS': 'infinite'}),
+    'hofstadter_fermions': ('hofstadter', 'HofstadterFermions', {
+        'Lx': 3, 'Ly': 2, 'phi': (1, 2), 'bc_MPS': 'finite',
+        'bc_y': 'cylinder', 'conserve': 'N'}),
+    'hofstadter_bosons': ('hofstadter', 'HofstadterBosons', {
+        'Lx': 2, 'Ly': 3, 'phi': (1, 3), 'Nmax': 2, 'U': 1., 'mu': 0.2,
+        'bc_MPS': 'infinite', 'bc_y': 'cylinder'}),
+    'haldane': ('haldane', 'FermionicHaldaneModel', {
+        'Lx': 2, 'Ly': 2, 'bc_MPS': 'finite', 'conserve': 'N'}),
+    'haldane_cylinder': ('haldane', 'FermionicHaldaneModel', {
+        'Lx': 1, 'Ly': 3, 'bc_MPS': 'infinite', 'bc_y': 'cylinder',
+        'conserve': 'N', 't1': -1., 'V': 0., 'mu': 0.}),
+    'haldane_bosons': ('haldane', 'BosonicHaldaneModel', {
+        'Lx': 1, 'Ly': 3, 'bc_MPS': 'infinite', 'bc_y': 'cylinder',
+        'V': 0.5, 'mu': 0.1, 't2': 0.2 + 0.1j}),
+    'triangular': ('spins', 'SpinModel', {
+        'lattice': 'Triangular', 'Lx': 2, 'Ly': 3, 'Jx': 1., 'Jy': 1.,
+        'Jz': 1., 'bc_MPS': 'finite', 'bc_y': 'cylinder', 'conserve': 'Sz',
+        'S': 0.5}),
+    'kagome': ('spins', 'SpinModel', {
+        'lattice': 'Kagome', 'Lx': 1, 'Ly': 2, 'Jx': 1., 'Jy': 1.,
+        'Jz': 1., 'bc_MPS': 'finite', 'bc_y': 'cylinder', 'conserve': 'Sz',
+        'S': 0.5}),
+    'hubbard2': ('hubbard', 'FermiHubbardModel2', {
+        'L': 3, 't': 1., 'U': 4., 'mu': 0.5, 'V': 0.3, 'bc_MPS': 'finite'}),
+    'hubbard2_infinite': ('hubbard', 'FermiHubbardModel2', {
+        'L': 2, 't': 1., 'U': 4., 'bc_MPS': 'infinite'}),
+    'bose_hubbard_square': ('hubbard', 'BoseHubbardModel', {
+        'lattice': 'Square', 'Lx': 2, 'Ly': 2, 'n_max': 2, 'U': 3.,
+        'V': 0.5, 'bc_MPS': 'infinite'}),
+    'fermions_honeycomb': ('fermions_spinless', 'FermionModel', {
+        'lattice': 'Honeycomb', 'Lx': 1, 'Ly': 2, 'V': 0.5,
+        'bc_MPS': 'infinite'}),
+    'tj_ladder': ('tj_model', 'tJModel', {'lattice': 'Ladder', 'L': 2,
+                                          'bc_MPS': 'infinite'}),
+    'clock_infinite': ('clock', 'ClockChain', {'L': 2, 'q': 4,
+                                               'conserve': None,
+                                               'bc_MPS': 'infinite'}),
+    'nnn_grouped': ('spins_nnn', 'SpinChainNNN', {'L': 3, 'Jz': 0.5,
+                                                  'Jxp': 0.4, 'Jyp': 0.4,
+                                                  'Jzp': 0.2, 'hz': 0.1}),
+    'nnn_grouped_infinite': ('spins_nnn', 'SpinChainNNN', {
+        'L': 2, 'Jx': 1., 'Jy': 0.8, 'bc_MPS': 'infinite'}),
+    'nnn2_infinite': ('spins_nnn', 'SpinChainNNN2', {
+        'L': 2, 'Jxp': 0.5, 'bc_MPS': 'infinite'}),
+    'pxp_infinite': ('pxp', 'PXPChain', {'L': 3, 'bc_MPS': 'infinite'}),
+    'explicit_hc': ('hubbard', 'FermiHubbardChain', {
+        'L': 4, 'U': 2., 'mu': 0.3, 'explicit_plus_hc': True}),
+    'sort_mpo_legs': ('hubbard', 'FermiHubbardModel', {
+        'lattice': 'Square', 'Lx': 2, 'Ly': 2, 'bc_MPS': 'infinite',
+        'U': 4., 'sort_mpo_legs': True}),
+}
+# the cases whose spectrum is held to JAX's (every state: at most 256)
+MODEL_ED_CASES = ['tfi', 'xxz', 'spin_half', 'spin_one', 'nnn2',
+                  'fermion_chain', 'hubbard_chain', 'bose_hubbard', 'tj',
+                  'clock', 'pxp', 'toric', 'haldane', 'triangular', 'kagome',
+                  'hubbard2', 'nnn_grouped', 'explicit_hc']
+
+
+def make_model(package, case):
+    module, cls, params = MODEL_CASES[case]
+    return getattr(_pkg(package, 'models.' + module), cls)(dict(params))
+
+
+def model_case(package, case):
+    """A model's MPO and bond Hamiltonians (:func:`model_flat`)."""
+    return model_flat(f'model.{case}', make_model(package, case))
+
+
+def ed_case(package, case):
+    """The full spectrum of a finite model (from its MPO)."""
+    ed = _pkg(package, 'algorithms.exact_diag')
+    H = np.asarray(ed.get_numpy_Hamiltonian(make_model(package, case)))
+    return {f'ed.{case}': np.linalg.eigvalsh(H)}
+
+
+def dsl_models(package):
+    """A model of the DSL parts no model of the zoo uses, in ``package``:
+    exponentially decaying couplings, single terms by MPS and lattice
+    index, a multi-coupling term and external-flux phases."""
+    model = _pkg(package, 'models.model')
+    lattice = _pkg(package, 'models.lattice')
+    site = _pkg(package, 'networks.site')
+
+    class DSL(model.CouplingMPOModel):
+        def init_sites(self, p):
+            return site.FermionSite('N') if p.get('fermions', False) \
+                else site.SpinHalfSite('Sz')
+
+        def init_terms(self, p):
+            L = self.lat.N_sites
+            ferm = p.get('fermions', False)
+            a, b = ('Cd', 'C') if ferm else ('Sp', 'Sm')
+            n = 'N' if ferm else 'Sz'
+            self.add_exponentially_decaying_coupling(0.7, 0.4, n, n)
+            self.add_exponentially_decaying_coupling(
+                0.3, 0.5, a, b, subsites=np.arange(0, L, 2), plus_hc=True)
+            self.add_onsite_term(0.2, 1, n)
+            self.add_coupling_term(0.3, 0, 2, n, n)
+            self.add_multi_coupling_term(0.4, [0, 1, 3], [n, n, n])
+            if self.lat.dim == 2:
+                phase = [0., 0.7]
+                s = self.coupling_strength_add_ext_flux(-1., [0, 1], phase)
+                self.add_coupling(s, 0, a, 0, b, [0, 1], plus_hc=True)
+                self.add_local_term(0.5, [(n, [0, 0, 0]), (n, [1, 1, 0])])
+                self.add_local_term(0.25, [(a, [0, 1, 0]), (b, [1, 0, 0]),
+                                           (n, [1, 1, 0])], plus_hc=False)
+
+    return {
+        'dsl_finite': DSL({'L': 6, 'bc_MPS': 'finite'}),
+        'dsl_infinite': DSL({'L': 4, 'bc_MPS': 'infinite'}),
+        'dsl_fermions': DSL({'L': 6, 'fermions': True}),
+        'dsl_flux': DSL({'lattice': lattice.Square(2, 3, site.FermionSite(
+            'N'), bc=['open', 'periodic'], bc_MPS='finite'),
+            'fermions': True}),
+    }
+
+
+def dsl_case(package, case):
+    return model_flat(f'dsl.{case}', dsl_models(package)[case])
+
+
+def terms_case(package):
+    """``TermList`` and the multi-coupling and exponentially decaying
+    terms through ``MPOGraph`` (the cases of tests/test_terms.py)."""
+    terms = _pkg(package, 'networks.terms')
+    site = _pkg(package, 'networks.site')
+    mpo = _pkg(package, 'networks.mpo')
+    spin, ferm = site.SpinHalfSite('Sz'), site.FermionSite('N')
+    flat = {}
+    tl = terms.TermList([[('Sz', 0)], [('Sz', 0), ('Sz', 1)],
+                         [('Sz', 2), ('Sp', 1), ('Sm', 3)],
+                         [('Sp', 0), ('Sm', 0)]], [0.5, 2., -0.3, 1.])
+    flat['terms.str'] = np.array(str(tl))
+    flat['terms.limits'] = np.asarray(tl.limits())
+    flat['terms.max_range'] = np.asarray(tl.max_range())
+    fl = terms.TermList([[('Cd', 2), ('C', 0)], [('C', 3), ('Cd', 1),
+                                                 ('N', 2)]], [1., 0.5])
+    fl.order_combine([ferm] * 4)
+    flat['terms.fermion_order'] = np.array(str(fl))
+    tl.order_combine([spin] * 4)
+    flat['terms.ordered'] = np.array(str(tl))
+    lat = _pkg(package, 'models.lattice').Square(2, 2, spin, bc='periodic')
+    ll = terms.TermList.from_lattice_locations(
+        lat, [[('Sz', [0, 0, 0]), ('Sz', [1, 1, 0])], [('Sp', [0, 1, 0])]],
+        [0.5, 1.5], shift=[1, 0])
+    flat['terms.lattice_locations'] = np.array(str(ll))
+    flat['terms.algebra'] = np.array(str(ll.shift(2) + tl * 2.))
+    for bc in ('finite', 'infinite'):
+        H = mpo.MPOGraph.from_term_list(tl, [spin] * 4, bc).build_MPO()
+        flat.update(mpo_flat(f'terms.term_list_{bc}', H))
+        mct = terms.MultiCouplingTerms(4)
+        mct.add_multi_coupling_term(1., [0, 1, 2], ['Sz', 'Sz', 'Sz'], 'Id')
+        mct.add_multi_coupling_term(0.5, [0, 3], ['Sp', 'Sm'], 'Id')
+        mct.add_multi_coupling_term(0.25, [1, 2, 5] if bc == 'infinite'
+                                    else [1, 2, 3], ['Sp', 'Sz', 'Sm'],
+                                    ['Id', 'Id'])
+        mct._test_terms([spin] * 4)
+        H = mpo.MPOGraph.from_terms([mct], [spin] * 4, bc).build_MPO()
+        flat.update(mpo_flat(f'terms.multi_{bc}', H))
+        flat[f'terms.multi_{bc}.list'] = np.array(str(mct.to_TermList()))
+        edt = terms.ExponentiallyDecayingTerms(6 if bc == 'finite' else 2)
+        edt.add_exponentially_decaying_coupling(2., 0.5, 'Sz', 'Sz')
+        edt._test_terms([spin] * edt.L)
+        H = mpo.MPOGraph.from_terms([edt], [spin] * edt.L, bc).build_MPO()
+        flat.update(mpo_flat(f'terms.exp_{bc}', H))
+        flat[f'terms.exp_{bc}.list'] = np.array(str(edt.to_TermList(
+            0.01, bc)))
+    fmct = terms.MultiCouplingTerms(4)
+    args = fmct.multi_coupling_term_handle_JW(
+        0.5, [('Cd', 0), ('N', 1), ('C', 2), ('N', 3)], [ferm] * 4)
+    flat['terms.fermion_JW'] = _js(args)
+    return flat
+
+
+def spectrum_case(package, flat_state):
+    """``entanglement_spectrum`` (plain and by charge) of the finite
+    Haldane DMRG state, loaded from ``flat_state`` into ``package``."""
+    m = make_model(package, 'haldane')
+    if package == 'jax':
+        psi = flat_state
+    else:
+        psi = load_state(flat_state, 'dmrg.psi', m.lat.mps_sites())
+    out = {}
+    for ib, spec in enumerate(psi.entanglement_spectrum()):
+        out[f'spectrum.{ib}'] = np.asarray(spec)
+    for ib, spec in enumerate(psi.entanglement_spectrum(by_charge=True)):
+        out[f'spectrum_q.{ib}.charges'] = np.array([q for q, _ in spec])
+        out[f'spectrum_q.{ib}.sizes'] = np.array([len(v) for _, v in spec])
+        out[f'spectrum_q.{ib}.values'] = np.concatenate([v for _, v in spec])
+    return out
+
+
+# tests/test_models_2d.py:74-81: the finite 2x2 Haldane patch by DMRG
+HALDANE_DMRG_OPTIONS = {'trunc_params': {'chi_max': 64, 'svd_min': 1e-12},
+                        'max_sweeps': 30, 'mixer': True,
+                        'N_sweeps_check': 2}
+
+
+def haldane_dmrg(package):
+    """``dmrg.run`` on the finite 2x2 Haldane patch from the half-filled
+    product state: ``(E, psi)``."""
+    import copy
+    m = make_model(package, 'haldane')
+    mps = _pkg(package, 'networks.mps')
+    dmrg = _pkg(package, 'algorithms.dmrg')
+    L = m.lat.N_sites
+    psi = mps.MPS.from_product_state(m.lat.mps_sites(),
+                                     (['full', 'empty'] * L)[:L],
+                                     bc='finite')
+    kw = {} if package == 'jax' else {'device': 'cpu'}
+    E = dmrg.run(psi, m, copy.deepcopy(HALDANE_DMRG_OPTIONS), **kw)['E']
+    return float(np.real(E)), psi
+
+
+# the Haldane cylinder of examples/chern_insulators/haldane.py (config #5's
+# Haldane half) by device_ramp from the half-filled product state: to
+# chi=16 on the CPU (the port's test) and the first stage, chi=64, of the
+# chip run's chi=256 ramp (chip_smoke.py phase 16: there an inner stage,
+# whose sweeps all expand; settle_sweeps=0 makes this run's last stage the
+# same).  The y-translation symmetry of the cylinder leaves degenerate
+# pairs in the Schmidt spectrum, so a stage that cuts chi decides by
+# roundoff which member it keeps: after stages 2, 4, ..., 32 a change of t1
+# by 1e-13 moved the chi=64 stage's energies by 1e-6 and its first update
+# by 1e-4 on a CPU; the stage from the product state moves by 1e-13
+HALDANE_CYLINDER = MODEL_CASES['haldane_cylinder'][2]
+HALDANE_INIT = ['full', 'empty'] * 3
+HALDANE_RAMPS = {
+    'chi16': {'chi_max': 16, 'chi_list': [[8, 1], [16, 2]],
+              'svd_min': 1e-10, 'lanczos_K': 10, 'lanczos_K_seam': 60,
+              'multiple': 8, 'backend': 'svd'},
+    'chi64': {'chi_max': 64, 'chi_list': [[64, 2]], 'svd_min': 1e-10,
+              'lanczos_K': 10, 'lanczos_K_seam': 60, 'n_sweeps': 2,
+              'settle_sweeps': 0, 'backend': 'svd'},
+}
+
+
+def haldane_ramp(package, case):
+    """``device_ramp`` of the Haldane cylinder (``tenpy_tpu`` op by op,
+    jit off; the port on the CPU): the energies of every sweep, of every
+    update of each stage's first sweep, the stages and the charge-unit
+    rescale."""
+    import contextlib
+    m = make_model(package, 'haldane_cylinder')
+    mps = _pkg(package, 'networks.mps')
+    pd = _pkg(package, 'algorithms.packed_dmrg')
+    psi = mps.MPS.from_product_state(m.lat.mps_sites(), HALDANE_INIT,
+                                     bc='infinite')
+    upd, gauges = [], []
+    orig_update, orig_setup = (pd.DeviceSweepEngine._update,
+                               pd.DeviceSweepEngine._setup)
+
+    def recording_update(self, *args, **kw):
+        # tenpy_tpu's update returns its energy; the port keeps them in
+        # sweep_stats['update_E0']
+        E0, err = orig_update(self, *args, **kw)
+        upd.append(float(E0))
+        return E0, err
+
+    def recording_setup(self):
+        orig_setup(self)
+        gauges.append(getattr(self, '_gauge_info', None)
+                      or getattr(self, 'gauge', None))
+
+    if package == 'jax':
+        pd.DeviceSweepEngine._update = recording_update
+    pd.DeviceSweepEngine._setup = recording_setup
+    t0 = time.time()
+    try:
+        if package == 'jax':
+            import jax
+            ctx = jax.disable_jit()
+        else:
+            ctx = contextlib.nullcontext()
+        with ctx:
+            kw = {} if package == 'jax' else {'device': 'cpu'}
+            eng = pd.device_ramp(psi, m, dict(HALDANE_RAMPS[case]), **kw)
+    finally:
+        pd.DeviceSweepEngine._update = orig_update
+        pd.DeviceSweepEngine._setup = orig_setup
+    st = eng.sweep_stats
+    n_upd = 2 * psi.L
+    # the stages as device_ramp makes them (tenpy_tpu keeps no record)
+    opts = HALDANE_RAMPS[case]
+    stages = opts.get('chi_list')
+    if stages is None:
+        stages, c = [], 1
+        while 2 * c < opts['chi_max']:
+            c *= 2
+            stages.append((c, opts['sweeps_per_stage']))
+        stages.append((opts['chi_max'], opts['sweeps_per_stage']))
+    n_sw = [n for _, n in stages[:-1]] + [max(stages[-1][1],
+                                              opts.get('n_sweeps', 0))]
+    first = list(np.cumsum([0] + n_sw[:-1]))
+    if package != 'jax':
+        upd = [float(e) for sweep in st['update_E0'] for e in sweep]
+    k = gauges[0]['k'] if gauges and gauges[0] is not None else None
+    out = {'sweep_E': np.asarray(st['E'], float),
+           'stage_chi': np.asarray([c for c, _ in stages]),
+           'stage_first': np.asarray(first),
+           'stage_update_E0': np.asarray([upd[f * n_upd:(f + 1) * n_upd]
+                                          for f in first]),
+           'gauge_k': np.asarray(k if k is not None else [1]),
+           'N': np.real(np.asarray(psi.expectation_value('N'))),
+           'seconds': np.asarray(time.time() - t0),
+           'options': np.array(json.dumps(HALDANE_RAMPS[case])),
+           'model': np.array(json.dumps(HALDANE_CYLINDER))}
+    return {f'ramp.{case}.{key}': v for key, v in out.items()}
+
+
+def write_models(path, cases):
+    """Write :func:`models_reference` into ``path``; of the Haldane ramps
+    only ``cases`` run (tenpy_tpu op by op: about 6 min for 'chi16', much
+    longer for 'chi64'), the others are kept from an existing file."""
+    old = exchange.load_flat(path) if os.path.exists(path) else {}
+    flat = models_reference([c for c in cases if c in HALDANE_RAMPS])
+    for case in HALDANE_RAMPS:
+        if case not in cases:
+            flat.update({k: v for k, v in old.items()
+                         if k.startswith(f'ramp.{case}.')})
+    exchange.save_flat(path, flat)
+    print(f"wrote {path} ({os.path.getsize(path) / 1e6:.3f} MB)", flush=True)
+
+
+def models_reference(ramps=tuple(HALDANE_RAMPS)):
+    """tenpy_tpu's values of every case of the model layer, with the
+    Haldane ramps ``ramps``."""
+    t0 = time.time()
+    flat = sites_case('jax')
+    flat.update(lattices_case('jax'))
+    flat.update(terms_case('jax'))
+    for case in MODEL_CASES:
+        flat.update(model_case('jax', case))
+    for case in MODEL_ED_CASES:
+        flat.update(ed_case('jax', case))
+    for case in dsl_models('jax'):
+        flat.update(dsl_case('jax', case))
+    print(f"sites, lattices, terms, models: {time.time() - t0:.1f} s",
+          flush=True)
+    t0 = time.time()
+    E, psi = haldane_dmrg('jax')
+    flat['dmrg.E'] = np.asarray(E)
+    flat.update(state_flat('dmrg.psi', psi))
+    flat.update(spectrum_case('jax', psi))
+    print(f"Haldane 2x2 DMRG: E={E!r} ({time.time() - t0:.1f} s)",
+          flush=True)
+    for case in ramps:
+        t0 = time.time()
+        res = haldane_ramp('jax', case)
+        flat.update(res)
+        print(f"Haldane ramp {case}: E={res[f'ramp.{case}.sweep_E']} "
+              f"({time.time() - t0:.1f} s)", flush=True)
+    return flat
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--write',
@@ -2822,8 +3405,11 @@ def main(argv=None):
                     help='output .npz path (excitation references)')
     ap.add_argument('--write-segment',
                     help='output .npz path (segment references)')
+    ap.add_argument('--write-models',
+                    help='output .npz path (model-layer references)')
     ap.add_argument('--cases', nargs='+',
-                    help='write-back or Hofstadter cases to (re)compute')
+                    help='write-back, Hofstadter or Haldane-ramp cases to '
+                         '(re)compute')
     args = ap.parse_args(argv)
     import jax
     jax.config.update('jax_platforms', 'cpu')
@@ -2838,6 +3424,8 @@ def main(argv=None):
     if args.write_hofstadter:
         write_hofstadter(args.write_hofstadter,
                          args.cases or list(HOFSTADTER_CASES))
+    if args.write_models:
+        write_models(args.write_models, args.cases or list(HALDANE_RAMPS))
     for path, make in ((args.write_tebd, tebd_reference),
                        (args.write_states, written_back_states),
                        (args.write_host_dmrg, host_dmrg_reference),
