@@ -212,17 +212,42 @@ Phases (any failure exits nonzero):
    and 1/2 per site on average, measured, its entanglement spectrum by
    charge at bond 0 printed; then the complex128 kernel against its plain
    version, timed, on that engine's chi=256 matvec;
+17. momentum-space cylinders and dipole conservation.  17a: the main
+   path's Hubbard cylinder (U=8, Ly=4, two rings) in the mixed x-k basis
+   (``HubbardMixedXKSquare``: 16 sites per cell, charges N, Sz and ky mod
+   4; its MPO is real, so the kernel's f64 mode) from the half-filled
+   product state with ky = 0 per ring, by ``TwoSiteDMRGEngine`` on the
+   card (its iterations driven one by one: ``dmrg.run``'s closing
+   transfer-matrix energy alone would take minutes at chi=256) with the
+   mixer on for one sweep at chi=64 and two at 128, the environments then
+   re-seeded from the transfer matrix (``mixer_env_reseed='tm'``), and
+   two sweeps at 256; the first sweep also on the host route from the same
+   state, every update's energy 1e-7 apart; per sweep the seconds by
+   part, the card's share of the updates (every one from
+   ``DEVICE_LANCZOS_THRESHOLD`` up), Lanczos steps and launches (4 per
+   step); the re-seed's seconds, the idle share of the last (profiled)
+   chi=256 sweep, peak memory; the energy per real-space site within
+   1.5e-2 of -0.526081 (``BENCH_NORTHSTAR.json``) and not below it by
+   more than 1e-4, the cell's N, Sz and ky; the kernel against its plain
+   version on the centre two-site matvec, timed.  17b: ``dmrg.run`` on
+   the dipolar S=1 chain (L=64, J3=1, ``conserve='dipole'``) to chi 128
+   on the card, its first sweep also on the host route (printed), and
+   three updates of the result on both routes from one guess (energies
+   1e-9 apart); total Sz and dipole moment conserved exactly by the charges
+   and to 1e-10 measured, the centre tensor carrying both charges; the
+   kernel on the centre matvec, timed;
 then a JSON line on the kernels (the f64 mode, the complex128 mode, the
 complex128 mode on the TEBD shapes, the f64 mode on the host DMRG's and
 on the simulation's shapes, the complex128 mode on TDVP's two- and
 one-site matvecs, VUMPS's four matvecs, the purification gate, the
-plane-wave transfer step, the projected segment matvec and the Haldane
-matvec) and, last, ``{"ok": true, "device": ...}``.
+plane-wave transfer step, the projected segment matvec, the Haldane
+matvec, and the f64 mode on the x-k cylinder's and the dipolar chain's
+matvecs) and, last, ``{"ok": true, "device": ...}``.
 
 The phases run in four processes on the one card: this one runs 1-9 and
-12b, worker B 10 and 13, worker C 11, 14 and 15, worker D 16, 12a and
-12c (``WORKERS``); a worker's failure fails the smoke, and the workers end
-with it.
+12b, worker B 10 and 13, worker C 11, 14 and 15, worker D 16, 12a, 12c
+and 17 (``WORKERS``); a worker's failure fails the smoke, and the workers
+end with it.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``; one worker's
 phases alone: ``python3 chip_smoke.py --worker C out.json``.
@@ -262,7 +287,8 @@ from tenpy_tpu_torch.linalg import packed_split as ps
 from tenpy_tpu_torch.models.haldane import FermionicHaldaneModel
 from tenpy_tpu_torch.models.hofstadter import HofstadterFermions
 from tenpy_tpu_torch.models.hubbard import FermiHubbardModel
-from tenpy_tpu_torch.models.spins import SpinChain
+from tenpy_tpu_torch.models.mixed_xk import HubbardMixedXKSquare
+from tenpy_tpu_torch.models.spins import DipolarSpinChain, SpinChain
 from tenpy_tpu_torch.models.xxz_chain import XXZChain
 from tenpy_tpu_torch.networks import exchange
 from tenpy_tpu_torch.networks.mps import MPS
@@ -4740,11 +4766,322 @@ def phase_haldane(smi):
     return launches, mv
 
 
+# 17a: the main path's cylinder (bench_northstar.py:34-35) in the mixed
+# x-k basis.  Each ring's 8 sites are (k, spin) orbitals, k-major: the
+# product state fills up in k = 0, 1 and down in k = 0, 3 (half filling,
+# Sz = 0, ky = 1 + 3 = 0 mod 4 per ring)
+XK_MODEL = {'Lx': 2, 'Ly': 4, 't': 1., 'U': 8., 'bc_MPS': 'infinite'}
+XK_RING = ['full', 'full', 'full', 'empty', 'empty', 'empty', 'empty',
+           'full']
+XK_REAL_SITES = 8                    # real-space sites per unit cell
+# one sweep at 64 and two at 128 with the mixer, which fills the ky
+# sectors that two-site updates cannot; then the environments re-seeded
+# from the transfer matrix and two sweeps at 256 (the second gives the
+# energy estimate between two sweeps at the same chi and environments of
+# one age).  On a CPU the mixer switched off after two sweeps at 64 left
+# the energy per site stuck at -0.4934 (chi 96), while at 128 with the
+# mixer on it reached -0.5121
+XK_MIXER_SWEEPS = 3
+XK_OPTIONS = {'trunc_params': {'chi_max': 256, 'svd_min': 1e-10},
+              'mixer': True,
+              'mixer_params': {'amplitude': 1e-3, 'decay': 1.5,
+                               'disable_after': XK_MIXER_SWEEPS},
+              'mixer_env_reseed': 'tm', 'chi_list': {0: 64, 1: 128, 3: 256},
+              'N_sweeps_check': 1}
+XK_SWEEPS = 5
+XK_ROUTE_TOL = 1e-7
+XK_E_REF = -0.526081                 # BENCH_NORTHSTAR.json:40, per site
+XK_E_BAND = 1.5e-2
+XK_E_BELOW = 1e-4
+# 17b: the dipolar S=1 chain from the Neel state, to chi 128 in two
+# sweeps on the card.  The two routes are held to each other update by
+# update on the same effective H and guess (the guess perturbed by
+# XX_CHECK_NOISE, converged solves), at three bonds of the final state;
+# their whole first sweeps are compared too, but not held: the chain's
+# two-site problems in that sweep stop at the 20-step cap or at P_tol in
+# nearly degenerate spaces, and the two trajectories part (2.5e-8 on the
+# card; 3.5e-8 for the plain kernel against the host on a CPU, 6.6e-9
+# with a cap of 60 or 150)
+DIP_MODEL = {'L': 64, 'S': 1, 'J3': 1., 'J4': 0., 'conserve': 'dipole'}
+DIP_INIT = ['up', 'down'] * 32
+DIP_OPTIONS = {'trunc_params': {'chi_max': 128, 'svd_min': 1e-10},
+               'mixer': True, 'max_sweeps': 2, 'min_sweeps': 2,
+               'N_sweeps_check': 1}
+DIP_CHECK_BONDS = (16, 31, 48)
+DIP_CHECK_K = 60
+DIP_ROUTE_TOL = 1e-9
+DIP_MEAS_TOL = 1e-10
+
+
+def xk_engine(model, psi, options, device_K=None):
+    opts = copy.deepcopy(options)
+    if device_K is not None:
+        opts['lanczos_params'] = {'device_K': device_K}
+    eng = dmrg.TwoSiteDMRGEngine(psi, model, opts, device='cuda')
+    eng.pre_run_initialize()
+    return eng
+
+
+def phase_mixed_xk(smi):
+    """17a: ``HubbardMixedXKSquare`` on the card; returns the launches of
+    its run and the kernel's numbers on its chi=256 centre matvec."""
+    t0 = time.time()
+    model = HubbardMixedXKSquare(dict(XK_MODEL))
+    sites = model.lat.mps_sites()
+    L = len(sites)
+    psi = MPS.from_product_state(sites, XK_RING * 2, bc='infinite')
+    q0 = psi.get_total_charge()     # the cell's (N, 2 Sz, ky mod 4)
+    log(f"[17a] HubbardMixedXKSquare {XK_MODEL}: L={L} (8 (k, spin) "
+        f"orbitals per ring), charges {sites[0].leg.chinfo!r}, H_MPO "
+        f"{model.H_MPO.dtype}, MPO bond dims {model.H_MPO.chi}; model and "
+        f"state {time.time() - t0:.2f} s; cell charge (N, 2Sz, ky) "
+        f"{list(map(int, q0))}; card {smi}")
+    check(list(q0) == [8, 0, 0], "17a: the product state is not half "
+          "filled with Sz = 0 and ky = 0")
+    check(sites[0].leg.chinfo.mod == (1, 1, 4), "17a: ky is not a Z_4 "
+          "charge")
+
+    # the first sweep on both routes from the same state
+    t0 = time.time()
+    host_psi = psi.copy()
+    host = xk_engine(model, host_psi, XK_OPTIONS, device_K=0)
+    host.run_iteration()
+    host_s = time.time() - t0
+    n_td, restore = counted_contract()
+    torch.cuda.reset_peak_memory_stats()
+    gg.LAUNCHES = 0                    # count the x-k path's launches only
+    try:
+        with HostDMRGProbe(n_td) as probe:
+            eng = xk_engine(model, psi, XK_OPTIONS)
+            probe.engine = eng
+            walls = []
+            for k in range(XK_SWEEPS):
+                t1 = time.time()
+                if k == XK_SWEEPS - 1:
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        torch.cuda.synchronize()
+                        t1 = time.time()
+                        eng.run_iteration()
+                        torch.cuda.synchronize()
+                else:
+                    eng.run_iteration()
+                    torch.cuda.synchronize()
+                walls.append(time.time() - t1)
+                if k == 0:
+                    E_card = list(eng.update_stats['E_total'])
+                    E_host = list(host.update_stats['E_total'])
+                    d = max(abs(a - b) / abs(b)
+                            for a, b in zip(E_card, E_host))
+                    log(f"[17a] first sweep (chi 64, mixer on) on both "
+                        f"routes: {len(E_card)} updates, the card's "
+                        f"{walls[0]:.2f} s, the host's {host_s:.2f} s; "
+                        f"update energies at most {d:.2e} apart (relative; "
+                        f"tolerance {XK_ROUTE_TOL:.0e}); sweep energies "
+                        f"{eng.sweep_stats['E'][0]:.10f} and "
+                        f"{host.sweep_stats['E'][0]:.10f}")
+                    check(len(E_card) == len(E_host) == 2 * L
+                          and d <= XK_ROUTE_TOL,
+                          "17a: the card and host routes' first sweeps "
+                          "differ")
+                    check(host.device_lanczos_stats['plain'] == 0,
+                          "17a: the host route ran an update on the card")
+                    del host, host_psi
+    finally:
+        restore()
+    launches, tensordots = gg.LAUNCHES, n_td[0]
+    peak = torch.cuda.max_memory_allocated()
+    ss = eng.sweep_stats
+    opt = [x for x in probe.sweeps if x[0]]
+    check(len(opt) == XK_SWEEPS, "17a: sweeps counted twice or missed")
+    for k in range(XK_SWEEPS):
+        parts = {key: sum(t for sw, t in probe.parts[key] if sw == k)
+                 for key in HostDMRGProbe.PARTS}
+        N = [n for sw, n in probe.diag_N if sw == k]
+        above = sum(1 for n in N if n >= mc.DEVICE_LANCZOS_THRESHOLD)
+        dev = [m for sw, m in probe.device_N if sw == k]
+        log(f"[17a] sweep {k + 1}: chi {ss['max_chi'][k]}, {walls[k]:.2f} s"
+            f" ({', '.join(f'{key} {v:.2f}' for key, v in parts.items())}),"
+            f" mixer {'on' if k < XK_MIXER_SWEEPS else 'off'}; {len(N)} "
+            f"updates, "
+            f"{above} with N >= {mc.DEVICE_LANCZOS_THRESHOLD} "
+            f"(largest {max(N)}), {len(dev)} on the card ({sum(dev)} "
+            f"Lanczos steps), launches {opt[k][2]} (tensordots "
+            f"{opt[k][3]}); E per orbital {ss['E'][k]:.10f}, max trunc "
+            f"{ss['max_trunc_err'][k]:.2e}")
+        check(len(dev) == above and all(m >= 1 for m in dev),
+              f"17a: sweep {k + 1}: an update with N >= "
+              f"{mc.DEVICE_LANCZOS_THRESHOLD} did not run on the card")
+        check(opt[k][2] == opt[k][3] == 4 * sum(dev),
+              f"17a: sweep {k + 1}: launches differ from 4 per card "
+              f"Lanczos step")
+    reseed = eng.env_reseed_stats
+    log(f"[17a] mixer off after sweep {XK_MIXER_SWEEPS}, environments "
+        f"re-seeded (the state canonicalized first): "
+        + ', '.join(f"{r['kind']} after sweep {r['sweep']} in "
+                    f"{r['seconds']:.2f} s" for r in reseed))
+    check([r['kind'] for r in reseed] == ['tm'],
+          "17a: the environments were not re-seeded from the transfer "
+          "matrix once")
+    busy, svd_us, kernel_us, rows = device_time(prof)
+    log(f"[17a] profiled chi={ss['max_chi'][-1]} sweep {walls[-1]:.2f} s: "
+        f"device busy {busy / 1e6:.3f} s, idle "
+        f"{100 * (1 - busy / 1e6 / walls[-1]):.1f}%; SVD "
+        f"{svd_us / 1e6:.3f} s, the kernel {kernel_us / 1e6:.3f} s")
+    steps = sum(m for _, m in probe.device_N)
+    log(f"[17a] {len(probe.device_N)} card updates, {steps} Lanczos "
+        f"steps; kernel launches {launches} (tensordots {tensordots}); "
+        f"peak memory {peak / 2**30:.3f} GiB")
+    check(launches == tensordots == 4 * steps and launches > 0,
+          "17a: kernel launches differ from the card route's tensordots")
+    check(np.isfinite(ss['E']).all(), "17a: non-finite sweep energy")
+    # the energy estimate of the last sweep, per real-space site
+    e_site = ss['E'][-1] * L / XK_REAL_SITES
+    q = eng.psi.get_total_charge()
+    log(f"[17a] energy per site {e_site:.8f} (chi {max(eng.psi.chi)}; "
+        f"per sweep " + ' '.join(f"{e * L / XK_REAL_SITES:.6f}"
+                                 for e in ss['E'])
+        + f") beside {XK_E_REF} (BENCH_NORTHSTAR.json): "
+        f"{e_site - XK_E_REF:+.3e} (band {XK_E_BAND:.1e}, not below by "
+        f"more than {XK_E_BELOW:.0e}); cell charge (N, 2Sz, ky) "
+        f"{list(map(int, q))}")
+    check(list(q) == [8, 0, 0], "17a: the cell's charges changed")
+    check(abs(e_site - XK_E_REF) <= XK_E_BAND
+          and e_site >= XK_E_REF - XK_E_BELOW,
+          f"17a: energy per site {e_site} outside the band around "
+          f"{XK_E_REF} (ky sector {int(q[2])} mod 4)")
+
+    # the kernel on the centre two-site matvec of the chi=256 state
+    eng.i0, eng.move_right = L // 2 - 1, True
+    guess = eng.prepare_update_local()
+    eff = eng.eff_H
+    LPp, RPp, W0p, W1p = eff.pack_operands(eng.device)
+    theta_p = mc.pack_virtual(guess, eng.device)
+    _, calls = recorded_calls(lambda: _matvec_2site_packed(
+        LPp, RPp, W0p, W1p, theta_p))
+    check(len(calls) == 4, "17a: the centre matvec is not four tensordots")
+    log(f"[17a] centre matvec: N={eff.N}, {theta_p.dtype}")
+    return launches, measure_contractions(calls, MATVEC_STEPS, '17a')
+
+
+def dipole_moments(psi):
+    """(sum Sz_i, sum i Sz_i) measured on ``psi``."""
+    sz = np.real(np.asarray(psi.expectation_value('Sz')))
+    return float(np.sum(sz)), float(np.sum(np.arange(len(sz)) * sz))
+
+
+def phase_dipolar(smi):
+    """17b: ``dmrg.run`` on the dipolar S=1 chain on the card; returns
+    the launches of its run and the kernel's numbers on its centre
+    matvec."""
+    model = DipolarSpinChain(dict(DIP_MODEL))
+    sites = model.lat.mps_sites()
+    L = len(sites)
+    psi = MPS.from_product_state(sites, DIP_INIT)
+    q0 = psi.get_total_charge(only_physical_legs=True)
+    m0 = dipole_moments(psi)
+    log(f"[17b] DipolarSpinChain {DIP_MODEL}: charges "
+        f"{sites[0].leg.chinfo!r}, MPO bond dims {max(model.H_MPO.chi)}; "
+        f"the Neel state's (2 Sz, dipole) {list(map(int, q0))}, measured "
+        f"sum Sz {m0[0]:+.1f}, sum i Sz_i {m0[1]:+.1f}")
+    t0 = time.time()
+    host_psi = psi.copy()
+    host_opts = dict(copy.deepcopy(DIP_OPTIONS), max_sweeps=1, min_sweeps=1,
+                     lanczos_params={'device_K': 0})
+    host = dmrg.run(host_psi, model, host_opts, device='cuda')
+    host_s = time.time() - t0
+    n_td, restore = counted_contract()
+    gg.LAUNCHES = 0                    # count the dipolar path's launches
+    try:
+        with HostDMRGProbe(n_td) as probe:
+            t0 = time.time()
+            info = dmrg.run(psi, model, copy.deepcopy(DIP_OPTIONS),
+                            device='cuda')
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+    finally:
+        restore()
+    launches, tensordots = gg.LAUNCHES, n_td[0]
+    eng = probe.engine
+    ss = eng.sweep_stats
+    e_card, e_host = ss['E'][0], host['sweep_statistics']['E'][0]
+    rel_sweep = abs(e_card - e_host) / abs(e_host)
+    steps = sum(m for _, m in probe.device_N)
+    above = sum(1 for _, n in probe.diag_N
+                if n >= mc.DEVICE_LANCZOS_THRESHOLD)
+    log(f"[17b] dmrg.run on the card {wall:.2f} s, {len(ss['E'])} sweeps, "
+        f"s/sweep " + ' '.join(f"{x[1]:.2f}" for x in probe.sweeps if x[0])
+        + f", chi {max(psi.chi)}, E {info['E']:.12f}; "
+        f"{len(probe.diag_N)} updates, {above} with N >= "
+        f"{mc.DEVICE_LANCZOS_THRESHOLD}, {len(probe.device_N)} on the card "
+        f"({steps} Lanczos steps), launches {launches} (tensordots "
+        f"{tensordots}); the first sweep's energy {e_card:.12f} on the "
+        f"card, {e_host:.12f} on the host route ({host_s:.2f} s): rel "
+        f"{rel_sweep:.2e} (not held: the sweep's solves are capped or "
+        f"nearly degenerate)")
+    check(len(probe.device_N) == above > 0
+          and launches == tensordots == 4 * steps,
+          "17b: the card route's updates or launches are off")
+    q = psi.get_total_charge(only_physical_legs=True)
+    m = dipole_moments(psi)
+    B = psi.get_B(L // 2)
+    log(f"[17b] final (2 Sz, dipole) {list(map(int, q))}; measured sum Sz "
+        f"{m[0]:+.3e}, sum i Sz_i {m[1]:+.12f} (initial {m0[1]:+.1f}); "
+        f"centre B charges {B.chinfo!r}, {B.stored_blocks} blocks; norm "
+        f"{float(np.max(psi.norm_test())):.2e}")
+    check(np.array_equal(q, q0), "17b: the charges changed")
+    check(abs(m[0] - m0[0]) <= DIP_MEAS_TOL
+          and abs(m[1] - m0[1]) <= DIP_MEAS_TOL,
+          "17b: measured Sz or dipole moment not conserved")
+    check(B.chinfo.qnumber == 2 and not B.chinfo.trivial_shift,
+          "17b: the centre tensor does not carry both charges")
+    # the two routes on the same effective H and guess
+    lp = eng.lanczos_params
+    saved = {k: lp[k] for k in ('P_tol', 'device_K') if k in lp}
+    lp['P_tol'], lp['device_K'] = 1e-14, DIP_CHECK_K
+    rng = np.random.default_rng(XX_CHECK_SEED)
+    for i0 in DIP_CHECK_BONDS:
+        eng.i0, eng.move_right = i0, True
+        theta = eng.prepare_update_local()
+        noise = npc.Array.from_ndarray(
+            rng.standard_normal(theta.shape), theta.legs, qtotal=theta.qtotal,
+            labels=theta.get_leg_labels(), warn_wrong_sector=False)
+        guess = theta + noise * (XX_CHECK_NOISE * npc.norm(theta)
+                                 / npc.norm(noise))
+        t0 = time.time()
+        E_dev, th_dev, N_dev, _ = eng._diag_device_lanczos(guess)
+        dev_s = time.time() - t0
+        t0 = time.time()
+        E_host, th_host, N_host = LanczosGroundState(
+            eng.eff_H, guess, {'N_max': DIP_CHECK_K, 'P_tol': 1e-14}).run()
+        host_s = time.time() - t0
+        rel = abs(E_dev - E_host) / abs(E_host)
+        log(f"[17b] update at sites ({i0}, {i0 + 1}), N={eng.eff_H.N}: card "
+            f"{E_dev:.14f} in {N_dev} steps ({dev_s:.2f} s), host "
+            f"{E_host:.14f} in {N_host} steps ({host_s:.2f} s): rel "
+            f"{rel:.2e} (tolerance {DIP_ROUTE_TOL:.0e})")
+        check(rel <= DIP_ROUTE_TOL, "17b: the card and host routes differ")
+    for k in ('P_tol', 'device_K'):
+        if k in saved:
+            lp[k] = saved[k]
+        else:
+            del lp[k]
+    eng.i0, eng.move_right = L // 2 - 1, True
+    guess = eng.prepare_update_local()
+    eff = eng.eff_H
+    LPp, RPp, W0p, W1p = eff.pack_operands(eng.device)
+    theta_p = mc.pack_virtual(guess, eng.device)
+    _, calls = recorded_calls(lambda: _matvec_2site_packed(
+        LPp, RPp, W0p, W1p, theta_p))
+    check(len(calls) == 4, "17b: the centre matvec is not four tensordots")
+    log(f"[17b] centre matvec: N={eff.N}, {theta_p.dtype}")
+    return launches, measure_contractions(calls, MATVEC_STEPS, '17b')
+
+
 # The phases run in four processes on the one card.  They are host-bound
 # (the card idle 96-99% of phases 9-15, PERF.md section 5), so groups that
 # share no state run side by side: this process runs 1-9 and 12b (which
 # starts from phase 7's state), worker B runs 10 and 13, worker C 11, 14
-# and 15, worker D 16, 12a and 12c.  Each process counts its own launches
+# and 15, worker D 16, 12a, 12c and 17.  Each process counts its own launches
 # around its own paths; kernel timings take turns (timing_lock).  The
 # host's cores are shared out among the four as torch threads (a phase
 # that pins its own count still does).
@@ -4778,7 +5115,7 @@ def run_worker_c(smi):
 
 
 def run_worker_d(smi):
-    """Phases 16, 12a and 12c; their kernel entries and walls."""
+    """Phases 16, 12a, 12c and 17; their kernel entries and walls."""
     kernels, walls, t = {}, [], time.time()
     kernels['packed_contract_haldane'] = phase_haldane(smi)
     walls.append(('16', time.time() - t))
@@ -4786,6 +5123,12 @@ def run_worker_d(smi):
     (kernels['packed_contract_vumps_zero_site'],
      kernels['packed_contract_vumps_two_site']) = phase_vumps_real(smi)
     walls.append(('12a,12c', time.time() - t))
+    t = time.time()
+    kernels['packed_contract_mixed_xk'] = phase_mixed_xk(smi)
+    walls.append(('17a', time.time() - t))
+    t = time.time()
+    kernels['packed_contract_dipolar'] = phase_dipolar(smi)
+    walls.append(('17b', time.time() - t))
     return kernels, walls
 
 
@@ -4804,8 +5147,8 @@ def share_threads(name):
 def worker_main(name, out):
     """Run worker ``name``'s phases and write their kernel entries and
     walls to ``out`` as JSON.  Alone, ``python3 chip_smoke.py --worker C
-    out.json`` runs phases 11, 14 and 15 (B: 10 and 13; D: 16, 12a and
-    12c)."""
+    out.json`` runs phases 11, 14 and 15 (B: 10 and 13; D: 16, 12a, 12c
+    and 17)."""
     exit_with_parent()
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available")
@@ -4895,15 +5238,15 @@ def main():
             kernels, max_abs_synth, walls = main_phases(smi, procs, t_start)
             t = time.time()
             worker_kernels, worker_walls = join_workers(procs, tmp, t_start)
-            log(f"[17] waited {time.time() - t:.1f} s for the workers")
+            log(f"[18] waited {time.time() - t:.1f} s for the workers")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     kernels.update(worker_kernels)
-    log("[17] wall by phase: " + ', '.join(
+    log("[18] wall by phase: " + ', '.join(
         f"[{name}] {t:.1f} s" for name, t in walls + worker_walls))
     m = {k: v[1]['max_abs'] for k, v in kernels.items()}
     p = 'packed_contract_'
-    log(f"[17] kernel max_abs_err: synthetic f64 "
+    log(f"[18] kernel max_abs_err: synthetic f64 "
         f"{max_abs_synth[torch.float64]:.2e}, complex128 "
         f"{max_abs_synth[torch.complex128]:.2e}; main-path shapes f64 "
         f"{m['packed_contract']:.2e}, complex128 {m[p + 'complex128']:.2e}, "
@@ -4918,7 +5261,9 @@ def main():
         f"{m[p + 'purification_gate']:.2e}; plane-wave transfer step "
         f"complex128 {m[p + 'plane_wave_transfer']:.2e}; projected segment "
         f"matvec f64 {m[p + 'segment_orthogonal']:.2e}; Haldane matvec "
-        f"complex128 {m[p + 'haldane']:.2e}")
+        f"complex128 {m[p + 'haldane']:.2e}; x-k cylinder matvec f64 "
+        f"{m[p + 'mixed_xk']:.2e}; dipolar chain matvec f64 "
+        f"{m[p + 'dipolar']:.2e}")
 
     def entry(name):
         n, m = kernels[name]
@@ -4943,19 +5288,20 @@ def main():
     # tensordots), complex128 on the chi=128 S=1 chain; per matvec of a
     # projected segment update (4 tensordots), f64 at the centre of the
     # S=1 chain's chi=128 segment; per matvec (4 tensordots) of the chi=256
-    # Haldane cylinder, complex128
+    # Haldane cylinder, complex128; per centre matvec (4 tensordots), f64,
+    # of the chi=256 x-k Hubbard cylinder and of the chi=128 dipolar chain
     names = ['packed_contract', 'complex128', 'complex128_tebd', 'host_dmrg',
              'simulation', 'tdvp_two_site', 'tdvp_one_site',
              'vumps_zero_site', 'vumps_two_site',
              'vumps_zero_site_complex128', 'vumps_one_site_complex128',
              'purification_gate', 'plane_wave_transfer', 'segment_orthogonal',
-             'haldane']
+             'haldane', 'mixed_xk', 'dipolar']
     names = names[:1] + [p + n for n in names[1:]]
     check(sorted(names) == sorted(kernels), "the kernel entries differ from "
           "the phases' measurements")
     print(json.dumps({'kernels': [entry(name) for name in names]}),
           flush=True)
-    log(f"[17] chip_smoke wall {time.time() - t_start:.1f} s")
+    log(f"[18] chip_smoke wall {time.time() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

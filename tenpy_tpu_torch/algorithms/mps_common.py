@@ -56,7 +56,7 @@ from ..linalg.charges import QTYPE, LegCharge
 from ..linalg.krylov_based import lanczos_evolve
 from ..linalg.sparse import NpcLinearOperator, OrthogonalNpcLinearOperator
 from ..linalg.truncation import TruncationError, svd_theta, eigh_rho
-from ..networks.mpo import MPOEnvironment
+from ..networks.mpo import MPOEnvironment, MPOTransferMatrix
 from ..networks.mps import MPSEnvironment
 from ..tools.cache import DictCache
 from ..tools.events import EventHandler
@@ -1050,9 +1050,14 @@ class Sweep(Algorithm):
     ``chi_list`` ({sweep: chi_max}), ``mixer``, ``mixer_params``,
     ``start_env`` (infinite bc: sites contracted into the start
     environments, 1).  ``orthogonal_to``: states to stay orthogonal to
-    (excited states).  ``tenpy_tpu``'s ``mixer_env_reseed='tm'`` (off by
-    default, used by no test) is not ported: the environments restart
-    from trivial boundaries when the mixer is switched off.
+    (excited states).  ``mixer_env_reseed`` ('trivial'): where switching
+    the mixer off rotates the bond bases, the environments restart from
+    trivial boundaries, or for 'tm' on an infinite state from the
+    transfer-matrix fixed point
+    (:meth:`~tenpy_tpu_torch.networks.mpo.MPOTransferMatrix.
+    find_init_LP_RP`): a sharp edge next to a momentum-space state
+    (``mixed_xk``) drains ky sectors that a two-site update cannot refill.
+    ``env_reseed_stats`` lists each restart's kind and seconds.
     """
 
     EffectiveH = None
@@ -1071,6 +1076,7 @@ class Sweep(Algorithm):
         self.mixer = None
         self.env = None
         self.ortho_to_envs = []
+        self.env_reseed_stats = []
         self.init_env(model, resume_data=self.resume_data,
                       orthogonal_to=orthogonal_to)
         self.i0 = 0
@@ -1311,8 +1317,35 @@ class Sweep(Algorithm):
         self._absorb_matrix_S()
         if had_matrix and self.env is not None:
             # the absorption rotated bond bases: the environments are stale
+            t0 = time.perf_counter()
             self.env.clear()
-            self.env.init_first_LP_last_RP()
+            env_data, kind = {}, 'trivial'
+            if not self.psi.finite and self.options.get(
+                    'mixer_env_reseed', 'trivial', str) == 'tm':
+                # re-seed from the converged transfer-matrix fixed point
+                # (not the default: on real-space states with noise-floor
+                # Schmidt directions the fixed-point solvers can converge
+                # to a wrong near-degenerate mode, while the trivial
+                # restart is harmless there).  The absorbed bond matrices
+                # leave the state off its canonical form, and the fixed
+                # point of a non-canonical state is not the environment of
+                # the state (tenpy_tpu re-seeds from it as it is): on the
+                # x-k Hubbard cylinder that collapsed the state
+                if np.max(self.psi.norm_test()) > self.S_inv_cutoff ** 0.5:
+                    self.psi.canonical_form()
+                try:
+                    env_data = MPOTransferMatrix.find_init_LP_RP(
+                        self.env.H, self.psi)
+                    kind = 'tm'
+                except Exception as e:
+                    logger.warning("TM env re-seed after mixer deactivation "
+                                   "failed (%s); using trivial boundaries",
+                                   e)
+                    kind = 'tm failed: trivial'
+            self.env.init_first_LP_last_RP(**env_data)
+            self.env_reseed_stats.append(
+                {'sweep': self.sweeps, 'kind': kind,
+                 'seconds': time.perf_counter() - t0})
             for env in self.ortho_to_envs:
                 env.clear()
                 env.init_first_LP_last_RP()

@@ -1,7 +1,10 @@
 r"""Abelian charge bookkeeping: :class:`ChargeInfo`, :class:`LegCharge`,
 :class:`LegPipe`.
 
-Port of ``tenpy_tpu/linalg/charges.py`` without its dipole part.
+Port of ``tenpy_tpu/linalg/charges.py``, with
+:class:`DipolarChargeInfo` (dipole conservation: charges that shift with
+a site's position) and the charge mappings of legs (``from_add_charge``,
+``from_drop_charge``, ``from_change_charge``, ``apply_charge_mapping``).
 Every class is immutable and hashable: the packed tensordot and the split
 cache their host-side plans on leg structures.  ``save_hdf5``/``from_hdf5``
 write and read the reference library's HDF5 layout
@@ -21,7 +24,8 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ['QTYPE', 'ChargeInfo', 'LegCharge', 'LegPipe']
+__all__ = ['QTYPE', 'ChargeInfo', 'DipolarChargeInfo', 'LegCharge',
+           'LegPipe']
 
 QTYPE = np.int64
 
@@ -57,6 +61,37 @@ class ChargeInfo:
     def trivial(cls):
         return cls(())
 
+    @classmethod
+    def add(cls, chinfos):
+        """The charges of several ChargeInfos side by side."""
+        mods, names = [], []
+        for ci in chinfos:
+            mods.extend(ci.mod)
+            names.extend(ci.names)
+        return cls(mods, names)
+
+    @classmethod
+    def drop(cls, chinfo, charge=None):
+        """``chinfo`` without the charge ``charge`` (index or name; None:
+        without every charge)."""
+        if charge is None:
+            return cls()
+        if isinstance(charge, str):
+            charge = chinfo.names.index(charge)
+        mod, names = list(chinfo.mod), list(chinfo.names)
+        del mod[charge], names[charge]
+        return cls(mod, names)
+
+    @classmethod
+    def change(cls, chinfo, charge, new_qmod, new_name=''):
+        """``chinfo`` with the modulus (and name) of one charge changed."""
+        if isinstance(charge, str):
+            charge = chinfo.names.index(charge)
+        mod, names = list(chinfo.mod), list(chinfo.names)
+        mod[charge] = int(new_qmod)
+        names[charge] = new_name
+        return cls(mod, names)
+
     @property
     def qnumber(self):
         return len(self.mod)
@@ -74,12 +109,25 @@ class ChargeInfo:
         mod = np.array(self.mod, dtype=QTYPE)
         return np.where(mod == 1, charges, np.mod(charges, mod))
 
+    def check_valid(self, charges):
+        return np.array_equal(self.make_valid(charges),
+                              np.asarray(charges, QTYPE))
+
+    def shift_charges(self, charges, dx):
+        """The charges after a translation by ``dx`` (unchanged here)."""
+        return np.asarray(charges, QTYPE)
+
+    def shift_charges_horizontal(self, charges, dx_0):
+        """The charges after a translation by ``dx_0`` along axis 0
+        (unchanged here)."""
+        return np.asarray(charges, QTYPE)
+
     def __eq__(self, other):
         if self is other:
             return True
         if not isinstance(other, ChargeInfo):
             return NotImplemented
-        return self.mod == other.mod
+        return type(self) is type(other) and self.mod == other.mod
 
     def __hash__(self):
         return self._hash
@@ -100,6 +148,118 @@ class ChargeInfo:
         names = hdf5_loader.load(subpath + 'names') if 'names' in h5gr \
             else None
         obj = cls(tuple(int(m) for m in qmod), names)
+        hdf5_loader.memorize_load(h5gr, obj)
+        return obj
+
+
+class DipolarChargeInfo(ChargeInfo):
+    r"""A :class:`ChargeInfo` that conserves dipole moments.
+
+    Each dipole charge ``p = r q`` is the moment of another charge ``q``,
+    with ``r`` the integer lattice position along ``dipole_dims[n]``
+    (origin at the lattice's first site).  A translation by ``dx`` adds
+    ``dx[dim] * q`` to ``p``, so sites are charge-shifted by their position
+    (``Lattice.mps_sites``) and :attr:`trivial_shift` is False.
+
+    Parameters
+    ----------
+    mod, names : as for :class:`ChargeInfo`
+    charge_idcs : list of int
+        Per dipole charge: the index of its charge ``q``.
+    dipole_idcs : list of int
+        Per dipole charge: the index of the dipole charge ``p``.
+    dipole_dims : list of int, optional
+        Per dipole charge: the lattice axis of its moment (default 0).
+    """
+
+    __slots__ = ('charge_idcs', 'dipole_idcs', 'dipole_dims')
+
+    trivial_shift = False
+
+    def __init__(self, mod=(), names=None, charge_idcs=(), dipole_idcs=(),
+                 dipole_dims=None):
+        if dipole_dims is None:
+            dipole_dims = [0] * len(dipole_idcs)
+        mod = tuple(int(m) for m in mod)
+        for n, i in enumerate(charge_idcs):
+            if not 0 <= i < len(mod):
+                raise ValueError(f"charge_idcs[{n}] out of bounds")
+        for n, i in enumerate(dipole_idcs):
+            if not 0 <= i < len(mod):
+                raise ValueError(f"dipole_idcs[{n}] out of bounds")
+            if i in charge_idcs:
+                raise ValueError("dipole_idcs and charge_idcs must be "
+                                 "disjoint")
+        for n, i in enumerate(dipole_idcs):
+            qmod_p, qmod_q = mod[i], mod[charge_idcs[n]]
+            if dipole_dims[n] > 0 and qmod_p == 1:
+                raise ValueError("a U(1) dipole charge along a periodic "
+                                 "direction (dipole_dim > 0)")
+            if qmod_q > 1 and (qmod_p == 1 or qmod_q % qmod_p != 0):
+                raise ValueError(f"dipole qmod={qmod_p} is not a subgroup "
+                                 f"of charge qmod={qmod_q}")
+        self.charge_idcs = tuple(int(i) for i in charge_idcs)
+        self.dipole_idcs = tuple(int(i) for i in dipole_idcs)
+        self.dipole_dims = tuple(int(i) for i in dipole_dims)
+        super().__init__(mod, names)
+        self._hash = hash(('DipolarChargeInfo', self.mod, self.names,
+                           self.charge_idcs, self.dipole_idcs,
+                           self.dipole_dims))
+
+    def shift_charges(self, charges, dx):
+        """``p -> p + dx[dim] q`` for every dipole charge; ``dx`` is a
+        lattice index with a last (unit-cell) entry of 0."""
+        charges = np.array(charges, QTYPE)
+        dx = np.asarray(dx)
+        if dx[-1] != 0:
+            raise NotImplementedError(
+                "shifts between sublattice positions are not supported")
+        for c, d, dim in zip(self.charge_idcs, self.dipole_idcs,
+                             self.dipole_dims):
+            charges[..., d] += int(dx[dim]) * charges[..., c]
+        return self.make_valid(charges)
+
+    def shift_charges_horizontal(self, charges, dx_0):
+        charges = np.array(charges, QTYPE)
+        for c, d, dim in zip(self.charge_idcs, self.dipole_idcs,
+                             self.dipole_dims):
+            if dim == 0:
+                charges[..., d] += int(dx_0) * charges[..., c]
+        return self.make_valid(charges)
+
+    def __eq__(self, other):
+        res = ChargeInfo.__eq__(self, other)
+        if res is not True:
+            return res
+        return (self.charge_idcs == other.charge_idcs
+                and self.dipole_idcs == other.dipole_idcs
+                and self.dipole_dims == other.dipole_dims)
+
+    def __hash__(self):
+        return self._hash
+
+    def __repr__(self):
+        return (f"DipolarChargeInfo({list(self.mod)}, {list(self.names)}, "
+                f"{list(self.charge_idcs)}, {list(self.dipole_idcs)}, "
+                f"{list(self.dipole_dims)})")
+
+    def save_hdf5(self, hdf5_saver, h5gr, subpath):
+        """:class:`ChargeInfo`'s layout and the datasets ``charge_idcs``,
+        ``dipole_idcs`` and ``dipole_dims``."""
+        super().save_hdf5(hdf5_saver, h5gr, subpath)
+        hdf5_saver.save(list(self.charge_idcs), subpath + 'charge_idcs')
+        hdf5_saver.save(list(self.dipole_idcs), subpath + 'dipole_idcs')
+        hdf5_saver.save(list(self.dipole_dims), subpath + 'dipole_dims')
+
+    @classmethod
+    def from_hdf5(cls, hdf5_loader, h5gr, subpath):
+        qmod = np.asarray(hdf5_loader.load(subpath + 'U1_ZN'), QTYPE)
+        names = hdf5_loader.load(subpath + 'names') if 'names' in h5gr \
+            else None
+        obj = cls(tuple(int(m) for m in qmod), names,
+                  [int(i) for i in hdf5_loader.load(subpath + 'charge_idcs')],
+                  [int(i) for i in hdf5_loader.load(subpath + 'dipole_idcs')],
+                  [int(i) for i in hdf5_loader.load(subpath + 'dipole_dims')])
         hdf5_loader.memorize_load(h5gr, obj)
         return obj
 
@@ -151,6 +311,63 @@ class LegCharge:
         diffs = _find_row_differences(qflat)
         return cls(chinfo, diffs, qflat[diffs[:-1]], qconj)
 
+    @classmethod
+    def from_qind(cls, chinfo, slices, charges, qconj=1):
+        """From sector boundaries and one charge vector per sector."""
+        return cls(chinfo, slices, charges, qconj)
+
+    @classmethod
+    def from_add_charge(cls, legs, chargeinfo=None):
+        """The charges of several legs of one length side by side (sector
+        boundaries: the union of theirs; neither sorted nor bunched)."""
+        legs = list(legs)
+        chinfo = ChargeInfo.add([l.chinfo for l in legs])
+        if chargeinfo is not None:
+            if chinfo != chargeinfo:
+                raise ValueError("incompatible chargeinfo")
+            chinfo = chargeinfo
+        ind_len, qconj = legs[0].ind_len, legs[0].qconj
+        if any(l.ind_len != ind_len for l in legs):
+            raise ValueError("different leg lengths")
+        if any(l.qconj != qconj for l in legs):
+            raise ValueError("different qconj")
+        bounds = np.unique(np.concatenate([np.asarray(l.slices)
+                                           for l in legs]))
+        rows = [np.concatenate([
+            l.charges[int(np.searchsorted(l.slices, b, 'right')) - 1]
+            for l in legs]) for b in bounds[:-1]]
+        charges = np.array(rows, QTYPE).reshape(len(rows), chinfo.qnumber)
+        return cls(chinfo, bounds, charges, qconj)
+
+    @classmethod
+    def from_drop_charge(cls, leg, charge=None, chargeinfo=None):
+        """``leg`` without the charge ``charge`` (index or name; None:
+        without every charge)."""
+        if charge is None:
+            return cls.from_trivial(leg.ind_len, chargeinfo, leg.qconj)
+        chinfo = ChargeInfo.drop(leg.chinfo, charge)
+        if chargeinfo is not None:
+            if chinfo != chargeinfo:
+                raise ValueError("incompatible chargeinfo")
+            chinfo = chargeinfo
+        if isinstance(charge, str):
+            charge = leg.chinfo.names.index(charge)
+        return cls(chinfo, leg.slices, np.delete(leg.charges, charge, axis=1),
+                   leg.qconj)
+
+    @classmethod
+    def from_change_charge(cls, leg, charge, new_qmod, new_name='',
+                           chargeinfo=None):
+        """``leg`` with the modulus of one charge changed (its charges
+        wrapped into the new range)."""
+        chinfo = ChargeInfo.change(leg.chinfo, charge, new_qmod, new_name)
+        if chargeinfo is not None:
+            if chinfo != chargeinfo:
+                raise ValueError("incompatible chargeinfo")
+            chinfo = chargeinfo
+        return cls(chinfo, leg.slices, chinfo.make_valid(leg.charges),
+                   leg.qconj)
+
     # -------------------------------------------------------------- properties
     @property
     def ind_len(self):
@@ -185,6 +402,28 @@ class LegCharge:
     def conj(self):
         """Flip ``qconj`` keeping ``charges``: the contractible partner."""
         return LegCharge(self.chinfo, self.slices, self.charges, -self.qconj)
+
+    def apply_charge_mapping(self, func, func_kwargs=None):
+        """The leg with ``charges = func(charges, **func_kwargs)`` (for
+        example a position shift of dipole charges)."""
+        charges = func(np.array(self.charges, QTYPE), **(func_kwargs or {}))
+        return LegCharge(self.chinfo, self.slices, charges, self.qconj)
+
+    def flip_charges_qconj(self):
+        """Opposite ``qconj`` and negated charges: the same leg, counted the
+        other way."""
+        return LegCharge(self.chinfo, self.slices,
+                         self.chinfo.make_valid(-self.charges), -self.qconj)
+
+    def extend(self, extra_len, charge=None):
+        """``extra_len`` more indices in a new last sector of charge
+        ``charge`` (default 0)."""
+        if charge is None:
+            charge = self.chinfo.make_valid()
+        slices = np.concatenate([self.slices, [self.ind_len + extra_len]])
+        charges = np.concatenate(
+            [self.charges, np.asarray(charge, QTYPE).reshape(1, -1)], axis=0)
+        return LegCharge(self.chinfo, slices, charges, self.qconj)
 
     def sort(self, bunch=True):
         """``(perm_flat, sorted_leg)`` with sectors sorted lexicographically."""

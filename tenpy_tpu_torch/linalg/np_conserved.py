@@ -7,7 +7,9 @@ and measurements (``svd``, ``qr``/``lq``, ``eigh``), the plane-wave
 excitations' complement of an isometry (``orthogonal_columns``), and the
 host DMRG engines (``concatenate`` for the subspace expansion, ``eigh``
 with a sort order for the density-matrix mixer, ``gauge_total_charge``,
-combining legs into given pipes).  An :class:`Array` holds its charge
+combining legs into given pipes), and the charge mappings that change
+a site's charges (``add_charge``, ``drop_charge``, ``change_charge``).
+An :class:`Array` holds its charge
 structure (legs, ``qtotal``, labels, the block rows ``_qdata``) in numpy
 and one CPU ``torch`` tensor per stored charge block in ``_data``.
 It is also what :func:`~tenpy_tpu_torch.linalg.packed.pack` takes and
@@ -528,6 +530,55 @@ class Array:
     def scale_axis(self, s, axis=-1):
         return self.copy(deep=False).iscale_axis(s, axis)
 
+    # ---------------------------------------------------- charge mappings
+    def add_charge(self, add_legs, chinfo=None, qtotal=None):
+        """The array with further charges on every leg: ``add_legs`` holds
+        one leg per axis with the new charges (same lengths and qconj);
+        the legs are neither sorted nor bunched."""
+        add_legs = list(add_legs)
+        if len(add_legs) != self.rank:
+            raise ValueError("wrong number of add_legs")
+        legs = [LegCharge.from_add_charge([l, l2], chinfo)
+                for l, l2 in zip(self.legs, add_legs)]
+        dense = self.to_ndarray()
+        if qtotal is None:
+            qtotal_new = detect_qtotal(dense, legs)
+        else:
+            qtotal_new = legs[0].chinfo.make_valid(np.concatenate(
+                [np.asarray(self.qtotal, QTYPE),
+                 np.asarray(qtotal, QTYPE).ravel()]))
+        return Array.from_ndarray(dense, legs, dtype=self.dtype,
+                                  qtotal=qtotal_new,
+                                  labels=list(self.get_leg_labels()),
+                                  raise_wrong_sector=True)
+
+    def drop_charge(self, charge=None, chinfo=None):
+        """The array without the charge ``charge`` (index or name; None:
+        without every charge); one dropped charge keeps the blocks."""
+        if charge is None:
+            legs = [LegCharge.from_drop_charge(l, None, chinfo)
+                    for l in self.legs]
+            return Array.from_ndarray(self.to_ndarray(), legs,
+                                      dtype=self.dtype,
+                                      labels=list(self.get_leg_labels()))
+        if isinstance(charge, str):
+            charge = self.chinfo.names.index(charge)
+        legs = [LegCharge.from_drop_charge(l, charge, chinfo)
+                for l in self.legs]
+        res = Array(legs, self.dtype,
+                    np.delete(np.asarray(self.qtotal, QTYPE), charge, 0),
+                    list(self.get_leg_labels()))
+        return res._set_blocks(self._qdata.copy(), list(self._data))
+
+    def change_charge(self, charge, new_qmod, new_name='', chinfo=None):
+        """The array with the modulus of one charge changed (the same
+        blocks)."""
+        legs = [LegCharge.from_change_charge(l, charge, new_qmod, new_name,
+                                             chinfo) for l in self.legs]
+        res = Array(legs, self.dtype, legs[0].chinfo.make_valid(
+            np.asarray(self.qtotal, QTYPE)), list(self.get_leg_labels()))
+        return res._set_blocks(self._qdata.copy(), list(self._data))
+
     def iproject(self, mask, axes):
         """Project legs onto boolean masks (in place)."""
         if not isinstance(axes, (list, tuple)):
@@ -714,49 +765,72 @@ def _struct_sig(a):
 
 def _tensordot_plan(a, b, n_axes):
     """(out_rows, out_shapes, tasks) of ``a``'s last ``n_axes`` legs with
-    ``b``'s first; ``tasks`` lists ``(i, j, out_index, m, k, n)``."""
+    ``b``'s first; ``tasks`` lists ``(i, j, out_index, m, k, n)``.
+
+    The pairs are made in the order of a loop over ``a``'s contracted
+    sectors (in the order they first occur in ``a``), ``a``'s rows and
+    ``b``'s rows, vectorized; the output rows are numbered in that order
+    and the tasks then stably sorted by GEMM shape (as ``tenpy_tpu``'s
+    host path runs them: the same order gives the same sums)."""
     key = (_struct_sig(a), _struct_sig(b), n_axes)
     plan = _TD_PLAN_CACHE.get(key)
     if plan is not None:
         return plan
     ka = a.rank - n_axes
-    a_by_c = defaultdict(list)
-    for i, row in enumerate(a._qdata):
-        a_by_c[tuple(row[ka:])].append(i)
-    b_by_c = defaultdict(list)
-    for j, row in enumerate(b._qdata):
-        b_by_c[tuple(row[:n_axes])].append(j)
-    out_map, out_rows, out_shapes, tasks = {}, [], [], []
+    A, B = a._qdata, b._qdata
     free = a.legs[:ka] + b.legs[n_axes:]
-    for c_sec, a_list in a_by_c.items():
-        b_list = b_by_c.get(c_sec)
-        if b_list is None:
-            continue
-        k = int(np.prod(_block_shape(a.legs[ka:], c_sec), dtype=np.int64))
-        for i in a_list:
-            arow = a._qdata[i]
-            m = int(np.prod(_block_shape(a.legs[:ka], arow[:ka]),
-                            dtype=np.int64))
-            for j in b_list:
-                brow = b._qdata[j]
-                n = int(np.prod(_block_shape(b.legs[n_axes:], brow[n_axes:]),
-                                dtype=np.int64))
-                out_row = tuple(arow[:ka]) + tuple(brow[n_axes:])
-                oi = out_map.get(out_row)
-                if oi is None:
-                    oi = out_map[out_row] = len(out_rows)
-                    out_rows.append(out_row)
-                    out_shapes.append(_block_shape(free, out_row))
-                tasks.append((i, j, oi, m, k, n))
-    # the JAX host path runs its tasks grouped by GEMM shape, in sorted shape
-    # order: the same order gives the same sums
-    tasks.sort(key=lambda t: t[3:])
-    plan = (np.array(out_rows, QTYPE).reshape(len(out_rows), len(free)),
-            out_shapes, tasks)
+    _, ids = np.unique(np.concatenate([A[:, ka:], B[:, :n_axes]]), axis=0,
+                       return_inverse=True)
+    ids = ids.reshape(-1)
+    id_a, id_b = ids[:len(A)], ids[len(A):]
+    # a's rows in loop order: by the first occurrence of their sector
+    first = np.full(ids.max(initial=-1) + 1, len(A), np.int64)
+    np.minimum.at(first, id_a, np.arange(len(A)))
+    order_a = np.lexsort((np.arange(len(A)), first[id_a]))
+    order_b = np.argsort(id_b, kind='stable')
+    lo = np.searchsorted(id_b[order_b], id_a[order_a], 'left')
+    hi = np.searchsorted(id_b[order_b], id_a[order_a], 'right')
+    counts = hi - lo
+    ti = np.repeat(order_a, counts)
+    starts = np.repeat(lo - np.concatenate([[0], np.cumsum(counts)[:-1]]),
+                       counts)
+    tj = order_b[np.arange(len(ti)) + starts]
+    m = _block_sizes(a.legs[:ka], A[:, :ka])[ti]
+    k = _block_sizes(a.legs[ka:], A[:, ka:])[ti]
+    n = _block_sizes(b.legs[n_axes:], B[:, n_axes:])[tj]
+    rows = np.concatenate([A[ti, :ka], B[tj, n_axes:]], axis=1)
+    if len(rows):
+        uniq, first_pos, inv = np.unique(rows, axis=0, return_index=True,
+                                         return_inverse=True)
+        rank = np.empty(len(uniq), np.int64)
+        rank[np.argsort(first_pos, kind='stable')] = np.arange(len(uniq))
+        oi = rank[inv.reshape(-1)]
+        out_rows = np.ascontiguousarray(uniq[np.argsort(first_pos,
+                                                         kind='stable')],
+                                        QTYPE)
+    else:
+        oi = np.zeros(0, np.int64)
+        out_rows = np.zeros((0, len(free)), QTYPE)
+    sizes = np.stack([l.sector_sizes()[out_rows[:, x]]
+                      for x, l in enumerate(free)], axis=1) \
+        if len(out_rows) and free else np.zeros((len(out_rows), len(free)),
+                                                np.int64)
+    out_shapes = [tuple(r) for r in sizes.tolist()]
+    perm = np.lexsort((n, k, m))
+    tasks = np.stack([ti, tj, oi, m, k, n], axis=1)[perm].tolist()
+    plan = (out_rows, out_shapes, tasks)
     if len(_TD_PLAN_CACHE) > 4096:
         _TD_PLAN_CACHE.clear()
     _TD_PLAN_CACHE[key] = plan
     return plan
+
+
+def _block_sizes(legs, rows):
+    """The number of entries of each row's block on ``legs``."""
+    size = np.ones(len(rows), np.int64)
+    for x, l in enumerate(legs):
+        size *= l.sector_sizes()[rows[:, x]]
+    return size
 
 
 def tensordot(a, b, axes=2):

@@ -22,7 +22,6 @@ mode computes it.
 
 from __future__ import annotations
 
-import itertools
 import threading
 from contextlib import contextmanager
 from functools import lru_cache
@@ -265,35 +264,55 @@ def complete_structure(legs, qtotal):
 
     Returns ``(shapes, qdatas)`` with shapes sorted and rows lexsorted."""
     chinfo = legs[0].chinfo
-    qtotal = np.asarray(qtotal, QTYPE)
     rank = len(legs)
-    # meet-in-the-middle: enumerate left/right halves and match partial sums
+    # meet-in-the-middle: the sector combinations of each half with their
+    # charges, matched by charge (vectorized over the combinations)
     kL = max(1, rank // 2)
-    left = {}
-    for row in itertools.product(*[range(l.block_number) for l in legs[:kL]]):
-        q = np.zeros(chinfo.qnumber, QTYPE)
-        for l, s in zip(legs[:kL], row):
-            q += np.asarray(l.charges[s], QTYPE) * l.qconj
-        left.setdefault(tuple(chinfo.make_valid(q)), []).append(row)
-    groups = {}
-    for row in itertools.product(*[range(l.block_number) for l in legs[kL:]]):
-        q = np.zeros(chinfo.qnumber, QTYPE)
-        for l, s in zip(legs[kL:], row):
-            q += np.asarray(l.charges[s], QTYPE) * l.qconj
-        need = tuple(chinfo.make_valid(qtotal - q))
-        for lrow in left.get(need, ()):
-            full = lrow + row
-            shape = tuple(int(l.slices[s + 1] - l.slices[s])
-                          for l, s in zip(legs, full))
-            groups.setdefault(shape, []).append(full)
-    shapes = tuple(sorted(groups))
-    qdatas = []
-    for shape in shapes:
-        q = np.array(sorted(groups[shape]), QTYPE).reshape(len(groups[shape]),
-                                                           rank)
+    rows_L, q_L = _half_combinations(legs[:kL], chinfo)
+    rows_R, q_R = _half_combinations(legs[kL:], chinfo)
+    need = chinfo.make_valid(np.asarray(qtotal, QTYPE) - q_R)
+    _, ids = np.unique(np.concatenate([q_L, need]), axis=0,
+                       return_inverse=True)
+    ids = ids.reshape(-1)
+    id_L, id_R = ids[:len(q_L)], ids[len(q_L):]
+    order_L = np.argsort(id_L, kind='stable')
+    lo = np.searchsorted(id_L[order_L], id_R, 'left')
+    hi = np.searchsorted(id_L[order_L], id_R, 'right')
+    counts = hi - lo
+    r_idx = np.repeat(np.arange(len(id_R)), counts)
+    starts = np.repeat(lo - np.concatenate([[0], np.cumsum(counts)[:-1]]),
+                       counts)
+    l_idx = order_L[np.arange(len(r_idx)) + starts]
+    full = np.concatenate([rows_L[l_idx], rows_R[r_idx]], axis=1)
+    sizes = np.stack([l.sector_sizes()[full[:, k]]
+                      for k, l in enumerate(legs)], axis=1) if len(full) \
+        else np.zeros((0, rank), QTYPE)
+    # shapes sorted, and the rows of each shape lexsorted
+    order = np.lexsort(tuple(full[:, k] for k in reversed(range(rank)))
+                       + tuple(sizes[:, k] for k in reversed(range(rank))))
+    full, sizes = full[order], sizes[order]
+    bounds = np.flatnonzero(np.any(sizes[1:] != sizes[:-1], axis=1)) + 1
+    bounds = np.concatenate([[0], bounds, [len(full)]]) if len(full) \
+        else np.zeros(1, np.int64)
+    shapes, qdatas = [], []
+    for a, b in zip(bounds[:-1], bounds[1:]):
+        shapes.append(tuple(int(x) for x in sizes[a]))
+        q = np.ascontiguousarray(full[a:b], QTYPE)
         q.setflags(write=False)
         qdatas.append(q)
-    return shapes, tuple(qdatas)
+    return tuple(shapes), tuple(qdatas)
+
+
+def _half_combinations(legs, chinfo):
+    """Every combination of the legs' sectors (C order) and its charge."""
+    n = [l.block_number for l in legs]
+    rows = np.stack([g.ravel() for g in np.meshgrid(
+        *[np.arange(k) for k in n], indexing='ij')], axis=1).astype(QTYPE) \
+        if legs else np.zeros((1, 0), QTYPE)
+    q = np.zeros((len(rows), chinfo.qnumber), QTYPE)
+    for k, l in enumerate(legs):
+        q += np.asarray(l.charges, QTYPE)[rows[:, k]] * l.qconj
+    return rows, chinfo.make_valid(q)
 
 
 def pack(a, multiple=64, pad=True, pad_labels=None, device='cuda'):
@@ -460,47 +479,73 @@ def _packed_plan(a, b, n_axes):
     out_qtotal = tuple(int(x) for x in chinfo.make_valid(
         np.asarray(a.qtotal, QTYPE) + np.asarray(b.qtotal, QTYPE)))
     out_shapes, out_qdatas = complete_structure(out_legs, out_qtotal)
-    out_pos = {}
-    for s, q in enumerate(out_qdatas):
-        for i, row in enumerate(q):
-            out_pos[tuple(int(x) for x in row)] = (s, i)
-    b_by_c = {}
-    for sb, q in enumerate(b.qdatas):
-        for j, row in enumerate(q):
-            b_by_c.setdefault(tuple(row[:n_axes]), []).append((sb, j, row))
-    pairs = {}   # (sa, sb, so) -> [(i, j, oi)]
-    for sa, qa in enumerate(a.qdatas):
-        for i, arow in enumerate(qa):
-            for (sb, j, brow) in b_by_c.get(tuple(arow[ka:]), ()):
-                so, oi = out_pos[tuple(arow[:ka]) + tuple(brow[n_axes:])]
-                pairs.setdefault((sa, sb, so), []).append((i, j, oi))
+    # every (a row, b row) pair of matching contracted sectors, in the order
+    # of a's buckets and rows, then b's buckets and rows (vectorized)
+    rows_a, sa, ia = _bucket_rows(a.qdatas, a.rank)
+    rows_b, sb, jb = _bucket_rows(b.qdatas, b.rank)
+    _, ids = np.unique(np.concatenate([rows_a[:, ka:], rows_b[:, :n_axes]]),
+                       axis=0, return_inverse=True)
+    ids = ids.reshape(-1)
+    id_a, id_b = ids[:len(rows_a)], ids[len(rows_a):]
+    order_b = np.argsort(id_b, kind='stable')
+    lo = np.searchsorted(id_b[order_b], id_a, 'left')
+    counts = np.searchsorted(id_b[order_b], id_a, 'right') - lo
+    ta = np.repeat(np.arange(len(rows_a)), counts)
+    starts = np.repeat(lo - np.concatenate([[0], np.cumsum(counts)[:-1]]),
+                       counts)
+    tb = order_b[np.arange(len(ta)) + starts]
+    # each pair's output row: its bucket and index there
+    rows_o, so_all, oi_all = _bucket_rows(out_qdatas, len(out_legs))
+    pair_rows = np.concatenate([rows_a[ta, :ka], rows_b[tb, n_axes:]],
+                               axis=1)
+    _, ids = np.unique(np.concatenate([rows_o, pair_rows]), axis=0,
+                       return_inverse=True)
+    ids = ids.reshape(-1)
+    where = np.full(ids.max(initial=-1) + 1, -1, np.int64)
+    where[ids[:len(rows_o)]] = np.arange(len(rows_o))
+    pos = where[ids[len(rows_o):]]
+    if np.any(pos < 0):
+        raise AssertionError("packed plan: output row not in the structure")
+    so, oi = so_all[pos], oi_all[pos]
+    # grouped by bucket pair and output bucket, pairs in order within each
+    perm = np.lexsort((np.arange(len(ta)), so, sb[tb], sa[ta]))
+    ta, tb, so, oi = ta[perm], tb[perm], so[perm], oi[perm]
     out_dims = [(q.shape[0], int(np.prod(shape[:ka], dtype=np.int64)),
                  int(np.prod(shape[ka:], dtype=np.int64)))
                 for shape, q in zip(out_shapes, out_qdatas)]
+    k_of = np.array([int(np.prod(shape[ka:], dtype=np.int64))
+                     for shape in a.shapes], np.int64)
+    kk = k_of[sa[ta]]
     k_min = [np.inf] * len(out_dims)
-    cols = []    # per bucket pair: (so, row, sa, a block, sb, b block, k)
-    flops = 0
-    for (sa, sb, so), lst in sorted(pairs.items()):
-        kk = int(np.prod(a.shapes[sa][ka:], dtype=np.int64))
-        ijo = np.array(lst, np.int64)
-        # the kernel reads these without bounds checks
-        if ijo[:, 0].max() >= a.qdatas[sa].shape[0] or \
-                ijo[:, 1].max() >= b.qdatas[sb].shape[0]:
-            raise AssertionError("packed plan: gather index out of range")
-        one = np.ones(len(lst), np.int64)
-        cols.append(np.stack([so * one, ijo[:, 2], sa * one, ijo[:, 0],
-                              sb * one, ijo[:, 1], kk * one]))
-        k_min[so] = min(k_min[so], kk)
-        _, m, n = out_dims[so]
-        flops += 2 * len(lst) * m * kk * n
-    cols = (torch.from_numpy(np.concatenate(cols, axis=1)) if cols
-            else torch.zeros((7, 0), dtype=torch.int64))
+    for s_o, k in zip(so.tolist(), kk.tolist()):
+        if k < k_min[s_o]:
+            k_min[s_o] = k
+    m_of = np.array([m for _, m, _ in out_dims], np.int64)
+    n_of = np.array([n for _, _, n in out_dims], np.int64)
+    flops = int(np.sum(2 * m_of[so] * kk * n_of[so]))
+    cols = torch.from_numpy(np.stack([so, oi, sa[ta], ia[ta], sb[tb], jb[tb],
+                                      kk]).astype(np.int64))
     classes = [shape_class(m, n, km) for (_, m, n), km in zip(out_dims,
                                                               k_min)]
     plan = _PackedPlan(out_legs, out_qtotal, out_shapes, out_qdatas,
                        build_tables(out_dims, classes, *cols), flops)
     _cache_put(_PACKED_PLAN_CACHE, key, plan, 2048)
     return plan
+
+
+def _bucket_rows(qdatas, rank):
+    """The rows of all buckets stacked, with each row's bucket and its
+    index in the bucket."""
+    if not qdatas:
+        z = np.zeros(0, np.int64)
+        return np.zeros((0, rank), QTYPE), z, z
+    rows = np.concatenate([np.asarray(q, QTYPE).reshape(-1, rank)
+                           for q in qdatas])
+    bucket = np.concatenate([np.full(len(q), s, np.int64)
+                             for s, q in enumerate(qdatas)])
+    index = np.concatenate([np.arange(len(q), dtype=np.int64)
+                            for q in qdatas])
+    return rows, bucket, index
 
 
 def tensordot(a, b, axes):

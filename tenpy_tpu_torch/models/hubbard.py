@@ -1,10 +1,9 @@
 r"""The Bose- and Fermi-Hubbard models.
 
 Port of ``BoseHubbardModel``, ``BoseHubbardChain``, ``FermiHubbardModel``,
-``FermiHubbardChain`` and ``FermiHubbardModel2`` from
-``tenpy_tpu/models/hubbard.py``: the same terms, added in the same order,
-give the same MPO.  ``DipolarBoseHubbardChain`` is not ported (it needs
-``DipolarChargeInfo``).
+``FermiHubbardChain``, ``FermiHubbardModel2`` and
+``DipolarBoseHubbardChain`` from ``tenpy_tpu/models/hubbard.py``: the same
+terms, added in the same order, give the same MPO.
 """
 
 from __future__ import annotations
@@ -17,7 +16,8 @@ from ..networks.site import (BosonSite, FermionSite, SpinHalfFermionSite,
                              spin_half_species)
 
 __all__ = ['BoseHubbardModel', 'BoseHubbardChain', 'FermiHubbardModel',
-           'FermiHubbardChain', 'FermiHubbardModel2']
+           'FermiHubbardChain', 'FermiHubbardModel2',
+           'DipolarBoseHubbardChain']
 
 
 class BoseHubbardModel(CouplingMPOModel):
@@ -119,3 +119,42 @@ class FermiHubbardModel2(CouplingMPOModel):
         if np.any(np.asarray(V) != 0.):
             for u1, u2, dx in self.lat.pairs['nearest_neighbors_all-all']:
                 self.add_coupling(V, u1, 'N', u2, 'N', dx)
+
+
+class DipolarBoseHubbardChain(CouplingMPOModel):
+    r"""The dipole-conserving Bose-Hubbard chain:
+    ``H = -t sum_i (b^dag_i b^2_{i+1} b^dag_{i+2} + h.c.)
+    - t4 sum_i (b^dag_i b_{i+1} b_{i+2} b^dag_{i+3} + h.c.)
+    + U/2 sum_i n_i (n_i - 1) - mu sum_i n_i``.
+
+    Options: ``L`` (64), ``Nmax`` (2), ``conserve`` ('best': 'dipole'),
+    ``t`` (1.), ``t4`` (0.), ``U`` (1.), ``mu`` (0.), ``bc_MPS``
+    ('finite'), ``bc``.
+    """
+
+    def init_lattice(self, model_params):
+        L = model_params.get('L', 64)
+        Nmax = model_params.get('Nmax', 2)
+        conserve = model_params.get('conserve', 'best')
+        if conserve == 'best':
+            conserve = 'dipole'
+        bc_MPS = model_params.get('bc_MPS', 'finite')
+        bc = model_params.get('bc', 'periodic' if bc_MPS in (
+            'infinite', 'segment') else 'open')
+        return Chain(L, BosonSite(Nmax=Nmax, conserve=conserve), bc=bc,
+                     bc_MPS=bc_MPS)
+
+    def init_terms(self, model_params):
+        U = model_params.get('U', 1., 'real_or_array')
+        t = model_params.get('t', 1., 'real_or_array')
+        t4 = model_params.get('t4', 0., 'real_or_array')
+        mu = model_params.get('mu', 0., 'real_or_array')
+        self.add_multi_coupling(
+            -t, [('Bd', 0, 0), ('B', 1, 0), ('B', 1, 0), ('Bd', 2, 0)],
+            plus_hc=True)
+        if np.any(np.asarray(t4) != 0.):
+            self.add_multi_coupling(
+                -t4, [('Bd', 0, 0), ('B', 1, 0), ('B', 2, 0), ('Bd', 3, 0)],
+                plus_hc=True)
+        self.add_onsite(U / 2., 0, 'NN')
+        self.add_onsite(-np.asarray(mu) - U / 2., 0, 'N')

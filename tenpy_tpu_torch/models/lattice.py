@@ -4,8 +4,9 @@ Port of ``tenpy_tpu/models/lattice.py``: ``Lattice`` (with its orders,
 ``possible_couplings`` and ``possible_multi_couplings``), ``get_order``,
 ``get_order_grouped``, ``SimpleBZ``, ``TrivialLattice``,
 ``SimpleLattice``, ``MultiSpeciesLattice``, ``Chain``, ``Ladder``,
-``NLegLadder``, ``Square``, ``Triangular``, ``Honeycomb``, ``Kagome`` and
-``get_lattice``, with the same conventions:
+``NLegLadder``, ``Square``, ``Triangular``, ``Honeycomb``, ``Kagome``,
+``IrregularLattice`` (a regular lattice with sites removed),
+``HelicalLattice`` and ``get_lattice``, with the same conventions:
 
 * a lattice site is ``(x_0, ..., x_{dim-1}, u)`` with ``u`` indexing the
   unit cell;
@@ -15,8 +16,9 @@ Port of ``tenpy_tpu/models/lattice.py``: ``Lattice`` (with its orders,
   shifted along axis 0 by that many cells on each wrap); for
   ``bc_MPS='infinite'`` axis 0 is the infinite direction.
 
-The plotting helpers, ``IrregularLattice`` and ``HelicalLattice`` are not
-ported.
+Sites whose charges shift with their position (dipole conservation) are
+shifted to each site's lattice position by :meth:`Lattice.mps_sites`.
+The plotting helpers are not ported.
 """
 
 from __future__ import annotations
@@ -29,8 +31,9 @@ import numpy as np
 from ..networks.site import Site
 
 __all__ = ['Lattice', 'TrivialLattice', 'SimpleLattice',
-           'MultiSpeciesLattice', 'Chain', 'Ladder', 'NLegLadder', 'Square',
-           'Triangular', 'Honeycomb', 'Kagome', 'get_lattice', 'get_order',
+           'MultiSpeciesLattice', 'IrregularLattice', 'HelicalLattice',
+           'Chain', 'Ladder', 'NLegLadder', 'Square', 'Triangular',
+           'Honeycomb', 'Kagome', 'get_lattice', 'get_order',
            'get_order_grouped', 'SimpleBZ']
 
 
@@ -137,8 +140,22 @@ class Lattice:
             self._perm[tuple(idx)] = i
 
     def mps_sites(self):
-        """The sites in MPS order (length ``N_sites``)."""
-        return [self.unit_cell[lat_idx[-1]] for lat_idx in self._order]
+        """The sites in MPS order (length ``N_sites``).  A unit-cell site
+        whose charges shift with position (dipole conservation) is defined
+        at position 0; each MPS site is a copy shifted to its lattice
+        position."""
+        sites = []
+        for lat_idx in self._order:
+            site = self.unit_cell[lat_idx[-1]]
+            if site is not None and not site.leg.chinfo.trivial_shift:
+                dx = np.array(lat_idx, int)
+                dx[-1] = 0
+                leg = site.leg.apply_charge_mapping(
+                    site.leg.chinfo.shift_charges, func_kwargs={'dx': dx})
+                site = copy.copy(site)
+                site.change_charge(leg)
+            sites.append(site)
+        return sites
 
     def mps2lat_idx(self, i):
         """MPS index -> lattice index (modulo ``N_sites``)."""
@@ -646,6 +663,99 @@ class MultiSpeciesLattice(Lattice):
                          bc_MPS=simple_lattice.bc_MPS,
                          basis=simple_lattice.basis, positions=positions,
                          pairs=pairs)
+
+
+class IrregularLattice(Lattice):
+    """A regular lattice with the sites ``remove`` (lattice indices)
+    taken out of its MPS order; everything else is the regular
+    lattice's."""
+
+    def __init__(self, regular_lattice, remove=None):
+        self.regular_lattice = reg = regular_lattice
+        order = reg.order
+        if remove is not None:
+            remove_set = {tuple(r) for r in np.asarray(remove, int)}
+            order = order[[k for k, idx in enumerate(order)
+                           if tuple(idx) not in remove_set]]
+        for name in ('Ls', 'unit_cell', 'Lu', 'dim', 'shape', 'N_cells',
+                     'chinfo', 'bc_MPS', 'bc', 'bc_shift', 'basis',
+                     'position_vectors', 'pairs'):
+            setattr(self, name, getattr(reg, name))
+        self.N_sites = len(order)
+        self._order_name = 'irregular'
+        self.order = order
+
+    def test_sanity(self):
+        assert len(self._order) == self.N_sites
+
+
+class HelicalLattice(Lattice):
+    """A 2D cylinder wound as a helix: with ``bc=['periodic', -1]`` on the
+    regular lattice the site at ``(x, Ly-1)`` neighbours ``(x+1, 0)``, so
+    the state is invariant under a shift by one lattice unit cell and the
+    MPS unit cell holds only ``N_unit_cells`` of them.  The couplings are
+    the regular lattice's with ``min(i, j, ...) < N_sites``."""
+
+    def __init__(self, regular_lattice, N_unit_cells):
+        reg = regular_lattice
+        if isinstance(reg, HelicalLattice):
+            raise ValueError("regular_lattice can't itself be helical")
+        if reg.dim != 2:
+            raise ValueError("HelicalLattice works only for 2D lattices")
+        if reg.bc_MPS != 'infinite':
+            raise ValueError("HelicalLattice requires bc_MPS='infinite'")
+        if tuple(reg.bc_shift[1:]) != (-1,):
+            raise ValueError("initialize the regular lattice with "
+                             "bc=['periodic', -1] (shifted periodic "
+                             "around y)")
+        if reg.N_cells % N_unit_cells != 0 or N_unit_cells > reg.N_cells:
+            raise ValueError("N_unit_cells incommensurate with the regular "
+                             "lattice; increase Lx")
+        self.regular_lattice = reg
+        self._N_cells_helical = N_unit_cells
+        for name in ('Ls', 'unit_cell', 'Lu', 'dim', 'shape', 'chinfo',
+                     'bc_MPS', 'bc', 'bc_shift', 'basis', 'position_vectors',
+                     'pairs'):
+            setattr(self, name, getattr(reg, name))
+        self.N_cells = N_unit_cells
+        self.N_sites = N_unit_cells * reg.Lu
+        self._order_name = 'helical'
+        # the regular lattice's C-style order winds ring by ring
+        self.order = np.asarray(reg.order, int)[:self.N_sites]
+
+    def test_sanity(self):
+        assert len(self._order) == self.N_sites
+
+    def mps2lat_idx(self, i):
+        return self.regular_lattice.mps2lat_idx(i)
+
+    def lat2mps_idx(self, lat_idx):
+        return self.regular_lattice.lat2mps_idx(lat_idx)
+
+    def mps2lat_values(self, *args, **kwargs):
+        raise NotImplementedError("ill-defined on a helix: values repeat "
+                                  "with the helical period")
+
+    def possible_couplings(self, u1, u2, dx, strength=None):
+        mps_i, mps_j, lat_idx, coupling_shape = \
+            self.regular_lattice.possible_couplings(u1, u2, dx)
+        keep = np.min([mps_i, mps_j], axis=0) < self.N_sites
+        return mps_i[keep], mps_j[keep], lat_idx[keep], coupling_shape
+
+    def possible_multi_couplings(self, ops):
+        mps_ijkl, lat_idx, coupling_shape = \
+            self.regular_lattice.possible_multi_couplings(ops)
+        keep = np.min(mps_ijkl, axis=1) < self.N_sites
+        return mps_ijkl[keep, :], lat_idx[keep, :], coupling_shape
+
+    def enlarge_mps_unit_cell(self, factor=2):
+        """A helical lattice of ``factor`` times as many unit cells (on a
+        longer regular lattice where this one's cannot hold them)."""
+        reg = self.regular_lattice
+        n = self._N_cells_helical * int(factor)
+        if n > reg.N_cells or reg.N_cells % n != 0:
+            reg = reg.enlarge_mps_unit_cell(factor)
+        return HelicalLattice(reg, n)
 
 
 def get_lattice(lattice_name):

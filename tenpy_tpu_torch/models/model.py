@@ -5,11 +5,11 @@ Port of ``Model``, ``NearestNeighborModel`` (its ``calc_H_bond``),
 ``tenpy_tpu/models/model.py``: on-site terms, two-site and multi-site
 couplings, exponentially decaying couplings, local terms given by
 lattice indices, the external-flux phases of coupling strengths,
-``explicit_plus_hc`` and ``sort_mpo_legs``.  A model is a lattice plus
-Hamiltonian terms, compiled to an MPO through
-:class:`~tenpy_tpu_torch.networks.mpo.MPOGraph`.  ``tenpy_tpu``'s
-conversions between ``H_bond`` and ``H_MPO`` (``from_MPOModel``,
-``calc_H_MPO_from_bond``, ``calc_H_bond_from_MPO``) are not ported.
+``explicit_plus_hc``, ``sort_mpo_legs`` and the conversions between
+``H_bond`` and ``H_MPO`` (``NearestNeighborModel.from_MPOModel`` and
+``calc_H_MPO_from_bond``, ``MPOModel.calc_H_bond_from_MPO``).  A model is
+a lattice plus Hamiltonian terms, compiled to an MPO through
+:class:`~tenpy_tpu_torch.networks.mpo.MPOGraph`.
 """
 
 from __future__ import annotations
@@ -69,6 +69,41 @@ class NearestNeighborModel(Model):
         cp.H_bond = [self.H_bond[i % L] for i in range(first, last + 1)]
         return cp
 
+    @classmethod
+    def from_MPOModel(cls, mpo_model):
+        """The model with the bond terms of a nearest-neighbour MPO
+        (:meth:`MPOModel.calc_H_bond_from_MPO`)."""
+        return cls(mpo_model.lat, mpo_model.calc_H_bond_from_MPO())
+
+    def calc_H_MPO_from_bond(self, tol_zero=1e-15):
+        """An MPO of the bond terms: each ``H_bond[i]`` split by an SVD into
+        a sum of products of one-site operators, one MPO bond state per
+        singular value above ``tol_zero`` (relative)."""
+        sites = self.lat.mps_sites()
+        L = len(sites)
+        graph = mpo.MPOGraph(sites, 'finite' if self.lat.bc_MPS in (
+            'finite', 'segment') else 'infinite')
+        for i, h in enumerate(self.H_bond):
+            if h is None:
+                continue
+            i0 = (i - 1) % L
+            h2 = h.combine_legs([['p0', 'p0*'], ['p1', 'p1*']],
+                                qconj=[+1, -1])
+            U, S, VH = npc.svd(h2, inner_labels=['vR', 'vL'])
+            S = np.asarray(S)
+            for k in np.nonzero(S > tol_zero * max(S.max(), 1e-300))[0]:
+                mask = np.zeros(len(S), bool)
+                mask[k] = True
+                u_k = U.copy(deep=False).iproject([mask], [1]).squeeze([1])
+                v_k = VH.copy(deep=False).iproject([mask], [0]).squeeze([0])
+                opL = u_k.split_legs([0]).iset_leg_labels(['p', 'p*']) * S[k]
+                opR = v_k.split_legs([0]).iset_leg_labels(['p', 'p*'])
+                key = ('bond', i, int(k))
+                graph.add(i0, 'IdL', key, opL, 1., check_op=False)
+                graph.add(i0 + 1, key, 'IdR', opR, 1., check_op=False)
+        graph.add_missing_IdL_IdR()
+        return graph.build_MPO()
+
     def bond_energies(self, psi):
         """``<psi|H_bond[i]|psi>`` per bond (the L-1 inner bonds for
         finite bc, all L for infinite bc)."""
@@ -101,6 +136,39 @@ class MPOModel(Model):
         first, last = cp.lat.segment_first_last
         cp.H_MPO = self.H_MPO.extract_segment(first, last)
         return cp
+
+    def calc_H_bond_from_MPO(self, tol_zero=1e-15):
+        """The nearest-neighbour bond terms of ``H_MPO`` (``max_range`` at
+        most 1): the coupling channels through the bond states other than
+        IdL and IdR, and each on-site term (``W[IdL, IdR]``) half on each
+        adjacent bond (whole at the ends of a finite chain)."""
+        H = self.H_MPO
+        L = H.L
+        sites = self.lat.mps_sites()
+        finite = H.finite
+        H_bond = [None] * L
+        for i1 in range(1 if finite else 0, L):
+            i0 = (i1 - 1) % L
+            W0 = H.get_W(i0).transpose(['wL', 'wR', 'p', 'p*']).to_numpy()
+            W1 = H.get_W(i1).transpose(['wL', 'wR', 'p', 'p*']).to_numpy()
+            IdL0, IdR0 = H.get_IdL(i0), H.get_IdR(i0)
+            IdL_mid, IdR1 = H.get_IdL(i1), H.get_IdR(i1)
+            d0, d1 = W0.shape[2], W1.shape[3]
+            h = np.zeros((d0, d0, d1, d1), dtype=np.result_type(W0, W1))
+            for a in range(W0.shape[1]):
+                if a in (IdR0, IdL_mid):
+                    continue
+                h += np.einsum('pq,rs->pqrs', W0[IdL0, a], W1[a, IdR1])
+            w0 = 1. if (finite and i0 == 0) else 0.5
+            w1 = 1. if (finite and i1 == L - 1) else 0.5
+            h += w0 * np.einsum('pq,rs->pqrs', W0[IdL0, IdR0], np.eye(d1))
+            h += w1 * np.einsum('pq,rs->pqrs', np.eye(d0), W1[IdL_mid, IdR1])
+            legs = [sites[i0].leg, sites[i0].leg.conj(), sites[i1].leg,
+                    sites[i1].leg.conj()]
+            H_bond[i1] = npc.Array.from_ndarray(
+                h, legs, labels=['p0', 'p0*', 'p1', 'p1*'],
+                warn_wrong_sector=False)
+        return H_bond
 
 
 class CouplingModel(Model):

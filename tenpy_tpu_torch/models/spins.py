@@ -1,8 +1,8 @@
 r"""General spin-S models.
 
-Port of ``SpinModel`` and ``SpinChain`` from ``tenpy_tpu/models/spins.py``:
-the same terms, added in the same order, give the same MPO and bond
-Hamiltonians.  ``DipolarSpinChain`` is not ported.
+Port of ``SpinModel``, ``SpinChain`` and ``DipolarSpinChain`` from
+``tenpy_tpu/models/spins.py``: the same terms, added in the same order,
+give the same MPO and bond Hamiltonians.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ from .lattice import Chain
 from .model import CouplingMPOModel, NearestNeighborModel
 from ..networks.site import SpinSite
 
-__all__ = ['SpinModel', 'SpinChain']
+__all__ = ['SpinModel', 'SpinChain', 'DipolarSpinChain']
 
 
 class SpinModel(CouplingMPOModel):
@@ -83,3 +83,39 @@ class SpinChain(SpinModel, NearestNeighborModel):
 
     default_lattice = Chain
     force_default_lattice = True
+
+
+class DipolarSpinChain(CouplingMPOModel):
+    r"""The dipole-conserving spin-S chain:
+    ``H = -J3 sum_i (S^+_i (S^-_{i+1})^2 S^+_{i+2} + h.c.)
+    - J4 sum_i (S^+_i S^-_{i+1} S^-_{i+2} S^+_{i+3} + h.c.)``.
+
+    Both terms conserve the total Sz and its dipole moment
+    ``sum_i i Sz_i``; ``conserve='dipole'`` (the default, 'best') makes
+    both charges of the sites.  Options: ``L`` (64), ``S`` (1),
+    ``conserve``, ``J3`` (1.), ``J4`` (0.), ``bc_MPS`` ('finite'; infinite
+    bc with dipole conservation raises, as in ``tenpy_tpu``), ``bc``.
+    """
+
+    def init_lattice(self, model_params):
+        L = model_params.get('L', 64)
+        S = model_params.get('S', 1)
+        conserve = model_params.get('conserve', 'best')
+        if conserve == 'best':
+            conserve = 'dipole'
+        bc_MPS = model_params.get('bc_MPS', 'finite')
+        bc = model_params.get('bc', 'periodic' if bc_MPS in (
+            'infinite', 'segment') else 'open')
+        return Chain(L, SpinSite(S=S, conserve=conserve), bc=bc,
+                     bc_MPS=bc_MPS)
+
+    def init_terms(self, model_params):
+        J3 = model_params.get('J3', 1., 'real_or_array')
+        J4 = model_params.get('J4', 0., 'real_or_array')
+        self.add_multi_coupling(
+            -J3, [('Sp', 0, 0), ('Sm', 1, 0), ('Sm', 1, 0), ('Sp', 2, 0)],
+            plus_hc=True)
+        if np.any(np.asarray(J4) != 0.):
+            self.add_multi_coupling(
+                -J4, [('Sp', 0, 0), ('Sm', 1, 0), ('Sm', 2, 0),
+                      ('Sp', 3, 0)], plus_hc=True)

@@ -1,6 +1,7 @@
 r"""The spin-1/2 XXZ chain.
 
-Port of ``XXZChain`` from ``tenpy_tpu/models/xxz_chain.py``:
+Port of ``XXZChain`` and ``XXZChain2`` from
+``tenpy_tpu/models/xxz_chain.py``:
 ``H = Jxx/2 (Sp Sm + Sm Sp) + Jz Sz Sz - hz Sz``, with Sz conserved.
 """
 
@@ -10,7 +11,7 @@ from .lattice import Chain
 from .model import CouplingMPOModel, NearestNeighborModel
 from ..networks.site import SpinHalfSite
 
-__all__ = ['XXZChain']
+__all__ = ['XXZChain', 'XXZChain2']
 
 
 class XXZChain(CouplingMPOModel, NearestNeighborModel):
@@ -36,3 +37,9 @@ class XXZChain(CouplingMPOModel, NearestNeighborModel):
         for u1, u2, dx in self.lat.pairs['nearest_neighbors']:
             self.add_coupling(Jxx * 0.5, u1, 'Sp', u2, 'Sm', dx, plus_hc=True)
             self.add_coupling(Jz, u1, 'Sz', u2, 'Sz', dx)
+
+
+class XXZChain2(XXZChain):
+    """The same Hamiltonian as :class:`XXZChain` (TeNPy builds it through
+    its generic spin model; ``tenpy_tpu`` and the port keep it as an
+    alias)."""

@@ -21,8 +21,13 @@ where it stores them) goes under a prefix of its own
 Each block-sparse array is stored as its legs (slices, charges, qconj),
 total charge, labels, charge-sector rows (``qdata``) and the concatenated
 blocks; everything goes into one ``np.savez_compressed`` file that loads
-without pickle.  Extra arrays (for example reference energies) ride along
-under keys starting with ``ref.``.
+without pickle.  The charge info is stored once, under ``meta.chinfo_*``:
+its kind (``ChargeInfo`` or ``DipolarChargeInfo``), moduli, names and,
+for dipole conservation, the indices of the charges and their moments and
+the moments' axes (:func:`chinfo_to_flat`).  :func:`load_mps` raises
+where they, or the physical legs, differ from the sites it is given.
+Extra arrays (for example reference energies) ride along under keys
+starting with ``ref.``.
 """
 
 from __future__ import annotations
@@ -30,12 +35,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..linalg.charges import ChargeInfo, LegCharge, QTYPE
+from ..linalg.charges import (ChargeInfo, DipolarChargeInfo, LegCharge,
+                               QTYPE)
 from ..linalg.np_conserved import Array
 from .charge_gauge import apply_bond_charge_shift, scale_psi_charges
 from .mps import MPS
 
 __all__ = ['ExchangeState', 'flatten_array', 'unflatten_array',
+           'chinfo_to_flat', 'chinfo_from_flat',
            'state_to_flat', 'save_flat', 'load', 'load_flat', 'load_mps',
            'uniform_to_flat', 'load_uniform']
 
@@ -99,23 +106,53 @@ def unflatten_array(prefix, flat, chinfo):
     return res
 
 
+def chinfo_to_flat(chinfo, prefix='meta.chinfo_'):
+    """The flat form of a charge info (the port's or ``tenpy_tpu``'s):
+    ``kind``, ``mod``, ``names`` and, for dipole conservation,
+    ``charge_idcs``, ``dipole_idcs``, ``dipole_dims``."""
+    dipolar = hasattr(chinfo, 'dipole_idcs')
+    flat = {prefix + 'kind': np.array('DipolarChargeInfo' if dipolar
+                                      else 'ChargeInfo'),
+            prefix + 'mod': np.asarray(chinfo.mod, QTYPE),
+            prefix + 'names': np.array([str(n) for n in chinfo.names])}
+    if dipolar:
+        for key in ('charge_idcs', 'dipole_idcs', 'dipole_dims'):
+            flat[prefix + key] = np.asarray(getattr(chinfo, key), QTYPE)
+    return flat
+
+
+def chinfo_from_flat(flat, prefix='meta.chinfo_'):
+    """The port's charge info of :func:`chinfo_to_flat` (a flat form
+    without ``kind`` is a
+    :class:`~tenpy_tpu_torch.linalg.charges.ChargeInfo`)."""
+    kind = str(flat.get(prefix + 'kind', 'ChargeInfo'))
+    mod = [int(m) for m in flat[prefix + 'mod']]
+    names = [str(n) for n in flat[prefix + 'names']]
+    if kind == 'ChargeInfo':
+        return ChargeInfo(mod, names)
+    if kind == 'DipolarChargeInfo':
+        return DipolarChargeInfo(
+            mod, names, *[[int(i) for i in flat[prefix + key]] for key in
+                          ('charge_idcs', 'dipole_idcs', 'dipole_dims')])
+    raise ValueError(f"unknown charge info kind {kind!r}")
+
+
 def state_to_flat(bc, chi, B, W, S, LP0, RP, chinfo, gauge=None, forms=None,
                   reference=None):
     """Flat dict of the exchange format (see module docstring).
 
-    ``chinfo`` needs ``mod`` and ``names``; the arrays are flattened with
-    :func:`flatten_array`.  ``gauge``: dict with ``k`` (charge-unit scale)
-    and ``o`` (bond charge offsets), or None.  ``forms``: per-site canonical
-    form of ``B`` (default all ``'B'``)."""
+    ``chinfo`` is stored by :func:`chinfo_to_flat`; the arrays are
+    flattened with :func:`flatten_array`.  ``gauge``: dict with ``k``
+    (charge-unit scale) and ``o`` (bond charge offsets), or None.
+    ``forms``: per-site canonical form of ``B`` (default all ``'B'``)."""
     L = len(B)
     flat = {
         'meta.bc': np.array(str(bc)),
         'meta.chi': np.asarray(chi, QTYPE),
-        'meta.chinfo_mod': np.asarray(chinfo.mod, QTYPE),
-        'meta.chinfo_names': np.array([str(n) for n in chinfo.names]),
         'meta.forms': np.array(list(forms) if forms is not None
                                else ['B'] * L),
     }
+    flat.update(chinfo_to_flat(chinfo))
     for i in range(L):
         flat.update(flatten_array(f'B.{i}', B[i]))
     for i, Wi in enumerate(W or []):
@@ -145,8 +182,7 @@ class ExchangeState:
     def __init__(self, flat):
         self.bc = str(flat['meta.bc'])
         self.chi = [int(c) for c in flat['meta.chi']]
-        self.chinfo = ChargeInfo(flat['meta.chinfo_mod'],
-                                 [str(n) for n in flat['meta.chinfo_names']])
+        self.chinfo = chinfo_from_flat(flat)
         self.forms = [str(f) for f in flat['meta.forms']]
         self.L = len(self.forms)
         ch = self.chinfo
@@ -194,12 +230,17 @@ def load_mps(path_or_flat, sites):
     wrote them (bond charge shifts, and for a unit-cell charge not
     divisible by ``L`` charge units rescaled by ``k``); its stored gauge is
     inverted here, so the MPS carries the charges of the sites' own
-    frame."""
+    frame.  The file's charge info must equal the sites' (kind, moduli
+    and dipole indices), and each physical leg the site's leg (for dipole
+    conservation: the site's position); else ValueError."""
     flat = path_or_flat if isinstance(path_or_flat, dict) \
         else load_flat(path_or_flat)
     st = ExchangeState(flat)
     if len(sites) != st.L:
         raise ValueError(f"{len(sites)} sites for a state of length {st.L}")
+    if st.chinfo != sites[0].leg.chinfo:
+        raise ValueError(f"the state's charges {st.chinfo!r} differ from "
+                         f"the sites' {sites[0].leg.chinfo!r}")
     S = list(st.S)
     if not st.finite:
         S.append(S[0])
@@ -209,6 +250,13 @@ def load_mps(path_or_flat, sites):
             apply_bond_charge_shift(psi, [-np.asarray(o) for o in
                                           st.gauge['o']])
         scale_psi_charges(psi, st.gauge['k'], div=True, sites=False)
+    for i, (B, site) in enumerate(zip(psi._B, sites)):
+        leg = B.get_leg('p')
+        if not (np.array_equal(leg.slices, site.leg.slices)
+                and np.array_equal(leg.charges, site.leg.charges)
+                and leg.qconj == site.leg.qconj):
+            raise ValueError(f"site {i}: the state's physical leg differs "
+                             f"from the site's")
     return psi
 
 

@@ -400,7 +400,8 @@ class MPO:
 
 
 def grid_insert_ops(site, grid):
-    """Grid entries (str | [(str, strength)] | Array | None) -> operators."""
+    """Grid entries (str | [(str or Array, strength)] | Array | None) ->
+    operators."""
     new_grid = []
     for row in grid:
         new_row = []
@@ -412,7 +413,8 @@ def grid_insert_ops(site, grid):
             else:
                 op = None
                 for opname, strength in entry:
-                    term = site.get_op(opname) * strength
+                    term = (site.get_op(opname) if isinstance(opname, str)
+                            else opname) * strength
                     op = term if op is None else op + term
                 new_row.append(op)
         new_grid.append(new_row)
@@ -570,8 +572,9 @@ class MPOGraph:
         self.test_sanity()
         if self.bc == 'infinite' and not self.chinfo.trivial_shift:
             raise NotImplementedError(
-                "infinite MPOs with position-dependent charges are not "
-                "ported")
+                "infinite MPOs with position-dependent charges (dipole "
+                "conservation) need charge shifts at the unit-cell wrap: "
+                "use bc_MPS='finite'")
         ordered = self._order_states()
         L = self.L
         grids = []

@@ -795,6 +795,14 @@ class MPS:
             ops.append(opname)
         return sign * self.expectation_value_multi_sites(ops, i0)
 
+    def expectation_value_terms_sum(self, term_list):
+        """``(sum, values)``: the strength-weighted sum of the expectation
+        values of a :class:`~tenpy_tpu_torch.networks.terms.TermList`'s
+        terms, and the values term by term."""
+        terms = np.array([self.expectation_value_term(t)
+                          for t in term_list.terms], dtype=complex)
+        return np.sum(terms * np.asarray(term_list.strength)), terms
+
     def correlation_function(self, ops1, ops2, sites1=None, sites2=None,
                              opstr=None, str_on_first=True, hermitian=False,
                              autoJW=True):
@@ -1305,6 +1313,17 @@ class MPS:
                         self._B[-1].get_leg('vR')):
                 q -= np.asarray(leg.to_qflat()[0], np.int64) * leg.qconj
         return self.chinfo.make_valid(q)
+
+    def enlarge_mps_unit_cell(self, factor=2):
+        """Repeat the unit cell ``factor`` times (infinite bc; in
+        place)."""
+        if self.bc != 'infinite':
+            raise ValueError("enlarge_mps_unit_cell needs infinite bc")
+        self.sites = self.sites * factor
+        self._B = [B.copy(deep=False) for B in self._B] * factor
+        self._S = self._S[:-1] * factor + [self._S[0]]
+        self.form = self.form * factor
+        return self
 
     def extract_segment(self, first, last):
         """The sites ``[first, last]`` (of an infinite state, indices

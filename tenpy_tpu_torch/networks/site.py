@@ -7,8 +7,10 @@ Port of ``tenpy_tpu/networks/site.py``: ``Site``, ``GroupedSite``,
 ``spin_half_species``, with the same state order, operator names, charges
 and Jordan-Wigner bookkeeping, so models built on them give the same MPO.
 Operators are :class:`~tenpy_tpu_torch.linalg.np_conserved.Array` s with
-legs ``['p', 'p*']``.  The 'dipole' conservation of ``SpinSite`` and
-``BosonSite`` is not ported (it needs ``DipolarChargeInfo``).
+legs ``['p', 'p*']``.  ``SpinSite`` and ``BosonSite`` conserve dipole
+moments with ``conserve='dipole'`` (a
+:class:`~tenpy_tpu_torch.linalg.charges.DipolarChargeInfo` defined at
+position 0; ``Lattice.mps_sites`` shifts it to each site's position).
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ import itertools
 import numpy as np
 
 from ..linalg import np_conserved as npc
-from ..linalg.charges import ChargeInfo, LegCharge, LegPipe
+from ..linalg.charges import (ChargeInfo, DipolarChargeInfo, LegCharge,
+                              LegPipe)
 from ..tools.misc import inverse_permutation
 
 __all__ = ['Site', 'GroupedSite', 'group_sites', 'set_common_charges', 'kron',
@@ -293,13 +296,13 @@ class SpinSite(Site):
     (Sz = +S), also labelled by their Sz (``'-1.0'``, ..., ``'1.0'``).
 
     Operators: Sz, Sp, Sm, and without Sz conservation also Sx, Sy.
-    ``conserve`` in {'Sz', 'parity', 'None'} (``tenpy_tpu``'s 'dipole' is
-    not ported).
+    ``conserve`` in {'dipole', 'Sz', 'parity', 'None'}; 'dipole' conserves
+    ``2 Sz`` and its dipole moment.
     """
 
     def __init__(self, S=0.5, conserve='Sz', sort_charge=True):
         conserve = conserve or 'None'
-        if conserve not in ('Sz', 'parity', 'None'):
+        if conserve not in ('dipole', 'Sz', 'parity', 'None'):
             raise ValueError(f"invalid conserve {conserve!r}")
         self.S = S = float(S)
         d = 2 * S + 1
@@ -313,7 +316,14 @@ class SpinSite(Site):
             Sp[n + 1, n] = np.sqrt(S * (S + 1) - m * (m + 1))
         Sm = Sp.T.copy()
         ops = dict(Sp=Sp, Sm=Sm, Sz=np.diag(Sz_diag))
-        if conserve == 'Sz':
+        if conserve == 'dipole':
+            # at position 0 every sector's dipole moment is 0
+            chinfo = DipolarChargeInfo([1, 1], ['2*Sz', 'dipole'],
+                                       charge_idcs=[0], dipole_idcs=[1])
+            leg = LegCharge.from_qflat(chinfo, np.stack(
+                [np.array(2 * Sz_diag, np.int64), np.zeros(d, np.int64)],
+                axis=1))
+        elif conserve == 'Sz':
             leg = LegCharge.from_qflat(ChargeInfo([1], ['2*Sz']),
                                        np.array(2 * Sz_diag, np.int64))
         else:
@@ -695,12 +705,13 @@ class BosonSite(Site):
     str(Nmax)]`` (``'0'`` names the vacuum too).
 
     Operators: B (annihilate), Bd, N, NN, dN, dNdN, P (parity).
-    ``conserve`` in {'N', 'parity', 'None'}.
+    ``conserve`` in {'dipole', 'N', 'parity', 'None'}; 'dipole' conserves
+    N and its dipole moment.
     """
 
     def __init__(self, Nmax=1, conserve='N', filling=0.):
         conserve = conserve or 'None'
-        if conserve not in ('N', 'parity', 'None'):
+        if conserve not in ('dipole', 'N', 'parity', 'None'):
             raise ValueError(f"invalid conserve {conserve!r}")
         d = Nmax + 1
         if d < 2:
@@ -712,7 +723,13 @@ class BosonSite(Site):
         ops = dict(B=B, Bd=B.T.copy(), N=np.diag(n), NN=np.diag(n ** 2),
                    dN=np.diag(n - filling), dNdN=np.diag((n - filling) ** 2),
                    P=np.diag(1. - 2. * np.mod(n, 2)))
-        if conserve == 'N':
+        if conserve == 'dipole':
+            # at position 0, as SpinSite's
+            chinfo = DipolarChargeInfo([1, 1], ['N', 'dipole'],
+                                       charge_idcs=[0], dipole_idcs=[1])
+            leg = LegCharge.from_qflat(
+                chinfo, np.stack([n, np.zeros(d, np.int64)], axis=1))
+        elif conserve == 'N':
             leg = LegCharge.from_qflat(ChargeInfo([1], ['N']), n)
         elif conserve == 'parity':
             leg = LegCharge.from_qflat(ChargeInfo([2], ['parity_N']),

@@ -54,6 +54,8 @@ MODULES = ['tenpy_tpu_torch', 'tenpy_tpu_torch.__main__',
            'tenpy_tpu_torch.models.pxp',
            'tenpy_tpu_torch.models.aklt',
            'tenpy_tpu_torch.models.toric_code',
+           'tenpy_tpu_torch.models.mixed_xk',
+           'tenpy_tpu_torch.models.molecular',
            'tenpy_tpu_torch.algorithms.algorithm',
            'tenpy_tpu_torch.algorithms.mps_common',
            'tenpy_tpu_torch.algorithms.dmrg',
@@ -122,3 +124,15 @@ def test_segment_names_exported():
     for meth in ('probability_per_charge', 'average_charge',
                  'charge_variance', 'get_total_charge'):
         assert callable(getattr(MPS, meth))
+
+
+def test_new_models_found_by_name():
+    """The momentum-space, dipolar and molecular models and XXZChain2 are
+    found by their ``model_class`` name, as a parameter file names them."""
+    import tenpy_tpu_torch.models  # noqa: F401  (loads every model)
+    from tenpy_tpu_torch.models.model import Model
+    from tenpy_tpu_torch.tools.misc import find_subclass
+    for name in ('HubbardMixedXKSquare', 'SpinlessMixedXKSquare',
+                 'MixedXKModel', 'DipolarSpinChain',
+                 'DipolarBoseHubbardChain', 'MolecularModel', 'XXZChain2'):
+        assert find_subclass(Model, name).__name__ == name

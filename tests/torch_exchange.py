@@ -45,6 +45,8 @@ chi=256 Hubbard-cylinder file and the ramp references::
         tests/benchmark_data/segment_reference.npz
     python tests/torch_exchange.py --write-models \
         tests/benchmark_data/models_reference.npz
+    python tests/torch_exchange.py --write-xk-models \
+        tests/benchmark_data/xk_reference.npz
 """
 
 import argparse
@@ -3373,6 +3375,511 @@ def models_reference(ramps=tuple(HALDANE_RAMPS)):
     return flat
 
 
+# ------------------------------------------------ mixed_xk and dipoles
+XK_REF = os.path.join(_ROOT, 'tests', 'benchmark_data', 'xk_reference.npz')
+TOL_W = 1e-14
+
+
+def check_flat(out, ref, prefix, tol=TOL_W):
+    """Every value of ``ref`` under ``prefix`` against the port's ``out``
+    (the same keys): strings and integers exactly, floats to ``tol``
+    relative to the largest entry (at least 1)."""
+    keys = sorted(k for k in ref if k.startswith(prefix + '.'))
+    assert keys and sorted(out) == keys
+    for k in keys:
+        a, b = np.asarray(out[k]), ref[k]
+        if b.dtype.kind in 'US':
+            assert str(a) == str(b), k
+        elif b.dtype.kind in 'biu':
+            assert a.shape == b.shape and np.array_equal(a, b), k
+        else:
+            assert a.shape == b.shape, k
+            scale = max(1., float(np.abs(b).max(initial=0.)))
+            assert np.abs(a - b).max(initial=0.) <= tol * scale, k
+
+
+def _leg_flat(prefix, leg):
+    return {f'{prefix}.slices': np.asarray(leg.slices),
+            f'{prefix}.charges': np.asarray(leg.charges),
+            f'{prefix}.qconj': np.asarray(leg.qconj),
+            f'{prefix}.mod': np.asarray(leg.chinfo.mod),
+            f'{prefix}.names': _js(list(leg.chinfo.names))}
+
+
+def _array_flat(prefix, a):
+    out = {f'{prefix}.dense': _arr(a), f'{prefix}.qtotal': np.asarray(
+        a.qtotal)}
+    for k, leg in enumerate(a.legs):
+        out.update(_leg_flat(f'{prefix}.leg{k}', leg))
+    return out
+
+
+def dipole_charges_case(package):
+    """``DipolarChargeInfo`` (shifts, equality, the checks of its moduli),
+    the ``ChargeInfo`` and ``LegCharge`` charge mappings and ``Array``'s
+    ``add_charge``, ``drop_charge`` and ``change_charge``."""
+    ch = _pkg(package, 'linalg.charges')
+    S = _pkg(package, 'networks.site')
+    ci = ch.DipolarChargeInfo([1, 1], ['2*Sz', 'dipole'], charge_idcs=[0],
+                              dipole_idcs=[1])
+    ci_zn = ch.DipolarChargeInfo([4, 2], ['q', 'p'], [0], [1])
+    q = np.array([[2, 0], [-2, 0], [0, 3]])
+    out = {'shift_h': ci.shift_charges_horizontal(q, 5),
+           'shift': ci.shift_charges(q, np.array([5, 0])),
+           'shift_zn': ci_zn.shift_charges(np.array([[1, 0], [3, 1]]),
+                                           np.array([3, 0])),
+           'trivial_shift': np.array([ci.trivial_shift,
+                                      ch.ChargeInfo([1]).trivial_shift]),
+           'eq': np.array([
+               ci == ch.ChargeInfo([1, 1], ['2*Sz', 'dipole']),
+               ci == ch.DipolarChargeInfo([1, 1], ['a', 'b'], [0], [1]),
+               ci == ci_zn, ci == ch.DipolarChargeInfo([1, 1], None, [1],
+                                                       [0])]),
+           'repr': np.array(repr(ci))}
+    raised = []
+    for args in (([3, 2], None, [0], [1]), ([1, 1], None, [0], [0]),
+                 ([1, 1], None, [0], [1], [1]), ([1, 1], None, [2], [1])):
+        try:
+            ch.DipolarChargeInfo(*args)
+            raised.append(False)
+        except ValueError:
+            raised.append(True)
+    out['raises'] = np.array(raised)
+    ci2 = ch.ChargeInfo([1, 3], ['a', 'b'])
+    leg = ch.LegCharge.from_qflat(ci2, [[1, 0], [1, 2], [-1, 1], [0, 0]])
+    leg_c = ch.LegCharge.from_qflat(ch.ChargeInfo([2], ['c']),
+                                    [[0], [1], [1], [1]])
+    legs = {'add': ch.LegCharge.from_add_charge([leg, leg_c]),
+            'drop_a': ch.LegCharge.from_drop_charge(leg, 'a'),
+            'drop_1': ch.LegCharge.from_drop_charge(leg, 1),
+            'drop_all': ch.LegCharge.from_drop_charge(leg),
+            'change': ch.LegCharge.from_change_charge(leg, 'b', 2, 'b2'),
+            'flip': leg.flip_charges_qconj(),
+            'extend': leg.extend(2, [1, 1]),
+            'qind': ch.LegCharge.from_qind(ci2, [0, 2, 3], [[1, 1], [0, 2]],
+                                           -1)}
+    dip_leg = ch.LegCharge.from_qflat(ci, [[2, 0], [0, 0], [-2, 0]])
+    legs['mapped'] = dip_leg.apply_charge_mapping(ci.shift_charges,
+                                                  {'dx': np.array([3, 0])})
+    for name, l in legs.items():
+        out.update(_leg_flat(f'leg.{name}', l))
+    for name, c in (('add', ch.ChargeInfo.add([ci2, ch.ChargeInfo([2],
+                                                                  ['c'])])),
+                    ('drop', ch.ChargeInfo.drop(ci2, 'a')),
+                    ('change', ch.ChargeInfo.change(ci2, 1, 5, 'x'))):
+        out[f'chinfo.{name}'] = _js([list(c.mod), list(c.names)])
+    Sp = S.SpinSite(1., 'Sz').Sp
+    par = ch.LegCharge.from_qflat(ch.ChargeInfo([2], ['par']), [0, 1, 0])
+    arrays = {'add': Sp.add_charge([par, par.conj()]),
+              'drop': Sp.add_charge([par, par.conj()]).drop_charge(0),
+              'drop_name': Sp.add_charge([par, par.conj()]).drop_charge(
+                  'par'),
+              'drop_all': Sp.drop_charge(),
+              'change': Sp.change_charge(0, 4, 'Z4')}
+    for name, a in arrays.items():
+        out.update(_array_flat(f'array.{name}', a))
+    return {f'charges.{k}': v for k, v in out.items()}
+
+
+def dipole_sites_case(package):
+    """The dipolar sites and a dipolar chain's position-shifted
+    ``mps_sites``."""
+    S = _pkg(package, 'networks.site')
+    spins = _pkg(package, 'models.spins')
+    flat = {}
+    for name, site in (('spin1', S.SpinSite(1., 'dipole')),
+                       ('spin_half', S.SpinSite(0.5, 'dipole')),
+                       ('boson', S.BosonSite(2, 'dipole'))):
+        flat.update(site_flat(f'dsites.{name}', site))
+    m = spins.DipolarSpinChain({'L': 6, 'S': 1, 'conserve': 'dipole'})
+    for i, site in enumerate(m.lat.mps_sites()):
+        flat[f'dsites.mps.{i}'] = site.leg.to_qflat()
+        flat[f'dsites.mps_Sp.{i}'] = np.asarray(site.Sp.qtotal)
+    return flat
+
+
+HELICAL_MULTI = [('Sz', [0, 0], 0), ('Sz', [1, 0], 0), ('Sz', [0, 1], 0)]
+
+
+def dipole_lattices_case(package):
+    """``IrregularLattice`` and ``HelicalLattice``: orders, index maps,
+    couplings, and the helix enlarged."""
+    La = _pkg(package, 'models.lattice')
+    S = _pkg(package, 'networks.site')
+    s = S.SpinHalfSite(None)
+    out = {}
+    reg = La.Square(3, 3, s)
+    irr = La.IrregularLattice(reg, remove=[[1, 1, 0], [2, 0, 0]])
+    irr.test_sanity()
+    out['irr.order'] = np.asarray(irr.order)
+    out['irr.N_sites'] = np.asarray(irr.N_sites)
+    out['irr.fix_u'] = np.asarray(irr.mps_idx_fix_u(0))
+    out['irr.n_mps_sites'] = np.asarray(len(irr.mps_sites()))
+    reg = La.Square(3, 3, s, bc=['periodic', -1], bc_MPS='infinite')
+    hel = La.HelicalLattice(reg, 3)
+    hel.test_sanity()
+    out['hel.order'] = np.asarray(hel.order)
+    out['hel.N_sites'] = np.asarray(hel.N_sites)
+    out['hel.mps2lat'] = np.asarray(hel.mps2lat_idx(np.arange(7)))
+    out['hel.lat2mps'] = np.asarray(hel.lat2mps_idx(
+        np.array([[1, 2, 0], [2, 2, 0], [0, 1, 0]])))
+    for key, entries in hel.pairs.items():
+        for n, (u1, u2, dx) in enumerate(entries):
+            i, j, lat_idx, shape = hel.possible_couplings(u1, u2, dx)
+            for k, v in (('i', i), ('j', j), ('lat', lat_idx),
+                         ('shape', np.asarray(shape))):
+                out[f'hel.pc.{key}.{n}.{k}'] = np.asarray(v)
+    ijkl, lat_idx, shape = hel.possible_multi_couplings(
+        [(op, np.array(dx), u) for op, dx, u in HELICAL_MULTI])
+    out['hel.multi.ijkl'] = np.asarray(ijkl)
+    out['hel.multi.lat'] = np.asarray(lat_idx)
+    big = hel.enlarge_mps_unit_cell(3)
+    if big is None:          # tenpy_tpu enlarges in place
+        big = hel
+    out['hel.enlarged.order'] = np.asarray(big.order)
+    out['hel.enlarged.N_sites'] = np.asarray(big.N_sites)
+    return {f'lattices.{k}': v for k, v in out.items()}
+
+
+DIPOLE_MODEL_CASES = {
+    'dipolar_spin': ('spins', 'DipolarSpinChain', {
+        'L': 8, 'S': 1, 'J3': 1., 'J4': 0.3, 'conserve': 'dipole'}),
+    'dipolar_spin_sz': ('spins', 'DipolarSpinChain', {
+        'L': 6, 'S': 1, 'J3': 1., 'J4': 0., 'conserve': 'Sz'}),
+    'dipolar_spin_half': ('spins', 'DipolarSpinChain', {
+        'L': 5, 'S': 0.5, 'J3': 0.7, 'J4': 0.2}),
+    'dipolar_boson': ('hubbard', 'DipolarBoseHubbardChain', {
+        'L': 6, 'Nmax': 2, 't': 1., 'U': 2., 'mu': 0.5, 't4': 0.2,
+        'conserve': 'dipole'}),
+    'xxz2': ('xxz_chain', 'XXZChain2', {'L': 6, 'Jxx': 1., 'Jz': 0.7,
+                                        'hz': 0.1}),
+    'xxz2_infinite': ('xxz_chain', 'XXZChain2', {
+        'L': 2, 'Jxx': 1., 'Jz': 0.7, 'hz': 0.1, 'bc_MPS': 'infinite'}),
+}
+XK_MODEL_CASES = {
+    'spinless_xk': ('mixed_xk', 'SpinlessMixedXKSquare', {
+        'Lx': 2, 'Ly': 3, 't': 1., 'V': 0.5, 'bc_MPS': 'finite'}),
+    'spinless_xk_nok': ('mixed_xk', 'SpinlessMixedXKSquare', {
+        'Lx': 2, 'Ly': 2, 't': 1., 'V': 0.5, 'bc_MPS': 'finite',
+        'conserve_k': False}),
+    'spinless_xk_inf': ('mixed_xk', 'SpinlessMixedXKSquare', {
+        'Lx': 1, 'Ly': 2, 't': 1., 'V': 1., 'bc_MPS': 'infinite'}),
+    'hubbard_xk': ('mixed_xk', 'HubbardMixedXKSquare', {
+        'Lx': 1, 'Ly': 2, 't': 1., 'U': 2.5, 'bc_MPS': 'finite'}),
+    # the chip smoke's phase-17a cell
+    'hubbard_xk_cylinder': ('mixed_xk', 'HubbardMixedXKSquare', {
+        'Lx': 2, 'Ly': 4, 't': 1., 'U': 8., 'bc_MPS': 'infinite'}),
+    'molecular': ('molecular', 'MolecularModel', None),
+}
+
+
+def molecular_params(seed=5, norb=3):
+    """tests/test_molecular.py's integrals: a symmetric one-body tensor
+    and a two-body tensor with the real-orbital symmetries, from
+    ``seed``."""
+    rng = np.random.default_rng(seed)
+    h1 = rng.normal(size=(norb, norb))
+    h2 = rng.normal(size=(norb,) * 4)
+    perms = [(0, 1, 2, 3), (1, 0, 3, 2), (2, 3, 0, 1), (3, 2, 1, 0),
+             (1, 0, 2, 3), (0, 1, 3, 2), (2, 3, 1, 0), (3, 2, 0, 1)]
+    return {'one_body_tensor': (h1 + h1.T) / 2,
+            'two_body_tensor': sum(h2.transpose(p) for p in perms) / 8,
+            'constant': 0.37, 'cons_N': 'N', 'cons_Sz': 'Sz'}
+
+
+def make_case_model(package, cases, case):
+    module, cls, params = cases[case]
+    params = molecular_params() if params is None else dict(params)
+    return getattr(_pkg(package, 'models.' + module), cls)(params)
+
+
+def case_model_flat(package, cases, case):
+    """:func:`model_flat` and the physical legs of a case's model."""
+    m = make_case_model(package, cases, case)
+    flat = model_flat(f'model.{case}', m)
+    for i, site in enumerate(m.lat.mps_sites()):
+        flat[f'model.{case}.p.{i}'] = site.leg.to_qflat()
+    return flat
+
+
+# conversions between H_bond and H_MPO, on (module, class, params)
+CONVERSION_CASES = {
+    'xxz': ('xxz_chain', 'XXZChain', {'L': 6, 'Jxx': 1., 'Jz': 0.7,
+                                      'hz': 0.1}),
+    'xxz_infinite': ('xxz_chain', 'XXZChain', {
+        'L': 2, 'Jxx': 1., 'Jz': 0.7, 'hz': 0.1, 'bc_MPS': 'infinite'}),
+    'tfi': ('tf_ising', 'TFIChain', {'L': 5, 'J': 1., 'g': 1.3,
+                                     'conserve': None}),
+    'spin_one_infinite': ('spins', 'SpinChain', {
+        'L': 2, 'S': 1., 'Jz': 0.5, 'hz': 0.2, 'D': 0.3,
+        'bc_MPS': 'infinite'}),
+}
+
+
+def conversion_case(package, case):
+    """``calc_H_bond_from_MPO`` of the model's MPO, ``from_MPOModel`` and
+    ``calc_H_MPO_from_bond`` (its dense Hamiltonian for finite bc, its own
+    bond terms for infinite bc)."""
+    mdl = _pkg(package, 'models.model')
+    m = make_case_model(package, CONVERSION_CASES, case)
+    pre = f'conv.{case}'
+    flat = {}
+    mm = mdl.MPOModel(m.lat, m.H_MPO)
+    for i, h in enumerate(mm.calc_H_bond_from_MPO()):
+        if h is not None:
+            flat[f'{pre}.from_mpo.{i}'] = _arr(h.transpose(
+                ['p0', 'p0*', 'p1', 'p1*']))
+    nn = mdl.NearestNeighborModel.from_MPOModel(mm)
+    for i, h in enumerate(nn.H_bond):
+        if h is not None:
+            flat[f'{pre}.nn.{i}'] = _arr(h.transpose(
+                ['p0', 'p0*', 'p1', 'p1*']))
+    H2 = nn.calc_H_MPO_from_bond()
+    flat[f'{pre}.mpo_chi'] = np.asarray(H2.chi)
+    if m.lat.bc_MPS == 'finite':
+        ed = _pkg(package, 'algorithms.exact_diag')
+        flat[f'{pre}.dense'] = np.asarray(ed.get_numpy_Hamiltonian(
+            mdl.MPOModel(m.lat, H2)))
+    else:
+        back = mdl.MPOModel(m.lat, H2).calc_H_bond_from_MPO()
+        for i, h in enumerate(back):
+            flat[f'{pre}.back.{i}'] = _arr(h.transpose(
+                ['p0', 'p0*', 'p1', 'p1*']))
+    return flat
+
+
+DIPOLE_DMRG = {'trunc_params': {'chi_max': 50, 'svd_min': 1e-12},
+               'max_sweeps': 20, 'mixer': True, 'N_sweeps_check': 2}
+DIPOLE_SPIN = {'L': 8, 'S': 1, 'J3': 1., 'J4': 0.}
+DIPOLE_BOSON = {'L': 6, 'Nmax': 2, 't': 1., 'U': 2., 'mu': 0.5,
+                'conserve': 'dipole'}
+DIPOLE_BOSON_INIT = ['1', '2', '0'] * 2
+
+
+def dipole_dmrg(package, which):
+    """tests/test_dipole.py's finite runs: ``(E, psi)`` of ``dmrg.run``
+    on the dipolar S=1 chain with 'dipole' or 'Sz' conserved, or on the
+    dipolar Bose-Hubbard chain."""
+    import copy
+    mps = _pkg(package, 'networks.mps')
+    dmrg = _pkg(package, 'algorithms.dmrg')
+    if which == 'boson':
+        m = _pkg(package, 'models.hubbard').DipolarBoseHubbardChain(
+            dict(DIPOLE_BOSON))
+        init = DIPOLE_BOSON_INIT
+    else:
+        m = _pkg(package, 'models.spins').DipolarSpinChain(
+            dict(DIPOLE_SPIN, conserve=which))
+        init = ['up', 'down'] * (DIPOLE_SPIN['L'] // 2)
+    psi = mps.MPS.from_product_state(m.lat.mps_sites(), init, bc='finite')
+    kw = {} if package == 'jax' else {'device': 'cpu'}
+    E = dmrg.run(psi, m, copy.deepcopy(DIPOLE_DMRG), **kw)['E']
+    return float(np.real(E)), psi
+
+
+def dipole_infinite_raises(package):
+    try:
+        _pkg(package, 'models.spins').DipolarSpinChain(
+            {'L': 4, 'S': 1, 'conserve': 'dipole', 'bc_MPS': 'infinite'})
+    except NotImplementedError:
+        return True
+    return False
+
+
+# ED spectra: the x-k models and their real-space counterparts
+XK_ED_CASES = {
+    'spinless': ({'Lx': 2, 'Ly': 3, 't': 1., 'V': 0.5, 'bc_MPS': 'finite'},
+                 ('fermions_spinless', 'FermionModel', {
+                     'lattice': 'Square', 'Lx': 2, 'Ly': 3,
+                     'bc_y': 'cylinder', 'bc_MPS': 'finite', 'J': 1.,
+                     'V': 0.5, 'mu': 0., 'conserve': 'N'})),
+    'hubbard': ({'Lx': 1, 'Ly': 2, 't': 1., 'U': 2.5, 'bc_MPS': 'finite'},
+                ('hubbard', 'FermiHubbardModel', {
+                    'lattice': 'Square', 'Lx': 1, 'Ly': 2,
+                    'bc_y': 'cylinder', 'bc_MPS': 'finite', 't': 1.,
+                    'U': 2.5})),
+}
+
+
+def xk_ed_case(package, case):
+    """The full spectra of an x-k model and of its real-space form."""
+    xk = _pkg(package, 'models.mixed_xk')
+    ed = _pkg(package, 'algorithms.exact_diag')
+    params, (module, cls, rparams) = XK_ED_CASES[case]
+    m = (xk.SpinlessMixedXKSquare if case == 'spinless'
+         else xk.HubbardMixedXKSquare)(dict(params))
+    real = getattr(_pkg(package, 'models.' + module), cls)(dict(rparams))
+    return {f'xk_ed.{case}.xk': np.linalg.eigvalsh(np.asarray(
+                ed.get_numpy_Hamiltonian(m))),
+            f'xk_ed.{case}.real': np.linalg.eigvalsh(np.asarray(
+                ed.get_numpy_Hamiltonian(real)))}
+
+
+def molecular_ed(package):
+    """The molecular model's spectrum from its MPO."""
+    ed = _pkg(package, 'algorithms.exact_diag')
+    m = make_case_model(package, XK_MODEL_CASES, 'molecular')
+    return np.linalg.eigvalsh(np.asarray(ed.get_numpy_Hamiltonian(m)))
+
+
+# tests/test_mixed_xk.py's 3x3 spinless cylinder, at chi 64
+XK_3X3 = {'Lx': 3, 'Ly': 3, 't': 1., 'V': 0.8, 'bc_MPS': 'finite',
+          'conserve_k': True}
+XK_3X3_DMRG = {'trunc_params': {'chi_max': 64, 'svd_min': 1e-12},
+               'max_sweeps': 30, 'mixer': True}
+
+
+def xk_3x3_dmrg(package):
+    """``(E, psi, model)``: ``dmrg.run`` on the 3x3 spinless x-k cylinder
+    from the (N=3, ky=0) product state."""
+    import copy
+    xk = _pkg(package, 'models.mixed_xk')
+    mps = _pkg(package, 'networks.mps')
+    dmrg = _pkg(package, 'algorithms.dmrg')
+    m = xk.SpinlessMixedXKSquare(dict(XK_3X3))
+    state = ['empty'] * 9
+    for x in range(3):
+        state[int(m.lat.lat2mps_idx([x, 0]))] = 'full'
+    psi = mps.MPS.from_product_state(m.lat.mps_sites(), state, bc='finite')
+    kw = {} if package == 'jax' else {'device': 'cpu'}
+    E = dmrg.run(psi, m, copy.deepcopy(XK_3X3_DMRG), **kw)['E']
+    return float(np.real(E)), psi, m
+
+
+def xk_measurements(m, psi):
+    """The ``real_to_mixed_*`` measurements of tests/test_mixed_xk.py on
+    ``psi``: density, density-density and ``<Cd C>``."""
+    one = np.ones((1, 1))
+    tls = {'onsite': m.real_to_mixed_onsite(one, (1, 2)),
+           'two_site': m.real_to_mixed_two_site(one, (0, 0), one, (1, 1)),
+           'n_site': m.real_to_mixed_n_site([one, one, one],
+                                            [(0, 0), (1, 1), (2, 2)]),
+           'any': m.real_to_mixed_correlations_any(
+               ['Cd', 'C'], [(1., [0, 0])], [(0, 0), (1, 1)])}
+    out = {}
+    for name, tl in tls.items():
+        val, terms = psi.expectation_value_terms_sum(tl)
+        out[f'meas.{name}'] = np.asarray(val)
+        out[f'meas.{name}.terms'] = np.asarray(terms)
+        out[f'meas.{name}.strength'] = np.asarray(tl.strength)
+        out[f'meas.{name}.sites'] = np.array(
+            [[i for _, i in t] for t in tl.terms])
+    return out
+
+
+XK_IDMRG = {'Lx': 1, 'Ly': 2, 'bc_MPS': 'infinite', 't': 1., 'V': 1.}
+XK_IDMRG_OPTIONS = {'trunc_params': {'chi_max': 32, 'svd_min': 1e-12},
+                    'max_sweeps': 6, 'min_sweeps': 6, 'mixer': True,
+                    'mixer_params': {'disable_after': 3},
+                    'N_sweeps_check': 1, 'mixer_env_reseed': 'tm'}
+
+
+def xk_idmrg(package):
+    """The Ly=2 infinite spinless x-k cylinder by iDMRG with the mixer
+    off after three sweeps and the environments re-seeded from the
+    transfer matrix: every sweep's energy, the final chi."""
+    import copy
+    xk = _pkg(package, 'models.mixed_xk')
+    mps = _pkg(package, 'networks.mps')
+    dmrg = _pkg(package, 'algorithms.dmrg')
+    m = xk.SpinlessMixedXKSquare(dict(XK_IDMRG))
+    L = m.lat.N_sites
+    psi = mps.MPS.from_product_state(m.lat.mps_sites(),
+                                     (['full', 'empty'] * L)[:L],
+                                     bc='infinite')
+    kw = {} if package == 'jax' else {'device': 'cpu'}
+    eng = dmrg.TwoSiteDMRGEngine(psi, m, copy.deepcopy(XK_IDMRG_OPTIONS),
+                                 **kw)
+    E, _ = eng.run()
+    return {'idmrg.E': np.asarray(eng.sweep_stats['E'], float),
+            'idmrg.E_run': np.asarray(float(np.real(E))),
+            'idmrg.chi': np.asarray(psi.chi)}
+
+
+HELICAL_TFI = {'J': 1., 'g': 2., 'conserve': None, 'bc_MPS': 'infinite'}
+HELICAL_DMRG = {'trunc_params': {'chi_max': 16, 'svd_min': 1e-10},
+                'mixer': True, 'N_sweeps_check': 1}
+HELICAL_SWEEPS = 8
+
+
+def helical_models(package):
+    """The TFI model on the 3-cell helix and on its regular 3x3
+    lattice."""
+    La = _pkg(package, 'models.lattice')
+    S = _pkg(package, 'networks.site')
+    tf = _pkg(package, 'models.tf_ising')
+    reg = La.Square(3, 3, S.SpinHalfSite(None), bc=['periodic', -1],
+                    bc_MPS='infinite')
+    hel = La.HelicalLattice(reg, 3)
+    return (tf.TFIModel(dict(HELICAL_TFI, lattice=hel)),
+            tf.TFIModel(dict(HELICAL_TFI, lattice=reg)))
+
+
+def helical_case(package):
+    """The helical TFI model's MPO and its iDMRG from all up: the energy
+    of each of ``HELICAL_SWEEPS`` iterations of the engine (sweep and
+    statistics; the run's final canonical form, the same in both
+    packages, left out for its cost)."""
+    import copy
+    mps = _pkg(package, 'networks.mps')
+    dmrg = _pkg(package, 'algorithms.dmrg')
+    m, _ = helical_models(package)
+    flat = mpo_flat('helical.mpo', m.H_MPO)
+    psi = mps.MPS.from_product_state(m.lat.mps_sites(), ['up'] * 3,
+                                     bc='infinite')
+    kw = {} if package == 'jax' else {'device': 'cpu'}
+    eng = dmrg.TwoSiteDMRGEngine(psi, m, copy.deepcopy(HELICAL_DMRG), **kw)
+    eng.pre_run_initialize()
+    for _ in range(HELICAL_SWEEPS):
+        eng.run_iteration()
+    flat['helical.sweep_E'] = np.asarray(eng.sweep_stats['E'], float)
+    flat['helical.chi'] = np.asarray(psi.chi)
+    return flat
+
+
+def xk_reference():
+    """tenpy_tpu's values for tests/test_torch_mixed_xk.py and
+    tests/test_torch_dipole.py."""
+    t0 = time.time()
+    flat = dipole_charges_case('jax')
+    flat.update(dipole_sites_case('jax'))
+    flat.update(dipole_lattices_case('jax'))
+    for cases in (DIPOLE_MODEL_CASES, XK_MODEL_CASES):
+        for case in cases:
+            flat.update(case_model_flat('jax', cases, case))
+    for case in CONVERSION_CASES:
+        flat.update(conversion_case('jax', case))
+    for case in XK_ED_CASES:
+        flat.update(xk_ed_case('jax', case))
+    flat['molecular.ed'] = molecular_ed('jax')
+    flat['dipole.infinite_raises'] = np.asarray(dipole_infinite_raises(
+        'jax'))
+    print(f"charges, sites, lattices, models, spectra: "
+          f"{time.time() - t0:.1f} s", flush=True)
+    for which in ('dipole', 'Sz', 'boson'):
+        t0 = time.time()
+        E, psi = dipole_dmrg('jax', which)
+        flat[f'dipole_dmrg.{which}.E'] = np.asarray(E)
+        flat.update(state_flat(f'dipole_dmrg.{which}.psi', psi))
+        print(f"dipolar DMRG {which}: E={E!r} ({time.time() - t0:.1f} s)",
+              flush=True)
+    t0 = time.time()
+    E, psi, m = xk_3x3_dmrg('jax')
+    flat['xk_3x3.E'] = np.asarray(E)
+    flat.update(state_flat('xk_3x3.psi', psi))
+    flat.update({f'xk_3x3.{k}': v for k, v in xk_measurements(m, psi).items()})
+    print(f"3x3 x-k DMRG: E={E!r} ({time.time() - t0:.1f} s)", flush=True)
+    t0 = time.time()
+    flat.update({f'xk.{k}': v for k, v in xk_idmrg('jax').items()})
+    print(f"x-k iDMRG: E={flat['xk.idmrg.E']} ({time.time() - t0:.1f} s)",
+          flush=True)
+    t0 = time.time()
+    flat.update(helical_case('jax'))
+    print(f"helical: E={flat['helical.sweep_E']} ({time.time() - t0:.1f} s)",
+          flush=True)
+    return flat
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--write',
@@ -3407,6 +3914,9 @@ def main(argv=None):
                     help='output .npz path (segment references)')
     ap.add_argument('--write-models',
                     help='output .npz path (model-layer references)')
+    ap.add_argument('--write-xk-models',
+                    help='output .npz path (mixed_xk and dipole '
+                         'references)')
     ap.add_argument('--cases', nargs='+',
                     help='write-back, Hofstadter or Haldane-ramp cases to '
                          '(re)compute')
@@ -3436,7 +3946,8 @@ def main(argv=None):
                        (args.write_vumps, vumps_reference),
                        (args.write_purification, purification_reference),
                        (args.write_excitations, excitation_reference),
-                       (args.write_segment, segment_reference)):
+                       (args.write_segment, segment_reference),
+                       (args.write_xk_models, xk_reference)):
         if path:
             exchange.save_flat(path, make())
             print(f"wrote {path} ({os.path.getsize(path) / 1e6:.3f} MB)",
