@@ -228,7 +228,9 @@ Phases (any failure exits nonzero):
    step); the re-seed's seconds, the idle share of the last (profiled)
    chi=256 sweep, peak memory; the energy per real-space site within
    1.5e-2 of -0.526081 (``BENCH_NORTHSTAR.json``) and not below it by
-   more than 1e-4, the cell's N, Sz and ky; the kernel against its plain
+   more than 1e-4, the cell's N, Sz and ky; one environment update's
+   three host tensordots through the C++ executor and through the
+   per-task loop, 1e-13 apart, each timed; the kernel against its plain
    version on the centre two-site matvec, timed.  17b: ``dmrg.run`` on
    the dipolar S=1 chain (L=64, J3=1, ``conserve='dipole'``) to chi 128
    on the card, its first sweep also on the host route (printed), and
@@ -236,6 +238,16 @@ Phases (any failure exits nonzero):
    1e-9 apart); total Sz and dipole moment conserved exactly by the charges
    and to 1e-10 measured, the centre tensor carrying both charges; the
    kernel on the centre matvec, timed;
+19. the split's eigh-based backend (``backend='qr_eigh'``) against the
+   SVD on the card.  19a: one sweep of phase 5's chi=256 engine on each
+   route from one copy of its state and environments: the first update's
+   Schmidt values (from 1e-6 up) 1e-10 apart and its truncation error
+   1e-12 apart, the sweep's energy per site 1e-9 apart; each route's
+   split per update (CUDA events) and its host synchronisations and
+   device-to-host copies (profiler).  19b: phase 8's chi=512 complex128
+   bond update on each route: the same checks on S and the truncation
+   error, A S B against theta to the truncation level, the split's and
+   the update's median times;
 then a JSON line on the kernels (the f64 mode, the complex128 mode, the
 complex128 mode on the TEBD shapes, the f64 mode on the host DMRG's and
 on the simulation's shapes, the complex128 mode on TDVP's two- and
@@ -244,8 +256,8 @@ plane-wave transfer step, the projected segment matvec, the Haldane
 matvec, and the f64 mode on the x-k cylinder's and the dipolar chain's
 matvecs) and, last, ``{"ok": true, "device": ...}``.
 
-The phases run in four processes on the one card: this one runs 1-9 and
-12b, worker B 10 and 13, worker C 11, 14 and 15, worker D 16, 12a, 12c
+The phases run in four processes on the one card: this one runs 1-9, 19
+and 12b, worker B 10 and 13, worker C 11, 14 and 15, worker D 16, 12a, 12c
 and 17 (``WORKERS``); a worker's failure fails the smoke, and the workers
 end with it.
 
@@ -1644,6 +1656,206 @@ def svd_survey(eng, B0, B1, S0, U, plan):
         log(f"[8]   torch.linalg.svd, cuSOLVER {algo or 'default'}: "
             f"{ms:.1f} ms per update (its events bracket the SVD's host "
             f"syncs), singular values vs LAPACK {err:.1e}")
+
+# 19: the split's eigh-based backends against the SVD on the card, on
+# phase 5's chi=256 Hubbard state (one sweep on each route from one copy
+# of its state and environments) and on phase 8's chi=512 complex128 TEBD
+# bond update.  Schmidt values are held route to route from EIGH_S_FLOOR
+# up: the Gram matrix's eigh squares them, so an eigenvalue error of 1e-16
+# of the largest moves a value at 1e-6 by 5e-11.  EIGH_TOL: (Schmidt
+# values, truncation error, A S B against theta) per backend.  For
+# 'qr_eigh32' the truncation error and A S B at the JAX package's own 1e-4
+# and 1e-5 (tests/test_packed_dmrg.py), the Schmidt values at 1e-3: the
+# Rayleigh quotient of a float32 eigenvector of the Gram matrix is good to
+# about float32's 6e-8 of its largest eigenvalue, which moves a singular
+# value by up to sqrt(6e-8) = 2.4e-4 of the largest (clustered spectra;
+# the JAX package's 1e-5 holds on well separated ones)
+EIGH_S_FLOOR = 1e-6
+EIGH_TOL = {'qr_eigh': (1e-10, 1e-12, 1e-10), 'qr_eigh32': (1e-3, 1e-4, 1e-5)}
+EIGH_E_TOL = 1e-9
+EIGH_TEBD_REPS = 5
+# PERF.md: the batched SVD of one chi=512 bond update (NVIDIA H100 80GB
+# HBM3, 700.00 W)
+TEBD_SVD_MS_RECORDED = '172-177'
+
+
+class SplitRecorder:
+    """Within ``with``: CUDA events around every ``split_truncate`` call
+    (no host synchronisation; :meth:`ms` reads them afterwards) and the
+    first call's arguments and outputs."""
+
+    def __enter__(self):
+        self.events, self.first = [], None
+        self._orig = orig = ps.split_truncate
+
+        def recorded(*a, **kw):
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            out = orig(*a, **kw)
+            t1.record()
+            self.events.append((t0, t1))
+            if self.first is None:
+                self.first = (a, kw, out)
+            return out
+
+        ps.split_truncate = recorded
+        return self
+
+    def __exit__(self, *exc):
+        ps.split_truncate = self._orig
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+def host_syncs(fn):
+    """``fn()`` under the profiler: ``(stream and device synchronisations,
+    device-to-host copies)`` that it made, from the raw Kineto events."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+    syncs = d2h = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            d2h += 'DtoH' in e.name()
+        else:
+            syncs += e.name() in ('cudaStreamSynchronize',
+                                  'cudaDeviceSynchronize')
+    return syncs, d2h
+
+
+def check_routes(tag, backend, S, S_ref, err, err_ref, what):
+    """Schmidt values from EIGH_S_FLOOR up and truncation errors of
+    ``backend`` against the SVD's."""
+    S, S_ref = np.asarray(S), np.asarray(S_ref)
+    s_tol, e_tol, _ = EIGH_TOL[backend]
+    big = S_ref >= EIGH_S_FLOOR
+    dS = float(np.abs(S - S_ref)[big].max())
+    dS_all = float(np.abs(S - S_ref).max())
+    log(f"[{tag}] {what}: {int(big.sum())} Schmidt values >= "
+        f"{EIGH_S_FLOOR:.0e}, {backend} - svd at most {dS:.2e} (tolerance "
+        f"{s_tol:.0e}; all values {dS_all:.2e}); kept "
+        f"{int((S > 0).sum())} and {int((S_ref > 0).sum())}; truncation "
+        f"error {err:.6e} and {err_ref:.6e} ({abs(err - err_ref):.1e}, "
+        f"tolerance {e_tol:.0e})")
+    check(np.isfinite(S).all() and dS <= s_tol,
+          f"{tag}: {backend}'s Schmidt values differ from the SVD's")
+    check(abs(err - err_ref) <= e_tol,
+          f"{tag}: {backend}'s truncation error differs from the SVD's")
+
+
+def phase_eigh_split(eng, tebd_eng):
+    """19: the split's ``'qr_eigh'`` backend against ``'svd'`` on the card:
+    19a one sweep of phase 5's chi=256 engine on each route (and the first
+    update's split with each backend, ``'qr_eigh32'`` too), 19b phase 8's
+    chi=512 complex128 bond update with each backend."""
+    # 19a: both sweeps from one copy of the state and environments
+    L = eng.L
+    keys = ('Ap', 'Bp', 'Sp', 'LPp', 'RPp', '_C', '_M0', 'backend',
+            '_cur_expand', '_cur_mode')
+    saved = {k: copy.copy(getattr(eng, k)) for k in keys}
+    E_prev = eng.sweep_stats['E'][-1]
+    res = {}
+    for backend in ('svd', 'qr_eigh'):
+        for k, v in saved.items():
+            setattr(eng, k, copy.copy(v))
+        eng.backend, eng._cur_expand, eng._cur_mode = backend, False, None
+        torch.cuda.synchronize()
+        with SplitRecorder() as rec:
+            t0 = time.time()
+            E, max_err = eng.sweep()
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        a, kw, out = rec.first
+        split_ms = rec.ms()
+        syncs = host_syncs(lambda: rec._orig(*a[:4], backend,
+                                             expand=kw.get('expand', False)))
+        res[backend] = {'E': E, 'wall': wall, 'ms': split_ms,
+                        'S': out[1].cpu().numpy(), 'err': float(out[3]),
+                        'syncs': syncs, 'max_err': max_err,
+                        'first': (a[:4], kw.get('expand', False))}
+        e_site = (E - E_prev) / (2 * L)
+        res[backend]['e_site'] = e_site
+        log(f"[19a] one chi={eng.chi_max} sweep with backend {backend!r}: "
+            f"{wall:.2f} s, {len(split_ms)} splits of median "
+            f"{statistics.median(split_ms):.2f} ms (min "
+            f"{min(split_ms):.2f}, max {max(split_ms):.2f}, total "
+            f"{sum(split_ms) / 1e3:.3f} s, {100 * sum(split_ms) / 1e3 / wall:.1f}"
+            f"% of the sweep); energy per site {e_site:.12f}, max trunc "
+            f"{max_err:.3e}; one split (the first update's): {syncs[0]} host "
+            f"synchronisations, {syncs[1]} device-to-host copies")
+    for k, v in saved.items():
+        setattr(eng, k, v)
+    r, q = res['svd'], res['qr_eigh']
+    check_routes('19a', 'qr_eigh', q['S'], r['S'], q['err'], r['err'],
+                 "the first update")
+    # all three backends on the first update's theta, timed in turn
+    args, expand = r['first']
+    for backend in ('svd', 'qr_eigh', 'qr_eigh32'):
+        out = ps.split_truncate(*args, backend, expand=expand)
+        ms = cuda_ms(lambda: ps.split_truncate(*args, backend, expand=expand),
+                     reps=EIGH_TEBD_REPS)
+        log(f"[19a] the first update's split with {backend!r}: {ms:.2f} ms "
+            f"(median of {EIGH_TEBD_REPS})")
+        if backend == 'qr_eigh32':
+            check_routes('19a', backend, out[1].cpu().numpy(), r['S'],
+                         float(out[3]), r['err'], "the first update")
+    dE = abs(q['e_site'] - r['e_site'])
+    log(f"[19a] energy per site qr_eigh - svd {dE:.2e} (tolerance "
+        f"{EIGH_E_TOL:.0e}); split per update qr_eigh/svd "
+        f"{statistics.median(q['ms']) / statistics.median(r['ms']):.3f}")
+    check(np.isfinite(q['e_site']) and dE <= EIGH_E_TOL,
+          "19a: the eigh route's sweep energy differs from the SVD's")
+
+    # 19b: the chi=512 complex128 bond update of phase 8
+    B0, B1, S0, U = (tebd_eng.Bp[0], tebd_eng.Bp[1], tebd_eng.Sp[0],
+                     tebd_eng.Up[1][1])
+    plan = ps.split_plan(tebd_eng._theta_struct(B0, B1, U), tebd_eng._bond(1),
+                         tebd_eng.qtotal_site[0])
+    C = pk.tensordot(B0.replace_labels(['p'], ['p0']),
+                     B1.replace_labels(['p'], ['p1']), axes=(['vR'], ['vL']))
+    C = pk.tensordot(U, C, axes=(['p0*', 'p1*'], ['p0', 'p1']))
+    C = C.transpose(['vL', 'p0', 'p1', 'vR'])
+    th = ps.scale_bond(C, S0, ps.scale_bond_plan(C, 'vL'))
+    th_h = pk.unpack(th)
+    chi, svd_min = tebd_eng.chi_max, tebd_eng.svd_min
+    out = {}
+    for backend in ('svd', 'qr_eigh', 'qr_eigh32'):
+        A, S, B, err, ren, n = ps.split_truncate(th, plan, chi, svd_min,
+                                                 backend)
+        rec = pk.tensordot(
+            ps.scale_bond(A, S, ps.scale_bond_plan(A, 'vR'))
+            .replace_labels(['p'], ['p0']),
+            B.replace_labels(['p'], ['p1']), axes=(['vR'], ['vL']))
+        resid = (npc.norm(th_h - pk.unpack(rec) * float(ren))
+                 / npc.norm(th_h)) ** 2
+        split_ms = cuda_ms(lambda: ps.split_truncate(th, plan, chi, svd_min,
+                                                     backend),
+                           reps=EIGH_TEBD_REPS)
+        step_ms = cuda_ms(lambda: _bond_step(B0, B1, S0, U, plan, chi,
+                                             svd_min, backend),
+                          reps=EIGH_TEBD_REPS)
+        syncs = host_syncs(lambda: ps.split_truncate(th, plan, chi, svd_min,
+                                                     backend))
+        out[backend] = (S.cpu().numpy(), float(err), int(n))
+        log(f"[19b] chi={chi} complex128 bond update with {backend!r}: "
+            f"split median {split_ms:.1f} ms, the whole update "
+            f"{step_ms:.1f} ms (median of {EIGH_TEBD_REPS}; the SVD alone "
+            f"{TEBD_SVD_MS_RECORDED} ms in PERF.md); {int(n)} values kept, "
+            f"truncation error {float(err):.6e}, |theta - A S B|^2 / "
+            f"|theta|^2 {resid:.6e}; {syncs[0]} host synchronisations, "
+            f"{syncs[1]} device-to-host copies per split")
+        check(abs(resid - float(err)) <= EIGH_TOL.get(backend,
+                                                      (0, 0, 1e-10))[2],
+              f"19b: A S B ({backend}) is not theta to the truncation level")
+    for backend in ('qr_eigh', 'qr_eigh32'):
+        check_routes('19b', backend, out[backend][0], out['svd'][0],
+                     out[backend][1], out['svd'][1],
+                     f"the chi={chi} bond update")
+
 
 def e0_xx_finite(L, Jxx):
     """The open XX chain's ground energy at Sz = 0: the sum of the negative
@@ -4797,11 +5009,13 @@ XK_E_BELOW = 1e-4
 # sweeps on the card.  The two routes are held to each other update by
 # update on the same effective H and guess (the guess perturbed by
 # XX_CHECK_NOISE, converged solves), at three bonds of the final state;
-# their whole first sweeps are compared too, but not held: the chain's
-# two-site problems in that sweep stop at the 20-step cap or at P_tol in
-# nearly degenerate spaces, and the two trajectories part (2.5e-8 on the
-# card; 3.5e-8 for the plain kernel against the host on a CPU, 6.6e-9
-# with a cap of 60 or 150)
+# their whole first sweeps are compared too, but not held.  With every
+# update converged below P_tol (N_max 400 on a CPU) and the card route
+# keeping its guess's zero blocks as the host route does, the two still
+# part by 9.2e-9 after the sweep: every update agrees to 1.9e-16 on the
+# same effective H, but the density-matrix mixer's cut amplifies roundoff
+# (the host route alone parts by 4.1e-9 from itself when only its GEMM
+# summation order changes; ROADMAP Queue 3)
 DIP_MODEL = {'L': 64, 'S': 1, 'J3': 1., 'J4': 0., 'conserve': 'dipole'}
 DIP_INIT = ['up', 'down'] * 32
 DIP_OPTIONS = {'trunc_params': {'chi_max': 128, 'svd_min': 1e-10},
@@ -4820,6 +5034,81 @@ def xk_engine(model, psi, options, device_K=None):
     eng = dmrg.TwoSiteDMRGEngine(psi, model, opts, device='cuda')
     eng.pre_run_initialize()
     return eng
+
+
+# 17a: the environment update's three host tensordots (MPOEnvironment.
+# _contract_RP) at the centre of the chi=256 state, through the C++
+# executor and through the per-task loop (its plain version)
+XK_EXEC_REPS = 3
+XK_EXEC_TOL = 1e-13
+XK_ENV_STEPS = ['B.RP over vR/vL', '(B RP).W over (p,wL)/(p*,wR)',
+                '(B RP W).B* over (p,vL*)/(p*,vR*)']
+
+
+def host_plan_tasks(a, b, axes):
+    """The GEMM tasks of the plan of ``npc.tensordot(a, b, axes)``."""
+    ia = [a.get_leg_index(x) for x in axes[0]]
+    ib = [b.get_leg_index(x) for x in axes[1]]
+    at = a.transpose([i for i in range(a.rank) if i not in ia] + ia)
+    bt = b.transpose(ib + [i for i in range(b.rank) if i not in ib])
+    return len(npc._tensordot_plan(at, bt, len(ia)).tasks)
+
+
+def host_ms(fn, reps):
+    """Median host milliseconds of ``fn()`` after one warm-up call, and its
+    last result."""
+    out = fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append(time.perf_counter() - t0)
+    return 1e3 * statistics.median(times), out
+
+
+def xk_executor(eng):
+    """17a: one chi=256 environment update's tensordots on both host paths,
+    at the centre after a sweep that ended moving left (its right
+    environments are those of the current state): the executor's and the
+    loop's outputs to ``XK_EXEC_TOL`` (relative to the largest entry), each
+    timed."""
+    i = eng.psi.L // 2
+    RP, B, W = eng.env.get_RP(i), eng.psi.get_B(i, 'B'), eng.env.H.get_W(i)
+    t1 = npc.tensordot(B, RP, axes=[['vR'], ['vL']])
+    t2 = npc.tensordot(t1, W, axes=[['p', 'wL'], ['p*', 'wR']])
+    args = [(B, RP, [['vR'], ['vL']]),
+            (t1, W, [['p', 'wL'], ['p*', 'wR']]),
+            (t2, B.conj(), [['p', 'vL*'], ['p*', 'vR*']])]
+    tot_exec, tot_loop = 0., 0.
+    for name, (a, b, axes) in zip(XK_ENV_STEPS, args):
+        n = host_plan_tasks(a, b, axes)
+        check(n > npc.NATIVE_MIN_TASKS, f"17a: {name} has {n} tasks, not "
+              "enough for the executor")
+        ms_exec, out = host_ms(lambda: npc.tensordot(a, b, axes),
+                               XK_EXEC_REPS)
+        limit = npc.NATIVE_MIN_TASKS
+        npc.NATIVE_MIN_TASKS = 1 << 62       # the loop for every plan
+        try:
+            ms_loop, ref = host_ms(lambda: npc.tensordot(a, b, axes),
+                                   XK_EXEC_REPS)
+        finally:
+            npc.NATIVE_MIN_TASKS = limit
+        check(np.array_equal(out._qdata, ref._qdata),
+              f"17a: {name}: the two paths' blocks differ")
+        scale = max(float(x.abs().max()) for x in ref._data if x.numel())
+        rel = max(float((x - y).abs().max()) for x, y
+                  in zip(out._data, ref._data) if x.numel()) / scale
+        log(f"[17a] environment update at site {i}, {name}: {n} GEMM tasks,"
+            f" {out.stored_blocks} output blocks; the C++ executor "
+            f"{ms_exec:.2f} ms, the per-task loop {ms_loop:.2f} ms (host, "
+            f"median of {XK_EXEC_REPS}, {torch.get_num_threads()} threads); "
+            f"max difference {rel:.2e} of the largest entry (tolerance "
+            f"{XK_EXEC_TOL:.0e})")
+        check(rel <= XK_EXEC_TOL, f"17a: {name}: the executor differs from "
+              "the loop")
+        tot_exec, tot_loop = tot_exec + ms_exec, tot_loop + ms_loop
+    log(f"[17a] the environment update's three tensordots: executor "
+        f"{tot_exec:.2f} ms, loop {tot_loop:.2f} ms ({tot_loop / tot_exec:.2f}x)")
 
 
 def phase_mixed_xk(smi):
@@ -4950,6 +5239,8 @@ def phase_mixed_xk(smi):
           f"17a: energy per site {e_site} outside the band around "
           f"{XK_E_REF} (ky sector {int(q[2])} mod 4)")
 
+    xk_executor(eng)
+
     # the kernel on the centre two-site matvec of the chi=256 state
     eng.i0, eng.move_right = L // 2 - 1, True
     guess = eng.prepare_update_local()
@@ -5016,8 +5307,8 @@ def phase_dipolar(smi):
         f"({steps} Lanczos steps), launches {launches} (tensordots "
         f"{tensordots}); the first sweep's energy {e_card:.12f} on the "
         f"card, {e_host:.12f} on the host route ({host_s:.2f} s): rel "
-        f"{rel_sweep:.2e} (not held: the sweep's solves are capped or "
-        f"nearly degenerate)")
+        f"{rel_sweep:.2e} (not held: the mixer's cut amplifies roundoff "
+        f"along the sweep)")
     check(len(probe.device_N) == above > 0
           and launches == tensordots == 4 * steps,
           "17b: the card route's updates or launches are off")
@@ -5079,7 +5370,7 @@ def phase_dipolar(smi):
 
 # The phases run in four processes on the one card.  They are host-bound
 # (the card idle 96-99% of phases 9-15, PERF.md section 5), so groups that
-# share no state run side by side: this process runs 1-9 and 12b (which
+# share no state run side by side: this process runs 1-9, 19 and 12b (which
 # starts from phase 7's state), worker B runs 10 and 13, worker C 11, 14
 # and 15, worker D 16, 12a, 12c and 17.  Each process counts its own launches
 # around its own paths; kernel timings take turns (timing_lock).  The
@@ -5309,7 +5600,7 @@ def main():
 
 
 def main_phases(smi, procs, t_start):
-    """Phases 3-9 and 12b in this process, the workers checked between
+    """Phases 3-9, 19 and 12b in this process, the workers checked between
     phases; their kernel entries, the synthetic shapes' errors and the
     walls."""
     max_abs_synth = phase_kernel()
@@ -5357,6 +5648,8 @@ def main_phases(smi, procs, t_start):
     k['packed_contract_complex128_tebd'] = (t_launches,
                                             phase_tebd_kernel(tebd_eng))
     lap('8')
+    phase_eigh_split(eng, tebd_eng)
+    lap('19')
     k['packed_contract_host_dmrg'] = phase_host_dmrg(smi)
     lap('9')
     (k['packed_contract_vumps_zero_site_complex128'],

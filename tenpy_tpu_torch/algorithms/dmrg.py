@@ -447,9 +447,10 @@ class DMRGEngine(IterativeSweeps):
         st[kind] += 1
         st[kind + '_steps'] += K
         st['N'].append(eff.N)
-        theta = pk.unpack(_to_host(th),
-                          orig_legs=[theta_guess.get_leg(l)
-                                     for l in th.get_leg_labels()])
+        theta = _keep_blocks_of(pk.unpack(
+            _to_host(th), orig_legs=[theta_guess.get_leg(l)
+                                     for l in th.get_leg_labels()]),
+            theta_guess)
         ov_change = 1. - abs(complex(npc.inner(theta_guess.conj(), theta,
                                                axes='range'))) \
             / max(float(npc.norm(theta_guess)), 1e-300)
@@ -474,6 +475,27 @@ def _to_host(p):
     return pk.PackedArray(p.legs, p.qtotal, p.get_leg_labels(), p.shapes,
                           p.qdatas, [h.view(d.shape) for h, d in
                                      zip(data, p.data)], p.dtype, 'cpu')
+
+
+def _keep_blocks_of(theta, guess):
+    """``theta`` with a zero block for each block of ``guess`` that it
+    lacks.  The host Lanczos's Ritz vector stores every block of its guess,
+    one that stays zero too, while the unpack of the packed Ritz vector
+    drops all-zero blocks; a stored zero block adds a sector to the
+    density-matrix mixer's split, so the two routes handed the mixer
+    different block structures (first at update 67 of the dipolar S=1
+    chain's first sweep).  With it they hand over the same."""
+    perm = [guess.get_leg_index(l) for l in theta.get_leg_labels()]
+    have = {tuple(int(x) for x in r) for r in theta._qdata}
+    missing = [r for r in (tuple(int(x) for x in row[perm])
+                           for row in guess._qdata) if r not in have]
+    if not missing:
+        return theta
+    zeros = [torch.zeros(npc._block_shape(theta.legs, r), dtype=theta.dtype)
+             for r in missing]
+    return theta._set_blocks(
+        np.concatenate([theta._qdata, np.array(missing, theta._qdata.dtype)]),
+        theta._data + zeros)
 
 
 def _entropy(S):

@@ -327,7 +327,9 @@ class DeviceSweepEngine:
         lanczos_K_seam : int -- cap at the two iDMRG wrap-seam updates.
         lanczos_P_tol : float -- early-exit tolerance (default 1e-14).
         n_sweeps : int -- sweeps to run (default 10).
-        backend : str -- decomposition backend (only ``'svd'``).
+        backend : str -- the split's decomposition: ``'svd'`` (the
+            default), ``'qr_eigh'`` or ``'qr_eigh32'``
+            (:func:`~tenpy_tpu_torch.linalg.packed_split.split_truncate`).
         multiple : int -- bucket multiple of padded virtual legs (64).
         e_tol : float -- stop a phase once |Delta E| per sweep is below.
         mixer : bool -- subspace expansion (default True).

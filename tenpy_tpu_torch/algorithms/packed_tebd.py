@@ -83,9 +83,10 @@ class DeviceTEBDEngine:
         type_evo : 'real' | 'imag' (default 'real').
         chi_max, svd_min, backend, multiple, cap_factor, total_cap_factor :
             as for :class:`~tenpy_tpu_torch.algorithms.packed_dmrg.
-            DeviceSweepEngine` (the capacity layouts are fixed for the
-            engine's life: a state that grows past them needs a new engine
-            built from the written-back state).
+            DeviceSweepEngine` (``backend``: ``'svd'``, the default,
+            ``'qr_eigh'`` or ``'qr_eigh32'``; the capacity layouts are
+            fixed for the engine's life: a state that grows past them needs
+            a new engine built from the written-back state).
     device : str or torch.device
         Where the state lives: the card by default, where every packed
         tensordot is one launch of the CUDA kernel; raises where there is no

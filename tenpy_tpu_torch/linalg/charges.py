@@ -129,6 +129,10 @@ class ChargeInfo:
             return NotImplemented
         return type(self) is type(other) and self.mod == other.mod
 
+    def __ne__(self, other):
+        res = self.__eq__(other)
+        return res if res is NotImplemented else not res
+
     def __hash__(self):
         return self._hash
 
@@ -317,6 +321,19 @@ class LegCharge:
         return cls(chinfo, slices, charges, qconj)
 
     @classmethod
+    def from_qdict(cls, chinfo, qdict, qconj=1):
+        """From a ``{charge tuple: slice}`` mapping whose slices tile
+        ``0:ind_len`` (the inverse of :meth:`to_qdict`)."""
+        items = sorted(qdict.items(), key=lambda kv: kv[1].start)
+        slices, charges = [0], []
+        for q, sl in items:
+            if sl.start != slices[-1]:
+                raise ValueError("qdict slices not contiguous")
+            slices.append(sl.stop)
+            charges.append(q)
+        return cls(chinfo, slices, charges, qconj)
+
+    @classmethod
     def from_add_charge(cls, legs, chargeinfo=None):
         """The charges of several legs of one length side by side (sector
         boundaries: the union of theirs; neither sorted nor bunched)."""
@@ -383,6 +400,11 @@ class LegCharge:
     def get_slice(self, qindex):
         return slice(int(self.slices[qindex]), int(self.slices[qindex + 1]))
 
+    def get_charge(self, qindex):
+        """The charge of sector ``qindex`` as it counts toward a total
+        charge (times ``qconj``)."""
+        return self.chinfo.make_valid(self.charges[qindex] * self.qconj)
+
     def get_qindex(self, flat_index):
         """``(qindex, index_within_sector)`` of a flat leg index."""
         if flat_index < 0:
@@ -397,6 +419,13 @@ class LegCharge:
         for i in range(self.block_number):
             out[self.slices[i]:self.slices[i + 1]] = self.charges[i]
         return out
+
+    def to_qdict(self):
+        """``{charge tuple: slice}`` of every sector (the last sector of a
+        repeated charge wins)."""
+        return {tuple(int(x) for x in self.charges[i]):
+                slice(int(self.slices[i]), int(self.slices[i + 1]))
+                for i in range(self.block_number)}
 
     # --------------------------------------------------------- transformations
     def conj(self):
@@ -471,6 +500,10 @@ class LegCharge:
         leg = LegCharge(self.chinfo, slices, self.charges[keep], self.qconj)
         return map_qind, block_masks, leg
 
+    def charge_sectors(self):
+        """The distinct charges of the leg's sectors, sorted."""
+        return np.unique(self.charges, axis=0)
+
     # ------------------------------------------------------------------ checks
     def _compute_sorted(self):
         if self.block_number < 2:
@@ -490,6 +523,12 @@ class LegCharge:
 
     def is_bunched(self):
         return self.bunched
+
+    def test_sanity(self):
+        """Assert ascending slices from 0 and valid charges."""
+        assert np.all(self.slices[1:] >= self.slices[:-1])
+        assert self.slices[0] == 0
+        assert self.chinfo.check_valid(self.charges)
 
     def test_contractible(self, other):
         """Raise unless ``self`` and ``other`` can be contracted."""
@@ -524,6 +563,10 @@ class LegCharge:
             return NotImplemented
         return (self.qconj == other.qconj and self.chinfo == other.chinfo
                 and self._key == other._key)
+
+    def __ne__(self, other):
+        res = self.__eq__(other)
+        return res if res is NotImplemented else not res
 
     def __setstate__(self, state):
         # a pickle of any version: the saved slots, the key and the hash
@@ -670,6 +713,10 @@ class LegPipe(LegCharge):
     def conj(self):
         """Flip qconj of the pipe and of every constituent leg."""
         return LegPipe([l.conj() for l in self.legs], qconj=-self.qconj)
+
+    def outer_conj(self):
+        """Flip the pipe's qconj only, keeping the constituent legs."""
+        return LegPipe(self.legs, qconj=-self.qconj)
 
     def map_comb(self, comb):
         """``(offset_start, offset_stop, fused_qindex)`` of a sector

@@ -1,22 +1,26 @@
 r"""Charge-conserving block-sparse host tensors: :class:`Array` and friends.
 
-Port of the part of ``tenpy_tpu/linalg/np_conserved.py`` that the host side
-of the sweep engine runs: site operators, MPO construction, MPS tensors,
-environments and their initialisation, the write-back's canonical form
-and measurements (``svd``, ``qr``/``lq``, ``eigh``), the plane-wave
-excitations' complement of an isometry (``orthogonal_columns``), and the
-host DMRG engines (``concatenate`` for the subspace expansion, ``eigh``
-with a sort order for the density-matrix mixer, ``gauge_total_charge``,
-combining legs into given pipes), and the charge mappings that change
-a site's charges (``add_charge``, ``drop_charge``, ``change_charge``).
-An :class:`Array` holds its charge
-structure (legs, ``qtotal``, labels, the block rows ``_qdata``) in numpy
-and one CPU ``torch`` tensor per stored charge block in ``_data``.
-It is also what :func:`~tenpy_tpu_torch.linalg.packed.pack` takes and
+Port of ``tenpy_tpu/linalg/np_conserved.py``: construction (from dense
+arrays, functions, grids of arrays, ``zeros``/``ones``/``diag``, the
+detection of a missing leg's charges), indexing (``a[i, :, mask, ...]``,
+``take_slice``, ``get_block``/``set_block``), leg permutations and sorts,
+combining and splitting legs, blockwise arithmetic, the charge mappings,
+and the decompositions (``svd`` guarded by
+:mod:`~tenpy_tpu_torch.linalg.svd_robust`, ``qr``/``lq`` with ``mode`` and
+``cutoff``, ``eigh``/``eig``, ``speigs``, ``pinv``, ``polar``, ``expm``,
+``orthogonal_columns``).  An :class:`Array` holds its charge structure
+(legs, ``qtotal``, labels, the block rows ``_qdata``) in numpy and one CPU
+``torch`` tensor per stored charge block in ``_data``.  It is also what
+:func:`~tenpy_tpu_torch.linalg.packed.pack` takes and
 :func:`~tenpy_tpu_torch.linalg.packed.unpack` returns.
 
-Every block product of :func:`tensordot` is one ``torch.matmul`` on the
-host; the sweeps themselves run on the packed layout, never here.
+:func:`tensordot` matches the charge blocks by a cached plan of GEMM
+tasks.  A plan of more than ``NATIVE_MIN_TASKS`` float64 or complex128
+tasks runs in the C++ executor of :mod:`tenpy_tpu_torch.native` (torch's
+own BLAS, one call per task, no Python per task); a smaller plan, or one
+of another type, runs the per-task ``torch.matmul`` loop, which is the
+executor's plain version.  The sweeps themselves run on the packed
+layout, never here.
 """
 
 from __future__ import annotations
@@ -28,13 +32,18 @@ from collections import defaultdict
 import numpy as np
 import torch
 
-from .charges import QTYPE, LegCharge, LegPipe
+from .charges import QTYPE, ChargeInfo, LegCharge, LegPipe
+from . import svd_robust
 
-__all__ = ['Array', 'zeros', 'eye_like', 'diag', 'outer', 'inner',
-           'tensordot', 'grid_outer', 'norm', 'trace', 'svd', 'qr', 'lq',
-           'orthogonal_columns', 'polar', 'eigh', 'eigvalsh', 'expm',
-           'concatenate',
-           'detect_qtotal', 'conj_label', 'as_dtype', 'result_type']
+__all__ = ['Array', 'zeros', 'ones', 'eye_like', 'diag', 'outer', 'inner',
+           'tensordot', 'grid_outer', 'grid_concat', 'norm', 'trace', 'svd',
+           'pinv', 'qr', 'lq', 'orthogonal_columns', 'polar', 'eigh', 'eig',
+           'eigvalsh', 'eigvals', 'speigs', 'expm', 'concatenate',
+           'detect_qtotal', 'detect_legcharge', 'detect_grid_outer_legcharge',
+           'conj_label', 'as_dtype', 'result_type']
+
+# tensordot plans of more tasks than this run in the C++ executor
+NATIVE_MIN_TASKS = 16
 
 _NP_TO_TORCH = {np.dtype(np.float64): torch.float64,
                 np.dtype(np.float32): torch.float32,
@@ -175,6 +184,10 @@ class Array:
         return tuple(l.ind_len for l in self.legs)
 
     @property
+    def size(self):
+        return int(np.prod(self.shape))
+
+    @property
     def stored_blocks(self):
         return len(self._data)
 
@@ -196,6 +209,9 @@ class Array:
         except ValueError:
             raise KeyError(f"label {label!r} not in {self._labels}") from None
 
+    def get_leg_indices(self, labels):
+        return [self.get_leg_index(l) for l in labels]
+
     def get_leg(self, label):
         return self.legs[self.get_leg_index(label)]
 
@@ -208,6 +224,9 @@ class Array:
             raise ValueError("wrong number of labels")
         self._labels = labels
         return self
+
+    def set_leg_labels(self, labels):
+        return self.copy(deep=False).iset_leg_labels(labels)
 
     def ireplace_label(self, old, new):
         return self.ireplace_labels([old], [new])
@@ -226,7 +245,27 @@ class Array:
     def replace_labels(self, olds, news):
         return self.copy(deep=False).ireplace_labels(olds, news)
 
+    def idrop_labels(self, old=None):
+        """Set the labels ``old`` (default: every label) to None."""
+        if old is None:
+            self._labels = (None,) * self.rank
+        else:
+            lab = list(self._labels)
+            for o in old:
+                lab[self.get_leg_index(o)] = None
+            self._labels = tuple(lab)
+        return self
+
     # ----------------------------------------------------------- construction
+    @classmethod
+    def from_ndarray_trivial(cls, data_flat, dtype=None, labels=None):
+        """Dense array -> Array with trivial (chargeless) legs: one block."""
+        data_flat = _as_block(data_flat, dtype)
+        chinfo = ChargeInfo.trivial()
+        legs = [LegCharge.from_trivial(d, chinfo) for d in data_flat.shape]
+        res = cls(legs, data_flat.dtype, None, labels)
+        return res._set_blocks(np.zeros((1, len(legs)), QTYPE), [data_flat])
+
     @classmethod
     def from_ndarray(cls, data_flat, legcharges, dtype=None, qtotal=None,
                      labels=None, raise_wrong_sector=False,
@@ -350,6 +389,167 @@ class Array:
     def to_numpy(self):
         return self.to_ndarray().numpy()
 
+    # -------------------------------------------------------- block access
+    def get_block(self, qindices, insert_zeros=False):
+        """The block of the sector indices ``qindices``; where none is
+        stored, zeros with ``insert_zeros``, else None."""
+        row = np.asarray(qindices, QTYPE)
+        idx = self._find_block(row)
+        if idx is not None:
+            return self._data[idx]
+        if insert_zeros:
+            return torch.zeros(_block_shape(self.legs, row), dtype=self.dtype)
+        return None
+
+    def _find_block(self, row):
+        """The position of ``row`` in the lexsorted ``_qdata`` or None."""
+        q = self._qdata
+        lo, hi = 0, len(q)
+        target = tuple(int(x) for x in row)
+        while lo < hi:
+            mid = (lo + hi) // 2
+            r = tuple(int(x) for x in q[mid])
+            if r < target:
+                lo = mid + 1
+            elif r > target:
+                hi = mid
+            else:
+                return mid
+        return None
+
+    def set_block(self, qindices, block):
+        """Insert or overwrite the block of ``qindices`` (which must obey
+        the charge rule)."""
+        row = np.asarray(qindices, QTYPE)
+        if tuple(_row_qtotal(self.legs, row)) != self.qtotal:
+            raise ValueError("block violates charge rule")
+        block = _as_block(block, self.dtype)
+        if tuple(block.shape) != _block_shape(self.legs, row):
+            raise ValueError(f"block shape {tuple(block.shape)} != "
+                             f"{_block_shape(self.legs, row)}")
+        idx = self._find_block(row)
+        if idx is not None:
+            self._data[idx] = block
+        else:
+            self._set_blocks(np.concatenate([self._qdata, row[None, :]]),
+                             self._data + [block])
+        return self
+
+    def __getitem__(self, inds):
+        """``a[i, j, ...]``: with every index an int, the element (a 0-dim
+        tensor); else ints fix legs (:meth:`take_slice`), and slices and
+        boolean masks project legs (:meth:`iproject`); ``...`` stands for
+        the legs not named."""
+        inds = self._expand_ellipsis(inds)
+        if all(isinstance(i, (int, np.integer)) for i in inds):
+            row, within = [], []
+            for l, i in zip(self.legs, inds):
+                qi, r = l.get_qindex(int(i))
+                row.append(qi)
+                within.append(r)
+            blk = self.get_block(row)
+            if blk is None:
+                return torch.zeros((), dtype=self.dtype)
+            return blk[tuple(within)]
+        fix_axes, fix_inds, proj_axes, proj_masks = [], [], [], []
+        for a, (l, i) in enumerate(zip(self.legs, inds)):
+            if isinstance(i, (int, np.integer)):
+                fix_axes.append(a)
+                fix_inds.append(int(i))
+            elif isinstance(i, slice):
+                if i != slice(None):
+                    mask = np.zeros(l.ind_len, bool)
+                    mask[i] = True
+                    proj_axes.append(a)
+                    proj_masks.append(mask)
+            elif isinstance(i, np.ndarray) and i.dtype == bool:
+                proj_axes.append(a)
+                proj_masks.append(i)
+            else:
+                raise IndexError(f"unsupported index {i!r}")
+        res = self
+        if proj_axes:
+            res = res.copy(deep=False).iproject(proj_masks, proj_axes)
+        if fix_axes:
+            res = res.take_slice(fix_inds, fix_axes)
+        return res
+
+    def _expand_ellipsis(self, inds):
+        if not isinstance(inds, tuple):
+            inds = (inds,)
+        if any(i is Ellipsis for i in inds):
+            k = next(k for k, i in enumerate(inds) if i is Ellipsis)
+            fill = self.rank - (len(inds) - 1)
+            inds = inds[:k] + (slice(None),) * fill + inds[k + 1:]
+        if len(inds) < self.rank:
+            inds = inds + (slice(None),) * (self.rank - len(inds))
+        if len(inds) != self.rank:
+            raise IndexError(f"too many indices for rank-{self.rank} Array")
+        return inds
+
+    def __setitem__(self, inds, value):
+        """``a[i, j, ...] = v`` for one element (every index an int).  An
+        element outside the stored blocks starts its block; one that
+        violates the charge rule raises unless ``v`` is zero."""
+        inds = self._expand_ellipsis(inds)
+        if not all(isinstance(i, (int, np.integer)) for i in inds):
+            raise NotImplementedError(
+                "only full integer indexing is supported for __setitem__")
+        row, within = [], []
+        for l, i in zip(self.legs, inds):
+            qi, r = l.get_qindex(int(i))
+            row.append(qi)
+            within.append(r)
+        row = np.asarray(row, QTYPE)
+        idx = self._find_block(row)
+        if idx is None:
+            if tuple(_row_qtotal(self.legs, row)) != self.qtotal:
+                if value == 0:
+                    return
+                raise ValueError("can't set nonzero element: "
+                                 "block violates the charge rule")
+            blk = torch.zeros(_block_shape(self.legs, row), dtype=self.dtype)
+            blk[tuple(within)] = value
+            self.set_block(row, blk)
+            return
+        blk = self._data[idx].clone()      # blocks may be shared by copies
+        blk[tuple(within)] = value
+        self._data[idx] = blk
+
+    def take_slice(self, indices, axes):
+        """Fix ``indices`` on the legs ``axes``: the array of the other
+        legs, like ``a[:, i, j, :]``; ``qtotal`` loses the charge of every
+        fixed index."""
+        if not isinstance(axes, (list, tuple)):
+            axes = [axes]
+        if not isinstance(indices, (list, tuple, np.ndarray)):
+            indices = [indices]
+        axes = [self.get_leg_index(a) if isinstance(a, str) else int(a)
+                for a in axes]
+        indices = [int(i) for i in indices]
+        if len(axes) != len(indices):
+            raise ValueError("len(axes) != len(indices)")
+        if len(axes) == 0:
+            return self.copy(deep=True)
+        if self.rank == len(axes):
+            raise ValueError("cannot fix every leg; use a[i, j, ...] instead")
+        pos = {a: self.legs[a].get_qindex(i) for a, i in zip(axes, indices)}
+        keep_axes = [a for a in range(self.rank) if a not in pos]
+        qtotal = np.asarray(self.qtotal, QTYPE).copy()
+        for a, (qi, _) in pos.items():
+            qtotal -= np.asarray(self.legs[a].get_charge(qi), QTYPE)
+        res = Array([self.legs[a] for a in keep_axes], self.dtype,
+                    self.chinfo.make_valid(qtotal),
+                    [self._labels[a] for a in keep_axes])
+        sel = np.ones(len(self._qdata), bool)
+        for a, (qi, _) in pos.items():
+            sel &= self._qdata[:, a] == qi
+        sl = tuple(pos[a][1] if a in pos else slice(None)
+                   for a in range(self.rank))
+        qdata = self._qdata[np.ix_(sel, np.asarray(keep_axes, np.intp))]
+        return res._set_blocks(qdata, [blk[sl] for blk, k
+                                       in zip(self._data, sel) if k])
+
     # ------------------------------------------------------------------ hdf5
     def save_hdf5(self, hdf5_saver, h5gr, subpath):
         """The reference layout: children ``chinfo``, ``legs``, ``dtype``,
@@ -390,11 +590,19 @@ class Array:
 
     def test_sanity(self):
         assert len(self._data) == len(self._qdata)
+        for l in self.legs:
+            l.test_sanity()
         for row, block in zip(self._qdata, self._data):
             assert tuple(_row_qtotal(self.legs, row)) == self.qtotal
             assert tuple(block.shape) == _block_shape(self.legs, row)
         rows = [tuple(r) for r in self._qdata]
         assert rows == sorted(rows) and len(set(rows)) == len(rows)
+
+    def sparse_stats(self):
+        """The fill of the array, as text."""
+        stored = sum(int(np.prod(b.shape)) for b in self._data)
+        return (f"{self.stored_blocks} blocks, {stored}/{self.size} entries "
+                f"({100.0 * stored / max(self.size, 1):.1f}% filled)")
 
     # ----------------------------------------------------------- transpose
     def itranspose(self, perm=None):
@@ -414,6 +622,86 @@ class Array:
     def transpose(self, perm=None):
         return self.copy(deep=False).itranspose(perm)
 
+    def permute(self, perm, axis):
+        """Any permutation of the indices of leg ``axis``: ``res[i, ...] =
+        self[perm[i], ...]``.  It mixes charge sectors, so every block is
+        built again row by row (for small legs); the new leg is bunched.
+        :meth:`sort_legcharge` takes it for a leg's sort."""
+        ax = self.get_leg_index(axis)
+        perm = np.asarray(perm, np.intp)
+        oldleg = self.legs[ax]
+        if len(perm) != oldleg.ind_len or \
+                not np.array_equal(np.sort(perm), np.arange(oldleg.ind_len)):
+            raise ValueError("not a permutation of the leg's indices")
+        _, newleg = LegCharge.from_qflat(self.chinfo, oldleg.to_qflat()[perm],
+                                         oldleg.qconj).bunch()
+        old_slices = np.asarray(oldleg.slices, np.intp)
+        src_qi = np.searchsorted(old_slices, perm, side='right') - 1
+        src_off = perm - old_slices[src_qi]
+        by_old_qi = defaultdict(list)     # old sector on ax -> block indices
+        for d, row in enumerate(self._qdata):
+            by_old_qi[int(row[ax])].append(d)
+        new_blocks = {}                   # new row -> block, ax moved first
+        new_slices = np.asarray(newleg.slices, np.intp)
+        for ni in range(newleg.block_number):
+            beg, end = int(new_slices[ni]), int(new_slices[ni + 1])
+            qis, offs = src_qi[beg:end], src_off[beg:end]
+            for qi in np.unique(qis):
+                rows = np.nonzero(qis == qi)[0]
+                for d in by_old_qi.get(int(qi), ()):
+                    key = tuple(ni if x == ax else int(r)
+                                for x, r in enumerate(self._qdata[d]))
+                    src = self._data[d].movedim(ax, 0)
+                    blk = new_blocks.get(key)
+                    if blk is None:
+                        blk = new_blocks[key] = torch.zeros(
+                            (end - beg,) + tuple(src.shape[1:]),
+                            dtype=self.dtype)
+                    blk[torch.from_numpy(rows)] = \
+                        src[torch.from_numpy(offs[rows])].to(self.dtype)
+        res = self.copy(deep=False)
+        res.legs = self.legs[:ax] + (newleg,) + self.legs[ax + 1:]
+        rows = sorted(new_blocks)
+        return res._set_blocks(
+            np.array(rows, QTYPE).reshape(len(rows), self.rank),
+            [new_blocks[r].movedim(0, ax) for r in rows])
+
+    def sort_legcharge(self, sort=True, bunch=True):
+        """Sort and bunch the sectors of every leg: ``(perms, res)`` with
+        ``res[i0, i1, ...] = self[perms[0][i0], perms[1][i1], ...]``.
+        ``sort`` is one bool, or one entry per leg (a bool or a flat
+        permutation to apply); ``bunch`` one bool or one per leg.  A leg
+        with ``sort=False`` and ``bunch=True`` is still bunched; a leg given
+        a permutation is always bunched (:meth:`permute`)."""
+        sort = [sort] * self.rank if isinstance(sort, (bool, np.bool_)) \
+            else list(sort)
+        bunch = [bunch] * self.rank if isinstance(bunch, (bool, np.bool_)) \
+            else list(bunch)
+        if len(sort) != self.rank or len(bunch) != self.rank:
+            raise ValueError("wrong len for sort or bunch")
+        res = self.copy(deep=False)
+        perms = []
+        for ax in range(self.rank):
+            leg = res.legs[ax]
+            s = bool(sort[ax]) if isinstance(sort[ax], np.bool_) else sort[ax]
+            if not isinstance(s, bool):
+                perm_flat = np.asarray(s, np.intp)
+                perms.append(perm_flat)
+                res = res.permute(perm_flat, ax)
+                continue
+            if s and leg.block_number > 1:
+                perm_flat, _ = leg.sort(bunch=bool(bunch[ax]))
+            else:
+                perm_flat = np.arange(leg.ind_len)
+            perms.append(perm_flat)
+            needs_bunch = (bool(bunch[ax]) and leg.block_number > 1
+                           and leg.bunch()[1].block_number
+                           != leg.block_number)
+            if not np.array_equal(perm_flat, np.arange(leg.ind_len)) \
+                    or needs_bunch:
+                res = res.permute(perm_flat, ax)
+        return perms, res
+
     def iconj(self, complex_conj=True):
         """Conjugate: flip every leg's qconj, negate qtotal, conjugate
         complex blocks and star-flip the labels."""
@@ -427,6 +715,28 @@ class Array:
 
     def conj(self, complex_conj=True):
         return self.copy(deep=False).iconj(complex_conj)
+
+    def complex_conj(self):
+        """The blocks conjugated; legs, charges and labels kept."""
+        res = self.copy(deep=False)
+        if self.dtype.is_complex:
+            res._data = [b.conj() for b in res._data]
+        return res
+
+    @property
+    def real(self):
+        res = self.copy(deep=False)
+        res._data = [b.real for b in res._data]
+        res.dtype = self.dtype.to_real()
+        return res
+
+    @property
+    def imag(self):
+        res = self.copy(deep=False)
+        res._data = [b.imag if b.is_complex() else torch.zeros_like(b)
+                     for b in res._data]
+        res.dtype = self.dtype.to_real()
+        return res
 
     def gauge_total_charge(self, axis, newqtotal=None, new_qconj=None):
         """A copy with total charge ``newqtotal`` (default zero): the
@@ -508,6 +818,34 @@ class Array:
 
     def __neg__(self):
         return self * (-1)
+
+    def iscale_prefactor(self, c):
+        c = _scalar(c)
+        self._data = [b * c for b in self._data]
+        self.dtype = _scalar_dtype(self.dtype, c)
+        return self
+
+    def iadd_prefactor_other(self, alpha, other):
+        """``self += alpha * other``, in place."""
+        res = self._binary(other * alpha, lambda a, b: a + b)
+        self.legs, self.qtotal = res.legs, res.qtotal
+        self._qdata, self._data, self.dtype = res._qdata, res._data, res.dtype
+        return self
+
+    def unary_blockwise(self, func):
+        """A copy with ``func`` applied to every block."""
+        return self.copy(deep=False).iunary_blockwise(func)
+
+    def iunary_blockwise(self, func):
+        self._data = [func(b) for b in self._data]
+        if self._data:
+            self.dtype = self._data[0].dtype
+        return self
+
+    def binary_blockwise(self, func, other):
+        """``func(a_block, other_block)`` over the union of stored blocks
+        (a missing block is zeros)."""
+        return self._binary(other, func)
 
     # ----------------------------------------------------- scale / project
     def iscale_axis(self, s, axis=-1):
@@ -609,6 +947,15 @@ class Array:
     def norm(self):
         return norm(self)
 
+    def __array__(self, dtype=None, copy=None):
+        arr = self.to_numpy()
+        return arr.astype(dtype) if dtype is not None else arr
+
+    def make_pipe(self, axes, qconj=1):
+        """The :class:`LegPipe` of the legs ``axes``."""
+        return LegPipe([self.legs[self.get_leg_index(a)] for a in axes],
+                       qconj=qconj)
+
     # ------------------------------------------------------- combine / split
     def combine_legs(self, combine_legs, pipes=None, qconj=None):
         """Fuse groups of legs into :class:`LegPipe` s.
@@ -703,6 +1050,55 @@ class Array:
                                     if k not in axes]) for b in self._data])
         return res
 
+    def add_trivial_leg(self, axis=0, label=None, qconj=1):
+        """A new leg of length 1 and zero charge at ``axis``."""
+        legs = list(self.legs)
+        legs.insert(axis, LegCharge.from_trivial(1, self.chinfo, qconj))
+        labels = list(self._labels)
+        labels.insert(axis, label)
+        res = Array(legs, self.dtype, self.qtotal, labels)
+        return res._set_blocks(np.insert(self._qdata, axis, 0, axis=1),
+                               [b.unsqueeze(axis) for b in self._data])
+
+    def item(self):
+        """The one entry of an array whose legs all have length 1."""
+        if any(l.ind_len != 1 for l in self.legs):
+            raise ValueError("not a scalar")
+        if self._data:
+            return self._data[0].reshape(())
+        return torch.zeros((), dtype=self.dtype)
+
+    def as_completely_blocked(self):
+        """Every leg sorted and bunched, so that each charge sector appears
+        once: ``(perms, res)``, ``perms[a]`` the flat permutation applied to
+        leg ``a`` (``self`` itself where every leg already is)."""
+        perms, legs_new, need = [], [], False
+        for leg in self.legs:
+            if leg.is_sorted() and leg.is_bunched():
+                perms.append(np.arange(leg.ind_len, dtype=np.intp))
+                legs_new.append(leg)
+            else:
+                p, leg2 = leg.sort(bunch=True)
+                perms.append(np.asarray(p, dtype=np.intp))
+                legs_new.append(leg2)
+                need = True
+        if not need:
+            return perms, self
+        arr = self.to_ndarray()
+        for ax, p in enumerate(perms):
+            arr = arr.index_select(ax, torch.from_numpy(p))
+        res = Array.from_ndarray(arr, legs_new, dtype=self.dtype,
+                                 qtotal=self.qtotal)
+        res.iset_leg_labels(self.get_leg_labels())
+        return perms, res
+
+    def ipurge_zeros(self, cutoff=1e-15, norm_order=None):
+        """Drop the blocks whose largest entry is at or below ``cutoff``."""
+        keep = [i for i, b in enumerate(self._data)
+                if b.numel() and float(b.abs().max()) > cutoff]
+        return self._set_blocks(self._qdata[keep],
+                                [self._data[i] for i in keep])
+
 
 def _check_same_structure(a, b):
     if a.rank != b.rank:
@@ -716,6 +1112,11 @@ def _check_same_structure(a, b):
 # ------------------------------------------------------------- constructors
 def zeros(legcharges, dtype=torch.float64, qtotal=None, labels=None):
     return Array(legcharges, dtype, qtotal, labels)
+
+
+def ones(legcharges, dtype=torch.float64, qtotal=None, labels=None):
+    """Every charge-allowed block filled with ones."""
+    return Array.from_func(np.ones, legcharges, dtype, qtotal, labels=labels)
 
 
 def eye_like(a, axis=0, labels=None):
@@ -755,7 +1156,125 @@ def detect_qtotal(flat_array, legcharges):
     return _row_qtotal(legcharges, row)
 
 
+def _host_numpy(x):
+    """A numpy array of a tensor (on the host, conjugation resolved) or of
+    anything numpy takes."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().resolve_conj().numpy()
+    return np.asarray(x)
+
+
+def detect_legcharge(flat_array, chinfo, legcharges, qtotal=None, qconj=+1,
+                     cutoff=None):
+    """The charges of the one leg given as None in ``legcharges``, from the
+    entries of a dense array above ``cutoff`` (default 1e-12 of its
+    largest): each index of that leg takes the charge that its first
+    nonzero entry needs for the total charge ``qtotal``; an index without
+    one takes charge 0."""
+    flat = _host_numpy(flat_array)
+    if cutoff is None:
+        cutoff = 1e-12 * max(float(np.max(np.abs(flat))), 1e-300)
+    legs = list(legcharges)
+    ax = legs.index(None)
+    qtotal = np.asarray(chinfo.make_valid(qtotal), QTYPE)
+    qflat = np.zeros((flat.shape[ax], chinfo.qnumber), QTYPE)
+    moved = np.moveaxis(flat, ax, 0)
+    other = [l for k, l in enumerate(legs) if k != ax]
+    for i in range(flat.shape[ax]):
+        nz = np.nonzero(np.abs(moved[i]) > cutoff)
+        if len(nz[0]) == 0:
+            continue
+        q = np.zeros(chinfo.qnumber, QTYPE)
+        for l, p in zip(other, [n[0] for n in nz]):
+            qi, _ = l.get_qindex(int(p))
+            q += l.charges[qi] * l.qconj
+        qflat[i] = chinfo.make_valid((qtotal - q) * qconj)
+    return LegCharge.from_qflat(chinfo, qflat, qconj)
+
+
+def _object_grid(grid, ndim):
+    """A nested list (or object array) of entries as an object array of
+    ``ndim`` dimensions, the entries untouched (``np.asarray`` would turn
+    equal-shaped Arrays into arrays of their entries)."""
+    if isinstance(grid, np.ndarray) and grid.dtype == object \
+            and grid.ndim == ndim:
+        return grid
+    shape, g = [], grid
+    for _ in range(ndim):
+        shape.append(len(g))
+        g = g[0]
+    res = np.empty(shape, dtype=object)
+    for idx in np.ndindex(*shape):
+        e = grid
+        for i in idx:
+            e = e[i]
+        res[idx] = e
+    return res
+
+
+def detect_grid_outer_legcharge(grid, grid_legs, qtotal=None, qconj=1,
+                                bunch=False):
+    """``grid_legs`` with its one None entry replaced by the leg that
+    :func:`grid_outer` needs for the total charge ``qtotal`` (default 0),
+    from the entries of the grid; raises where two entries disagree."""
+    grid = _object_grid(grid, len(grid_legs))
+    chinfo = next((e.chinfo for e in grid.ravel() if e is not None), None)
+    if chinfo is None:
+        raise ValueError("empty grid")
+    qtotal = np.asarray(chinfo.make_valid(qtotal), QTYPE)
+    legs = list(grid_legs)
+    ax = legs.index(None)
+    qflat = np.zeros((grid.shape[ax], chinfo.qnumber), QTYPE)
+    found = np.zeros(grid.shape[ax], bool)
+    for idx in np.ndindex(*grid.shape):
+        entry = grid[idx]
+        if entry is None:
+            continue
+        q = qtotal.copy()
+        for k, (l, i) in enumerate(zip(legs, idx)):
+            if k != ax:
+                qi, _ = l.get_qindex(int(i))
+                q = q - l.charges[qi] * l.qconj
+        q = q - np.asarray(entry.qtotal, QTYPE)
+        i = idx[ax]
+        qv = chinfo.make_valid(chinfo.make_valid(q) * qconj)
+        if found[i] and not np.array_equal(qflat[i], qv):
+            raise ValueError("inconsistent grid charges")
+        qflat[i] = qv
+        found[i] = True
+    leg = LegCharge.from_qflat(chinfo, qflat, qconj)
+    return [leg if k == ax else l for k, l in enumerate(legs)]
+
+
 # ---------------------------------------------------------------- tensordot
+class _Plan:
+    """A tensordot's block structure: ``out_rows``, ``out_shapes`` and
+    ``tasks`` (``(i, j, out_index, m, k, n)`` in execution order), with
+    the executor's task arrays made once (:meth:`native_tables`)."""
+    __slots__ = ('out_rows', 'out_shapes', 'tasks', '_native')
+
+    def __init__(self, out_rows, out_shapes, tasks):
+        self.out_rows, self.out_shapes, self.tasks = out_rows, out_shapes, tasks
+        self._native = None
+
+    def native_tables(self):
+        """``(ti, tj, out_offsets, dims, first, out_sizes)``: the operand
+        blocks of each task, the offset of its output block in one flat
+        buffer, its ``(m, k, n)``, whether it writes (1) or adds (0), and
+        the entries of each output block."""
+        if self._native is None:
+            t = np.asarray(self.tasks, np.int64).reshape(len(self.tasks), 6)
+            sizes = np.array([int(np.prod(sh)) for sh in self.out_shapes],
+                             np.int64)
+            offs = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+            first = np.zeros(len(t), np.uint8)
+            first[np.unique(t[:, 2], return_index=True)[1]] = 1
+            self._native = (t[:, 0].copy(), t[:, 1].copy(), offs[t[:, 2]],
+                            np.ascontiguousarray(t[:, 3:], np.int32), first,
+                            sizes.tolist())
+        return self._native
+
+
 _TD_PLAN_CACHE = {}
 
 
@@ -764,8 +1283,8 @@ def _struct_sig(a):
 
 
 def _tensordot_plan(a, b, n_axes):
-    """(out_rows, out_shapes, tasks) of ``a``'s last ``n_axes`` legs with
-    ``b``'s first; ``tasks`` lists ``(i, j, out_index, m, k, n)``.
+    """The :class:`_Plan` of ``a``'s last ``n_axes`` legs with ``b``'s
+    first; its ``tasks`` list ``(i, j, out_index, m, k, n)``.
 
     The pairs are made in the order of a loop over ``a``'s contracted
     sectors (in the order they first occur in ``a``), ``a``'s rows and
@@ -818,7 +1337,7 @@ def _tensordot_plan(a, b, n_axes):
     out_shapes = [tuple(r) for r in sizes.tolist()]
     perm = np.lexsort((n, k, m))
     tasks = np.stack([ti, tj, oi, m, k, n], axis=1)[perm].tolist()
-    plan = (out_rows, out_shapes, tasks)
+    plan = _Plan(out_rows, out_shapes, tasks)
     if len(_TD_PLAN_CACHE) > 4096:
         _TD_PLAN_CACHE.clear()
     _TD_PLAN_CACHE[key] = plan
@@ -875,12 +1394,21 @@ def tensordot(a, b, axes=2):
                 at._labels[:ka] + bt._labels[n_axes:])
     if at.stored_blocks == 0 or bt.stored_blocks == 0:
         return res
-    out_rows, out_shapes, tasks = _tensordot_plan(at, bt, n_axes)
+    plan = _tensordot_plan(at, bt, n_axes)
     a_data = [x if x.dtype == dtype else x.to(dtype) for x in at._data]
     b_data = [x if x.dtype == dtype else x.to(dtype) for x in bt._data]
+    run = _run_native if len(plan.tasks) > NATIVE_MIN_TASKS \
+        and dtype in (torch.float64, torch.complex128) else _run_loop
+    res._set_blocks(plan.out_rows, run(plan, a_data, b_data, dtype))
+    return res
+
+
+def _run_loop(plan, a_data, b_data, dtype):
+    """The plan's output blocks, one ``torch.matmul``/``addmm_`` per task
+    (the plain version of :func:`_run_native`)."""
     a_mats, b_mats = {}, {}      # each block as its matrix, made once
-    partial = [None] * len(out_shapes)
-    for i, j, oi, m, k, n in tasks:
+    partial = [None] * len(plan.out_shapes)
+    for i, j, oi, m, k, n in plan.tasks:
         am = a_mats.get(i)
         if am is None:
             am = a_mats[i] = a_data[i].reshape(m, k)
@@ -891,9 +1419,33 @@ def tensordot(a, b, axes=2):
             partial[oi] = torch.matmul(am, bm)
         else:
             partial[oi].addmm_(am, bm)
-    res._set_blocks(out_rows, [p.reshape(s)
-                               for p, s in zip(partial, out_shapes)])
-    return res
+    return [p.reshape(s) for p, s in zip(partial, plan.out_shapes)]
+
+
+def _dense(x):
+    """``x`` contiguous in memory, with no pending conjugation or
+    negation."""
+    if x.is_conj() or x.is_neg():
+        x = x.resolve_conj().resolve_neg()
+    return x.contiguous()
+
+
+def _run_native(plan, a_data, b_data, dtype):
+    """The plan's output blocks from the C++ executor
+    (:mod:`tenpy_tpu_torch.native`): views into one new flat buffer."""
+    from .. import native
+    ti, tj, offs, dims, first, sizes = plan.native_tables()
+    a_data = [_dense(x) for x in a_data]
+    b_data = [_dense(x) for x in b_data]
+    a_ptr = np.fromiter((x.data_ptr() for x in a_data), np.int64,
+                        len(a_data))
+    b_ptr = np.fromiter((x.data_ptr() for x in b_data), np.int64,
+                        len(b_data))
+    out = torch.empty(sum(sizes), dtype=dtype)
+    native.run_tasks(dtype, a_ptr[ti], b_ptr[tj],
+                     out.data_ptr() + offs * out.element_size(), dims, first)
+    return [p.view(s) for p, s in zip(torch.split(out, sizes),
+                                      plan.out_shapes)]
 
 
 def inner(a, b, axes='labels', do_conj=False):
@@ -981,12 +1533,27 @@ def concatenate(arrays, axis=0):
     return res
 
 
+def grid_concat(grid, axes, copy=True):
+    """Concatenate a (nested) grid of arrays along the legs ``axes``, one
+    per grid dimension (:func:`concatenate`, innermost first); ``copy`` is
+    accepted for the reference's signature (blocks are always new)."""
+    grid = _object_grid(grid, len(axes))
+    if grid.ndim == 1:
+        if any(g is None for g in grid):
+            raise ValueError("grid_concat with None entries needs full grid")
+        return concatenate(list(grid), axes[0])
+    return concatenate([grid_concat(grid[i], axes[1:], copy)
+                        for i in range(grid.shape[0])], axes[0])
+
+
 def grid_outer(grid, grid_legs, qtotal=None, grid_labels=None):
     """Sum of outer products ``res[i, j, ...] += grid[i][j]`` over a grid of
-    arrays (``None`` entries are zero); the MPO builder's W tensors."""
-    grid = np.asarray(grid, dtype=object)
-    if len(grid_legs) != grid.ndim:
-        raise ValueError("grid_legs must match grid dimension")
+    arrays (``None`` entries are zero); the MPO builder's W tensors.  One
+    None entry of ``grid_legs`` is detected
+    (:func:`detect_grid_outer_legcharge`)."""
+    grid = _object_grid(grid, len(grid_legs))
+    if any(l is None for l in grid_legs):
+        grid_legs = detect_grid_outer_legcharge(grid, grid_legs, qtotal)
     entries = [e for e in grid.ravel() if e is not None]
     if not entries:
         raise ValueError("empty grid")
@@ -1200,7 +1767,10 @@ def svd(a, compute_uv=True, cutoff=None, qtotal_LR=(None, None),
     singular values at or below it are dropped.  Blocks that share a row or
     column sector (legs with repeated charges) are decomposed together, as
     connected components of the (row, column) sector graph.  ``qtotal_LR``
-    splits ``a``'s charge between U and VH (default all on VH)."""
+    splits ``a``'s charge between U and VH (default all on VH).  Each
+    component's SVD is
+    :func:`~tenpy_tpu_torch.linalg.svd_robust.svd` (gesdd, retried with
+    gesvd where it fails)."""
     if a.rank != 2:
         raise ValueError("svd needs a 2-leg array; combine_legs first")
     if a.stored_blocks == 0:
@@ -1227,7 +1797,7 @@ def svd(a, compute_uv=True, cutoff=None, qtotal_LR=(None, None),
                 sub[int(row_off[rpos[r]]):int(row_off[rpos[r] + 1]),
                     int(col_off[cpos[c]]):int(col_off[cpos[c] + 1])] = \
                     a._data[bi]
-        u, s, vh = _robust_svd(sub)
+        u, s, vh = svd_robust.svd(sub, full_matrices=False)
         if cutoff is not None:
             keep = np.nonzero(s.numpy() > cutoff)[0]
             if len(keep) < len(s):
@@ -1294,13 +1864,16 @@ def _matrix_block_components(a):
             x = parent[x]
         return x
 
+    def union(x, y):
+        rx, ry = find(x), find(y)
+        if rx != ry:
+            parent[rx] = ry
+
     for row in a._qdata:
         r, c = ('r', int(row[0])), ('c', int(row[1]))
         parent.setdefault(r, r)
         parent.setdefault(c, c)
-        rr, rc = find(r), find(c)
-        if rr != rc:
-            parent[rr] = rc
+        union(r, c)
     comps = {}
     for bi, row in enumerate(a._qdata):
         comp = comps.setdefault(find(('r', int(row[0]))), [set(), set(), []])
@@ -1311,19 +1884,36 @@ def _matrix_block_components(a):
             for rows, cols, idxs in comps.values()]
 
 
-def _robust_svd(block):
-    """``torch.linalg.svd`` (LAPACK gesdd); where it fails or returns NaN,
-    scipy's gesvd."""
-    try:
-        u, s, vh = torch.linalg.svd(block, full_matrices=False)
-        if not torch.isnan(s).any():
-            return u, s, vh
-    except torch.linalg.LinAlgError:
-        pass
-    import scipy.linalg
-    u, s, vh = scipy.linalg.svd(block.numpy(), full_matrices=False,
-                                lapack_driver='gesvd')
-    return torch.from_numpy(u), torch.from_numpy(s), torch.from_numpy(vh)
+def speigs(a, charge_sector, k, *args, **kwargs):
+    """The ``k`` eigenpairs of largest magnitude of a square 2-leg Array in
+    one charge sector of leg 0 (scipy's ARPACK ``eigs`` on a
+    :class:`~tenpy_tpu_torch.linalg.sparse.FlatLinearOperator`; a sector
+    of at most ``max(k + 1, 3)`` entries densely): ``(W, vecs)`` with
+    ``vecs`` one-leg Arrays."""
+    import scipy.sparse.linalg
+    from .sparse import FlatLinearOperator
+    if a.rank != 2:
+        raise ValueError("speigs needs a square 2-leg Array")
+    linop = FlatLinearOperator.from_NpcArray(a, charge_sector=charge_sector)
+    n = linop.shape[0]
+    k = min(k, n - 2) if n > 2 else 1
+    if n <= max(k + 1, 3):
+        mat = np.stack([linop._matvec(np.eye(n)[:, j]) for j in range(n)], 1)
+        W, V = np.linalg.eig(mat)
+        order = np.argsort(-np.abs(W))[:k]
+        return W[order], [linop.flat_to_npc(V[:, j]) for j in order]
+    W, V = scipy.sparse.linalg.eigs(linop, k=k, *args, **kwargs)
+    return W, [linop.flat_to_npc(V[:, j]) for j in range(V.shape[1])]
+
+
+def pinv(a, cutoff=1e-15):
+    """The Moore-Penrose pseudo-inverse of a 2-leg Array, blockwise from
+    :func:`svd`: singular values at or below ``cutoff`` times the largest
+    count as zero."""
+    U, S, VH = svd(a)
+    Sinv = np.where(S > cutoff * np.max(S), 1. / np.where(S > 0, S, 1.), 0.)
+    X = VH.conj().itranspose([1, 0]).iscale_axis(Sinv, 1)
+    return tensordot(X, U.conj().itranspose([1, 0]), axes=[[1], [0]])
 
 
 def eigh(a, UPLO='L', sort=None):
@@ -1334,42 +1924,67 @@ def eigh(a, UPLO='L', sort=None):
     are ascending, or in the order ``sort`` ('m>', 'm<', '>', '<', as
     ``tenpy_tpu``'s numpy argsort).  ``UPLO`` is accepted for the API and,
     as in ``tenpy_tpu``, not used: the whole block is read."""
-    if a.rank != 2:
-        raise ValueError("need 2-leg array")
-    a.legs[0].test_contractible(a.legs[1])
-    if any(q != 0 for q in a.qtotal):
-        raise ValueError("eigh requires qtotal=0")
-    leg = a.legs[0]
-    W = np.zeros(leg.ind_len)
-    V = diag(1., leg, dtype=a.dtype)
-    v_rows = {tuple(r): i for i, r in enumerate(V._qdata)}
-    for row, block in zip(a._qdata, a._data):
-        if row[0] != row[1]:
-            raise ValueError("off-diagonal block in eigh")
-        w, v = torch.linalg.eigh(block)
-        w = w.numpy()
-        if sort is not None:
-            perm = _eig_sort_perm(w, sort)
-            w = w[perm]
-            v = v[:, torch.from_numpy(perm)]
-        W[leg.get_slice(int(row[0]))] = w
-        V._data[v_rows[(int(row[0]), int(row[0]))]] = v
-    return W, V
+    return _eig_worker(True, a, sort)
+
+
+def eig(a, sort=None):
+    """Blockwise general eigendecomposition (``torch.linalg.eig``) of a
+    square 2-leg Array of zero charge: as :func:`eigh`, with complex
+    eigenvalues and eigenvectors (in no order without ``sort``)."""
+    return _eig_worker(False, a, sort)
 
 
 def eigvalsh(a, UPLO='L', sort=None):
     """The eigenvalues of a hermitian square 2-leg Array of zero charge, a
     numpy vector along leg 0 (zeros in sectors without a stored block),
     ascending per sector or in the order ``sort`` (as :func:`eigh`)."""
+    return _eigvals_worker(True, a, sort)
+
+
+def eigvals(a, sort=None):
+    """The (complex) eigenvalues of a square 2-leg Array of zero charge, as
+    :func:`eigvalsh`."""
+    return _eigvals_worker(False, a, sort)
+
+
+def _check_square(a):
     if a.rank != 2:
         raise ValueError("need 2-leg array")
     a.legs[0].test_contractible(a.legs[1])
     if any(q != 0 for q in a.qtotal):
-        raise ValueError("eigvalsh requires qtotal=0")
+        raise ValueError("eigh/eig require qtotal=0")
+
+
+def _eig_worker(hermitian, a, sort):
+    _check_square(a)
     leg = a.legs[0]
-    W = np.zeros(leg.ind_len)
+    W = np.zeros(leg.ind_len, np.float64 if hermitian else np.complex128)
+    vdtype = a.dtype if hermitian else torch.promote_types(a.dtype,
+                                                           torch.complex64)
+    V = diag(1., leg, dtype=vdtype)
+    v_rows = {tuple(r): i for i, r in enumerate(V._qdata)}
     for row, block in zip(a._qdata, a._data):
-        w = torch.linalg.eigvalsh(block).numpy()
+        if row[0] != row[1]:
+            raise ValueError("off-diagonal block in eigh")
+        w, v = torch.linalg.eigh(block) if hermitian \
+            else torch.linalg.eig(block)
+        w = w.numpy()
+        if sort is not None:
+            perm = _eig_sort_perm(w, sort)
+            w = w[perm]
+            v = v[:, torch.from_numpy(perm)]
+        W[leg.get_slice(int(row[0]))] = w
+        V._data[v_rows[(int(row[0]), int(row[0]))]] = v.to(vdtype)
+    return W, V
+
+
+def _eigvals_worker(hermitian, a, sort):
+    _check_square(a)
+    leg = a.legs[0]
+    W = np.zeros(leg.ind_len, np.float64 if hermitian else np.complex128)
+    for row, block in zip(a._qdata, a._data):
+        w = (torch.linalg.eigvalsh(block) if hermitian
+             else torch.linalg.eigvals(block)).numpy()
         if sort is not None:
             w = w[_eig_sort_perm(w, sort)]
         W[leg.get_slice(int(row[0]))] = w
@@ -1405,10 +2020,14 @@ def expm(a):
     return res
 
 
-def qr(a, inner_labels=(None, None), pos_diag_R=False, qtotal_Q=None,
-       inner_qconj=+1):
-    """Blockwise QR of a 2-leg Array (reduced): ``a = Q @ R``; ``qtotal_Q``
-    (default zero) is the total charge of Q, R carries the rest."""
+def qr(a, mode='reduced', inner_labels=(None, None), cutoff=None,
+       pos_diag_R=False, qtotal_Q=None, inner_qconj=+1):
+    """Blockwise QR of a 2-leg Array: ``a = Q @ R``, each block's reduced
+    QR, or its complete QR with ``mode='complete'``; ``qtotal_Q`` (default
+    zero) is the total charge of Q, R carries the rest.  ``pos_diag_R``
+    makes R's diagonal real and non-negative; with ``cutoff`` the columns
+    of Q (rows of R) whose diagonal entry of R is at or below it in
+    magnitude are dropped, and a block that keeps none leaves no sector."""
     if a.rank != 2:
         raise ValueError("qr needs a 2-leg array")
     chinfo = a.chinfo
@@ -1416,7 +2035,8 @@ def qr(a, inner_labels=(None, None), pos_diag_R=False, qtotal_Q=None,
     qtotal_R = chinfo.make_valid(np.array(a.qtotal, QTYPE) - qtotal_Q)
     rows, q_blocks, r_blocks, charges, sizes = [], [], [], [], []
     for row, block in zip(a._qdata, a._data):
-        q, r = torch.linalg.qr(block, mode='reduced')
+        q, r = torch.linalg.qr(block, mode='complete' if mode == 'complete'
+                               else 'reduced')
         if pos_diag_R:
             d = torch.diagonal(r)
             big = d.abs() > 1e-300
@@ -1425,6 +2045,13 @@ def qr(a, inner_labels=(None, None), pos_diag_R=False, qtotal_Q=None,
                                 torch.ones_like(d))
             q = q * phase[None, :]
             r = r * phase.conj()[:, None]
+        if cutoff is not None:
+            keep = torch.diagonal(r).abs() > cutoff
+            if not bool(keep.all()):
+                idx = torch.nonzero(keep).reshape(-1)
+                q, r = q[:, idx], r[idx, :]
+            if q.shape[1] == 0:
+                continue
         rows.append(row)
         q_blocks.append(q)
         r_blocks.append(r)
@@ -1446,12 +2073,14 @@ def qr(a, inner_labels=(None, None), pos_diag_R=False, qtotal_Q=None,
     return Q, R
 
 
-def lq(a, inner_labels=(None, None), pos_diag_L=False, qtotal_L=None,
-       inner_qconj=-1):
-    """Blockwise LQ: ``a = L @ Q`` with Q right-isometric; ``qtotal_L``
+def lq(a, mode='reduced', inner_labels=(None, None), cutoff=None,
+       pos_diag_L=False, qtotal_L=None, inner_qconj=-1):
+    """Blockwise LQ: ``a = L @ Q`` with Q right-isometric, the :func:`qr`
+    of the transpose (``mode`` and ``cutoff`` as there); ``qtotal_L``
     (default zero) is the total charge of L, Q carries the rest."""
-    qt, rt = qr(a.transpose([1, 0]),
+    qt, rt = qr(a.transpose([1, 0]), mode=mode,
                 inner_labels=[inner_labels[1], inner_labels[0]],
+                cutoff=cutoff,
                 pos_diag_R=pos_diag_L,
                 qtotal_Q=None if qtotal_L is None else a.chinfo.make_valid(
                     np.array(a.qtotal, QTYPE) - np.array(qtotal_L, QTYPE)),

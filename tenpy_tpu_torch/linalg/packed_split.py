@@ -13,10 +13,28 @@ The layout change packed theta -> per-bond-sector matrices is one gather per
 (rows, cols) bucket group from a host-precomputed index map
 (:class:`SplitPlan`); every index is checked on the host when the plan is
 built, and the flat buffers carry a trailing zero slot for the padding
-entries.  The decomposition is ``torch.linalg.svd`` per bucket group (the
-JAX package used ``jnp.linalg.svd`` here too; its TPU-only Jacobi and
-QR/eigh backends are not ported).  A complex128 theta gives complex A and B
-and real Schmidt values; the cut and ``svd_min`` act on S alone.
+entries.  A complex128 theta gives complex A and B and real Schmidt
+values; the cut and ``svd_min`` act on S alone.
+
+Decomposition backends, per bucket group (``backend``):
+
+``'svd'`` (also ``None``, ``'auto'``)
+    ``torch.linalg.svd`` (cuSOLVER on the card, LAPACK on the host).
+``'qr_eigh'``
+    The eigh of the Gram matrix ``M^H M`` (its right singular vectors and
+    squared singular values), then ``U`` from a QR of ``M V``
+    (:func:`_decomp_qr_eigh`): the reference's ``use_eig_based_svd``
+    strategy, built from ``torch.linalg.eigh``, ``torch.linalg.qr`` and
+    matmuls.  Singular values below about 1e-8 of the largest lose relative
+    accuracy to the squaring.
+``'qr_eigh32'``
+    The same with the eigenvectors seeded by a float32 (complex64) eigh,
+    re-orthonormalized and ordered by their f64 Rayleigh quotients.
+
+The JAX package's one-sided Jacobi (``'jacobi'``, ``'jacobi32'``), a TPU
+device program, is not ported (ROADMAP.md, Queue 2 item 1).  The JAX
+package picks ``'jacobi'`` off the CPU by default; here the default is
+``'svd'`` everywhere.
 """
 
 from __future__ import annotations
@@ -365,6 +383,77 @@ def _build_split_plan(theta_p, bond, qtotal_A, group_multiple):
     return plan
 
 
+# ------------------------------------------------------ the decompositions
+def _decomp_qr_eigh(M, f32_seed=False):
+    """``(U, S, V)`` with ``M = U diag(S) V^H`` for a batch of matrices
+    ``M`` (N, R, C), singular values descending, from the Gram matrix's
+    eigh and a QR (matmul, eigh and qr only; ``tenpy_tpu``'s
+    ``_decomp_qr_eigh``).
+
+    For ``R >= C``: ``rho = M^H M`` is shifted by ``1e-13 / C`` of its
+    trace on the diagonal (the padded groups make it exactly singular; the
+    shift leaves the eigenvectors and is subtracted exactly from the
+    eigenvalues), ``S = sqrt(max(w - shift, 0))`` and ``V`` its eigenvectors,
+    descending, and ``U`` the Q of ``M V = Q R`` with each column's phase
+    set by ``diag(R)``, so that ``U S = M V``.  (``tenpy_tpu``, which takes
+    real matrices only, multiplies by the conjugate of that sign: the same
+    for a real sign.)  A wide ``M`` is decomposed through ``M^H``.
+    ``f32_seed`` takes the eigenvectors from a float32 (complex64) eigh of
+    ``rho`` divided by its trace (where that is not 0), orthonormalizes
+    them by a QR in the working type and orders them by their Rayleigh
+    quotients in ``rho``, which are then the eigenvalues.  The division
+    leaves the eigenvectors; ``tenpy_tpu`` casts ``rho`` as it is, which
+    cuSOLVER's complex64 eigh failed to converge on for the padded,
+    small-trace groups of a chi=512 TEBD update (NVIDIA H100 80GB HBM3,
+    700.00 W)."""
+    R, C = M.shape[-2], M.shape[-1]
+    Mh = M.conj().transpose(-1, -2)
+    if R < C:
+        V, S, U = _decomp_qr_eigh(Mh, f32_seed)
+        return U, S, V
+    rho = torch.matmul(Mh, M)
+    shift = (1e-13 / C) * torch.diagonal(rho, dim1=-2, dim2=-1).sum(-1).real
+    rho = rho + shift[:, None, None] * torch.eye(C, dtype=rho.dtype,
+                                                 device=rho.device)
+    if f32_seed:
+        low = torch.complex64 if rho.is_complex() else torch.float32
+        tr = torch.diagonal(rho, dim1=-2, dim2=-1).sum(-1).real
+        scale = torch.where(tr > 0, tr, torch.ones_like(tr))
+        _, V0 = torch.linalg.eigh((rho / scale[:, None, None]).to(low))
+        V, _ = torch.linalg.qr(V0.to(M.dtype).flip(-1))
+        w = (V.conj() * torch.matmul(rho, V)).sum(-2).real
+        order = torch.argsort(w, dim=-1, descending=True)
+        w = w.gather(-1, order)
+        V = V.gather(-1, order[:, None, :].expand(V.shape))
+    else:
+        w, V = torch.linalg.eigh(rho)
+        w, V = w.flip(-1), V.flip(-1)
+    S = torch.sqrt(torch.clamp(w - shift[:, None], min=0.))
+    U, Ru = torch.linalg.qr(torch.matmul(M, V))
+    d = torch.diagonal(Ru, dim1=-2, dim2=-1)
+    big = d.abs() > 0
+    sgn = torch.where(big, d / torch.where(big, d.abs(), 1.).to(d.dtype),
+                      torch.ones_like(d))
+    return U * sgn[:, None, :], S, V
+
+
+def _decomp(M, backend):
+    """``(U, S, Vh)`` of a batch of matrices by ``backend``."""
+    if backend in (None, 'auto', 'svd'):
+        return torch.linalg.svd(M, full_matrices=False)
+    U, S, V = _decomp_qr_eigh(M, f32_seed=backend == 'qr_eigh32')
+    return U, S, V.conj().transpose(-1, -2)
+
+
+def _check_backend(backend):
+    if backend in ('jacobi', 'jacobi32'):
+        raise NotImplementedError(
+            f"device-SVD backend {backend!r} (the JAX package's one-sided "
+            "Jacobi) is not ported: ROADMAP.md, Queue 2 item 1")
+    if backend not in (None, 'auto', 'svd', 'qr_eigh', 'qr_eigh32'):
+        raise ValueError(f"unknown device-SVD backend {backend!r}")
+
+
 # -------------------------------------------------------------- the split
 def _host_cut_masks(Ss, tot, chi_max, svd_min, trunc_cut):
     """The kept values of the host's ``truncate`` on the singular values
@@ -410,7 +499,8 @@ def split_truncate(theta_p, plan, chi_max, svd_min=1e-14, backend=None,
     plan : SplitPlan
     chi_max : int
     svd_min : float -- discard Schmidt values below this (relative).
-    backend : ``None``, ``'auto'`` or ``'svd'`` (``torch.linalg.svd``).
+    backend : ``None``, ``'auto'``, ``'svd'`` (``torch.linalg.svd``),
+        ``'qr_eigh'`` or ``'qr_eigh32'`` (:func:`_decomp_qr_eigh`).
     expand : bool -- subspace expansion (the engine's mixer): A/B keep the
         orthonormal singular directions of every capacity slot whose raw
         singular value exceeds ``expand_rtol * |theta|``, while S stays zero
@@ -433,9 +523,7 @@ def split_truncate(theta_p, plan, chi_max, svd_min=1e-14, backend=None,
     renorm : 0-dim tensor, sqrt(sum kept S^2) of the raw theta
     n_kept : 0-dim tensor, number of kept Schmidt values
     """
-    if backend not in (None, 'auto', 'svd'):
-        raise NotImplementedError(f"device-SVD backend {backend!r} is not "
-                                  "ported (only 'svd')")
+    _check_backend(backend)
     order = [theta_p.get_leg_index(l) for l in ('vL', 'p0', 'p1', 'vR')]
     if order != [0, 1, 2, 3]:
         theta_p = theta_p.transpose(order)
@@ -448,7 +536,7 @@ def split_truncate(theta_p, plan, chi_max, svd_min=1e-14, backend=None,
     Us, Ss, Vs = [], [], []
     for g, (gidx, cap_mask) in zip(plan.groups, tb['groups']):
         M = flat[gidx].reshape(g.N, g.R, g.C)
-        U, S, Vh = torch.linalg.svd(M, full_matrices=False)
+        U, S, Vh = _decomp(M, backend)
         Us.append(U)
         Ss.append(torch.where(cap_mask, S, 0.))
         Vs.append(Vh.transpose(-1, -2))

@@ -1,7 +1,10 @@
 """Small helpers for models, lattices, eigensolvers and simulations.
 
 Port of ``tenpy_tpu/tools/misc.py``: ``to_iterable``, ``to_array``,
-``argsort``, ``inverse_permutation``, ``find_subclass`` (by class name
+``argsort``, ``inverse_permutation``, the array and list helpers
+(``anynan``, ``list_to_dict_list``, ``atleast_2d_pad``,
+``transpose_list_list``, ``zero_if_close``, ``pad``,
+``group_by_degeneracy``), ``find_subclass`` (by class name
 among the loaded subclasses, or by a dotted ``module.Class`` path), the
 recursive-dict helpers of the simulation options (``get_recursive``,
 ``set_recursive``, ``update_recursive``, ``merge_recursive``,
@@ -24,7 +27,9 @@ import os
 import numpy as np
 
 __all__ = ['to_iterable', 'to_iterable_of_len', 'to_array', 'argsort',
-           'inverse_permutation', 'find_subclass', 'port_module_name',
+           'inverse_permutation', 'anynan', 'list_to_dict_list',
+           'atleast_2d_pad', 'transpose_list_list', 'zero_if_close', 'pad',
+           'group_by_degeneracy', 'find_subclass', 'port_module_name',
            'import_port_module',
            'get_recursive', 'set_recursive', 'update_recursive',
            'merge_recursive', 'flatten', 'setup_logging',
@@ -108,6 +113,91 @@ def inverse_permutation(perm):
     inv = np.empty_like(perm)
     inv[perm] = np.arange(len(perm))
     return inv
+
+
+def anynan(a):
+    """Whether ``a`` holds a NaN."""
+    return bool(np.isnan(np.sum(a)))
+
+
+def list_to_dict_list(l):
+    """``{value: [indices where it occurs]}`` of a list (list or array
+    entries keyed as tuples)."""
+    res = {}
+    for i, v in enumerate(l):
+        k = tuple(v) if isinstance(v, (list, np.ndarray)) else v
+        res.setdefault(k, []).append(i)
+    return res
+
+
+def atleast_2d_pad(a, pad_item=0):
+    """A ragged list of lists as a 2D array, short rows padded with
+    ``pad_item``."""
+    rows = [np.asarray(r).ravel() for r in a]
+    res = np.full((len(rows), max(len(r) for r in rows)), pad_item,
+                  dtype=np.result_type(*rows))
+    for i, r in enumerate(rows):
+        res[i, :len(r)] = r
+    return res
+
+
+def transpose_list_list(D, pad=None):
+    """The transpose of a list of lists, missing entries ``pad``."""
+    ncol = max(len(r) for r in D)
+    return [[r[j] if j < len(r) else pad for r in D] for j in range(ncol)]
+
+
+def zero_if_close(a, tol=1e-15):
+    """``a`` with entries (real and imaginary parts apart) below ``tol`` in
+    magnitude set to zero."""
+    a = np.asarray(a)
+    if np.iscomplexobj(a):
+        return (np.where(np.abs(a.real) < tol, 0., a.real)
+                + 1j * np.where(np.abs(a.imag) < tol, 0., a.imag))
+    return np.where(np.abs(a) < tol, 0., a)
+
+
+def pad(a, w_l=0, v_l=0, w_r=0, v_r=0, axis=0):
+    """``a`` padded along ``axis`` with ``w_l`` entries ``v_l`` on the left
+    and ``w_r`` entries ``v_r`` on the right."""
+    shape = list(a.shape)
+    shape[axis] += w_l + w_r
+    res = np.empty(shape, a.dtype)
+    idx = [slice(None)] * a.ndim
+    idx[axis] = slice(w_l, shape[axis] - w_r)
+    res[tuple(idx)] = a
+    if w_l:
+        idx[axis] = slice(0, w_l)
+        res[tuple(idx)] = v_l
+    if w_r:
+        idx[axis] = slice(shape[axis] - w_r, None)
+        res[tuple(idx)] = v_r
+    return res
+
+
+def group_by_degeneracy(E, *args, subset=None, cutoff=1e-12):
+    """Tuples of the indices (of ``subset``, default all) whose values of
+    ``E`` and of every array in ``args`` agree within ``cutoff``, in order
+    of first occurrence."""
+    E = np.asarray(E)
+    subset = np.arange(len(E)) if subset is None else np.asarray(subset)
+    groups = []
+    used = np.zeros(len(subset), bool)
+    for i in range(len(subset)):
+        if used[i]:
+            continue
+        gi = [subset[i]]
+        used[i] = True
+        for j in range(i + 1, len(subset)):
+            if used[j]:
+                continue
+            same = all(abs(x[subset[i]] - x[subset[j]]) < cutoff
+                       for x in (E,) + args)
+            if same:
+                gi.append(subset[j])
+                used[j] = True
+        groups.append(tuple(gi))
+    return groups
 
 
 def port_module_name(module):

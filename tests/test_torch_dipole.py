@@ -222,3 +222,31 @@ def test_helical_mpo_and_idmrg(ref):
     E, E_jax = out['helical.sweep_E'], ref['helical.sweep_E']
     assert len(E) == len(E_jax) == tx.HELICAL_SWEEPS
     assert np.all(np.abs(E - E_jax) <= TOL_E * np.abs(E_jax))
+
+
+def test_card_route_keeps_the_guess_blocks():
+    """The card route of ``dmrg.run`` returns its Ritz vector with every
+    block of its guess, a zero one too, as the host Lanczos does: a stored
+    zero block adds a sector to the density-matrix mixer's split, and made
+    the two routes' first sweeps on the L=64 dipolar chain part."""
+    from tenpy_tpu_torch.algorithms.dmrg import _keep_blocks_of
+    from tenpy_tpu_torch.linalg import np_conserved as npc
+    from tenpy_tpu_torch.linalg.charges import LegCharge
+    rng = np.random.default_rng(0)
+    ch = ChargeInfo([1, 1])
+    legs = [LegCharge.from_qflat(ch, rng.integers(-1, 2, size=(n, 2)), qc)
+            for n, qc in ((4, 1), (3, 1), (5, -1))]
+    guess = npc.Array.from_func(lambda s: rng.standard_normal(s), legs,
+                                qtotal=[0, 0], labels=['vL', 'p', 'vR'])
+    assert guess.stored_blocks >= 3
+    theta = guess.transpose(['vR', 'vL', 'p'])
+    keep = np.arange(theta.stored_blocks) % 3 != 0
+    theta._set_blocks(theta._qdata[keep],
+                      [b for b, k in zip(theta._data, keep) if k])
+    res = _keep_blocks_of(theta, guess)
+    assert res.get_leg_labels() == ('vR', 'vL', 'p')
+    assert res.stored_blocks == guess.stored_blocks
+    res.test_sanity()
+    dense, ref = res.to_numpy(), theta.to_numpy()
+    assert np.array_equal(dense, ref)
+    assert _keep_blocks_of(res, guess) is res
