@@ -248,21 +248,43 @@ Phases (any failure exits nonzero):
    bond update on each route: the same checks on S and the truncation
    error, A S B against theta to the truncation level, the split's and
    the update's median times;
+20. the split's one-sided Jacobi SVD (``backend='jacobi'``: the kernel of
+   ``csrc/jacobi_svd.cu``, one launch per split; ``'jacobi32'``: two).
+   20b: one sweep of phase 5's chi=256 engine with ``'svd'`` and with
+   ``'jacobi'`` from one copy of its state: the energy per site 1e-10
+   apart, the first update's Schmidt values (from 1e-6 up) within 1e-10
+   of the largest, one kernel launch per split, no call of
+   ``torch.linalg.svd``; the host synchronisations and device-to-host
+   copies of one split and of its decomposition (none).  20a: the kernel
+   against its plain version on that sweep's first split, on phase 8's
+   chi=512 complex128 bond update's groups and on a synthetic ragged batch
+   (wide, odd C, rank-deficient; f64 and complex128), with ``'jacobi'``
+   and ``'jacobi32'``: singular values, ``U S V^H`` and the isometry, the
+   singular values against ``torch.linalg.svd``'s, the sweeps each matrix
+   took to converge (and the singular values after the JAX package's 14),
+   timed beside the plain version, the library and the bound.  20c: the
+   bond update with ``'jacobi'`` held to ``'svd'`` as 19b holds
+   ``'qr_eigh'``, then one Trotter step of phase 8's engine with it (one
+   launch per bond update); then each backend's split of both thetas
+   timed in turn;
 then a JSON line on the kernels (the f64 mode, the complex128 mode, the
 complex128 mode on the TEBD shapes, the f64 mode on the host DMRG's and
 on the simulation's shapes, the complex128 mode on TDVP's two- and
 one-site matvecs, VUMPS's four matvecs, the purification gate, the
 plane-wave transfer step, the projected segment matvec, the Haldane
-matvec, and the f64 mode on the x-k cylinder's and the dipolar chain's
-matvecs) and, last, ``{"ok": true, "device": ...}``.
+matvec, the f64 mode on the x-k cylinder's and the dipolar chain's
+matvecs, and the Jacobi SVD on the chi=256 iDMRG split and the chi=512
+TEBD split) and, last, ``{"ok": true, "device": ...}``.
 
-The phases run in four processes on the one card: this one runs 1-9, 19
-and 12b, worker B 10 and 13, worker C 11, 14 and 15, worker D 16, 12a, 12c
+The phases run in four processes on the one card: this one runs 1-9, 19,
+20 and 12b, worker B 10 and 13, worker C 11, 14 and 15, worker D 16, 12a, 12c
 and 17 (``WORKERS``); a worker's failure fails the smoke, and the workers
 end with it.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``; one worker's
-phases alone: ``python3 chip_smoke.py --worker C out.json``.
+phases alone: ``python3 chip_smoke.py --worker C out.json``; phase 20
+alone (with phase 5's setup and phase 8's state): ``python3 chip_smoke.py
+--phase20``.
 """
 
 import contextlib
@@ -280,7 +302,7 @@ import time
 import numpy as np
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 import tenpy_tpu_torch
 from tenpy_tpu_torch import _build
@@ -292,6 +314,7 @@ from tenpy_tpu_torch.algorithms.packed_dmrg import DeviceSweepEngine, \
 from tenpy_tpu_torch.algorithms.packed_tebd import DeviceTEBDEngine, \
     _bond_step
 from tenpy_tpu_torch.linalg import grouped_gemm as gg
+from tenpy_tpu_torch.linalg import jacobi_svd as js
 from tenpy_tpu_torch.linalg import np_conserved as npc
 from tenpy_tpu_torch.linalg.krylov_based import LanczosGroundState
 from tenpy_tpu_torch.linalg import packed as pk
@@ -1620,22 +1643,34 @@ def phase_tebd_kernel(eng):
     return tot
 
 
+def bond_theta(B0, B1, S0, U):
+    """The theta ``S0 U (B0 B1)`` of a TEBD bond update, as ``_bond_step``
+    builds it (legs ``vL, p0, p1, vR``)."""
+    C = pk.tensordot(B0.replace_labels(['p'], ['p0']),
+                     B1.replace_labels(['p'], ['p1']), axes=(['vR'], ['vL']))
+    C = pk.tensordot(U, C, axes=(['p0*', 'p1*'], ['p0', 'p1']))
+    C = C.transpose(['vL', 'p0', 'p1', 'vR'])
+    return ps.scale_bond(C, S0, ps.scale_bond_plan(C, 'vL'))
+
+
+def split_groups(th, plan):
+    """The split's bucket-group batches ``(N, R, C)`` of theta ``th``, as
+    ``split_truncate`` gathers them."""
+    th = th.transpose(['vL', 'p0', 'p1', 'vR'])
+    tb = plan.tables(th.device)
+    flat = torch.cat([d.reshape(-1) for d in th.data]
+                     + [th.data[0].new_zeros(1)])
+    return [flat[gidx].reshape(g.N, g.R, g.C)
+            for g, (gidx, _) in zip(plan.groups, tb['groups'])]
+
+
 def svd_survey(eng, B0, B1, S0, U, plan):
     """The split's batched SVD of one bond update, as the engine runs it
     (``torch.linalg.svd``, cuSOLVER's default choice) and with each of
     cuSOLVER's algorithms, beside LAPACK on the host: times and the
     singular values' largest difference from LAPACK's (a measurement for
     the decomposition that bounds the step, not used by the engine)."""
-    C = pk.tensordot(B0.replace_labels(['p'], ['p0']),
-                     B1.replace_labels(['p'], ['p1']), axes=(['vR'], ['vL']))
-    C = pk.tensordot(U, C, axes=(['p0*', 'p1*'], ['p0', 'p1']))
-    C = C.transpose(['vL', 'p0', 'p1', 'vR'])
-    th = ps.scale_bond(C, S0, ps.scale_bond_plan(C, 'vL'))
-    tb = plan.tables(th.device)
-    flat = torch.cat([d.reshape(-1) for d in th.data]
-                     + [th.data[0].new_zeros(1)])
-    Ms = [flat[gidx].reshape(g.N, g.R, g.C)
-          for g, (gidx, _) in zip(plan.groups, tb['groups'])]
+    Ms = split_groups(bond_theta(B0, B1, S0, U), plan)
     Ms_h = [M.cpu() for M in Ms]
     S_ref = torch.cat([torch.linalg.svdvals(M).reshape(-1) for M in Ms_h])
     t0 = time.time()
@@ -1710,20 +1745,45 @@ class SplitRecorder:
         return [a.elapsed_time(b) for a, b in self.events]
 
 
+class CountedSVD:
+    """Within ``with``: the calls of ``torch.linalg.svd``."""
+
+    def __enter__(self):
+        self.n, self._orig = 0, torch.linalg.svd
+        orig = self._orig
+
+        def counted(*a, **kw):
+            self.n += 1
+            return orig(*a, **kw)
+
+        torch.linalg.svd = counted
+        return self
+
+    def __exit__(self, *exc):
+        torch.linalg.svd = self._orig
+
+
 def host_syncs(fn):
     """``fn()`` under the profiler: ``(stream and device synchronisations,
-    device-to-host copies)`` that it made, from the raw Kineto events."""
+    device-to-host copies)`` that it made, from the raw Kineto events.
+    Synchronisations count within ``fn``'s span only: the profiler makes
+    one of its own as it stops."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        with record_function('chip_smoke.host_syncs'):
+            fn()
+    events = list(prof.profiler.kineto_results.events())
+    span = next(e for e in events if e.name() == 'chip_smoke.host_syncs'
+                and e.device_type() != DeviceType.CUDA)
     syncs = d2h = 0
-    for e in prof.profiler.kineto_results.events():
+    for e in events:
         if e.device_type() == DeviceType.CUDA:
             d2h += 'DtoH' in e.name()
         else:
-            syncs += e.name() in ('cudaStreamSynchronize',
-                                  'cudaDeviceSynchronize')
+            syncs += (e.name() in ('cudaStreamSynchronize',
+                                   'cudaDeviceSynchronize')
+                      and span.start_ns() <= e.start_ns() <= span.end_ns())
     return syncs, d2h
 
 
@@ -1747,48 +1807,61 @@ def check_routes(tag, backend, S, S_ref, err, err_ref, what):
           f"{tag}: {backend}'s truncation error differs from the SVD's")
 
 
+def sweep_routes(eng, backends):
+    """One sweep of phase 5's engine per backend, each from one copy of
+    its state and environments (restored after): per backend the sweep's
+    energy, seconds and largest truncation error, each split's
+    milliseconds, the first split's arguments ``((theta, plan, chi_max,
+    svd_min), expand)``, Schmidt values and truncation error, and the
+    Jacobi kernel's launches and the calls of ``torch.linalg.svd`` in the
+    sweep."""
+    keys = ('Ap', 'Bp', 'Sp', 'LPp', 'RPp', '_C', '_M0', 'backend',
+            '_cur_expand', '_cur_mode')
+    saved = {k: copy.copy(getattr(eng, k)) for k in keys}
+    res = {}
+    for backend in backends:
+        for k, v in saved.items():
+            setattr(eng, k, copy.copy(v))
+        eng.backend, eng._cur_expand, eng._cur_mode = backend, False, None
+        torch.cuda.synchronize()
+        js.LAUNCHES = 0                # count the sweep's launches only
+        with SplitRecorder() as rec, CountedSVD() as svd:
+            t0 = time.time()
+            E, max_err = eng.sweep()
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        a, kw, out = rec.first
+        res[backend] = {'E': E, 'wall': wall, 'max_err': max_err,
+                        'ms': rec.ms(), 'S': out[1].cpu().numpy(),
+                        'err': float(out[3]),
+                        'first': (a[:4], kw.get('expand', False)),
+                        'launches': js.LAUNCHES, 'svd': svd.n}
+    for k, v in saved.items():
+        setattr(eng, k, v)
+    return res
+
+
 def phase_eigh_split(eng, tebd_eng):
     """19: the split's ``'qr_eigh'`` backend against ``'svd'`` on the card:
     19a one sweep of phase 5's chi=256 engine on each route (and the first
     update's split with each backend, ``'qr_eigh32'`` too), 19b phase 8's
     chi=512 complex128 bond update with each backend."""
     # 19a: both sweeps from one copy of the state and environments
-    L = eng.L
-    keys = ('Ap', 'Bp', 'Sp', 'LPp', 'RPp', '_C', '_M0', 'backend',
-            '_cur_expand', '_cur_mode')
-    saved = {k: copy.copy(getattr(eng, k)) for k in keys}
     E_prev = eng.sweep_stats['E'][-1]
-    res = {}
-    for backend in ('svd', 'qr_eigh'):
-        for k, v in saved.items():
-            setattr(eng, k, copy.copy(v))
-        eng.backend, eng._cur_expand, eng._cur_mode = backend, False, None
-        torch.cuda.synchronize()
-        with SplitRecorder() as rec:
-            t0 = time.time()
-            E, max_err = eng.sweep()
-            torch.cuda.synchronize()
-            wall = time.time() - t0
-        a, kw, out = rec.first
-        split_ms = rec.ms()
-        syncs = host_syncs(lambda: rec._orig(*a[:4], backend,
-                                             expand=kw.get('expand', False)))
-        res[backend] = {'E': E, 'wall': wall, 'ms': split_ms,
-                        'S': out[1].cpu().numpy(), 'err': float(out[3]),
-                        'syncs': syncs, 'max_err': max_err,
-                        'first': (a[:4], kw.get('expand', False))}
-        e_site = (E - E_prev) / (2 * L)
-        res[backend]['e_site'] = e_site
+    res = sweep_routes(eng, ('svd', 'qr_eigh'))
+    for backend, r in res.items():
+        syncs = host_syncs(lambda: ps.split_truncate(
+            *r['first'][0], backend, expand=r['first'][1]))
+        split_ms, wall = r['ms'], r['wall']
+        r['e_site'] = e_site = (r['E'] - E_prev) / (2 * eng.L)
         log(f"[19a] one chi={eng.chi_max} sweep with backend {backend!r}: "
             f"{wall:.2f} s, {len(split_ms)} splits of median "
             f"{statistics.median(split_ms):.2f} ms (min "
             f"{min(split_ms):.2f}, max {max(split_ms):.2f}, total "
             f"{sum(split_ms) / 1e3:.3f} s, {100 * sum(split_ms) / 1e3 / wall:.1f}"
             f"% of the sweep); energy per site {e_site:.12f}, max trunc "
-            f"{max_err:.3e}; one split (the first update's): {syncs[0]} host "
-            f"synchronisations, {syncs[1]} device-to-host copies")
-    for k, v in saved.items():
-        setattr(eng, k, v)
+            f"{r['max_err']:.3e}; one split (the first update's): {syncs[0]} "
+            f"host synchronisations, {syncs[1]} device-to-host copies")
     r, q = res['svd'], res['qr_eigh']
     check_routes('19a', 'qr_eigh', q['S'], r['S'], q['err'], r['err'],
                  "the first update")
@@ -1815,11 +1888,7 @@ def phase_eigh_split(eng, tebd_eng):
                      tebd_eng.Up[1][1])
     plan = ps.split_plan(tebd_eng._theta_struct(B0, B1, U), tebd_eng._bond(1),
                          tebd_eng.qtotal_site[0])
-    C = pk.tensordot(B0.replace_labels(['p'], ['p0']),
-                     B1.replace_labels(['p'], ['p1']), axes=(['vR'], ['vL']))
-    C = pk.tensordot(U, C, axes=(['p0*', 'p1*'], ['p0', 'p1']))
-    C = C.transpose(['vL', 'p0', 'p1', 'vR'])
-    th = ps.scale_bond(C, S0, ps.scale_bond_plan(C, 'vL'))
+    th = bond_theta(B0, B1, S0, U)
     th_h = pk.unpack(th)
     chi, svd_min = tebd_eng.chi_max, tebd_eng.svd_min
     out = {}
@@ -1855,6 +1924,335 @@ def phase_eigh_split(eng, tebd_eng):
         check_routes('19b', backend, out[backend][0], out['svd'][0],
                      out[backend][1], out['svd'][1],
                      f"the chi={chi} bond update")
+
+
+# 20: the split's one-sided Jacobi SVD (csrc/jacobi_svd.cu, one launch per
+# split, two for 'jacobi32') against its plain version on the card, on the
+# main path's chi=256 split, the chi=512 complex128 TEBD bond update's and
+# a synthetic ragged batch (wide, odd C, rank-deficient); the chi=256
+# sweep and the TEBD step with 'jacobi'.  JACOBI_TOL per backend: the
+# singular values against the plain version's (of each matrix's largest),
+# U S V^H against M (relative Frobenius) and the isometry of U and V on the
+# columns of singular values from JACOBI_KEPT of the largest ('jacobi'
+# only); JACOBI_LIB_TOL the singular values against torch.linalg.svd's.
+# U = A / S inherits the roundoff of the largest column: a column of
+# singular value s is orthogonal to the others to about 1e-16 s_max / s
+# whatever the sweeps (4.9e-9 on the chi=512 TEBD groups from 1e-10 of
+# the largest, 2.1e-13 from 1e-4; the JAX package's Jacobi alike), so the
+# isometry is held from 1e-4 of the largest, where that is below 1e-12,
+# and logged from 1e-10
+JACOBI_TOL = {'jacobi': (1e-12, 1e-12, 1e-12), 'jacobi32': (1e-9, 1e-8, None)}
+JACOBI_LIB_TOL = 1e-9
+JACOBI_KEPT = 1e-4
+JACOBI_KEPT_LOGGED = 1e-10
+# the sweep's energy per site and the first update's Schmidt values (from
+# EIGH_S_FLOOR up, of the largest) against the SVD route's
+JACOBI_E_TOL = 1e-10
+JACOBI_S_TOL = 1e-10
+# (N, R, C) of the synthetic batch: wide, odd C tall and wide, square with
+# rank-deficient entries (zero rows and columns)
+JACOBI_SYNTH = ((4, 48, 80), (3, 66, 39), (3, 39, 66), (4, 64, 64))
+JACOBI_REPS = 3
+# NVIDIA H100 SXM data sheet: f64 on the CUDA cores (the rotations are FMAs
+# that no tensor core takes); complex128 too, as real f64 operations
+F64_CUDA_CORE_FLOPS = 33.5e12
+
+
+def jacobi_bound(Ms, sweeps):
+    """The least time (ms) of ``decomp_jacobi`` on ``Ms`` and what sets it:
+    the larger of its flops at the f64 peak of the CUDA cores and its bytes
+    (M read once, U, S and V written once) at the HBM rate.  ``sweeps``:
+    the sweeps each matrix ran (per row of its ``ragged_table``).  A sweep
+    of a tall R x C matrix (C padded to even) is C - 1 rounds of C/2
+    pairs, each the real flops that csrc/jacobi_svd.cu does on it: in f64
+    12R + 6C (three dots of length R, 2 flops a row each; the rotation of
+    two columns of A and of V, 6 a row), in complex128 36R + 20C (the two
+    norms 4 flops a row each and conj(A_p) . A_q 8; the rotation by a real
+    c and a complex s, 20 a row)."""
+    table = js.ragged_table([tuple(M.shape) for M in Ms])
+    R, C = table[:, 2].astype(float), table[:, 3].astype(float)
+    per_pair = (36 * R + 20 * C) if Ms[0].is_complex() else (12 * R + 6 * C)
+    flops = float((np.asarray(sweeps, float) * (C - 1) * (C / 2)
+                   * per_pair).sum())
+    nbytes = 0
+    for M in Ms:
+        N, R, C = M.shape
+        K = min(R, C)
+        nbytes += N * ((R * C + R * K + C * K) * M.element_size() + 8 * K)
+    t_ops = flops / F64_CUDA_CORE_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), 'operations' if t_ops >= t_bytes
+            else 'bytes', flops, nbytes)
+
+
+def synthetic_groups(dtype):
+    """The seeded synthetic batch on the card: random entries, two
+    matrices of the last group rank-deficient (zero rows and columns, as a
+    padded sector; tests/test_packed_complex.py)."""
+    rng = np.random.default_rng(20)
+    Ms = []
+    for shape in JACOBI_SYNTH:
+        M = rng.standard_normal(shape)
+        if dtype.is_complex:
+            M = M + 1j * rng.standard_normal(shape)
+        Ms.append(M)
+    Ms[-1][1, :, 40:] = 0.
+    Ms[-1][1, 50:, :] = 0.
+    Ms[-1][2, :, 1::2] = 0.
+    return [torch.from_numpy(M).cuda() for M in Ms]
+
+
+def s_errors(outs, S_ref):
+    """The largest difference of the singular values from ``S_ref``'s,
+    absolute and of each matrix's largest."""
+    d_abs = d_rel = 0.
+    for (_, S, _), S0 in zip(outs, S_ref):
+        d = (S - S0).abs()
+        d_abs = max(d_abs, float(d.max()))
+        d_rel = max(d_rel, float((d / S0.amax(-1, keepdim=True)
+                                  .clamp_min(1e-300)).max()))
+    return d_abs, d_rel
+
+
+def isometry_err(outs, kept):
+    """The largest difference of ``U^H U`` and ``V^H V`` from the identity
+    on the columns of singular values from ``kept`` of the largest."""
+    iso = 0.
+    for U, S, V in outs:
+        keep = ((S >= kept * S[:, :1]) & (S > 0)).to(U.dtype)
+        for X in (U, V):
+            Xk = X * keep[:, None, :]
+            G = Xk.conj().transpose(1, 2) @ Xk
+            iso = max(iso, float((G - torch.diag_embed(keep)).abs().max()))
+    return iso
+
+
+def rec_err(Ms, outs):
+    """The largest ``|U S V^H - M| / |M|`` (Frobenius) of a matrix."""
+    rec = 0.
+    for M, (U, S, V) in zip(Ms, outs):
+        R = (U * S[:, None, :].to(U.dtype)) @ V.conj().transpose(1, 2)
+        rec = max(rec, float(((R - M).norm(dim=(1, 2))
+                              / M.norm(dim=(1, 2)).clamp_min(1e-300)).max()))
+    return rec
+
+
+def jacobi_kernel_case(tag, what, Ms, plain32=True, reps=JACOBI_REPS):
+    """20a on one list of groups: the kernel against its plain version
+    with both backends (launches per call, the singular values, ``U S
+    V^H`` and the isometry, the singular values against
+    ``torch.linalg.svd``'s), timed; returns the ``'jacobi'`` kernel's
+    measurements.  Without ``plain32``, ``'jacobi32'`` is held to the
+    plain version of ``'jacobi'`` (a plain version runs 8-35 s on the
+    main path's groups); ``reps``: timed calls after the first."""
+    log(f"[{tag}] {what}: {len(Ms)} groups (N,R,C) "
+        f"{[tuple(M.shape) for M in Ms]}, {Ms[0].dtype}")
+    lib_S = [torch.linalg.svdvals(M) for M in Ms]
+    out = {}
+    for backend in ('jacobi', 'jacobi32'):
+        bulk = backend == 'jacobi32'
+        n0, sweeps = js.LAUNCHES, []
+        outs = js.decomp_jacobi(Ms, bulk_f32=bulk, sweeps_out=sweeps)
+        n_launch = js.LAUNCHES - n0
+        sweeps = [x.cpu().numpy() for x in sweeps]
+        if bulk and not plain32:
+            plain_ms = None            # plain: the 'jacobi' one, above
+        else:
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0.record()
+            plain = js.decomp_jacobi(Ms, bulk_f32=bulk, plain=True)
+            t1.record()
+            torch.cuda.synchronize()
+            plain_ms = t0.elapsed_time(t1)
+        d_abs, d_rel = s_errors(outs, [S for _, S, _ in plain])
+        _, lib_rel = s_errors(outs, lib_S)
+        rec = rec_err(Ms, outs)
+        iso, iso_all = (isometry_err(outs, k)
+                        for k in (JACOBI_KEPT, JACOBI_KEPT_LOGGED))
+        ms = cuda_ms(lambda: js.decomp_jacobi(Ms, bulk_f32=bulk), reps=reps)
+        s_tol, rec_tol, iso_tol = JACOBI_TOL[backend]
+        log(f"[{tag}]   {backend}: {n_launch} launch(es); against the plain "
+            f"{'version' if plain_ms is not None else repr('jacobi')} S "
+            f"{d_rel:.2e} of the largest ({d_abs:.2e} absolute; "
+            f"tolerance {s_tol:.0e}), U S V^H - M {rec:.2e} ({rec_tol:.0e}), "
+            f"isometry from {JACOBI_KEPT:.0e} of the largest {iso:.2e} "
+            f"({iso_tol or 'not held'}; from {JACOBI_KEPT_LOGGED:.0e} "
+            f"{iso_all:.2e}); S against torch.linalg.svd {lib_rel:.2e} "
+            f"({JACOBI_LIB_TOL:.0e}); {ms:.3f} ms (median of {reps}), "
+            + (f"the plain version {plain_ms:.1f} ms (one run); "
+               if plain_ms is not None else "")
+            + "sweeps per matrix (min, median, max) per launch "
+            + str([(int(x.min()), float(np.median(x)), int(x.max()))
+                   for x in sweeps]) + f" of at most {js.MAX_SWEEPS}")
+        check(n_launch == (2 if bulk else 1),
+              f"{tag}: {backend} launched {n_launch} times for one call")
+        check(d_rel <= s_tol and rec <= rec_tol
+              and (iso_tol is None or iso <= iso_tol),
+              f"{tag}: the {backend} kernel differs from its plain version "
+              f"on {what}")
+        check(lib_rel <= JACOBI_LIB_TOL,
+              f"{tag}: {backend}'s singular values differ from "
+              f"torch.linalg.svd's on {what}")
+        out[backend] = (d_abs, ms, plain_ms, sweeps)
+    # the JAX package's fixed count: at most 14 sweeps (a measurement, not
+    # a check: it is why the port sweeps to convergence)
+    _, lib14 = s_errors(js.decomp_jacobi(Ms, max_sweeps=14), lib_S)
+    log(f"[{tag}]   'jacobi' with at most 14 sweeps: S against "
+        f"torch.linalg.svd {lib14:.2e} of each matrix's largest")
+    lib_ms = cuda_ms(lambda: [torch.linalg.svd(M, full_matrices=False)
+                              for M in Ms], reps=reps)
+    d_abs, ms, plain_ms, sweeps = out['jacobi']
+    bound, by, flops, nbytes = jacobi_bound(Ms, sweeps[0])
+    log(f"[{tag}]   'jacobi' {ms:.3f} ms against its bound {bound:.3f} ms "
+        f"({by}: {flops / 1e9:.3f} GFLOP of the sweeps this input ran at "
+        f"{F64_CUDA_CORE_FLOPS / 1e12:.1f} TFLOP/s, {nbytes / 1e6:.2f} MB at "
+        f"3.35 TB/s; {100 * bound / ms:.1f}%), torch.linalg.svd per group "
+        f"{lib_ms:.3f} ms")
+    return {'max_abs': d_abs, 'ms': ms, 'plain_ms': plain_ms,
+            'bound_ms': bound, 'bound_by': by, 'library_ms': lib_ms}
+
+
+def phase_jacobi_split(eng, tebd_eng):
+    """20: the Jacobi split.  20b one chi=256 sweep of phase 5's engine
+    with ``'svd'`` and with ``'jacobi'`` from one copy of its state (the
+    kernel's launches on the main path); 20a the kernel against its plain
+    version on that sweep's first split, the chi=512 TEBD bond update's
+    and the synthetic batch; 20c the TEBD bond update with ``'jacobi'``
+    against ``'svd'``, then one Trotter step of phase 8's engine with it
+    (the launches on the TEBD path); then every backend's split on both
+    thetas in turn.  Returns the two kernel entries."""
+    res = sweep_routes(eng, ('svd', 'jacobi'))
+    for backend, r in res.items():
+        split_ms, wall = r['ms'], r['wall']
+        log(f"[20b] one chi={eng.chi_max} sweep with backend {backend!r}: "
+            f"{wall:.2f} s, {len(split_ms)} splits of median "
+            f"{statistics.median(split_ms):.2f} ms (min {min(split_ms):.2f},"
+            f" max {max(split_ms):.2f}, {100 * sum(split_ms) / 1e3 / wall:.1f}"
+            f"% of the sweep); E {r['E']:.12f}, max trunc {r['max_err']:.3e};"
+            f" Jacobi kernel launches {r['launches']}, torch.linalg.svd "
+            f"calls {r['svd']}")
+    r, j = res['svd'], res['jacobi']
+    n_split = len(j['ms'])
+    check(j['launches'] == n_split > 0,
+          f"20b: {j['launches']} Jacobi launches in {n_split} splits")
+    check(j['svd'] == 0, "20b: the Jacobi route called torch.linalg.svd")
+    dE = abs(j['E'] - r['E']) / (2 * eng.L)
+    big = r['S'] >= EIGH_S_FLOOR
+    dS = float(np.abs(j['S'] - r['S'])[big].max())
+    log(f"[20b] energy per site jacobi - svd {dE:.2e} (tolerance "
+        f"{JACOBI_E_TOL:.0e}); the first update's {int(big.sum())} Schmidt "
+        f"values from {EIGH_S_FLOOR:.0e} up {dS:.2e} apart (tolerance "
+        f"{JACOBI_S_TOL:.0e} of the largest {r['S'].max():.6f}); truncation "
+        f"errors {j['err']:.6e} and {r['err']:.6e}; split per update "
+        f"jacobi/svd "
+        f"{statistics.median(j['ms']) / statistics.median(r['ms']):.3f}")
+    check(np.isfinite(j['E']) and dE <= JACOBI_E_TOL,
+          "20b: the Jacobi route's sweep energy differs from the SVD's")
+    check(dS <= JACOBI_S_TOL * r['S'].max(),
+          "20b: the Jacobi route's Schmidt values differ from the SVD's")
+    args, expand = r['first']
+    th, plan = args[0], args[1]
+    Ms = split_groups(th, plan)
+    js.decomp_jacobi(Ms)
+    dec_syncs = host_syncs(lambda: js.decomp_jacobi(Ms))
+    split_syncs = {b: host_syncs(lambda: ps.split_truncate(
+        *args, b, expand=expand)) for b in ('svd', 'jacobi')}
+    log(f"[20b] one split (the first update's): the Jacobi decomposition "
+        f"{dec_syncs[0]} host synchronisations and {dec_syncs[1]} "
+        f"device-to-host copies; the whole split with 'jacobi' "
+        f"{split_syncs['jacobi'][0]} and {split_syncs['jacobi'][1]}, with "
+        f"'svd' {split_syncs['svd'][0]} and {split_syncs['svd'][1]}")
+    check(dec_syncs == (0, 0),
+          "20b: the Jacobi decomposition synchronised with the host")
+
+    # 20a: the kernel against its plain version
+    entry_idmrg = jacobi_kernel_case('20a', f"the chi={eng.chi_max} iDMRG "
+                                     "sweep's first split", Ms, plain32=False)
+    B0, B1, S0, U = (tebd_eng.Bp[0], tebd_eng.Bp[1], tebd_eng.Sp[0],
+                     tebd_eng.Up[1][1])
+    tplan = ps.split_plan(tebd_eng._theta_struct(B0, B1, U),
+                          tebd_eng._bond(1), tebd_eng.qtotal_site[0])
+    tth = bond_theta(B0, B1, S0, U)
+    entry_tebd = jacobi_kernel_case(
+        '20a', f"the chi={tebd_eng.chi_max} complex128 TEBD bond update",
+        split_groups(tth, tplan), plain32=False, reps=1)
+    for dtype in (torch.float64, torch.complex128):
+        jacobi_kernel_case('20a', 'the synthetic batch',
+                           synthetic_groups(dtype))
+
+    # 20c: the TEBD bond update with 'jacobi' against 'svd'
+    tth_h = pk.unpack(tth)
+    chi, svd_min = tebd_eng.chi_max, tebd_eng.svd_min
+    out = {}
+    for backend in ('svd', 'jacobi'):
+        A, S, B, err, ren, n = ps.split_truncate(tth, tplan, chi, svd_min,
+                                                 backend)
+        rec = pk.tensordot(
+            ps.scale_bond(A, S, ps.scale_bond_plan(A, 'vR'))
+            .replace_labels(['p'], ['p0']),
+            B.replace_labels(['p'], ['p1']), axes=(['vR'], ['vL']))
+        resid = (npc.norm(tth_h - pk.unpack(rec) * float(ren))
+                 / npc.norm(tth_h)) ** 2
+        step_ms = cuda_ms(lambda: _bond_step(B0, B1, S0, U, tplan, chi,
+                                             svd_min, backend), reps=1)
+        out[backend] = (S.cpu().numpy(), float(err))
+        log(f"[20c] chi={chi} complex128 bond update with {backend!r}: the "
+            f"update {step_ms:.1f} ms (one run after a warm-up); {int(n)} "
+            f"values kept, truncation error {float(err):.6e}, |theta - A S "
+            f"B|^2 / |theta|^2 {resid:.6e}")
+        check(abs(resid - float(err)) <= 1e-10,
+              f"20c: A S B ({backend}) is not theta to the truncation level")
+    (S, err), (S_ref, err_ref) = out['jacobi'], out['svd']
+    big = S_ref >= EIGH_S_FLOOR
+    dS = float(np.abs(S - S_ref)[big].max())
+    log(f"[20c] {int(big.sum())} Schmidt values from {EIGH_S_FLOOR:.0e} up, "
+        f"jacobi - svd {dS:.2e} (tolerance {JACOBI_S_TOL:.0e}); truncation "
+        f"errors {abs(err - err_ref):.1e} apart (tolerance 1e-12)")
+    check(np.isfinite(S).all() and dS <= JACOBI_S_TOL * S_ref.max(),
+          "20c: the Jacobi route's Schmidt values differ from the SVD's")
+    check(abs(err - err_ref) <= 1e-12,
+          "20c: the Jacobi route's truncation error differs from the SVD's")
+    # one Trotter step of phase 8's engine with 'jacobi' (its last use)
+    tebd_eng.backend = 'jacobi'
+    torch.cuda.synchronize()
+    js.LAUNCHES = 0                    # count the TEBD path's launches only
+    with SplitRecorder() as rec, CountedSVD() as svd:
+        t0 = time.time()
+        step_err = tebd_eng.evolve(1)
+        torch.cuda.synchronize()
+        step_s = time.time() - t0
+    t_launches, n_upd = js.LAUNCHES, len(rec.ms())
+    norms = [float((S.double() ** 2).sum()) for S in tebd_eng.Sp]
+    log(f"[20c] one Trotter step at chi={chi} with 'jacobi': {step_s:.3f} s "
+        f"({n_upd} bond updates, splits {[round(x, 1) for x in rec.ms()]} "
+        f"ms), Jacobi launches {t_launches}, torch.linalg.svd calls {svd.n}, "
+        f"truncation error {step_err.eps:.3e}, sum S^2 per bond "
+        f"{[f'{x:.15f}' for x in norms]}")
+    check(t_launches == n_upd > 0 and svd.n == 0,
+          "20c: the TEBD step did not split through the Jacobi kernel")
+    check(all(abs(x - 1.) <= 1e-12 for x in norms),
+          "20c: the Jacobi step's Schmidt values are not normalized")
+
+    # every backend's split on both thetas, in turn
+    for what, sargs, sexpand, reps in (
+            (f"the chi={eng.chi_max} iDMRG first update's", args, expand,
+             JACOBI_REPS),
+            (f"the chi={chi} TEBD bond update's",
+             (tth, tplan, chi, svd_min), False, 1)):
+        for backend in ('svd', 'qr_eigh', 'jacobi', 'jacobi32'):
+            n0 = js.LAUNCHES
+            ms = cuda_ms(lambda: ps.split_truncate(*sargs, backend,
+                                                   expand=sexpand),
+                         reps=reps)
+            per = (js.LAUNCHES - n0) / (reps + 1)
+            log(f"[20] {what} split with {backend!r}: {ms:.2f} ms (median "
+                f"of {reps}), {per:g} Jacobi launches per split")
+            check(per == {'jacobi': 1, 'jacobi32': 2}.get(backend, 0),
+                  f"20: {backend} launched {per} times per split")
+    return {'jacobi_svd_f64_idmrg': (j['launches'], entry_idmrg),
+            'jacobi_svd_complex128_tebd': (t_launches, entry_tebd)}
 
 
 def e0_xx_finite(L, Jxx):
@@ -5554,13 +5952,18 @@ def main():
         f"matvec f64 {m[p + 'segment_orthogonal']:.2e}; Haldane matvec "
         f"complex128 {m[p + 'haldane']:.2e}; x-k cylinder matvec f64 "
         f"{m[p + 'mixed_xk']:.2e}; dipolar chain matvec f64 "
-        f"{m[p + 'dipolar']:.2e}")
+        f"{m[p + 'dipolar']:.2e}; Jacobi SVD f64 iDMRG split "
+        f"{m['jacobi_svd_f64_idmrg']:.2e}, complex128 TEBD split "
+        f"{m['jacobi_svd_complex128_tebd']:.2e}")
 
     def entry(name):
         n, m = kernels[name]
+        jacobi = name.startswith('jacobi_svd')
         return {'name': name, 'route': 'cuda',
-                'source': 'tenpy_tpu_torch/csrc/packed_contract.cu',
-                'replaces': 'tenpy_tpu/linalg/pallas_gemm.py:124',
+                'source': 'tenpy_tpu_torch/csrc/' + (
+                    'jacobi_svd.cu' if jacobi else 'packed_contract.cu'),
+                'replaces': 'tenpy_tpu/linalg/' + (
+                    'packed_split.py:487' if jacobi else 'pallas_gemm.py:124'),
                 'launches': n, 'max_abs_err': m['max_abs'], 'ms': m['ms'],
                 'plain_ms': m['plain_ms'], 'bound_ms': m['bound_ms'],
                 'bound_by': m['bound_by'], 'library_ms': m['library_ms']}
@@ -5580,14 +5983,18 @@ def main():
     # projected segment update (4 tensordots), f64 at the centre of the
     # S=1 chain's chi=128 segment; per matvec (4 tensordots) of the chi=256
     # Haldane cylinder, complex128; per centre matvec (4 tensordots), f64,
-    # of the chi=256 x-k Hubbard cylinder and of the chi=128 dipolar chain
+    # of the chi=256 x-k Hubbard cylinder and of the chi=128 dipolar chain;
+    # the Jacobi SVD per split's decomposition (decomp_jacobi, one launch),
+    # f64 on the chi=256 Hubbard sweep's first split and complex128 on the
+    # chi=512 TEBD bond update's
     names = ['packed_contract', 'complex128', 'complex128_tebd', 'host_dmrg',
              'simulation', 'tdvp_two_site', 'tdvp_one_site',
              'vumps_zero_site', 'vumps_two_site',
              'vumps_zero_site_complex128', 'vumps_one_site_complex128',
              'purification_gate', 'plane_wave_transfer', 'segment_orthogonal',
              'haldane', 'mixed_xk', 'dipolar']
-    names = names[:1] + [p + n for n in names[1:]]
+    names = names[:1] + [p + n for n in names[1:]] + [
+        'jacobi_svd_f64_idmrg', 'jacobi_svd_complex128_tebd']
     check(sorted(names) == sorted(kernels), "the kernel entries differ from "
           "the phases' measurements")
     print(json.dumps({'kernels': [entry(name) for name in names]}),
@@ -5600,9 +6007,9 @@ def main():
 
 
 def main_phases(smi, procs, t_start):
-    """Phases 3-9, 19 and 12b in this process, the workers checked between
-    phases; their kernel entries, the synthetic shapes' errors and the
-    walls."""
+    """Phases 3-9, 19, 20 and 12b in this process, the workers checked
+    between phases; their kernel entries, the synthetic shapes' errors and
+    the walls."""
     max_abs_synth = phase_kernel()
     hof = {k[len('chi128.'):]: v
            for k, v in exchange.load_flat(HOF_REF).items()
@@ -5650,6 +6057,8 @@ def main_phases(smi, procs, t_start):
     lap('8')
     phase_eigh_split(eng, tebd_eng)
     lap('19')
+    k.update(phase_jacobi_split(eng, tebd_eng))
+    lap('20')
     k['packed_contract_host_dmrg'] = phase_host_dmrg(smi)
     lap('9')
     (k['packed_contract_vumps_zero_site_complex128'],
@@ -5659,8 +6068,29 @@ def main_phases(smi, procs, t_start):
     return k, max_abs_synth, walls
 
 
+def jacobi_main():
+    """Phase 20 alone, in one process: the device, the build, phase 5's
+    engine on the exchange file's chi=256 state (its setup, no sweep) and
+    phase 8's chi=512 TEBD state, then phase 20 and its two kernel
+    entries."""
+    t_start = time.time()
+    smi = phase_device()
+    phase_build()
+    eng = phase_setup(exchange.load_flat(STATE))
+    tebd_eng, _, _ = phase_tebd_quench(phase_tebd_ground_state(), smi)
+    t = time.time()
+    kernels = phase_jacobi_split(eng, tebd_eng)
+    log(f"[20] phase 20 {time.time() - t:.1f} s, the whole run "
+        f"{time.time() - t_start:.1f} s")
+    print(json.dumps({'kernels': [
+        {'name': name, 'launches': n, **m}
+        for name, (n, m) in kernels.items()]}), flush=True)
+
+
 if __name__ == '__main__':
     if sys.argv[1:2] == ['--worker']:
         worker_main(*sys.argv[2:4])
+    elif sys.argv[1:2] == ['--phase20']:
+        jacobi_main()
     else:
         main()

@@ -328,7 +328,8 @@ class DeviceSweepEngine:
         lanczos_P_tol : float -- early-exit tolerance (default 1e-14).
         n_sweeps : int -- sweeps to run (default 10).
         backend : str -- the split's decomposition: ``'svd'`` (the
-            default), ``'qr_eigh'`` or ``'qr_eigh32'``
+            default), ``'qr_eigh'``, ``'qr_eigh32'``, ``'jacobi'``,
+            ``'jacobi32'`` or ``'auto'``
             (:func:`~tenpy_tpu_torch.linalg.packed_split.split_truncate`).
         multiple : int -- bucket multiple of padded virtual legs (64).
         e_tol : float -- stop a phase once |Delta E| per sweep is below.

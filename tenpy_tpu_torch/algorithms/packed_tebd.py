@@ -84,7 +84,8 @@ class DeviceTEBDEngine:
         chi_max, svd_min, backend, multiple, cap_factor, total_cap_factor :
             as for :class:`~tenpy_tpu_torch.algorithms.packed_dmrg.
             DeviceSweepEngine` (``backend``: ``'svd'``, the default,
-            ``'qr_eigh'`` or ``'qr_eigh32'``; the capacity layouts are
+            ``'qr_eigh'``, ``'qr_eigh32'``, ``'jacobi'``, ``'jacobi32'`` or
+            ``'auto'``; the capacity layouts are
             fixed for the engine's life: a state that grows past them needs
             a new engine built from the written-back state).
     device : str or torch.device

@@ -28,7 +28,9 @@ any device.  A card update
    kernel of :mod:`~tenpy_tpu_torch.linalg.grouped_gemm`;
 4. splits the result by
    :func:`~tenpy_tpu_torch.linalg.packed_split.split_truncate`, a batched
-   SVD per charge sector with the host ``truncate``'s cut;
+   SVD per charge sector with the host ``truncate``'s cut (the option
+   ``split_backend`` is its ``backend``: None, the default, is
+   ``torch.linalg.svd``; ``'jacobi'`` the hand-written Jacobi kernel);
 5. unpacks A, S and B, splits the pipes, and stores them as the host route
    does.
 
@@ -313,7 +315,9 @@ class PurificationTEBD(TEBDEngine):
                               multiple=PACK_MULTIPLE, full_rank=True)
         plan = ps.split_plan(theta_p, bond, qA, group_multiple=PACK_MULTIPLE)
         A_p, S_p, B_p, err, renorm, _ = ps.split_truncate(
-            theta_p, plan, chi_max, svd_min, trunc_cut=trunc_cut)
+            theta_p, plan, chi_max, svd_min,
+            backend=self.options.get('split_backend', None),
+            trunc_cut=trunc_cut)
         return self.unpack_split(A_p, S_p, B_p, err, renorm, bond, theta)
 
     @staticmethod

@@ -18,7 +18,7 @@ values; the cut and ``svd_min`` act on S alone.
 
 Decomposition backends, per bucket group (``backend``):
 
-``'svd'`` (also ``None``, ``'auto'``)
+``'svd'`` (also ``None``; ``'auto'`` for a CPU tensor)
     ``torch.linalg.svd`` (cuSOLVER on the card, LAPACK on the host).
 ``'qr_eigh'``
     The eigh of the Gram matrix ``M^H M`` (its right singular vectors and
@@ -31,10 +31,19 @@ Decomposition backends, per bucket group (``backend``):
     The same with the eigenvectors seeded by a float32 (complex64) eigh,
     re-orthonormalized and ordered by their f64 Rayleigh quotients.
 
-The JAX package's one-sided Jacobi (``'jacobi'``, ``'jacobi32'``), a TPU
-device program, is not ported (ROADMAP.md, Queue 2 item 1).  The JAX
-package picks ``'jacobi'`` off the CPU by default; here the default is
-``'svd'`` everywhere.
+``'jacobi'`` (also ``'auto'`` for a CUDA tensor)
+    The one-sided Jacobi SVD of :mod:`~tenpy_tpu_torch.linalg.jacobi_svd`
+    (each matrix swept until converged, at most 30 sweeps; the JAX
+    package runs 14), every group of the split in one workspace: on the
+    card one launch of the hand-written kernel per split and no host
+    synchronisation, on the host its plain version.
+``'jacobi32'``
+    The same with the bulk of the sweeps in float32 (complex64), then
+    Newton-Schulz and the polish in the working type: two launches per
+    split.
+
+The JAX package resolves ``None`` as ``'auto'``, hence ``'jacobi'`` off
+the CPU; here ``None`` stays ``'svd'`` everywhere.
 """
 
 from __future__ import annotations
@@ -42,6 +51,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import jacobi_svd as js
 from . import packed as pk
 from .charges import LegCharge, QTYPE
 from .padding import bucket_size
@@ -438,20 +448,24 @@ def _decomp_qr_eigh(M, f32_seed=False):
 
 
 def _decomp(M, backend):
-    """``(U, S, Vh)`` of a batch of matrices by ``backend``."""
-    if backend in (None, 'auto', 'svd'):
+    """``(U, S, Vh)`` of a batch of matrices by ``backend`` (``'svd'`` or
+    an eigh-based one)."""
+    if backend == 'svd':
         return torch.linalg.svd(M, full_matrices=False)
     U, S, V = _decomp_qr_eigh(M, f32_seed=backend == 'qr_eigh32')
     return U, S, V.conj().transpose(-1, -2)
 
 
-def _check_backend(backend):
-    if backend in ('jacobi', 'jacobi32'):
-        raise NotImplementedError(
-            f"device-SVD backend {backend!r} (the JAX package's one-sided "
-            "Jacobi) is not ported: ROADMAP.md, Queue 2 item 1")
-    if backend not in (None, 'auto', 'svd', 'qr_eigh', 'qr_eigh32'):
+def _resolve_backend(backend, device):
+    """The backend's name after its defaults: ``None`` is ``'svd'``;
+    ``'auto'`` is ``'svd'`` for a CPU tensor and ``'jacobi'`` on the card,
+    as in ``tenpy_tpu``."""
+    if backend not in (None, 'auto', 'svd', 'qr_eigh', 'qr_eigh32', 'jacobi',
+                       'jacobi32'):
         raise ValueError(f"unknown device-SVD backend {backend!r}")
+    if backend == 'auto':
+        return 'svd' if device.type == 'cpu' else 'jacobi'
+    return backend or 'svd'
 
 
 # -------------------------------------------------------------- the split
@@ -499,8 +513,11 @@ def split_truncate(theta_p, plan, chi_max, svd_min=1e-14, backend=None,
     plan : SplitPlan
     chi_max : int
     svd_min : float -- discard Schmidt values below this (relative).
-    backend : ``None``, ``'auto'``, ``'svd'`` (``torch.linalg.svd``),
-        ``'qr_eigh'`` or ``'qr_eigh32'`` (:func:`_decomp_qr_eigh`).
+    backend : ``None`` or ``'svd'`` (``torch.linalg.svd``), ``'qr_eigh'``
+        or ``'qr_eigh32'`` (:func:`_decomp_qr_eigh`), ``'jacobi'`` or
+        ``'jacobi32'`` (:func:`~tenpy_tpu_torch.linalg.jacobi_svd.
+        decomp_jacobi`, every group in one call), ``'auto'`` (``'svd'`` on
+        the host, ``'jacobi'`` on the card).
     expand : bool -- subspace expansion (the engine's mixer): A/B keep the
         orthonormal singular directions of every capacity slot whose raw
         singular value exceeds ``expand_rtol * |theta|``, while S stays zero
@@ -523,7 +540,7 @@ def split_truncate(theta_p, plan, chi_max, svd_min=1e-14, backend=None,
     renorm : 0-dim tensor, sqrt(sum kept S^2) of the raw theta
     n_kept : 0-dim tensor, number of kept Schmidt values
     """
-    _check_backend(backend)
+    backend = _resolve_backend(backend, theta_p.device)
     order = [theta_p.get_leg_index(l) for l in ('vL', 'p0', 'p1', 'vR')]
     if order != [0, 1, 2, 3]:
         theta_p = theta_p.transpose(order)
@@ -533,13 +550,20 @@ def split_truncate(theta_p, plan, chi_max, svd_min=1e-14, backend=None,
     zslot_S = zslot.real    # S is real for complex theta too
     flat = torch.cat([d.reshape(-1) for d in theta_p.data] + [zslot])
 
-    Us, Ss, Vs = [], [], []
-    for g, (gidx, cap_mask) in zip(plan.groups, tb['groups']):
-        M = flat[gidx].reshape(g.N, g.R, g.C)
-        U, S, Vh = _decomp(M, backend)
-        Us.append(U)
-        Ss.append(torch.where(cap_mask, S, 0.))
-        Vs.append(Vh.transpose(-1, -2))
+    Ms = [flat[gidx].reshape(g.N, g.R, g.C)
+          for g, (gidx, _) in zip(plan.groups, tb['groups'])]
+    if backend in ('jacobi', 'jacobi32'):
+        # one call for every group (one kernel launch on the card, two for
+        # 'jacobi32'); Vh's transpose is conj(V)
+        USVs = [(U, S, V.conj()) for U, S, V in js.decomp_jacobi(
+            Ms, bulk_f32=backend == 'jacobi32')]
+    else:
+        USVs = [(U, S, Vh.transpose(-1, -2))
+                for U, S, Vh in (_decomp(M, backend) for M in Ms)]
+    Us = [U for U, _, _ in USVs]
+    Ss = [torch.where(cap_mask, S, 0.)
+          for (_, S, _), (_, cap_mask) in zip(USVs, tb['groups'])]
+    Vs = [V for _, _, V in USVs]
 
     allS = torch.cat([S.reshape(-1) for S in Ss])
     # full norm of theta: weight outside the capacity layout is discarded by

@@ -22,6 +22,7 @@ MODULES = ['tenpy_tpu_torch', 'tenpy_tpu_torch.__main__',
            'tenpy_tpu_torch.linalg.charges',
            'tenpy_tpu_torch.linalg.np_conserved',
            'tenpy_tpu_torch.linalg.svd_robust',
+           'tenpy_tpu_torch.linalg.jacobi_svd',
            'tenpy_tpu_torch.native',
            'tenpy_tpu_torch.linalg.sparse',
            'tenpy_tpu_torch.linalg.krylov_based',

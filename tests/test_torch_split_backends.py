@@ -183,15 +183,30 @@ def test_decomp_qr_eigh_batches():
 
 
 def test_backend_names():
+    """Every backend name of ``tenpy_tpu`` runs; an unknown one raises;
+    ``'auto'`` on a CPU tensor takes the SVD route (``torch.linalg.svd``,
+    the same values as ``'svd'``, bit for bit)."""
     thp, plan = _theta_packed()
-    for bad, err in (('jacobi', NotImplementedError),
-                     ('jacobi32', NotImplementedError),
-                     ('gesvd', ValueError)):
-        with pytest.raises(err, match='ROADMAP' if err is
-                           NotImplementedError else 'unknown'):
-            ps.split_truncate(thp, plan, CHI, SVD_MIN, backend=bad)
-    for ok in (None, 'auto', 'svd', 'qr_eigh', 'qr_eigh32'):
+    with pytest.raises(ValueError, match='unknown'):
+        ps.split_truncate(thp, plan, CHI, SVD_MIN, backend='gesvd')
+    for ok in (None, 'auto', 'svd', 'qr_eigh', 'qr_eigh32', 'jacobi',
+               'jacobi32'):
         ps.split_truncate(thp, plan, CHI, SVD_MIN, backend=ok)
+    calls = []
+    svd = torch.linalg.svd
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return svd(*a, **kw)
+
+    torch.linalg.svd = counted
+    try:
+        auto = ps.split_truncate(thp, plan, CHI, SVD_MIN, backend='auto')
+    finally:
+        torch.linalg.svd = svd
+    assert len(calls) == len(plan.groups)
+    ref = ps.split_truncate(thp, plan, CHI, SVD_MIN, backend='svd')
+    assert torch.equal(auto[1], ref[1])
 
 
 def _theta_packed():

@@ -47,6 +47,8 @@ chi=256 Hubbard-cylinder file and the ramp references::
         tests/benchmark_data/models_reference.npz
     python tests/torch_exchange.py --write-xk-models \
         tests/benchmark_data/xk_reference.npz
+    python tests/torch_exchange.py --write-jacobi \
+        tests/benchmark_data/jacobi_reference.npz
 """
 
 import argparse
@@ -3880,6 +3882,71 @@ def xk_reference():
     return flat
 
 
+# the one-sided Jacobi SVD (tests/test_torch_jacobi.py): one ragged list of
+# groups (N, R, C), tall, wide, odd C tall and wide, and a square-ish one,
+# with rank-deficient entries (zero rows and columns, as a padded sector of
+# tests/test_packed_complex.py) and one with equal singular values; the
+# split of tests/test_torch_split_backends.py's theta at its chi and svd_min
+JACOBI_GROUPS = ((3, 14, 8), (3, 8, 14), (3, 12, 9), (3, 9, 13), (3, 16, 12))
+JACOBI_BACKENDS = ('jacobi', 'jacobi32')
+JACOBI_CHI, JACOBI_SVD_MIN, JACOBI_THETA_SEED = 20, 1e-10, 10
+
+
+def jacobi_groups(complex_):
+    """The seeded groups of the Jacobi tests (numpy, f64 or complex128)."""
+    rng = np.random.default_rng(17 + int(complex_))
+    Ms = []
+    for shape in JACOBI_GROUPS:
+        M = rng.standard_normal(shape)
+        if complex_:
+            M = M + 1j * rng.standard_normal(shape)
+        Ms.append(M)
+    Ms[0][2, 5:, :] = 0.            # tall, rank 5 < 8 columns
+    Ms[1][0, 4:, :] = 0.            # wide, rank 4 < 8 rows
+    Ms[4][1, :, 8:] = 0.            # zero columns and rows
+    Ms[4][1, 10:, :] = 0.
+    Ms[2][0] = np.linalg.qr(Ms[2][0])[0]    # nine singular values 1
+    return Ms
+
+
+def jacobi_reference():
+    """tenpy_tpu's values for tests/test_torch_jacobi.py: the singular
+    values of ``_decomp_jacobi`` per group, and ``split_truncate``'s S,
+    err, n_kept and A S B with both Jacobi backends."""
+    from tenpy_tpu.linalg import packed as jpk
+    from tenpy_tpu.linalg import packed_split as jps
+    from test_torch_split_backends import _theta
+    flat = {}
+    t0 = time.time()
+    for complex_ in (False, True):
+        tag = 'c128' if complex_ else 'f64'
+        for g, M in enumerate(jacobi_groups(complex_)):
+            flat[f'decomp.{tag}.{g}.M'] = M
+            for backend in JACOBI_BACKENDS:
+                kw = {'M_im': M.imag} if complex_ else {}
+                _, S, _ = jps._decomp_jacobi(
+                    M.real, bulk_f32=backend == 'jacobi32', **kw)
+                flat[f'decomp.{tag}.{backend}.{g}.S'] = np.asarray(S)
+        thp = jpk.pack(_theta(JACOBI_THETA_SEED, complex_), multiple=8,
+                       pad_labels=('vL', 'vR'))
+        bond = jps.bond_layout(thp.legs, thp.qtotal, [0, 0], multiple=8)
+        plan = jps.split_plan(thp, bond, [0, 0], group_multiple=8)
+        for backend in JACOBI_BACKENDS:
+            A, S, B, err, _, n = jps.split_truncate(
+                thp, plan, JACOBI_CHI, JACOBI_SVD_MIN, backend=backend)
+            rec = jpk.tensordot(jps.scale_bond(A, S,
+                                               jps.scale_bond_plan(A, 'vR')),
+                                B, axes=(['vR'], ['vL']))
+            key = f'split.{tag}.{backend}'
+            flat[f'{key}.S'] = np.asarray(S)
+            flat[f'{key}.err'] = np.asarray(float(err))
+            flat[f'{key}.n'] = np.asarray(int(n))
+            flat[f'{key}.rec'] = np.asarray(jpk.unpack(rec).to_numpy())
+    print(f"Jacobi decompositions and splits: {time.time() - t0:.1f} s",
+          flush=True)
+    return flat
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--write',
@@ -3917,6 +3984,8 @@ def main(argv=None):
     ap.add_argument('--write-xk-models',
                     help='output .npz path (mixed_xk and dipole '
                          'references)')
+    ap.add_argument('--write-jacobi',
+                    help='output .npz path (one-sided Jacobi references)')
     ap.add_argument('--cases', nargs='+',
                     help='write-back, Hofstadter or Haldane-ramp cases to '
                          '(re)compute')
@@ -3947,7 +4016,8 @@ def main(argv=None):
                        (args.write_purification, purification_reference),
                        (args.write_excitations, excitation_reference),
                        (args.write_segment, segment_reference),
-                       (args.write_xk_models, xk_reference)):
+                       (args.write_xk_models, xk_reference),
+                       (args.write_jacobi, jacobi_reference)):
         if path:
             exchange.save_flat(path, make())
             print(f"wrote {path} ({os.path.getsize(path) / 1e6:.3f} MB)",
